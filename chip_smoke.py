@@ -1,0 +1,550 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of serf-tpu on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # every phase, as a user would run it
+    python3 chip_smoke.py --profile  # also trace 10 flagship rounds
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. the card's name and power limit (``nvidia-smi``), then the kernel
+   build from ``serf_tpu_torch/ops/csrc`` (``nvcc``, first use);
+2. every kernel against its plain PyTorch version, bit for bit, at the
+   flagship width (N = 1,000,000, K = 64) and at a ragged small N, for
+   both stamp flavors and the cache on and off; then each kernel's time
+   at the flagship shapes beside its plain version's and its byte bound;
+3. the slice on the card against the slice on the CPU: the flagship
+   config at N = 4096 with the kernels on, 40 sustained rounds from one
+   key, every integer leaf equal and the float leaves within tolerance
+   (the CPU run is the one the tests hold against the JAX reference);
+4. the main path: the flagship config at N = 1,000,000, K = 64 with the
+   kernels on, seeded with 8 events and 16 deaths, 50 warm-up and 100
+   timed sustained rounds at 2 events per round — rounds/s, each
+   kernel's launches (every one must be > 0), host syncs per round, and
+   protocol sanity checks on the final state.
+
+The line before the last is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``.  Needs no network and imports no
+JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and the
+#: non-tensor 32-bit rate, used as the integer ALU rate of these kernels
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+
+N_MAIN = 1_000_000
+K_MAIN = 64
+N_RAGGED = 1001
+EVENTS_PER_ROUND = 2
+WARMUP_ROUNDS = 50
+TIMED_ROUNDS = 100
+SLICE_N, SLICE_ROUNDS = 4096, 40
+FLOAT_RTOL, FLOAT_ATOL = 1e-4, 1e-5
+
+#: the TPU kernel each CUDA kernel replaces (the ``pl.pallas_call``)
+REPLACES = {
+    "select_packets": "serf_tpu/ops/round_kernels.py:313",
+    "fused_select_cached": "serf_tpu/ops/round_kernels.py:452",
+    "fused_merge": "serf_tpu/ops/round_kernels.py:573",
+}
+SOURCE = "serf_tpu_torch/ops/csrc/round_kernels.cu"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# -- phase 2: kernels against plain versions -------------------------------------
+
+def random_planes(n, k, packed, seed, dev):
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    w, cols = k // 32, (k // 2 if packed else k)
+
+    def words():
+        return torch.randint(-2**31, 2**31, (n, w), generator=g,
+                             dtype=torch.int64).to(torch.int32)
+
+    stamp = torch.randint(0, 256, (n, cols), generator=g,
+                          dtype=torch.int64).to(torch.uint8)
+    if not packed:
+        stamp = stamp & 0xF
+    alive = torch.rand((n,), generator=g) < 0.9
+    planes = dict(known=words(), incoming=words(), sendable=words(),
+                  stamp=stamp, alive=alive)
+    return {name: t.to(dev) for name, t in planes.items()}
+
+
+def max_abs_err(a, b) -> int:
+    import torch
+    return int(torch.max(torch.abs(a.to(torch.int64) - b.to(torch.int64))))
+
+
+def check_kernels(rk, dev) -> dict:
+    """Every kernel == its plain version on the same card inputs; returns
+    the largest |kernel - plain| seen per kernel (over the output words
+    and bytes as integers)."""
+    import torch
+    errs = {name: 0 for name in REPLACES}
+
+    def note(name, got, want):
+        errs[name] = max(errs[name], max_abs_err(got, want))
+        return errs[name] == 0
+
+    limit_q = 7                 # flagship transmit_limit_q at N = 1M
+    for n in (N_MAIN, N_RAGGED):
+        for packed in (True, False):
+            p = random_planes(n, K_MAIN, packed, 7 + n + packed, dev)
+            for rnd in (7, 61, 1234):
+                r = torch.tensor(rnd, dtype=torch.int32, device=dev)
+                got = rk.select_packets(p["stamp"], p["known"], p["alive"],
+                                        limit_q, r, packed=packed,
+                                        k_facts=K_MAIN)
+                torch.cuda.synchronize()
+                want = rk.select_packets_plain(
+                    p["stamp"], p["known"], p["alive"], limit_q, r,
+                    packed=packed, k_facts=K_MAIN)
+                if not note("select_packets", got, want):
+                    raise AssertionError(
+                        f"select_packets n={n} packed={packed} r={rnd}")
+                for cache in (True, False):
+                    out = rk.fused_merge(
+                        p["known"], p["incoming"], p["alive"], p["stamp"],
+                        r, limit_q=limit_q, packed=packed, k_facts=K_MAIN,
+                        with_cache=cache)
+                    torch.cuda.synchronize()
+                    ref = rk.fused_merge_plain(
+                        p["known"], p["incoming"], p["alive"], p["stamp"],
+                        r, limit_q=limit_q, packed=packed, k_facts=K_MAIN,
+                        with_cache=cache)
+                    for i, name in enumerate(("known", "stamp",
+                                              "sendable")):
+                        if (out[i] is None) != (ref[i] is None) or (
+                                out[i] is not None
+                                and not note("fused_merge", out[i],
+                                             ref[i])):
+                            raise AssertionError(
+                                f"fused_merge.{name} n={n} packed={packed}"
+                                f" cache={cache} r={rnd}")
+                    if bool(torch.any(out[3] != 0)) != bool(
+                            torch.any(ref[3] != 0)):
+                        raise AssertionError("fused_merge learn flag")
+                # a merge with nothing to learn must say so
+                quiet = rk.fused_merge(
+                    p["known"], p["known"], p["alive"], p["stamp"], r,
+                    limit_q=limit_q, packed=packed, k_facts=K_MAIN,
+                    with_cache=True)
+                if bool(torch.any(quiet[3] != 0)):
+                    raise AssertionError("fused_merge flagged a learn "
+                                         "with nothing to learn")
+            got = rk.fused_select_cached(p["sendable"], p["known"],
+                                         p["alive"], k_facts=K_MAIN,
+                                         stamp_cols=p["stamp"].shape[1])
+            torch.cuda.synchronize()
+            want = rk.fused_select_cached_plain(p["sendable"], p["known"],
+                                                p["alive"])
+            if not note("fused_select_cached", got, want):
+                raise AssertionError(f"fused_select_cached n={n}")
+        log(f"phase 2: kernels == plain versions at n={n} "
+            f"(packed/unpacked, cache on/off)")
+    return errs
+
+
+#: the H100's L2 cache; timed inputs rotate through enough copies to
+#: overflow it twice, so every launch streams from HBM as on the main path
+L2_BYTES = 50 * 2**20
+
+
+def time_kernel(fns, reps: int = 60) -> float:
+    """Mean device ms per launch: ``reps`` launches (rotating over the
+    input copies in ``fns``) captured into one CUDA graph and replayed
+    between two CUDA events, so the wrappers' host cost is not timed."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (3 * reps)
+
+
+def time_calls(fns, reps: int = 20) -> float:
+    """Mean ms per call from CUDA events around ``reps`` warm eager calls
+    (the plain versions: they copy host scalars, which a graph cannot
+    capture)."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fns[i % len(fns)]()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def measure_kernels(rk, dev) -> dict:
+    """Times and bounds at the main path's shapes (N=1M, K=64, packed,
+    cache on).  Bytes: each input read once, each output written once."""
+    import torch
+    n, w, c = N_MAIN, K_MAIN // 32, K_MAIN // 2
+    lq = 7
+    r = torch.tensor(61, dtype=torch.int32, device=dev)
+    base = random_planes(N_MAIN, K_MAIN, True, 99, dev)
+    # sized for the kernel that reads least (the cached select)
+    least = nbytes(base["sendable"], base["known"], base["alive"])
+    copies = [base] + [{k: v.clone() for k, v in base.items()}
+                       for _ in range(-(-2 * L2_BYTES // least))]
+
+    def select(p, fn):
+        return lambda: fn(p["stamp"], p["known"], p["alive"], lq, r,
+                          packed=True, k_facts=K_MAIN)
+
+    def cached(p, fn, **kw):
+        return lambda: fn(p["sendable"], p["known"], p["alive"], **kw)
+
+    def merge(p, fn):
+        return lambda: fn(p["known"], p["incoming"], p["alive"], p["stamp"],
+                          r, limit_q=lq, packed=True, k_facts=K_MAIN,
+                          with_cache=True)
+
+    p = base
+    merge_out = rk.fused_merge_plain(p["known"], p["incoming"], p["alive"],
+                                     p["stamp"], r, limit_q=lq, packed=True,
+                                     k_facts=K_MAIN, with_cache=True)[:3]
+    work = {
+        "select_packets": dict(
+            run=[select(q, rk.select_packets) for q in copies],
+            plain=[select(q, rk.select_packets_plain) for q in copies],
+            bytes=nbytes(p["stamp"], p["known"], p["alive"], r)
+            + nbytes(p["known"]),
+            # per fact: nibble extract, subtract, mask, compare, weave;
+            # per word: two ANDs
+            ops=n * K_MAIN * 5 + n * w * 2),
+        "fused_select_cached": dict(
+            run=[cached(q, rk.fused_select_cached, k_facts=K_MAIN,
+                        stamp_cols=c) for q in copies],
+            plain=[cached(q, rk.fused_select_cached_plain) for q in copies],
+            bytes=nbytes(p["sendable"], p["known"], p["alive"])
+            + nbytes(p["known"]),
+            ops=n * w * 2),
+        "fused_merge": dict(
+            run=[merge(q, rk.fused_merge) for q in copies],
+            plain=[merge(q, rk.fused_merge_plain) for q in copies],
+            # the learn flags (one int32 per 256 words) are written too
+            bytes=nbytes(p["known"], p["incoming"], p["alive"], p["stamp"],
+                         r) + nbytes(*merge_out)
+            + 4 * -(-(n * w) // rk.THREADS),
+            # per fact: clamp (4), learn select (2), repack (2), age
+            # compare (3); per word: learn mask and OR (4), cache AND
+            ops=n * K_MAIN * 11 + n * w * 5),
+    }
+    out = {}
+    for name, spec in work.items():
+        bytes_ms = spec["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = spec["ops"] / ALU_OPS_PER_S * 1e3
+        out[name] = dict(
+            ms=time_kernel(spec["run"]), plain_ms=time_calls(spec["plain"]),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bytes=spec["bytes"])
+    return out
+
+
+# -- phases 3 and 4: the slice --------------------------------------------------
+
+def kernel_config(n: int):
+    from serf_tpu_torch.models.swim import flagship_config
+    cfg = flagship_config(n, k_facts=K_MAIN)
+    return dataclasses.replace(
+        cfg, gossip=dataclasses.replace(cfg.gossip, use_pallas=True))
+
+
+def seeded_state(cfg, device):
+    """The benchmark's seeding: 8 user events spread over the id space,
+    then ``min(16, n // 100)`` deaths that spare every event origin."""
+    import torch
+
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.models.dissemination import (K_USER_EVENT,
+                                                     inject_fact)
+    from serf_tpu_torch.models.swim import make_cluster
+    n = cfg.n
+    st = make_cluster(cfg, prng.key(0), device=device)
+    g = st.gossip
+    spacing = max(1, n // 8)
+    origins = {(i * spacing) % n for i in range(8)}
+    for i in range(8):
+        g = inject_fact(g, cfg.gossip, subject=(i * spacing) % n,
+                        kind=K_USER_EVENT, incarnation=0, ltime=i + 1,
+                        origin=(i * spacing) % n)
+    n_dead = min(16, n // 100)
+    ids = []
+    if n_dead:
+        step = n // n_dead
+        for i in range(n_dead):
+            d = (i * step + 1) % n
+            while d in origins:
+                d = (d + 1) % n
+            ids.append(d)
+        alive = g.alive.clone()
+        alive[torch.tensor(ids, dtype=torch.int64, device=alive.device)] = \
+            False
+        g = g._replace(alive=alive)
+    return st._replace(gossip=g), ids
+
+
+def compare_states(a: dict, b: dict) -> list:
+    import numpy as np
+    bad = []
+    for path, x in a.items():
+        y = b[path]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            bad.append(f"{path}: {x.dtype}{x.shape} vs {y.dtype}{y.shape}")
+        elif x.dtype.kind == "f":
+            if not np.allclose(x, y, rtol=FLOAT_RTOL, atol=FLOAT_ATOL):
+                bad.append(f"{path}: max |diff| "
+                           f"{float(np.max(np.abs(x - y)))}")
+        elif not np.array_equal(x, y):
+            bad.append(f"{path}: {int(np.sum(x != y))} cells differ")
+    return bad
+
+
+def slice_vs_cpu(rk) -> None:
+    from serf_tpu_torch import convert, prng
+    from serf_tpu_torch.models.swim import run_cluster_sustained
+    cfg = kernel_config(SLICE_N)
+    finals = {}
+    for dev in ("cuda", "cpu"):
+        st, _ = seeded_state(cfg, dev)
+        rk.reset_launches()
+        fin = run_cluster_sustained(st, cfg, prng.key(3), SLICE_ROUNDS,
+                                    events_per_round=EVENTS_PER_ROUND)
+        finals[dev] = convert.to_numpy(fin)
+        if dev == "cuda" and min(rk.LAUNCHES.values()) == 0:
+            raise AssertionError(f"slice run skipped a kernel: "
+                                 f"{rk.LAUNCHES}")
+    bad = compare_states(finals["cpu"], finals["cuda"])
+    if bad:
+        raise AssertionError("CUDA slice != CPU slice: " + "; ".join(bad))
+    log(f"phase 3: flagship n={SLICE_N} x {SLICE_ROUNDS} sustained rounds "
+        f"on the card == on the CPU (integer leaves exact, floats "
+        f"rtol={FLOAT_RTOL} atol={FLOAT_ATOL})")
+
+
+def main_path(rk, profile: bool) -> dict:
+    import torch
+
+    from serf_tpu_torch import host_syncs, prng
+    from serf_tpu_torch.models.failure import believed_dead
+    from serf_tpu_torch.models.swim import run_cluster_sustained
+    cfg = kernel_config(N_MAIN)
+    t0 = time.perf_counter()
+    st, dead_ids = seeded_state(cfg, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    k_warm, k_run, k_prof = prng.split(prng.key(3), 3)
+    # the counts cover the whole run: under sustained load the sendable
+    # cache is valid on every round but the first, so the stamp-plane
+    # select launches once per cold start
+    rk.reset_launches()
+    t0 = time.perf_counter()
+    st = run_cluster_sustained(st, cfg, k_warm, WARMUP_ROUNDS,
+                               events_per_round=EVENTS_PER_ROUND)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    s0 = host_syncs()
+    t0 = time.perf_counter()
+    st = run_cluster_sustained(st, cfg, k_run, TIMED_ROUNDS,
+                               events_per_round=EVENTS_PER_ROUND)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(rk.LAUNCHES)
+    syncs = host_syncs() - s0
+    if min(launches.values()) == 0:
+        raise AssertionError(f"main path skipped a kernel: {launches}")
+
+    # protocol sanity on the final state
+    g, v = st.gossip, st.vivaldi
+    rounds = WARMUP_ROUNDS + TIMED_ROUNDS
+    if int(g.round) != rounds:
+        raise AssertionError(f"round {int(g.round)} != {rounds}")
+    injected = int(g.injected) & 0xFFFFFFFF
+    if injected < 8 + EVENTS_PER_ROUND * rounds:
+        raise AssertionError(f"injected {injected} too low")
+    overflow = int(g.overflow) & 0xFFFFFFFF
+    if overflow > injected:
+        raise AssertionError(f"overflow ledger {overflow} exceeds the "
+                             f"{injected} facts injected")
+    for name in ("vec", "height", "error", "adjustment"):
+        t = getattr(v, name)
+        if not bool(torch.all(torch.isfinite(t))):
+            raise AssertionError(f"vivaldi.{name} not finite")
+    dead = torch.tensor(dead_ids, dtype=torch.int64, device="cuda")
+    undetected = int(torch.sum(~believed_dead(g, cfg.gossip,
+                                              cfg.failure)[dead]))
+    if undetected:
+        raise AssertionError(f"{undetected} of {len(dead_ids)} deaths "
+                             f"undetected after {rounds} rounds")
+    log(f"phase 4: main path n={N_MAIN} k={K_MAIN}: {rounds} rounds, "
+        f"{len(dead_ids)} deaths detected, injected {injected}, "
+        f"overflow {overflow}, vivaldi finite")
+
+    out = dict(rps=TIMED_ROUNDS / run_s, launches=launches,
+               syncs_per_round=syncs / TIMED_ROUNDS, setup_s=setup_s,
+               warm_s=warm_s, run_s=run_s)
+    if profile:
+        out["profile"] = profile_rounds(st, cfg, k_prof)
+    return out
+
+
+def profile_rounds(st, cfg, key, rounds: int = 10) -> dict:
+    """Device time by kernel over ``rounds`` sustained rounds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from serf_tpu_torch.models.swim import run_cluster_sustained
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device="cuda").add_(1)   # start the tracer up
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_cluster_sustained(st, cfg, key, rounds,
+                              events_per_round=EVENTS_PER_ROUND)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # a kernel's time shows twice: on the kernel's own (device) event and
+    # as the self device time of the operator that launched it — the busy
+    # sum takes the kernels only, the operator table says who launched
+    kernels, ops = [], []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us:
+            on_device = ev.device_type != torch.autograd.DeviceType.CPU
+            (kernels if on_device else ops).append(
+                (dev_us, ev.key, ev.count))
+    kernels.sort(reverse=True)
+    ops.sort(reverse=True)
+    busy_ms = sum(r[0] for r in kernels) / 1e3
+
+    def table(rows):
+        return [dict(name=k[:90], device_ms=us / 1e3, calls=c)
+                for us, k, c in rows[:15]]
+
+    return dict(rounds=rounds, wall_ms=wall_ms, device_busy_ms=busy_ms,
+                kernels=table(kernels), ops=table(ops))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="trace 10 flagship rounds with torch.profiler")
+    args = ap.parse_args()
+    try:
+        import torch
+    except ImportError:
+        return fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        return fail("no CUDA device visible")
+    try:
+        from serf_tpu_torch.ops import build
+        from serf_tpu_torch.ops import round_kernels as rk
+    except ImportError as e:
+        return fail(f"the serf_tpu_torch package is not importable ({e})")
+
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    path, ptxas = build.build(ptxas_verbose=True)
+    build.load()
+    log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in ptxas.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    dev = torch.device("cuda")
+    errs = check_kernels(rk, dev)
+    times = measure_kernels(rk, dev)
+    for name, t in times.items():
+        log(f"kernel {name}: {t['ms'] * 1e3:.2f} us (plain version "
+            f"{t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} "
+            f"us by {t['bound_by']}, {t['bytes']} B)")
+    slice_vs_cpu(rk)
+    run = main_path(rk, args.profile)
+    log(f"rounds_per_s: {run['rps']:.2f}")
+    log(f"launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "
+        f"{json.dumps(run['launches'])}")
+    log(f"host_syncs_per_round: {run['syncs_per_round']:.2f}")
+    log(f"setup_s: {run['setup_s']:.2f} warmup_s: {run['warm_s']:.2f} "
+        f"timed_s: {run['run_s']:.3f}")
+    if "profile" in run:
+        prof = run["profile"]
+        busy = prof["device_busy_ms"] / prof["rounds"]
+        log(f"device_busy_ms_per_round: {busy:.3f} (profiled) of "
+            f"{1e3 / run['rps']:.3f} ms wall per timed round: idle share "
+            f"{1 - busy * run['rps'] / 1e3:.3f}")
+        log("profile: " + json.dumps(prof))
+    kernels = [dict(name=name, route="cuda", source=SOURCE,
+                    replaces=REPLACES[name],
+                    launches=run["launches"][name],
+                    max_abs_err=errs[name],
+                    ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=None)
+               for name, t in times.items()]
+    log(json.dumps({"kernels": kernels}))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
