@@ -2,25 +2,33 @@
 """Drive the PyTorch/CUDA port of serf-tpu on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, as a user would run it
-    python3 chip_smoke.py --profile  # also trace 10 flagship rounds
+    python3 chip_smoke.py --profile  # also trace 10 rounds of each path
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (``nvidia-smi``), then the kernel
    build from ``serf_tpu_torch/ops/csrc`` (``nvcc``, first use);
-2. every kernel against its plain PyTorch version, bit for bit, at the
-   flagship width (N = 1,000,000, K = 64) and at a ragged small N, for
-   both stamp flavors and the cache on and off; then each kernel's time
-   at the flagship shapes beside its plain version's and its byte bound;
-3. the slice on the card against the slice on the CPU: the flagship
-   config at N = 4096 with the kernels on, 40 sustained rounds from one
-   key, every integer leaf equal and the float leaves within tolerance
-   (the CPU run is the one the tests hold against the JAX reference);
-4. the main path: the flagship config at N = 1,000,000, K = 64 with the
-   kernels on, seeded with 8 events and 16 deaths, 50 warm-up and 100
-   timed sustained rounds at 2 events per round — rounds/s, each
-   kernel's launches (every one must be > 0), host syncs per round, and
-   protocol sanity checks on the final state.
+2. all five kernels against their plain PyTorch versions, bit for bit,
+   at the flagship width (N = 1,000,000, K = 64) and at a ragged small
+   N, for both stamp flavors, the cache on and off, next rounds whose
+   stamp quarter wraps, and a flush overlay that overlaps the fresh
+   learns; then each kernel's time at the flagship shapes beside its
+   plain version's and its byte bound;
+3. the slice on the card against the slice on the CPU, N = 4096, 40
+   sustained rounds from one key, every integer leaf equal and the float
+   leaves within tolerance (the CPU run is the one the tests hold against
+   the JAX reference), for three configs: the per-round flagship, the
+   deferred flagship (``stamp_flush_unit=2``) with the controller on and
+   the telemetry, propagation and invariant rows collected (rows compared
+   too), and the phased flagship (``fused_kernels=False``);
+4. the three paths at N = 1,000,000, K = 64 with the kernels on, each
+   seeded with 8 events and 16 deaths, then 50 warm-up and 100 timed
+   sustained rounds at 2 events per round: first the main path (the
+   per-round flagship), then the deferred flagship (``stamp_flush_unit=
+   4``) and the phased flagship.  Each prints rounds/s, host syncs per
+   round and each kernel's launches — every kernel of the path must
+   launch and no other may — and the protocol sanity checks on its final
+   state.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Needs no network and imports no
@@ -53,9 +61,34 @@ FLOAT_RTOL, FLOAT_ATOL = 1e-4, 1e-5
 #: the TPU kernel each CUDA kernel replaces (the ``pl.pallas_call``)
 REPLACES = {
     "select_packets": "serf_tpu/ops/round_kernels.py:313",
+    "merge_incoming": "serf_tpu/ops/round_kernels.py:392",
     "fused_select_cached": "serf_tpu/ops/round_kernels.py:452",
     "fused_merge": "serf_tpu/ops/round_kernels.py:573",
+    "fused_flush": "serf_tpu/ops/round_kernels.py:709",
 }
+
+#: the three paths of phases 3 and 4: the gossip-config changes from the
+#: flagship with the kernels on, and the kernels each path must launch
+#: (every other kernel must not).  The per-round flagship is the main
+#: path; its stamp-plane select runs on cold-cache rounds only.
+PATHS = {
+    "per-round": dict(gossip={}, kernels=("select_packets",
+                                          "fused_select_cached",
+                                          "fused_merge")),
+    "deferred": dict(gossip=dict(stamp_flush_unit=4),
+                     kernels=("fused_select_cached", "fused_flush")),
+    "phased": dict(gossip=dict(fused_kernels=False),
+                   kernels=("select_packets", "merge_incoming")),
+}
+
+#: the path whose launch count each kernel reports in the kernels line
+KERNEL_PATH = {"select_packets": "per-round", "merge_incoming": "phased",
+               "fused_select_cached": "per-round",
+               "fused_merge": "per-round", "fused_flush": "deferred"}
+
+#: the telemetry field summed in float32 (K coverages): the card and the
+#: CPU add it in different orders, so it is compared to a few ulp
+COVERAGE_RTOL = 1e-6
 SOURCE = "serf_tpu_torch/ops/csrc/round_kernels.cu"
 
 
@@ -76,7 +109,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# -- phase 2: kernels against plain versions -------------------------------------
+# -- phase 2: kernels against plain versions ---------------------------------
 
 def random_planes(n, k, packed, seed, dev):
     import torch
@@ -93,7 +126,10 @@ def random_planes(n, k, packed, seed, dev):
         stamp = stamp & 0xF
     alive = torch.rand((n,), generator=g) < 0.9
     planes = dict(known=words(), incoming=words(), sendable=words(),
-                  stamp=stamp, alive=alive)
+                  overlay=words(), stamp=stamp, alive=alive)
+    # a flush's inputs: this merge's learns and the post-merge plane
+    planes["new"] = planes["incoming"] & ~planes["known"]
+    planes["known2"] = planes["known"] | planes["new"]
     return {name: t.to(dev) for name, t in planes.items()}
 
 
@@ -105,57 +141,66 @@ def max_abs_err(a, b) -> int:
 def check_kernels(rk, dev) -> dict:
     """Every kernel == its plain version on the same card inputs; returns
     the largest |kernel - plain| seen per kernel (over the output words
-    and bytes as integers)."""
+    and bytes as integers).  Next rounds 64 and 1024 wrap the stamp
+    quarter (their cohort's quarter is 15)."""
     import torch
     errs = {name: 0 for name in REPLACES}
 
-    def note(name, got, want):
-        errs[name] = max(errs[name], max_abs_err(got, want))
-        return errs[name] == 0
+    def same(name, got, want, what):
+        if (got is None) != (want is None):
+            raise AssertionError(f"{what}: one output is missing")
+        if got is not None:
+            errs[name] = max(errs[name], max_abs_err(got, want))
+        if errs[name]:
+            raise AssertionError(f"{what}: kernel != plain version")
 
     limit_q = 7                 # flagship transmit_limit_q at N = 1M
     for n in (N_MAIN, N_RAGGED):
         for packed in (True, False):
             p = random_planes(n, K_MAIN, packed, 7 + n + packed, dev)
-            for rnd in (7, 61, 1234):
+            if not bool(torch.any(p["new"] & p["overlay"] != 0)):
+                raise AssertionError("flush inputs: no overlay bit meets "
+                                     "a fresh learn")
+            kw = dict(packed=packed, k_facts=K_MAIN)
+            for rnd in (7, 61, 64, 1024, 1234):
                 r = torch.tensor(rnd, dtype=torch.int32, device=dev)
-                got = rk.select_packets(p["stamp"], p["known"], p["alive"],
-                                        limit_q, r, packed=packed,
-                                        k_facts=K_MAIN)
+                tag = f"n={n} packed={packed} r={rnd}"
+                args = (p["stamp"], p["known"], p["alive"], limit_q, r)
+                got = rk.select_packets(*args, **kw)
                 torch.cuda.synchronize()
-                want = rk.select_packets_plain(
-                    p["stamp"], p["known"], p["alive"], limit_q, r,
-                    packed=packed, k_facts=K_MAIN)
-                if not note("select_packets", got, want):
-                    raise AssertionError(
-                        f"select_packets n={n} packed={packed} r={rnd}")
+                same("select_packets", got,
+                     rk.select_packets_plain(*args, **kw),
+                     f"select_packets {tag}")
+                args = (p["known"], p["incoming"], p["alive"], p["stamp"], r)
+                got = rk.merge_incoming(*args, **kw)
+                torch.cuda.synchronize()
+                want = rk.merge_incoming_plain(*args, **kw)
+                for i in range(2):
+                    same("merge_incoming", got[i], want[i],
+                         f"merge_incoming[{i}] {tag}")
                 for cache in (True, False):
-                    out = rk.fused_merge(
-                        p["known"], p["incoming"], p["alive"], p["stamp"],
-                        r, limit_q=limit_q, packed=packed, k_facts=K_MAIN,
-                        with_cache=cache)
+                    ckw = dict(kw, limit_q=limit_q, with_cache=cache)
+                    out = rk.fused_merge(*args, **ckw)
                     torch.cuda.synchronize()
-                    ref = rk.fused_merge_plain(
-                        p["known"], p["incoming"], p["alive"], p["stamp"],
-                        r, limit_q=limit_q, packed=packed, k_facts=K_MAIN,
-                        with_cache=cache)
-                    for i, name in enumerate(("known", "stamp",
-                                              "sendable")):
-                        if (out[i] is None) != (ref[i] is None) or (
-                                out[i] is not None
-                                and not note("fused_merge", out[i],
-                                             ref[i])):
-                            raise AssertionError(
-                                f"fused_merge.{name} n={n} packed={packed}"
-                                f" cache={cache} r={rnd}")
+                    ref = rk.fused_merge_plain(*args, **ckw)
+                    for i in range(3):
+                        same("fused_merge", out[i], ref[i],
+                             f"fused_merge[{i}] {tag} cache={cache}")
                     if bool(torch.any(out[3] != 0)) != bool(
                             torch.any(ref[3] != 0)):
                         raise AssertionError("fused_merge learn flag")
+                    fargs = (p["known2"], p["new"], p["overlay"], p["stamp"],
+                             r)
+                    out = rk.fused_flush(*fargs, **ckw)
+                    torch.cuda.synchronize()
+                    ref = rk.fused_flush_plain(*fargs, **ckw)
+                    for i in range(2):
+                        same("fused_flush", out[i], ref[i],
+                             f"fused_flush[{i}] {tag} cache={cache}")
                 # a merge with nothing to learn must say so
                 quiet = rk.fused_merge(
                     p["known"], p["known"], p["alive"], p["stamp"], r,
-                    limit_q=limit_q, packed=packed, k_facts=K_MAIN,
-                    with_cache=True)
+                    limit_q=limit_q, with_cache=True, **kw)
                 if bool(torch.any(quiet[3] != 0)):
                     raise AssertionError("fused_merge flagged a learn "
                                          "with nothing to learn")
@@ -163,12 +208,12 @@ def check_kernels(rk, dev) -> dict:
                                          p["alive"], k_facts=K_MAIN,
                                          stamp_cols=p["stamp"].shape[1])
             torch.cuda.synchronize()
-            want = rk.fused_select_cached_plain(p["sendable"], p["known"],
-                                                p["alive"])
-            if not note("fused_select_cached", got, want):
-                raise AssertionError(f"fused_select_cached n={n}")
-        log(f"phase 2: kernels == plain versions at n={n} "
-            f"(packed/unpacked, cache on/off)")
+            same("fused_select_cached", got,
+                 rk.fused_select_cached_plain(p["sendable"], p["known"],
+                                              p["alive"]),
+                 f"fused_select_cached n={n}")
+        log(f"phase 2: five kernels == plain versions at n={n} "
+            f"(packed/unpacked, cache on/off, quarter wrap)")
     return errs
 
 
@@ -224,8 +269,9 @@ def nbytes(*ts) -> int:
 
 
 def measure_kernels(rk, dev) -> dict:
-    """Times and bounds at the main path's shapes (N=1M, K=64, packed,
-    cache on).  Bytes: each input read once, each output written once."""
+    """Times and bounds at the paths' shapes (N=1M, K=64, packed, the
+    cache on where the kernel keeps it).  Bytes: each input read once,
+    each output written once."""
     import torch
     n, w, c = N_MAIN, K_MAIN // 32, K_MAIN // 2
     lq = 7
@@ -235,23 +281,28 @@ def measure_kernels(rk, dev) -> dict:
     least = nbytes(base["sendable"], base["known"], base["alive"])
     copies = [base] + [{k: v.clone() for k, v in base.items()}
                        for _ in range(-(-2 * L2_BYTES // least))]
+    kw = dict(packed=True, k_facts=K_MAIN)
 
     def select(p, fn):
-        return lambda: fn(p["stamp"], p["known"], p["alive"], lq, r,
-                          packed=True, k_facts=K_MAIN)
+        return lambda: fn(p["stamp"], p["known"], p["alive"], lq, r, **kw)
 
-    def cached(p, fn, **kw):
-        return lambda: fn(p["sendable"], p["known"], p["alive"], **kw)
+    def cached(p, fn, **ckw):
+        return lambda: fn(p["sendable"], p["known"], p["alive"], **ckw)
+
+    def merge_in(p, fn):
+        return lambda: fn(p["known"], p["incoming"], p["alive"], p["stamp"],
+                          r, **kw)
 
     def merge(p, fn):
         return lambda: fn(p["known"], p["incoming"], p["alive"], p["stamp"],
-                          r, limit_q=lq, packed=True, k_facts=K_MAIN,
-                          with_cache=True)
+                          r, limit_q=lq, with_cache=True, **kw)
+
+    def flush(p, fn):
+        return lambda: fn(p["known2"], p["new"], p["overlay"], p["stamp"],
+                          r, limit_q=lq, with_cache=True, **kw)
 
     p = base
-    merge_out = rk.fused_merge_plain(p["known"], p["incoming"], p["alive"],
-                                     p["stamp"], r, limit_q=lq, packed=True,
-                                     k_facts=K_MAIN, with_cache=True)[:3]
+    merge_out = merge(p, rk.fused_merge_plain)()[:3]
     work = {
         "select_packets": dict(
             run=[select(q, rk.select_packets) for q in copies],
@@ -261,6 +312,14 @@ def measure_kernels(rk, dev) -> dict:
             # per fact: nibble extract, subtract, mask, compare, weave;
             # per word: two ANDs
             ops=n * K_MAIN * 5 + n * w * 2),
+        "merge_incoming": dict(
+            run=[merge_in(q, rk.merge_incoming) for q in copies],
+            plain=[merge_in(q, rk.merge_incoming_plain) for q in copies],
+            bytes=nbytes(p["known"], p["incoming"], p["alive"], p["stamp"],
+                         r) + nbytes(*merge_in(p, rk.merge_incoming_plain)()),
+            # per fact: clamp (4), learn select (2), repack (2); per
+            # word: learn mask and OR (4)
+            ops=n * K_MAIN * 8 + n * w * 4),
         "fused_select_cached": dict(
             run=[cached(q, rk.fused_select_cached, k_facts=K_MAIN,
                         stamp_cols=c) for q in copies],
@@ -278,6 +337,14 @@ def measure_kernels(rk, dev) -> dict:
             # per fact: clamp (4), learn select (2), repack (2), age
             # compare (3); per word: learn mask and OR (4), cache AND
             ops=n * K_MAIN * 11 + n * w * 5),
+        "fused_flush": dict(
+            run=[flush(q, rk.fused_flush) for q in copies],
+            plain=[flush(q, rk.fused_flush_plain) for q in copies],
+            bytes=nbytes(p["known2"], p["new"], p["overlay"], p["stamp"], r)
+            + nbytes(*flush(p, rk.fused_flush_plain)()),
+            # per fact: clamp (4), overlay and learn selects (4), repack
+            # (2), age compare (3); per word: cache AND
+            ops=n * K_MAIN * 13 + n * w),
     }
     out = {}
     for name, spec in work.items():
@@ -291,13 +358,31 @@ def measure_kernels(rk, dev) -> dict:
     return out
 
 
-# -- phases 3 and 4: the slice --------------------------------------------------
+# -- phases 3 and 4: the slice -----------------------------------------------
 
-def kernel_config(n: int):
+def kernel_config(n: int, control: bool = False, **gossip):
+    """The flagship with the kernels on and the given gossip-config
+    changes (and the adaptive controller, when asked)."""
     from serf_tpu_torch.models.swim import flagship_config
     cfg = flagship_config(n, k_facts=K_MAIN)
-    return dataclasses.replace(
-        cfg, gossip=dataclasses.replace(cfg.gossip, use_pallas=True))
+    cfg = dataclasses.replace(cfg, gossip=dataclasses.replace(
+        cfg.gossip, use_pallas=True, **gossip))
+    if control:
+        cfg = dataclasses.replace(cfg, control=dataclasses.replace(
+            cfg.control, enabled=True))
+    return cfg
+
+
+def check_launches(rk, path: str, what: str) -> dict:
+    """The launch counts since the last reset; raises unless exactly the
+    path's kernels launched."""
+    launches = dict(rk.LAUNCHES)
+    want = set(PATHS[path]["kernels"])
+    bad = {k: v for k, v in launches.items() if (v > 0) != (k in want)}
+    if bad:
+        raise AssertionError(f"{what}: path {path} should launch exactly "
+                             f"{sorted(want)}; launches {launches}")
+    return launches
 
 
 def seeded_state(cfg, device):
@@ -350,43 +435,86 @@ def compare_states(a: dict, b: dict) -> list:
     return bad
 
 
+def compare_rows(a, b) -> list:
+    """The collected rows of a run on the card against the CPU run's:
+    every field exact but the float-summed telemetry coverage."""
+    import numpy as np
+
+    from serf_tpu_torch.models.swim import TELEMETRY_FIELDS
+    rows_a, (prop_a, cov_a), (inv_a, (max_a, alive_a)) = a
+    rows_b, (prop_b, cov_b), (inv_b, (max_b, alive_b)) = b
+    bad = []
+    cov = TELEMETRY_FIELDS.index("coverage")
+    for name, x, y in (("telemetry", rows_a, rows_b),
+                       ("propagation", prop_a, prop_b),
+                       ("sentinel coverage", cov_a, cov_b),
+                       ("invariants", inv_a, inv_b),
+                       ("coverage carry", max_a, max_b),
+                       ("alive carry", alive_a, alive_b)):
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        if name == "telemetry":
+            if not np.allclose(x[:, cov], y[:, cov], rtol=COVERAGE_RTOL,
+                               atol=0):
+                bad.append("telemetry coverage")
+            x, y = np.delete(x, cov, axis=1), np.delete(y, cov, axis=1)
+        if x.shape != y.shape or not np.array_equal(x, y):
+            bad.append(name)
+    return bad
+
+
 def slice_vs_cpu(rk) -> None:
+    """Phase 3: each path's config on the card == on the CPU.  The
+    deferred one runs at unit 2 (where the controller's cohort knob has
+    room both ways) with the controller and all three row kinds on."""
     from serf_tpu_torch import convert, prng
     from serf_tpu_torch.models.swim import run_cluster_sustained
-    cfg = kernel_config(SLICE_N)
-    finals = {}
-    for dev in ("cuda", "cpu"):
-        st, _ = seeded_state(cfg, dev)
-        rk.reset_launches()
-        fin = run_cluster_sustained(st, cfg, prng.key(3), SLICE_ROUNDS,
-                                    events_per_round=EVENTS_PER_ROUND)
-        finals[dev] = convert.to_numpy(fin)
-        if dev == "cuda" and min(rk.LAUNCHES.values()) == 0:
-            raise AssertionError(f"slice run skipped a kernel: "
-                                 f"{rk.LAUNCHES}")
-    bad = compare_states(finals["cpu"], finals["cuda"])
-    if bad:
-        raise AssertionError("CUDA slice != CPU slice: " + "; ".join(bad))
-    log(f"phase 3: flagship n={SLICE_N} x {SLICE_ROUNDS} sustained rounds "
-        f"on the card == on the CPU (integer leaves exact, floats "
-        f"rtol={FLOAT_RTOL} atol={FLOAT_ATOL})")
+    runs = {
+        "per-round": (kernel_config(SLICE_N), {}),
+        "deferred": (kernel_config(SLICE_N, control=True,
+                                   stamp_flush_unit=2),
+                     dict(collect_telemetry=True, collect_propagation=True,
+                          collect_invariants=True)),
+        "phased": (kernel_config(SLICE_N, **PATHS["phased"]["gossip"]), {}),
+    }
+    for path, (cfg, flags) in runs.items():
+        finals, rows = {}, {}
+        for dev in ("cuda", "cpu"):
+            st, _ = seeded_state(cfg, dev)
+            rk.reset_launches()
+            out = run_cluster_sustained(st, cfg, prng.key(3), SLICE_ROUNDS,
+                                        events_per_round=EVENTS_PER_ROUND,
+                                        **flags)
+            if flags:
+                out, *rows[dev] = out
+            finals[dev] = convert.to_numpy(out)
+            if dev == "cuda":
+                launches = check_launches(rk, path, "phase 3")
+        bad = compare_states(finals["cpu"], finals["cuda"])
+        if flags:
+            bad += compare_rows(rows["cpu"], rows["cuda"])
+        if bad:
+            raise AssertionError(f"{path}: CUDA slice != CPU slice: "
+                                 + "; ".join(bad))
+        log(f"phase 3: {path} flagship n={SLICE_N} x {SLICE_ROUNDS} "
+            f"sustained rounds{' (controlled, rows)' if flags else ''} on "
+            f"the card == on the CPU (integer leaves exact, floats "
+            f"rtol={FLOAT_RTOL} atol={FLOAT_ATOL}); launches {launches}")
 
 
-def main_path(rk, profile: bool) -> dict:
+def run_path(rk, path: str, profile: bool) -> dict:
+    """Phase 4: one path at N = 1M from the benchmark's seeding; the
+    launch counts cover the warm-up and the timed rounds."""
     import torch
 
     from serf_tpu_torch import host_syncs, prng
     from serf_tpu_torch.models.failure import believed_dead
     from serf_tpu_torch.models.swim import run_cluster_sustained
-    cfg = kernel_config(N_MAIN)
+    cfg = kernel_config(N_MAIN, **PATHS[path]["gossip"])
     t0 = time.perf_counter()
     st, dead_ids = seeded_state(cfg, "cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     k_warm, k_run, k_prof = prng.split(prng.key(3), 3)
-    # the counts cover the whole run: under sustained load the sendable
-    # cache is valid on every round but the first, so the stamp-plane
-    # select launches once per cold start
     rk.reset_launches()
     t0 = time.perf_counter()
     st = run_cluster_sustained(st, cfg, k_warm, WARMUP_ROUNDS,
@@ -399,37 +527,34 @@ def main_path(rk, profile: bool) -> dict:
                                events_per_round=EVENTS_PER_ROUND)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = dict(rk.LAUNCHES)
     syncs = host_syncs() - s0
-    if min(launches.values()) == 0:
-        raise AssertionError(f"main path skipped a kernel: {launches}")
+    launches = check_launches(rk, path, "phase 4")
 
     # protocol sanity on the final state
     g, v = st.gossip, st.vivaldi
     rounds = WARMUP_ROUNDS + TIMED_ROUNDS
     if int(g.round) != rounds:
-        raise AssertionError(f"round {int(g.round)} != {rounds}")
+        raise AssertionError(f"{path}: round {int(g.round)} != {rounds}")
     injected = int(g.injected) & 0xFFFFFFFF
     if injected < 8 + EVENTS_PER_ROUND * rounds:
-        raise AssertionError(f"injected {injected} too low")
+        raise AssertionError(f"{path}: injected {injected} too low")
     overflow = int(g.overflow) & 0xFFFFFFFF
     if overflow > injected:
-        raise AssertionError(f"overflow ledger {overflow} exceeds the "
-                             f"{injected} facts injected")
+        raise AssertionError(f"{path}: overflow ledger {overflow} exceeds "
+                             f"the {injected} facts injected")
     for name in ("vec", "height", "error", "adjustment"):
         t = getattr(v, name)
         if not bool(torch.all(torch.isfinite(t))):
-            raise AssertionError(f"vivaldi.{name} not finite")
-    dead = torch.tensor(dead_ids, dtype=torch.int64, device="cuda")
+            raise AssertionError(f"{path}: vivaldi.{name} not finite")
+    dead = torch.tensor(dead_ids, dtype=torch.int64, device=g.alive.device)
     undetected = int(torch.sum(~believed_dead(g, cfg.gossip,
                                               cfg.failure)[dead]))
     if undetected:
-        raise AssertionError(f"{undetected} of {len(dead_ids)} deaths "
-                             f"undetected after {rounds} rounds")
-    log(f"phase 4: main path n={N_MAIN} k={K_MAIN}: {rounds} rounds, "
+        raise AssertionError(f"{path}: {undetected} of {len(dead_ids)} "
+                             f"deaths undetected after {rounds} rounds")
+    log(f"phase 4: {path} path n={N_MAIN} k={K_MAIN}: {rounds} rounds, "
         f"{len(dead_ids)} deaths detected, injected {injected}, "
         f"overflow {overflow}, vivaldi finite")
-
     out = dict(rps=TIMED_ROUNDS / run_s, launches=launches,
                syncs_per_round=syncs / TIMED_ROUNDS, setup_s=setup_s,
                warm_s=warm_s, run_s=run_s)
@@ -455,11 +580,22 @@ def profile_rounds(st, cfg, key, rounds: int = 10) -> dict:
                               events_per_round=EVENTS_PER_ROUND)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    # the clocks and power just after the window: a mostly idle card may
+    # run its kernels at a lower SM clock, which stretches the busy time
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
     # a kernel's time shows twice: on the kernel's own (device) event and
     # as the self device time of the operator that launched it — the busy
     # sum takes the kernels only, the operator table says who launched
     kernels, ops = [], []
+    # every wait of the host on the stream, counted or not by host_syncs
+    # (a blocking host-to-device copy waits too)
+    stream_syncs = 0
     for ev in prof.key_averages():
+        if ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            stream_syncs += ev.count
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
@@ -470,19 +606,30 @@ def profile_rounds(st, cfg, key, rounds: int = 10) -> dict:
     kernels.sort(reverse=True)
     ops.sort(reverse=True)
     busy_ms = sum(r[0] for r in kernels) / 1e3
+    # who waited: each sync's outermost operator — aten::is_nonzero or
+    # aten::item for a host read, aten::to for a blocking copy
+    waits = {}
+    for ev in prof.events():
+        if ev.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            op = ev
+            while op.cpu_parent is not None:
+                op = op.cpu_parent
+            waits[op.name] = waits.get(op.name, 0) + 1
 
     def table(rows):
         return [dict(name=k[:90], device_ms=us / 1e3, calls=c)
                 for us, k, c in rows[:15]]
 
     return dict(rounds=rounds, wall_ms=wall_ms, device_busy_ms=busy_ms,
-                kernels=table(kernels), ops=table(ops))
+                stream_syncs=stream_syncs, waits=waits, clocks=clocks,
+                kernels=table(kernels),
+                ops=table(ops))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace 10 flagship rounds with torch.profiler")
+                    help="trace 10 rounds of each path with torch.profiler")
     args = ap.parse_args()
     try:
         import torch
@@ -516,23 +663,28 @@ def main() -> int:
             f"{t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} "
             f"us by {t['bound_by']}, {t['bytes']} B)")
     slice_vs_cpu(rk)
-    run = main_path(rk, args.profile)
-    log(f"rounds_per_s: {run['rps']:.2f}")
-    log(f"launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "
-        f"{json.dumps(run['launches'])}")
-    log(f"host_syncs_per_round: {run['syncs_per_round']:.2f}")
-    log(f"setup_s: {run['setup_s']:.2f} warmup_s: {run['warm_s']:.2f} "
-        f"timed_s: {run['run_s']:.3f}")
-    if "profile" in run:
-        prof = run["profile"]
-        busy = prof["device_busy_ms"] / prof["rounds"]
-        log(f"device_busy_ms_per_round: {busy:.3f} (profiled) of "
-            f"{1e3 / run['rps']:.3f} ms wall per timed round: idle share "
-            f"{1 - busy * run['rps'] / 1e3:.3f}")
-        log("profile: " + json.dumps(prof))
+    runs = {path: run_path(rk, path, args.profile) for path in PATHS}
+    for path, run in runs.items():
+        log(f"{path} rounds_per_s: {run['rps']:.2f}")
+        log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "
+            f"{json.dumps(run['launches'])}")
+        log(f"{path} host_syncs_per_round: {run['syncs_per_round']:.2f}")
+        log(f"{path} setup_s: {run['setup_s']:.2f} warmup_s: "
+            f"{run['warm_s']:.2f} timed_s: {run['run_s']:.3f}")
+        if "profile" in run:
+            prof = run["profile"]
+            busy = prof["device_busy_ms"] / prof["rounds"]
+            log(f"{path} device_busy_ms_per_round: {busy:.3f} (profiled) "
+                f"of {1e3 / run['rps']:.3f} ms wall per timed round: idle "
+                f"share {1 - busy * run['rps'] / 1e3:.3f}; "
+                f"{prof['stream_syncs'] / prof['rounds']:.1f} stream "
+                f"syncs per round (profiled), by operator "
+                f"{json.dumps(prof['waits'])}; clocks after: "
+                f"{prof['clocks']}")
+            log(f"{path} profile: " + json.dumps(prof))
     kernels = [dict(name=name, route="cuda", source=SOURCE,
-                    replaces=REPLACES[name],
-                    launches=run["launches"][name],
+                    replaces=REPLACES[name], path=KERNEL_PATH[name],
+                    launches=runs[KERNEL_PATH[name]]["launches"][name],
                     max_abs_err=errs[name],
                     ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],

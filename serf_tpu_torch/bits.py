@@ -19,7 +19,6 @@ from __future__ import annotations
 import torch
 
 MASK32 = 0xFFFFFFFF
-ALL_ONES = -1          # 0xFFFFFFFF as int32
 
 
 def as_u64(x: torch.Tensor) -> torch.Tensor:
@@ -40,12 +39,10 @@ def bitmask(bit: torch.Tensor) -> torch.Tensor:
 
 
 def alive_words(alive: torch.Tensor) -> torch.Tensor:
-    """bool[N] -> int32[N, 1] all-ones / zero word mask."""
-    return torch.where(alive[:, None],
-                       torch.tensor(ALL_ONES, dtype=torch.int32,
-                                    device=alive.device),
-                       torch.tensor(0, dtype=torch.int32,
-                                    device=alive.device))
+    """bool[N] -> int32[N, 1] all-ones / zero word mask.  Negating the
+    0/1 int32 view builds it on the tensor's device: a host-made constant
+    would be a blocking host-to-device copy on every call."""
+    return -alive.to(torch.int32)[:, None]
 
 
 def pack_bits(mask: torch.Tensor) -> torch.Tensor:

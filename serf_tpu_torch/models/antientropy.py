@@ -27,9 +27,9 @@ from serf_tpu_torch.models.dissemination import (
 def push_pull_round(state: GossipState, cfg: GossipConfig, key,
                     group=None) -> GossipState:
     """Each alive node full-syncs with one random partner (one shared
-    rotation, or iid partners)."""
-    if cfg.stamp_deferred:
-        raise NotImplementedError("not yet ported")
+    rotation, or iid partners).  Deferred flavor: the sync's learns ride
+    the overlay until the next cohort flush — no stamp pass, no
+    ``last_clamp`` move, and no host read."""
     n, k = cfg.n, cfg.k_facts
     dev = state.known.device
     if cfg.peer_sampling == "rotation":
@@ -48,6 +48,8 @@ def push_pull_round(state: GossipState, cfg: GossipConfig, key,
                            torch.zeros((), dtype=torch.int32, device=dev))
     new_words = incoming & ~state.known
     known = state.known | new_words
+    if cfg.stamp_deferred:
+        return _push_pull_deferred(state, cfg, known, new_words)
     learned_any = host_bool(torch.any(new_words != 0))
 
     stamp, last_clamp = state.stamp, state.last_clamp
@@ -71,6 +73,35 @@ def push_pull_round(state: GossipState, cfg: GossipConfig, key,
     return state._replace(known=known, stamp=stamp, sendable=sendable,
                           sendable_round=sendable_round,
                           last_learn=last_learn, last_clamp=last_clamp)
+
+
+def _push_pull_deferred(state: GossipState, cfg: GossipConfig,
+                        known: torch.Tensor,
+                        new_words: torch.Tensor) -> GossipState:
+    """The deferred branch: learns go to the overlay (q-age 0 for every
+    reader), and the next flush writes them with the quarter of
+    flush - 1, which is this round's quarter.  A flush may already have
+    run this round (``last_flush == round``); these learns are newer, so
+    ``last_flush`` is backdated below ``last_learn`` to re-arm the
+    pending predicate (it is only ever compared, never a stamp)."""
+    learned_any = torch.any(new_words != 0)
+    last_flush = torch.where(
+        learned_any, torch.clamp(state.last_flush, max=state.round - 1),
+        state.last_flush)
+    if cfg.use_sendable_cache:
+        sendable = state.sendable | new_words
+        sendable_round = state.sendable_round
+    else:
+        sendable = state.sendable
+        sendable_round = torch.where(learned_any,
+                                     torch.full_like(state.sendable_round,
+                                                     -1),
+                                     state.sendable_round)
+    return state._replace(
+        known=known, overlay=state.overlay | new_words, sendable=sendable,
+        sendable_round=sendable_round, last_flush=last_flush,
+        last_learn=bump_last_learn(learned_any, state.round,
+                                   state.last_learn))
 
 
 def make_partition(n: int, split: float = 0.5, device=None) -> torch.Tensor:

@@ -15,9 +15,13 @@ state converts leaf for leaf (``serf_tpu_torch.convert``).
 
 Each ``lax.cond`` of the reference is a Python branch here; its
 predicate is read through :func:`serf_tpu_torch.host_bool` (a counted
-device-to-host sync).  With ``use_pallas`` the select and merge phases
-go through the hand-written kernels (``serf_tpu_torch.ops``); the
-deferred-stamp flavor (``stamp_flush_unit > 1``) is not ported yet.
+device-to-host sync).  With ``use_pallas`` the select, merge and flush
+passes go through the hand-written kernels (``serf_tpu_torch.ops``):
+the fused family by default, the standalone family with
+``fused_kernels=False``.  The deferred-stamp flavor
+(``stamp_flush_unit > 1``) keeps mid-cohort learns in the ``overlay``
+word plane, which every age reader reads through, and writes the stamp
+plane once per cohort.
 """
 
 from __future__ import annotations
@@ -56,9 +60,6 @@ AGE_PIN_Q = 8
 #: max rounds between stamp-clamping passes (GossipState.last_clamp)
 CLAMP_EVERY = 16
 
-_NOT_PORTED = "not yet ported"
-
-
 class FactTable(NamedTuple):
     """K immutable dissemination facts."""
 
@@ -88,8 +89,10 @@ class GossipState(NamedTuple):
     slot_round: torch.Tensor      # i32[K]
     overflow: torch.Tensor        # u32 scalar as int32
     injected: torch.Tensor        # u32 scalar as int32
-    overlay: torch.Tensor         # u32[N, W] as int32 (inert per-round)
-    last_flush: torch.Tensor      # i32 scalar (inert per-round)
+    overlay: torch.Tensor         # u32[N, W] as int32: learned since the
+                                  # last cohort flush (inert per-round)
+    last_flush: torch.Tensor      # i32 scalar: next-round value of the
+                                  # last flush (inert per-round)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -314,15 +317,64 @@ def clamp_learn_bytes(stamp: torch.Tensor, new_words: torch.Tensor, round_,
     return lo | (hi << 4), lo, hi
 
 
+def clamp_learn_nibbles(stamp: torch.Tensor, new_words: torch.Tensor,
+                        round_, k: int) -> torch.Tensor:
+    """Unpacked-flavor clamp + learn-write: u8[N, K] nibbles'."""
+    rq = torch.as_tensor(round_q(round_), device=stamp.device).to(
+        torch.uint8)
+    return torch.where(unpack_bits(new_words, k), rq,
+                       clamp_nibbles(stamp, round_))
+
+
+def _quarters(round_, device):
+    """``(round_q(round_), round_q(round_ - 1))`` as uint8 device
+    scalars: a flush's write quarter and its cohort's quarter."""
+    r = torch.as_tensor(round_, dtype=torch.int32, device=device)
+    return round_q(r).to(torch.uint8), round_q(r - 1).to(torch.uint8)
+
+
+def flush_learn_bytes(stamp: torch.Tensor, new_words: torch.Tensor,
+                      overlay: torch.Tensor, round_, k: int):
+    """Packed-flavor cohort flush per byte column: clamp at ``round_``,
+    pending overlay cells take the cohort quarter ``round_q(round_-1)``,
+    this merge's learns take ``round_q(round_)`` (a fresh learn wins over
+    an overlay bit).  Returns ``(bytes', lo', hi')``."""
+    rq, rq_prev = _quarters(round_, stamp.device)
+    lo = clamp_nibbles(stamp & 0xF, round_)
+    hi = clamp_nibbles(stamp >> 4, round_)
+    o_lo, o_hi = learn_pairs_words(overlay, k)
+    n_lo, n_hi = learn_pairs_words(new_words, k)
+    lo = torch.where(n_lo, rq, torch.where(o_lo, rq_prev, lo))
+    hi = torch.where(n_hi, rq, torch.where(o_hi, rq_prev, hi))
+    return lo | (hi << 4), lo, hi
+
+
+def flush_learn_nibbles(stamp: torch.Tensor, new_words: torch.Tensor,
+                        overlay: torch.Tensor, round_, k: int
+                        ) -> torch.Tensor:
+    """Unpacked-flavor cohort flush (see :func:`flush_learn_bytes`):
+    u8[N, K] nibbles'."""
+    rq, rq_prev = _quarters(round_, stamp.device)
+    nib = torch.where(unpack_bits(overlay, k), rq_prev,
+                      clamp_nibbles(stamp, round_))
+    return torch.where(unpack_bits(new_words, k), rq, nib)
+
+
 def mod_age(state: GossipState, cfg: GossipConfig, round_=None
             ) -> torch.Tensor:
     """u8[N, K]: quarter-round ticks since learned (valid only where the
-    known bit is set)."""
-    if cfg.stamp_deferred:
-        raise NotImplementedError(_NOT_PORTED)
+    known bit is set).  Deferred flavor: a cell whose overlay bit is set
+    was learned since the last cohort flush, and its true q-age is 0
+    whatever its stale nibble says — the one overlay read-through of
+    every bool-plane age reader."""
     r = state.round if round_ is None else round_
     nib = stamp_nibbles(state.stamp, cfg.k_facts, cfg.pack_stamp)
-    return ((round_q(r) - nib.to(torch.int32)) & 0xF).to(torch.uint8)
+    age = ((round_q(r) - nib.to(torch.int32)) & 0xF).to(torch.uint8)
+    if cfg.stamp_deferred:
+        age = torch.where(unpack_bits(state.overlay, cfg.k_facts),
+                          torch.zeros((), dtype=torch.uint8,
+                                      device=age.device), age)
+    return age
 
 
 def sending_mask(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
@@ -359,12 +411,14 @@ def clamp_stamps(stamp: torch.Tensor, round_, last_clamp, cfg: GossipConfig):
 def select_words(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
     """int32[N, W]: ``pack_bits(sending_mask(...))``; the packed flavor
     never widens to K lanes."""
-    if cfg.stamp_deferred:
-        raise NotImplementedError(_NOT_PORTED)
     if cfg.pack_stamp:
         b = state.stamp
         age_ok = nibble_age_pred_words(b & 0xF, b >> 4, state.round,
                                        cfg.transmit_limit_q)
+        if cfg.stamp_deferred:
+            # overlay read-through in word space: a learned-since-flush
+            # fact's q-age is 0 < limit_q
+            age_ok = age_ok | state.overlay
         return state.known & age_ok & _alive_words(state.alive)
     return pack_bits(sending_mask(state, cfg))
 
@@ -579,43 +633,68 @@ def pick_bounded(candidates: torch.Tensor, max_events: int, key):
 # -- the gossip round ----------------------------------------------------------
 
 def pallas_dispatch_mode(cfg: GossipConfig) -> Tuple[str, str]:
-    """``("fused", "")`` for the hand-written kernel family, ``("",
-    reason)`` for the plain path.  The standalone family and the
-    deferred flavor are not ported yet and raise."""
+    """The reference's dispatch decision (unsharded): ``("fused", "")``
+    for the cache-maintaining fused family, ``("kernels", "")`` for the
+    standalone family, ``("", reason)`` for the plain path.  A deferred
+    config with ``fused_kernels=False`` takes the plain path — the
+    reference's semantics, since the standalone family predates the
+    overlay plane."""
     if not cfg.use_pallas:
         return "", "use_pallas off"
-    if not cfg.fused_kernels or cfg.stamp_deferred:
-        raise NotImplementedError(_NOT_PORTED)
     from serf_tpu_torch.ops import round_kernels
-    ok, reason = round_kernels.fused_ok(cfg.n, cfg.k_facts, cfg.stamp_cols)
+    if not cfg.fused_kernels:
+        if cfg.stamp_deferred:
+            return "", ("standalone kernels do not maintain the "
+                        "deferred-stamp overlay; use fused_kernels")
+        if round_kernels.pallas_ok(cfg.n, cfg.k_facts):
+            return "kernels", ""
+        return "", "pallas_ok rejected shape"
+    ok, reason = round_kernels.fused_ok(cfg.n, cfg.k_facts, cfg.stamp_cols,
+                                        deferred=cfg.stamp_deferred)
     return ("fused", "") if ok else ("", reason)
 
 
 def select_phase(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
     """Phase 1 — packet selection: int32[N, W] of sending bits, off the
     sendable cache when it is valid for this round, else recomputed
-    from the stamp plane."""
+    from the stamp plane.  The standalone family never trusts the cache
+    (its merge does not keep it) and always runs ``select_packets``; on
+    the deferred flavor the stale-cache recompute is the plain
+    ``select_words``, which reads through the overlay (the stamp-only
+    kernel cannot — the reference's design)."""
     mode, _ = pallas_dispatch_mode(cfg)
+    if mode == "kernels":
+        return _select_packets(state, cfg)
     cached = (cfg.use_sendable_cache
               and host_bool(state.sendable_round == state.round))
-    if mode:
-        from serf_tpu_torch.ops import round_kernels
-        if cached:
+    if cached:
+        if mode:
+            from serf_tpu_torch.ops import round_kernels
             return round_kernels.fused_select_cached(
                 state.sendable, state.known, state.alive,
                 k_facts=cfg.k_facts, stamp_cols=cfg.stamp_cols)
-        return round_kernels.select_packets(
-            state.stamp, state.known, state.alive, cfg.transmit_limit_q,
-            state.round, packed=cfg.pack_stamp, k_facts=cfg.k_facts)
-    if cached:
         return (state.sendable & state.known) & _alive_words(state.alive)
+    if mode and not cfg.stamp_deferred:
+        return _select_packets(state, cfg)
     return select_words(state, cfg)
 
 
+def _select_packets(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
+    from serf_tpu_torch.ops import round_kernels
+    return round_kernels.select_packets(
+        state.stamp, state.known, state.alive, cfg.transmit_limit_q,
+        state.round, packed=cfg.pack_stamp, k_facts=cfg.k_facts)
+
+
 def exchange_phase(packets: torch.Tensor, cfg: GossipConfig, key,
-                   group=None, drop_rate=None) -> torch.Tensor:
+                   group=None, drop_rate=None,
+                   eff_fanout=None) -> torch.Tensor:
     """Phase 3 — pull-exchange: each node ORs ``fanout`` peers' packets
-    (rotation offsets shared by all nodes, or iid peers)."""
+    (rotation offsets shared by all nodes, or iid peers).
+    ``eff_fanout`` (the controller's live fan-out, an int32 device
+    scalar) masks out legs ``f >= eff_fanout``; offsets are drawn for the
+    static ``cfg.fanout`` either way, so the random stream of the legs
+    kept never changes."""
     n = packets.shape[0]
     dev = packets.device
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -633,6 +712,8 @@ def exchange_phase(packets: torch.Tensor, cfg: GossipConfig, key,
                 contrib = torch.where(allowed[:, None], contrib, zero)
             if lost is not None:
                 contrib = torch.where(lost[f][:, None], zero, contrib)
+            if eff_fanout is not None:
+                contrib = torch.where(f < eff_fanout, contrib, zero)
             incoming = incoming | contrib
         return incoming
     srcs = prng.randint(key, (n, cfg.fanout), 0, n, dev).to(torch.int64)
@@ -645,8 +726,36 @@ def exchange_phase(packets: torch.Tensor, cfg: GossipConfig, key,
         gathered = torch.where(lost[:, :, None], zero, gathered)
     incoming = torch.zeros_like(packets)
     for f in range(cfg.fanout):
-        incoming = incoming | gathered[:, f]
+        contrib = gathered[:, f]
+        if eff_fanout is not None:
+            contrib = torch.where(f < eff_fanout, contrib, zero)
+        incoming = incoming | contrib
     return incoming
+
+
+def cache_words(known: torch.Tensor, stamp2: torch.Tensor, lo, hi,
+                next_round, limit_q: int, packed: bool) -> torch.Tensor:
+    """The sendable cache for ``next_round`` from a stamp pass's final
+    stamps (packed: their ``lo``/``hi`` nibble halves): ``known & (q-age
+    < limit_q)``."""
+    if packed:
+        return known & nibble_age_pred_words(lo, hi, next_round, limit_q)
+    q_next = (round_q(next_round) - stamp2.to(torch.int32)) & 0xF
+    return known & pack_bits(q_next < limit_q)
+
+
+def _cache_of(known: torch.Tensor, stamp2: torch.Tensor, lo, hi,
+              next_round, cfg: GossipConfig, fallback_sendable):
+    """:func:`cache_words` and its validity round, or an invalidated
+    cache with the cache off.  Returns ``(sendable',
+    sendable_round')``."""
+    dev = stamp2.device
+    if not cfg.use_sendable_cache:
+        return fallback_sendable, torch.full((), -1, dtype=torch.int32,
+                                             device=dev)
+    return (cache_words(known, stamp2, lo, hi, next_round,
+                        cfg.transmit_limit_q, cfg.pack_stamp),
+            torch.as_tensor(next_round, dtype=torch.int32, device=dev))
 
 
 def learn_stamp_pass(stamp: torch.Tensor, known: torch.Tensor,
@@ -657,36 +766,67 @@ def learn_stamp_pass(stamp: torch.Tensor, known: torch.Tensor,
     ``next_round`` (or invalidate it with the cache off).  Returns
     ``(stamp', sendable', sendable_round')``."""
     k = cfg.k_facts
-    dev = stamp.device
-    limit_q = cfg.transmit_limit_q
-    nr = torch.as_tensor(next_round, dtype=torch.int32, device=dev)
+    lo = hi = None
     if cfg.pack_stamp:
         stamp2, lo, hi = clamp_learn_bytes(stamp, new_words, next_round, k)
-        if cfg.use_sendable_cache:
-            age_ok = nibble_age_pred_words(lo, hi, next_round, limit_q)
-            return stamp2, known & age_ok, nr
-        return stamp2, fallback_sendable, _scalar(-1, dev)
-    rq = round_q(next_round)
-    nib = clamp_nibbles(stamp, next_round)
-    new_mask = unpack_bits(new_words, k)
-    stamp2 = torch.where(new_mask, rq.to(torch.uint8), nib)
-    if cfg.use_sendable_cache:
-        kb = unpack_bits(known, k)
-        q_next = (rq - stamp2.to(torch.int32)) & 0xF
-        return stamp2, pack_bits(kb & (q_next < limit_q)), nr
-    return stamp2, fallback_sendable, _scalar(-1, dev)
+    else:
+        stamp2 = clamp_learn_nibbles(stamp, new_words, next_round, k)
+    return (stamp2, *_cache_of(known, stamp2, lo, hi, next_round, cfg,
+                               fallback_sendable))
+
+
+def flush_stamp_pass(stamp: torch.Tensor, known: torch.Tensor,
+                     new_words: torch.Tensor, overlay: torch.Tensor,
+                     next_round, cfg: GossipConfig,
+                     fallback_sendable: torch.Tensor):
+    """The cohort flush (deferred flavor of :func:`learn_stamp_pass`):
+    clamp, write every pending overlay cell with the cohort quarter
+    ``round_q(next_round - 1)`` and this merge's learns with
+    ``round_q(next_round)``, then the sendable cache from the final
+    nibbles.  The caller clears the overlay and sets ``last_flush``.
+    Returns ``(stamp', sendable', sendable_round')``."""
+    k = cfg.k_facts
+    lo = hi = None
+    if cfg.pack_stamp:
+        stamp2, lo, hi = flush_learn_bytes(stamp, new_words, overlay,
+                                           next_round, k)
+    else:
+        stamp2 = flush_learn_nibbles(stamp, new_words, overlay, next_round,
+                                     k)
+    return (stamp2, *_cache_of(known, stamp2, lo, hi, next_round, cfg,
+                               fallback_sendable))
+
+
+def _learn_words(state: GossipState, incoming: torch.Tensor) -> torch.Tensor:
+    """This merge's learns: ``incoming & ~known & alive``."""
+    return incoming & ~state.known & _alive_words(state.alive)
 
 
 def merge_phase(state: GossipState, incoming: torch.Tensor,
-                cfg: GossipConfig) -> GossipState:
-    """Phases 4+5 — Lamport merge + the stamp learn pass, gated on
-    ``learned_any``: with nothing learned the stamp/cache outputs are
-    discarded and ``last_clamp`` does not move.  Does not increment
-    ``round``."""
-    if cfg.stamp_deferred:
-        raise NotImplementedError(_NOT_PORTED)
+                cfg: GossipConfig, stamp_unit=None) -> GossipState:
+    """Phases 4+5 — Lamport merge + the stamp learn pass.  Fused and
+    plain: gated on ``learned_any`` (one host read) — with nothing
+    learned the stamp/cache outputs are discarded and ``last_clamp``
+    does not move.  Standalone kernels: the reference's semantics, clamp
+    on every active round, cache invalidated, ``learned_any`` kept on the
+    device (no host read).  Deferred flavor: :func:`_merge_phase_deferred`
+    (``stamp_unit``, an int32 device scalar, is the controller's live
+    cohort size).  Does not increment ``round``."""
     mode, _ = pallas_dispatch_mode(cfg)
+    if cfg.stamp_deferred:
+        return _merge_phase_deferred(state, incoming, cfg, mode, stamp_unit)
     r1 = state.round + 1
+    if mode == "kernels":
+        from serf_tpu_torch.ops import round_kernels
+        known, stamp = round_kernels.merge_incoming(
+            state.known, incoming, state.alive, state.stamp, r1,
+            packed=cfg.pack_stamp, k_facts=cfg.k_facts)
+        return state._replace(
+            known=known, stamp=stamp,
+            sendable_round=torch.full_like(state.sendable_round, -1),
+            last_clamp=r1,
+            last_learn=bump_last_learn(torch.any(known != state.known), r1,
+                                       state.last_learn))
     if mode == "fused":
         from serf_tpu_torch.ops import round_kernels
         known, stamp2, sendable2, flags = round_kernels.fused_merge(
@@ -702,7 +842,7 @@ def merge_phase(state: GossipState, incoming: torch.Tensor,
                 sendable, sendable_round = state.sendable, _scalar(
                     -1, r1.device)
     else:
-        new_words = incoming & ~state.known & _alive_words(state.alive)
+        new_words = _learn_words(state, incoming)
         known = state.known | new_words
         learned_any = host_bool(torch.any(new_words != 0))
         if learned_any:
@@ -718,25 +858,99 @@ def merge_phase(state: GossipState, incoming: torch.Tensor,
                           last_clamp=last_clamp)
 
 
+def _merge_phase_deferred(state: GossipState, incoming: torch.Tensor,
+                          cfg: GossipConfig, mode: str,
+                          stamp_unit) -> GossipState:
+    """:func:`merge_phase`, deferred flavor.  The word-plane merge runs
+    every active round; the stamp plane is written only by the
+    once-per-cohort flush, when ``do_flush = flush_due & (learned_any |
+    pending)`` — ``flush_due``: the next round is a cohort boundary;
+    ``pending = last_learn > last_flush``: mid-cohort learns still owe a
+    stamp write.  ``do_flush`` is the round's one host read here.  The
+    defer branch ORs the learns into the overlay and the cache, and keeps
+    the cache valid for the next round except across a skipped boundary
+    (where a quarter crossing may expire cached bits)."""
+    nxt = state.round + 1
+    unit = cfg.stamp_flush_unit if stamp_unit is None else stamp_unit
+    new_words = _learn_words(state, incoming)
+    known = state.known | new_words
+    learned_any = torch.any(new_words != 0)
+    flush_due = torch.remainder(nxt, unit) == 0
+    pending = state.last_learn > state.last_flush
+    if host_bool(flush_due & (learned_any | pending)):
+        if mode == "fused":
+            from serf_tpu_torch.ops import round_kernels
+            stamp, sendable = round_kernels.fused_flush(
+                known, new_words, state.overlay, state.stamp, nxt,
+                limit_q=cfg.transmit_limit_q, packed=cfg.pack_stamp,
+                k_facts=cfg.k_facts, with_cache=cfg.use_sendable_cache)
+            if cfg.use_sendable_cache:
+                sendable_round = nxt
+            else:
+                sendable = state.sendable
+                sendable_round = torch.full_like(state.sendable_round, -1)
+        else:
+            stamp, sendable, sendable_round = flush_stamp_pass(
+                state.stamp, known, new_words, state.overlay, nxt, cfg,
+                state.sendable)
+        st = state._replace(stamp=stamp, overlay=torch.zeros_like(
+            state.overlay), sendable=sendable, sendable_round=sendable_round,
+            last_clamp=nxt, last_flush=nxt)
+    else:
+        st = state._replace(
+            overlay=state.overlay | new_words,
+            sendable=state.sendable | new_words,
+            sendable_round=torch.where(
+                (state.sendable_round == state.round) & ~flush_due, nxt,
+                state.sendable_round))
+    return st._replace(known=known, last_learn=bump_last_learn(
+        learned_any, nxt, state.last_learn))
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Set bits per int32 word (as int64): the SWAR bit count, since
+    torch has no popcount."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x * 0x01010101 & 0xFFFFFFFF) >> 24
+
+
 def round_step(state: GossipState, cfg: GossipConfig, key, group=None,
-               drop_rate=None) -> GossipState:
+               drop_rate=None, eff_fanout=None,
+               collect_propagation: bool = False, stamp_unit=None):
     """One gossip round: select, pull-exchange, merge — skipped as a
     bit-exact identity once ``round - last_learn`` reaches the transmit
-    window (nothing is sendable) — then the amortized wrap clamp and the
-    round increment."""
-    if cfg.stamp_deferred:
-        raise NotImplementedError(_NOT_PORTED)
+    window (nothing is sendable; on the deferred flavor nothing is
+    pending either) — then the amortized wrap clamp and the round
+    increment.  ``eff_fanout`` and ``stamp_unit`` are the controller's
+    live knobs (int32 device scalars).  With ``collect_propagation``
+    also returns ``(slots_sent, slots_learned)``: ``eff_fanout x
+    popcount(packets)`` and ``popcount(incoming & ~known & alive)``,
+    int32 device scalars."""
     st = state
+    if collect_propagation:
+        zero = torch.zeros((), dtype=torch.int32, device=state.round.device)
+        prop = (zero, zero)
     if host_bool(state.round - state.last_learn
                  < cfg.transmit_window_rounds):
         packets = select_phase(state, cfg)
         incoming = exchange_phase(packets, cfg, key, group=group,
-                                  drop_rate=drop_rate)
-        st = merge_phase(state, incoming, cfg)
+                                  drop_rate=drop_rate, eff_fanout=eff_fanout)
+        st = merge_phase(state, incoming, cfg, stamp_unit=stamp_unit)
+        if collect_propagation:
+            eff = cfg.fanout if eff_fanout is None else eff_fanout
+            prop = ((eff * torch.sum(popcount(packets))).to(torch.int32),
+                    torch.sum(popcount(_learn_words(state, incoming))).to(
+                        torch.int32))
     stamp, last_clamp = clamp_stamps(st.stamp, state.round + 1,
                                      st.last_clamp, cfg)
-    return st._replace(stamp=stamp, last_clamp=last_clamp,
-                       round=state.round + 1)
+    nxt = st._replace(stamp=stamp, last_clamp=last_clamp,
+                      round=state.round + 1)
+    if collect_propagation:
+        return nxt, prop
+    return nxt
 
 
 # -- Lamport-time wrap window ------------------------------------------------
@@ -752,6 +966,19 @@ def ltime_rel(ltimes, pivot) -> torch.Tensor:
     a = torch.as_tensor(ltimes).to(torch.int64)
     b = torch.as_tensor(pivot, device=a.device).to(torch.int64)
     return wrap_i32(a - b)
+
+
+def ltime_window_violation(facts: FactTable) -> torch.Tensor:
+    """Scalar bool: the valid facts' u32 ltimes span >= 2^31, so windowed
+    comparison can no longer order them.  The largest circular gap
+    between the sorted valid ltimes (invalid slots take the first valid
+    one's value) is ``2^32 - span``."""
+    valid = facts.valid
+    pivot = facts.ltime[first_argmax(valid.to(torch.uint8), 0)]
+    pts = as_u64(torch.where(valid, facts.ltime, pivot))
+    s = torch.sort(pts).values
+    max_gap = torch.amax((torch.roll(s, -1) - s) & 0xFFFFFFFF)
+    return torch.any(valid) & (max_gap != 0) & (max_gap <= (1 << 31))
 
 
 # -- metrics -----------------------------------------------------------------

@@ -269,12 +269,14 @@ def _declare_round_body(state: GossipState, cfg: GossipConfig,
     refuted = torch.any(_refutation_matrix(state), dim=1)
     fact_words = pack_bits(suspect & ~refuted)
     sq = suspicion_q_of(fcfg, stretch_q)
-    if cfg.stamp_deferred:
-        raise NotImplementedError("not yet ported")
     if cfg.pack_stamp:
         b = state.stamp
         aged_words = nibble_age_pred_words(b & 0xF, b >> 4, state.round, sq,
                                            ge=True)
+        if cfg.stamp_deferred:
+            # a learned-since-flush cell's q-age is 0, below any window:
+            # the packed twin of mod_age's overlay read-through
+            aged_words = aged_words & ~state.overlay
     else:
         aged_words = pack_bits(mod_age(state, cfg) >= sq)
     expired = unpack_bits(state.known & aged_words & fact_words[None, :]
@@ -301,13 +303,22 @@ def _declare_round_body(state: GossipState, cfg: GossipConfig,
 # -- views / metrics -----------------------------------------------------------
 
 def believer_counts(state: GossipState, cfg: GossipConfig,
-                    fcfg: FailureConfig, stretch_q=None) -> torch.Tensor:
+                    fcfg: FailureConfig, stretch_q=None, subj_inc=None,
+                    known=None, evidence_facts=None) -> torch.Tensor:
     """int64[K]: per-fact count of alive believers (stage 1 of the
-    believed-dead judgment)."""
+    believed-dead judgment).  ``subj_inc``, ``known`` (the unpacked
+    known plane) and ``evidence_facts`` (``(dead_fact, aged_suspect)``)
+    let a caller that already computed them pass them in."""
     k = cfg.k_facts
-    known = unpack_bits(state.known, k)
-    dead_fact = _facts_about(state, (K_DEAD,), inc_current=True)
-    aged_suspect = _facts_about(state, (K_SUSPECT,), inc_current=True)
+    if known is None:
+        known = unpack_bits(state.known, k)
+    if evidence_facts is not None:
+        dead_fact, aged_suspect = evidence_facts
+    else:
+        dead_fact = _facts_about(state, (K_DEAD,), inc_current=True,
+                                 subj_inc=subj_inc)
+        aged_suspect = _facts_about(state, (K_SUSPECT,), inc_current=True,
+                                    subj_inc=subj_inc)
     aged = mod_age(state, cfg) >= suspicion_q_of(fcfg, stretch_q)
     evidence = known & (dead_fact[None, :] | (aged_suspect[None, :] & aged))
     refutes = _refutation_matrix(state)

@@ -28,9 +28,13 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _SIGNATURES = {
     "serf_select_packets": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
+    "serf_merge_incoming": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+                            _P),
     "serf_fused_select_cached": (_P, _P, _P, _P, _I64, _I, _P),
     "serf_fused_merge": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
                          _I, _I, _I, _P),
+    "serf_fused_flush": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                         _I, _P),
 }
 
 _LIB: list = []

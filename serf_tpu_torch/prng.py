@@ -86,7 +86,10 @@ def _host_bits(k: np.ndarray, shape) -> np.ndarray:
 HOST_DRAW_MAX = 4096
 
 
-def _to_device(arr: np.ndarray, device) -> torch.Tensor:
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``; onto a card through pinned memory
+    with a non-blocking copy, so the host does not wait for the
+    stream."""
     t = torch.from_numpy(np.ascontiguousarray(arr))
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -100,7 +103,7 @@ def random_bits(k: np.ndarray, shape, device) -> torch.Tensor:
     k1, k2 = (int(v) for v in np.asarray(k, np.uint32))
     size = math.prod(shape)
     if size <= HOST_DRAW_MAX:
-        return _to_device(_host_bits(k, shape).astype(np.int64), device)
+        return to_device(_host_bits(k, shape).astype(np.int64), device)
     lo = torch.arange(size, dtype=torch.int64, device=device)
     hi = lo >> 32
     b1, b2 = _threefry2x32(k1, k2, hi, lo & MASK32)

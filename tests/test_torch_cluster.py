@@ -5,9 +5,9 @@ integer leaf of ``ClusterState`` bit-exact, the Vivaldi float leaves
 within a stated tolerance.  Also the cluster variants off the flagship
 path (iid sampling, random probes, lossy probes and refutations, the
 Vivaldi median filter, the unpacked stamp plane, the chaos masks), the
-``convert`` round trip, the entry points' device rule, the parts that
-raise until a later slice ports them, and the rule that nothing in the
-port imports JAX or the reference package.
+``convert`` round trip, the entry points' device rule, the sharded
+round that raises until a later slice ports it, and the rule that
+nothing in the port imports JAX or the reference package.
 
 Float tolerance (rtol 1e-4, atol 1e-5): Vivaldi is float32 elementwise
 math whose op order and FMA contraction differ between XLA and PyTorch,
@@ -339,21 +339,12 @@ def test_wrappers_never_fall_back_off_the_cpu():
                                 alive, k_facts=64, stamp_cols=32)
 
 
-@pytest.mark.parametrize("what", ["control", "mesh", "telemetry",
-                                  "deferred"])
+@pytest.mark.parametrize("what", ["mesh"])
 def test_later_slices_raise(what):
     cfg = _tcfg(_flagship(64))
-    if what == "control":
-        cfg = dataclasses.replace(cfg, control=dataclasses.replace(
-            cfg.control, enabled=True))
-    if what == "deferred":
-        cfg = dataclasses.replace(cfg, gossip=dataclasses.replace(
-            cfg.gossip, stamp_flush_unit=4))
     st = tswim.make_cluster(cfg, prng.key(0), device="cpu")
-    kw = {"mesh": object()} if what == "mesh" else (
-        {"collect_telemetry": True} if what == "telemetry" else {})
     with pytest.raises(NotImplementedError):
-        tswim.run_cluster_sustained(st, cfg, prng.key(0), 1, **kw)
+        tswim.run_cluster_sustained(st, cfg, prng.key(0), 1, mesh=object())
 
 
 # -- the port stands alone ----------------------------------------------------

@@ -230,10 +230,3 @@ def test_ltime_window():
                           np.asarray(jdis.ltime_newer(a, b)))
     assert np.array_equal(tdis.ltime_rel(ta, tb).numpy(),
                           np.asarray(jdis.ltime_rel(a, b)))
-
-
-def test_deferred_flavor_not_ported():
-    cfg = tdis.GossipConfig(n=64, k_facts=32, stamp_flush_unit=2)
-    st = tdis.make_state(cfg, "cpu")
-    with pytest.raises(NotImplementedError):
-        tdis.round_step(st, cfg, prng.key(0))
