@@ -10,10 +10,14 @@ Phases (any failure exits non-zero and prints no result line):
    build from ``serf_tpu_torch/ops/csrc`` (``nvcc``, first use);
 2. all five kernels against their plain PyTorch versions, bit for bit,
    at the flagship width (N = 1,000,000, K = 64) and at a ragged small
-   N, for both stamp flavors, the cache on and off, next rounds whose
-   stamp quarter wraps, and a flush overlay that overlaps the fresh
-   learns; then each kernel's time at the flagship shapes beside its
-   plain version's and its byte bound;
+   N with K = 32, 64 and 96, for both stamp flavors, the cache on and
+   off, transmit limits 1, 7 and 8, next rounds on all 16 stamp
+   quarters and every phase of a quarter (the cohort quarter wrapping
+   from 0 to 15 included), and flush inputs with all-overlay,
+   all-fresh and both-at-once words besides random overlay that
+   overlaps the fresh learns; then each kernel's time at the flagship
+   shapes beside its plain version's and its byte bound, with its SASS
+   instruction count's issue times as a diagnostic of the design;
 3. the slice on the card against the slice on the CPU, N = 4096, 40
    sustained rounds from one key, every integer leaf equal and the float
    leaves within tolerance (the CPU run is the one the tests hold against
@@ -44,10 +48,18 @@ import subprocess
 import sys
 import time
 
-#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and the
-#: non-tensor 32-bit rate, used as the integer ALU rate of these kernels
+#: the published H100 SXM HBM rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
+#: 32-bit integer lanes per SM (Hopper: 16 in each of the four SM
+#: partitions).  The card's integer issue rate is the SM count times
+#: this times the SM clock (``int_ops_per_s``) — about 16.7 T ops/s on an
+#: H100 SXM at 1980 MHz, a quarter of the 67 TFLOP/s float32 rate, which
+#: counts an FMA as two and runs on twice the lanes.  It binds a stream
+#: of integer-pipe instructions only: loads, stores and multiply-adds go
+#: to other pipes, and every kind together is held to the schedulers'
+#: issue, SCHEDULER_LANES_PER_SM (four warp instructions a clock).
+INT32_LANES_PER_SM = 64
+SCHEDULER_LANES_PER_SM = 128
 
 N_MAIN = 1_000_000
 K_MAIN = 64
@@ -101,12 +113,66 @@ def fail(msg: str) -> int:
     return 1
 
 
-def card_line() -> str:
+def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
+    """The first card's line of ``nvidia-smi --query-gpu=<query>``."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def int_ops_per_s(lanes: int = INT32_LANES_PER_SM) -> float:
+    """The card's 32-bit integer issue rate: SMs x ``lanes`` x the SM
+    clock's maximum (``nvidia-smi`` ``clocks.max.sm``)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    return sms * lanes * mhz * 1e6
+
+
+def sass_counts(lib_path) -> dict:
+    """Instructions (NOPs left out) of each kernel in the built library,
+    from ``cuobjdump -sass`` — the static count of a thread's code, which
+    a thread executes once unless a branch skips part of it; empty, with
+    a log line saying why, when ``cuobjdump`` fails."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([tool, "-sass", str(lib_path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        log(f"  sass: no instruction counts ({tool}: {e})")
+        return {}
+    # an instruction line: its offset, then an opcode or a predicate
+    insn = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP)[@A-Z]")
+    counts, fn = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = 0
+        elif fn and insn.match(line):
+            counts[fn] += 1
+    if not counts:
+        log(f"  sass: no instruction counts ({tool} listed no kernel)")
+    return counts
+
+
+#: the mangled-name piece of each kernel's timed instance (packed, the
+#: cache on where the kernel keeps it) in ``sass_counts``
+TIMED_INSTANCE = {
+    "select_packets": "select_packets_kernelILb1EE",
+    "merge_incoming": "merge_incoming_kernelILb1EE",
+    "fused_select_cached": "fused_select_kernelE",
+    "fused_merge": "fused_merge_kernelILb1ELb1EE",
+    "fused_flush": "fused_flush_kernelILb1ELb1EE",
+}
 
 
 # -- phase 2: kernels against plain versions ---------------------------------
@@ -127,6 +193,11 @@ def random_planes(n, k, packed, seed, dev):
     alive = torch.rand((n,), generator=g) < 0.9
     planes = dict(known=words(), incoming=words(), sendable=words(),
                   overlay=words(), stamp=stamp, alive=alive)
+    # all-overlay words (rows 0-7), all-fresh words (8-15) and both (16-23)
+    planes["overlay"][0:8] = -1
+    planes["overlay"][16:24] = -1
+    planes["known"][8:24] = 0
+    planes["incoming"][8:24] = -1
     # a flush's inputs: this merge's learns and the post-merge plane
     planes["new"] = planes["incoming"] & ~planes["known"]
     planes["known2"] = planes["known"] | planes["new"]
@@ -138,11 +209,23 @@ def max_abs_err(a, b) -> int:
     return int(torch.max(torch.abs(a.to(torch.int64) - b.to(torch.int64))))
 
 
+#: phase 2's next rounds: all 16 stamp quarters, each at another phase
+#: of its quarter (a phase-0 round's cohort quarter is the one before),
+#: and 64 and 1024, where the quarter wraps to 0 and the cohort's is 15
+CHECK_ROUNDS = tuple(192 + 4 * q + q % 4 for q in range(16)) + (64, 1024)
+#: phase 2's transmit limits: the flagship's 7 at N = 1M, the smallest
+#: that sends, and the age pin AGE_PIN_Q
+CHECK_LIMITS = (1, 7, 8)
+#: phase 2's (N, K): the flagship's, then a ragged N at K = 64 and at
+#: one and three words per row
+CHECK_SHAPES = ((N_MAIN, K_MAIN), (N_RAGGED, K_MAIN), (N_RAGGED, 32),
+                (N_RAGGED, 96))
+
+
 def check_kernels(rk, dev) -> dict:
     """Every kernel == its plain version on the same card inputs; returns
     the largest |kernel - plain| seen per kernel (over the output words
-    and bytes as integers).  Next rounds 64 and 1024 wrap the stamp
-    quarter (their cohort's quarter is 15)."""
+    and bytes as integers)."""
     import torch
     errs = {name: 0 for name in REPLACES}
 
@@ -154,66 +237,70 @@ def check_kernels(rk, dev) -> dict:
         if errs[name]:
             raise AssertionError(f"{what}: kernel != plain version")
 
-    limit_q = 7                 # flagship transmit_limit_q at N = 1M
-    for n in (N_MAIN, N_RAGGED):
+    for n, k in CHECK_SHAPES:
         for packed in (True, False):
-            p = random_planes(n, K_MAIN, packed, 7 + n + packed, dev)
+            p = random_planes(n, k, packed, 7 + n + k + packed, dev)
             if not bool(torch.any(p["new"] & p["overlay"] != 0)):
                 raise AssertionError("flush inputs: no overlay bit meets "
                                      "a fresh learn")
-            kw = dict(packed=packed, k_facts=K_MAIN)
-            for rnd in (7, 61, 64, 1024, 1234):
+            kw = dict(packed=packed, k_facts=k)
+            for rnd in CHECK_ROUNDS:
                 r = torch.tensor(rnd, dtype=torch.int32, device=dev)
-                tag = f"n={n} packed={packed} r={rnd}"
-                args = (p["stamp"], p["known"], p["alive"], limit_q, r)
-                got = rk.select_packets(*args, **kw)
+                tag = f"n={n} k={k} packed={packed} r={rnd}"
+                margs = (p["known"], p["incoming"], p["alive"], p["stamp"],
+                         r)
+                got = rk.merge_incoming(*margs, **kw)
                 torch.cuda.synchronize()
-                same("select_packets", got,
-                     rk.select_packets_plain(*args, **kw),
-                     f"select_packets {tag}")
-                args = (p["known"], p["incoming"], p["alive"], p["stamp"], r)
-                got = rk.merge_incoming(*args, **kw)
-                torch.cuda.synchronize()
-                want = rk.merge_incoming_plain(*args, **kw)
+                want = rk.merge_incoming_plain(*margs, **kw)
                 for i in range(2):
                     same("merge_incoming", got[i], want[i],
                          f"merge_incoming[{i}] {tag}")
-                for cache in (True, False):
-                    ckw = dict(kw, limit_q=limit_q, with_cache=cache)
-                    out = rk.fused_merge(*args, **ckw)
+                for limit_q in CHECK_LIMITS:
+                    ltag = f"{tag} limit_q={limit_q}"
+                    args = (p["stamp"], p["known"], p["alive"], limit_q, r)
+                    got = rk.select_packets(*args, **kw)
                     torch.cuda.synchronize()
-                    ref = rk.fused_merge_plain(*args, **ckw)
-                    for i in range(3):
-                        same("fused_merge", out[i], ref[i],
-                             f"fused_merge[{i}] {tag} cache={cache}")
-                    if bool(torch.any(out[3] != 0)) != bool(
-                            torch.any(ref[3] != 0)):
-                        raise AssertionError("fused_merge learn flag")
-                    fargs = (p["known2"], p["new"], p["overlay"], p["stamp"],
-                             r)
-                    out = rk.fused_flush(*fargs, **ckw)
-                    torch.cuda.synchronize()
-                    ref = rk.fused_flush_plain(*fargs, **ckw)
-                    for i in range(2):
-                        same("fused_flush", out[i], ref[i],
-                             f"fused_flush[{i}] {tag} cache={cache}")
+                    same("select_packets", got,
+                         rk.select_packets_plain(*args, **kw),
+                         f"select_packets {ltag}")
+                    for cache in (True, False):
+                        ckw = dict(kw, limit_q=limit_q, with_cache=cache)
+                        out = rk.fused_merge(*margs, **ckw)
+                        torch.cuda.synchronize()
+                        ref = rk.fused_merge_plain(*margs, **ckw)
+                        for i in range(3):
+                            same("fused_merge", out[i], ref[i],
+                                 f"fused_merge[{i}] {ltag} cache={cache}")
+                        if bool(torch.any(out[3] != 0)) != bool(
+                                torch.any(ref[3] != 0)):
+                            raise AssertionError("fused_merge learn flag")
+                        fargs = (p["known2"], p["new"], p["overlay"],
+                                 p["stamp"], r)
+                        out = rk.fused_flush(*fargs, **ckw)
+                        torch.cuda.synchronize()
+                        ref = rk.fused_flush_plain(*fargs, **ckw)
+                        for i in range(2):
+                            same("fused_flush", out[i], ref[i],
+                                 f"fused_flush[{i}] {ltag} cache={cache}")
                 # a merge with nothing to learn must say so
                 quiet = rk.fused_merge(
                     p["known"], p["known"], p["alive"], p["stamp"], r,
-                    limit_q=limit_q, with_cache=True, **kw)
+                    limit_q=7, with_cache=True, **kw)
                 if bool(torch.any(quiet[3] != 0)):
                     raise AssertionError("fused_merge flagged a learn "
                                          "with nothing to learn")
             got = rk.fused_select_cached(p["sendable"], p["known"],
-                                         p["alive"], k_facts=K_MAIN,
+                                         p["alive"], k_facts=k,
                                          stamp_cols=p["stamp"].shape[1])
             torch.cuda.synchronize()
             same("fused_select_cached", got,
                  rk.fused_select_cached_plain(p["sendable"], p["known"],
                                               p["alive"]),
-                 f"fused_select_cached n={n}")
-        log(f"phase 2: five kernels == plain versions at n={n} "
-            f"(packed/unpacked, cache on/off, quarter wrap)")
+                 f"fused_select_cached n={n} k={k}")
+        log(f"phase 2: five kernels == plain versions at n={n} k={k} "
+            f"(packed/unpacked, cache on/off, limits {CHECK_LIMITS}, "
+            f"{len(CHECK_ROUNDS)} next rounds over all 16 quarters, "
+            f"all-overlay/all-fresh words)")
     return errs
 
 
@@ -270,8 +357,8 @@ def nbytes(*ts) -> int:
 
 def measure_kernels(rk, dev) -> dict:
     """Times and bounds at the paths' shapes (N=1M, K=64, packed, the
-    cache on where the kernel keeps it).  Bytes: each input read once,
-    each output written once."""
+    cache on where the kernel keeps it).  The bound is the bytes' time:
+    each input read once, each output written once."""
     import torch
     n, w, c = N_MAIN, K_MAIN // 32, K_MAIN // 2
     lq = 7
@@ -308,53 +395,37 @@ def measure_kernels(rk, dev) -> dict:
             run=[select(q, rk.select_packets) for q in copies],
             plain=[select(q, rk.select_packets_plain) for q in copies],
             bytes=nbytes(p["stamp"], p["known"], p["alive"], r)
-            + nbytes(p["known"]),
-            # per fact: nibble extract, subtract, mask, compare, weave;
-            # per word: two ANDs
-            ops=n * K_MAIN * 5 + n * w * 2),
+            + nbytes(p["known"])),
         "merge_incoming": dict(
             run=[merge_in(q, rk.merge_incoming) for q in copies],
             plain=[merge_in(q, rk.merge_incoming_plain) for q in copies],
             bytes=nbytes(p["known"], p["incoming"], p["alive"], p["stamp"],
-                         r) + nbytes(*merge_in(p, rk.merge_incoming_plain)()),
-            # per fact: clamp (4), learn select (2), repack (2); per
-            # word: learn mask and OR (4)
-            ops=n * K_MAIN * 8 + n * w * 4),
+                         r) + nbytes(*merge_in(p, rk.merge_incoming_plain)())),
         "fused_select_cached": dict(
             run=[cached(q, rk.fused_select_cached, k_facts=K_MAIN,
                         stamp_cols=c) for q in copies],
             plain=[cached(q, rk.fused_select_cached_plain) for q in copies],
             bytes=nbytes(p["sendable"], p["known"], p["alive"])
-            + nbytes(p["known"]),
-            ops=n * w * 2),
+            + nbytes(p["known"])),
         "fused_merge": dict(
             run=[merge(q, rk.fused_merge) for q in copies],
             plain=[merge(q, rk.fused_merge_plain) for q in copies],
             # the learn flags (one int32 per 256 words) are written too
             bytes=nbytes(p["known"], p["incoming"], p["alive"], p["stamp"],
                          r) + nbytes(*merge_out)
-            + 4 * -(-(n * w) // rk.THREADS),
-            # per fact: clamp (4), learn select (2), repack (2), age
-            # compare (3); per word: learn mask and OR (4), cache AND
-            ops=n * K_MAIN * 11 + n * w * 5),
+            + 4 * -(-(n * w) // rk.THREADS)),
         "fused_flush": dict(
             run=[flush(q, rk.fused_flush) for q in copies],
             plain=[flush(q, rk.fused_flush_plain) for q in copies],
             bytes=nbytes(p["known2"], p["new"], p["overlay"], p["stamp"], r)
-            + nbytes(*flush(p, rk.fused_flush_plain)()),
-            # per fact: clamp (4), overlay and learn selects (4), repack
-            # (2), age compare (3); per word: cache AND
-            ops=n * K_MAIN * 13 + n * w),
+            + nbytes(*flush(p, rk.fused_flush_plain)())),
     }
     out = {}
     for name, spec in work.items():
-        bytes_ms = spec["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = spec["ops"] / ALU_OPS_PER_S * 1e3
         out[name] = dict(
             ms=time_kernel(spec["run"]), plain_ms=time_calls(spec["plain"]),
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            bytes=spec["bytes"])
+            bound_ms=spec["bytes"] / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", bytes=spec["bytes"], words=n * w)
     return out
 
 
@@ -647,21 +718,43 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    int_rate = int_ops_per_s()
+    issue_rate = int_ops_per_s(SCHEDULER_LANES_PER_SM)
+    log(f"integer pipe: {int_rate / 1e12:.2f} T ops/s, warp issue: "
+        f"{issue_rate / 1e12:.2f} T instructions/s (SMs x "
+        f"{INT32_LANES_PER_SM} or {SCHEDULER_LANES_PER_SM} lanes x the "
+        f"maximum SM clock)")
     t0 = time.perf_counter()
     path, ptxas = build.build(ptxas_verbose=True)
     build.load()
     log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.1f} s")
     for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or \
+                "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    sass = sass_counts(path)
+    for fn, count in sass.items():
+        log(f"  sass: {count} instructions in {fn}")
 
     dev = torch.device("cuda")
     errs = check_kernels(rk, dev)
     times = measure_kernels(rk, dev)
     for name, t in times.items():
-        log(f"kernel {name}: {t['ms'] * 1e3:.2f} us (plain version "
-            f"{t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} "
-            f"us by {t['bound_by']}, {t['bytes']} B)")
+        line = (f"kernel {name}: {t['ms'] * 1e3:.2f} us (plain version "
+                f"{t['plain_ms'] * 1e3:.2f} us, bound "
+                f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, "
+                f"{t['bytes']} B")
+        # a diagnostic of the design, not a bound: the timed instance's
+        # static SASS count (one word a thread) over the two issue rates
+        count = next((c for fn, c in sass.items()
+                      if TIMED_INSTANCE[name] in fn), None)
+        if count is not None:
+            insns = count * t["words"]
+            line += (f"; ops_ms: {count} SASS instructions a word, "
+                     f"{insns / int_rate * 1e6:.2f} us all on the integer "
+                     f"pipe, {insns / issue_rate * 1e6:.2f} us at the warp "
+                     f"issue limit")
+        log(line + ")")
     slice_vs_cpu(rk)
     runs = {path: run_path(rk, path, args.profile) for path in PATHS}
     for path, run in runs.items():
