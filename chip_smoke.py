@@ -9,13 +9,14 @@ Phases (any failure exits non-zero and prints no result line):
 1. the card's name and power limit (``nvidia-smi``), then the kernel
    build from ``serf_tpu_torch/ops/csrc`` (``nvcc``, first use);
 2. all five kernels against their plain PyTorch versions, bit for bit,
-   at the flagship width (N = 1,000,000, K = 64) and at a ragged small
-   N with K = 32, 64 and 96, for both stamp flavors, the cache on and
-   off, transmit limits 1, 7 and 8, next rounds on all 16 stamp
-   quarters and every phase of a quarter (the cohort quarter wrapping
-   from 0 to 15 included), and flush inputs with all-overlay,
-   all-fresh and both-at-once words besides random overlay that
-   overlaps the fresh learns; then each kernel's time at the flagship
+   at the flagship width (N = 1,000,000, K = 64), at the churn-query
+   width (N = 100,000, K = 256) and at a ragged small N with K = 32,
+   64, 96 and 256, for both stamp flavors, the cache on and off,
+   transmit limits 1, 7 and 8, next rounds on all 16 stamp quarters and
+   every phase of a quarter (the cohort quarter wrapping from 0 to 15
+   included), and flush inputs with all-overlay, all-fresh and
+   both-at-once words besides random overlay that overlaps the fresh
+   learns; then each kernel's time at the flagship and the churn-query
    shapes beside its plain version's and its byte bound, with its SASS
    instruction count's issue times as a diagnostic of the design;
 3. the slice on the card against the slice on the CPU, N = 4096, 40
@@ -33,6 +34,25 @@ Phases (any failure exits non-zero and prints no result line):
    round and each kernel's launches — every kernel of the path must
    launch and no other may — and the protocol sanity checks on its final
    state.
+
+Phases 3 and 4 also run the churn-query path (BASELINE config #3,
+``tests/test_churn.py``:
+100,000 nodes, K = 256, Poisson fail/leave/rejoin with queries
+gathering): every round is the composed churn + cluster round + query
+gather + leave countdown step of the reference's graft entry, with six
+queries launched in the 30 churned rounds (alternately unfiltered and
+tag-filtered) and a churn-free settle window after them.  Phase 3 holds
+it on the card against the CPU at N = 4096 (raised churn rates, 30 + 20
+rounds): every integer leaf of the cluster, query, countdown and trace
+states, the cluster stats, the composed views, the majority vote and
+the device event list; a checkpoint saved on the card restores on the
+CPU equal; and ``push_round_step`` (8 rounds, N = 4096, K = 64) in both
+stamp flavors.  Phase 4 runs it at N = 100,000 (30 + 104 rounds):
+rounds/s of each window, host syncs per round, launches per kernel
+(exactly ``select_packets``, ``fused_select_cached`` and
+``fused_merge``), the reference test's outcome checks, and a run
+resumed from a checkpoint taken after the churn window that must equal
+the unbroken run.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Needs no network and imports no
@@ -219,7 +239,7 @@ CHECK_LIMITS = (1, 7, 8)
 #: phase 2's (N, K): the flagship's, then a ragged N at K = 64 and at
 #: one and three words per row
 CHECK_SHAPES = ((N_MAIN, K_MAIN), (N_RAGGED, K_MAIN), (N_RAGGED, 32),
-                (N_RAGGED, 96))
+                (N_RAGGED, 96), (N_RAGGED, 256), (100_000, 256))
 
 
 def check_kernels(rk, dev) -> dict:
@@ -355,20 +375,22 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def measure_kernels(rk, dev) -> dict:
-    """Times and bounds at the paths' shapes (N=1M, K=64, packed, the
-    cache on where the kernel keeps it).  The bound is the bytes' time:
-    each input read once, each output written once."""
+def measure_kernels(rk, dev, n: int = N_MAIN, k: int = K_MAIN) -> dict:
+    """Times and bounds at a path's shape (packed, the cache on where the
+    kernel keeps it, the path's transmit limit).  The bound is the
+    bytes' time: each input read once, each output written once."""
     import torch
-    n, w, c = N_MAIN, K_MAIN // 32, K_MAIN // 2
-    lq = 7
+
+    from serf_tpu_torch.models.dissemination import GossipConfig
+    w, c = k // 32, k // 2
+    lq = GossipConfig(n=n, k_facts=k).transmit_limit_q
     r = torch.tensor(61, dtype=torch.int32, device=dev)
-    base = random_planes(N_MAIN, K_MAIN, True, 99, dev)
+    base = random_planes(n, k, True, 99, dev)
     # sized for the kernel that reads least (the cached select)
     least = nbytes(base["sendable"], base["known"], base["alive"])
     copies = [base] + [{k: v.clone() for k, v in base.items()}
                        for _ in range(-(-2 * L2_BYTES // least))]
-    kw = dict(packed=True, k_facts=K_MAIN)
+    kw = dict(packed=True, k_facts=k)
 
     def select(p, fn):
         return lambda: fn(p["stamp"], p["known"], p["alive"], lq, r, **kw)
@@ -402,7 +424,7 @@ def measure_kernels(rk, dev) -> dict:
             bytes=nbytes(p["known"], p["incoming"], p["alive"], p["stamp"],
                          r) + nbytes(*merge_in(p, rk.merge_incoming_plain)())),
         "fused_select_cached": dict(
-            run=[cached(q, rk.fused_select_cached, k_facts=K_MAIN,
+            run=[cached(q, rk.fused_select_cached, k_facts=k,
                         stamp_cols=c) for q in copies],
             plain=[cached(q, rk.fused_select_cached_plain) for q in copies],
             bytes=nbytes(p["sendable"], p["known"], p["alive"])
@@ -630,16 +652,18 @@ def run_path(rk, path: str, profile: bool) -> dict:
                syncs_per_round=syncs / TIMED_ROUNDS, setup_s=setup_s,
                warm_s=warm_s, run_s=run_s)
     if profile:
-        out["profile"] = profile_rounds(st, cfg, k_prof)
+        from serf_tpu_torch.models.swim import run_cluster_sustained
+        out["profile"] = profile_rounds(lambda n: run_cluster_sustained(
+            st, cfg, k_prof, n, events_per_round=EVENTS_PER_ROUND))
     return out
 
 
-def profile_rounds(st, cfg, key, rounds: int = 10) -> dict:
-    """Device time by kernel over ``rounds`` sustained rounds."""
+def profile_rounds(run, rounds: int = 10) -> dict:
+    """Device time by kernel over ``run(rounds)``, a call that runs
+    ``rounds`` rounds of a path."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from serf_tpu_torch.models.swim import run_cluster_sustained
     with profile(activities=[ProfilerActivity.CUDA]):
         torch.zeros(1, device="cuda").add_(1)   # start the tracer up
         torch.cuda.synchronize()
@@ -647,8 +671,7 @@ def profile_rounds(st, cfg, key, rounds: int = 10) -> dict:
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_cluster_sustained(st, cfg, key, rounds,
-                              events_per_round=EVENTS_PER_ROUND)
+        run(rounds)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     # the clocks and power just after the window: a mostly idle card may
@@ -697,6 +720,375 @@ def profile_rounds(st, cfg, key, rounds: int = 10) -> dict:
                 ops=table(ops))
 
 
+# -- phases 3 and 4: the churn-query path ------------------------------------
+
+#: BASELINE config #3 at its own scale (tests/test_churn.py): nothing cut
+CQ_N, CQ_K = 100_000, 256
+#: phase 3's size against the CPU, with churn rates raised so that every
+#: event kind fires there
+CQ_SMALL_N, CQ_SMALL_SETTLE = 4096, 20
+CQ_CHURN_ROUNDS, CQ_QUERY_EVERY = 30, 5
+CQ_KERNELS = ("select_packets", "fused_select_cached", "fused_merge")
+#: distinct tag values of the seeded tag plane (the majority vote's
+#: candidates) and subjects of the composed views
+CQ_TAG_VALUES, CQ_VIEW_SUBJECTS = 4, 64
+PUSH_N, PUSH_K, PUSH_ROUNDS = 4096, 64, 8
+
+
+def cq_configs(n: int, raised: bool, settle: bool = False):
+    """``(ClusterConfig, ChurnConfig, QueryConfig)`` of the path: the
+    reference test's cluster with the kernels on, its churn rates (or
+    the raised ones; zero in the settle window), 8 query slots with 2
+    relays."""
+    from serf_tpu_torch.models.churn import ChurnConfig
+    from serf_tpu_torch.models.dissemination import GossipConfig
+    from serf_tpu_torch.models.failure import FailureConfig
+    from serf_tpu_torch.models.query import QueryConfig
+    from serf_tpu_torch.models.swim import ClusterConfig
+    cfg = ClusterConfig(
+        gossip=GossipConfig(n=n, k_facts=CQ_K, fanout=3, use_pallas=True),
+        failure=FailureConfig(suspicion_rounds=12, max_new_facts=8,
+                              probe_drop_rate=0.02),
+        push_pull_every=16, with_vivaldi=False)
+    rates = (dict(fail_rate=1e-3, leave_rate=1e-3, rejoin_rate=0.05)
+             if raised else dict(fail_rate=1e-5, leave_rate=1e-5,
+                                 rejoin_rate=0.02))
+    if settle:
+        rates = {}
+    return cfg, ChurnConfig(max_events=8, **rates), QueryConfig(
+        q_slots=8, relay_factor=2)
+
+
+def cq_start(cfg, qcfg, device):
+    """The path's starting carry ``(cluster, queries, countdown,
+    trace)``, its tag plane (``TagInterner`` over seeded zone tags, four
+    values) and the seeded query-origin candidates."""
+    import numpy as np
+
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.models.churn import linger_init, trace_init
+    from serf_tpu_torch.models.query import make_queries
+    from serf_tpu_torch.models.swim import make_cluster
+    from serf_tpu_torch.models.views import TagInterner
+    n = cfg.n
+    st = make_cluster(cfg, prng.key(42), device=device)
+    carry = (st, make_queries(cfg.gossip, qcfg, device=device),
+             linger_init(n, device=device), trace_init(st))
+    rng = np.random.default_rng(5)
+    zones = rng.integers(0, CQ_TAG_VALUES, n)
+    plane = TagInterner(["zone"]).plane(
+        [{"zone": f"z{z}"} for z in zones], device=device)
+    return carry, plane, rng.integers(0, n, CQ_CHURN_ROUNDS)
+
+
+def alive_at_or_after(alive, start: int):
+    """The first alive node at or after ``start`` (cyclically), as a
+    device scalar: a query origin picked without a host read."""
+    import torch
+
+    from serf_tpu_torch.models.dissemination import first_argmax
+    n = alive.shape[0]
+    off = first_argmax(torch.roll(alive, -start).to(torch.uint8), 0)
+    return torch.remainder(off.to(torch.int64) + start, n)
+
+
+def cq_window(carry, cfg, ccfg, qcfg, key, rounds, plane=None,
+              origins=None, stream=None):
+    """``rounds`` composed steps from ``carry``; with ``origins``, a query
+    is launched before every CQ_QUERY_EVERY-th step (unfiltered and
+    tag-filtered in turn).  With ``stream`` (a DeviceEventStream) each
+    round's summary is pushed and the events are returned too."""
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.models.churn import composed_step, trace_step
+    from serf_tpu_torch.models.events import summarize
+    from serf_tpu_torch.models.query import (launch_query, no_filter_mask,
+                                             tag_filter_mask)
+    st, qs, cd, tr = carry
+    dev = st.gossip.alive.device
+    events = []
+    for r, k in enumerate(prng.split(key, rounds)):
+        if origins is not None and r % CQ_QUERY_EVERY == 0:
+            qn = r // CQ_QUERY_EVERY
+            eligible = (no_filter_mask(cfg.n, device=dev) if qn % 2 == 0
+                        else tag_filter_mask(plane, 0,
+                                             1 + (qn // 2) % CQ_TAG_VALUES))
+            g, qs, _ = launch_query(
+                st.gossip, qs, cfg.gossip, qcfg,
+                origin=alive_at_or_after(st.gossip.alive, int(origins[r])),
+                eligible=eligible)
+            st = st._replace(gossip=g)
+        st, qs, cd = composed_step(st, qs, cd, cfg, ccfg, qcfg, k)
+        tr = trace_step(tr, st)
+        if stream is not None:
+            events += stream.push(summarize(st.gossip, cfg.gossip))
+    return (st, qs, cd, tr), events
+
+
+def cq_readouts(carry, cfg, plane) -> dict:
+    """The path's read-outs on the final carry: cluster stats, composed
+    views over CQ_VIEW_SUBJECTS seeded subjects (half drawn from the
+    nodes that went down, so that leave intents show; the SWIM plane's
+    belief is "believed dead by every alive node"), per-query responses
+    and acks, and the majority vote over the last query's responders
+    (votes: each node's interned tag value less one, CQ_TAG_VALUES
+    candidates)."""
+    import numpy as np
+    import torch
+
+    from serf_tpu_torch.models.failure import believed_dead
+    from serf_tpu_torch.models.membership import composed_views
+    from serf_tpu_torch.models.query import (majority_holds, majority_vote,
+                                             num_acks, num_responses,
+                                             responders)
+    from serf_tpu_torch.models.views import cluster_stats
+    st, qs, _, tr = carry
+    g = st.gossip
+    dev = g.alive.device
+    rng = np.random.default_rng(9)
+    down = np.flatnonzero(tr.ever_down.cpu().numpy())
+    picked = rng.choice(down, min(CQ_VIEW_SUBJECTS // 2, down.size),
+                        replace=False)
+    subjects = torch.from_numpy(np.concatenate([
+        picked, rng.integers(0, cfg.n, CQ_VIEW_SUBJECTS - picked.size)
+    ]).astype(np.int32)).to(dev)
+    dead = believed_dead(g, cfg.gossip, cfg.failure)[subjects.to(
+        torch.int64)]
+    views = composed_views(g, cfg.gossip, subjects,
+                           dead[None, :].expand(cfg.n, -1))
+    last_q = (CQ_CHURN_ROUNDS - 1) // CQ_QUERY_EVERY % 8
+    vote = majority_vote(plane[:, 0] - 1, responders(qs, last_q),
+                         CQ_TAG_VALUES)
+    stats = cluster_stats(g, cfg.gossip)
+    out = {f"stats.{f}": getattr(stats, f) for f in stats._fields}
+    out.update({"views": views, "responses": num_responses(qs),
+                "acks": num_acks(qs), "vote.winner": vote[0],
+                "vote.count": vote[1], "vote.total": vote[2],
+                "vote.holds": majority_holds(vote[1], vote[2])})
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def carry_leaves(carry) -> dict:
+    """Every leaf of a carry as numpy (u32 leaves as uint32)."""
+    from serf_tpu_torch import convert
+    st, qs, cd, tr = carry
+    out = {f"cluster.{k}": v for k, v in convert.to_numpy(st).items()}
+    out.update({f"queries.{k}": v for k, v in convert.to_numpy(qs).items()})
+    out.update({f"trace.{k}": v for k, v in convert.to_numpy(tr).items()})
+    out["countdown"] = cd.cpu().numpy()
+    return out
+
+
+def cq_template(cfg, qcfg, device):
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.models.churn import linger_init, trace_init
+    from serf_tpu_torch.models.query import make_queries
+    from serf_tpu_torch.models.swim import make_cluster
+    st = make_cluster(cfg, prng.key(0), device=device)
+    return (st, make_queries(cfg.gossip, qcfg, device=device),
+            linger_init(cfg.n, device=device), trace_init(st))
+
+
+def checkpoint_path(name: str):
+    """A scratch file under the checkout's ignored ``build/``."""
+    import pathlib
+    d = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+    d.mkdir(parents=True, exist_ok=True)
+    return str(d / name)
+
+
+def churn_query_vs_cpu(rk) -> None:
+    """Phase 3: the churn-query path on the card == on the CPU at
+    N = CQ_SMALL_N, then a card checkpoint restored on the CPU, then
+    push_round_step in both stamp flavors."""
+    from serf_tpu_torch import host_syncs, prng
+    from serf_tpu_torch.models import checkpoint
+    from serf_tpu_torch.models.events import DeviceEventStream
+    n = CQ_SMALL_N
+    cfg, ccfg, qcfg = cq_configs(n, raised=True)
+    _, settle_ccfg, _ = cq_configs(n, raised=True, settle=True)
+    finals, reads, events, carries, syncs = {}, {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        carry, plane, origins = cq_start(cfg, qcfg, dev)
+        stream = DeviceEventStream(cfg.gossip)
+        rk.reset_launches()
+        s0 = host_syncs()
+        carry, ev1 = cq_window(carry, cfg, ccfg, qcfg, prng.key(7),
+                               CQ_CHURN_ROUNDS, plane, origins, stream)
+        s1 = host_syncs()
+        carry, ev2 = cq_window(carry, cfg, settle_ccfg, qcfg, prng.key(8),
+                               CQ_SMALL_SETTLE, stream=stream)
+        syncs[dev] = ((s1 - s0) / CQ_CHURN_ROUNDS,
+                      (host_syncs() - s1) / CQ_SMALL_SETTLE)
+        if dev == "cuda":
+            launches = dict(rk.LAUNCHES)
+            bad = {k: v for k, v in launches.items()
+                   if (v > 0) != (k in CQ_KERNELS)}
+            if bad:
+                raise AssertionError(f"phase 3 churn-query: should launch "
+                                     f"exactly {CQ_KERNELS}; launches "
+                                     f"{launches}")
+        carries[dev] = carry
+        finals[dev] = carry_leaves(carry)
+        reads[dev] = cq_readouts(carry, cfg, plane)
+        events[dev] = ev1 + ev2
+    bad = compare_states(finals["cpu"], finals["cuda"])
+    bad += compare_states(reads["cpu"], reads["cuda"])
+    if events["cpu"] != events["cuda"]:
+        bad.append(f"device events differ ({len(events['cpu'])} on the "
+                   f"CPU, {len(events['cuda'])} on the card)")
+    if bad:
+        raise AssertionError("churn-query: CUDA != CPU: " + "; ".join(bad))
+    tr = carries["cpu"][3]
+    downs = int(tr.ever_down.sum())
+    kinds = {e.fact_kind for e in events["cpu"] if e.kind == "fact-born"}
+    log(f"phase 3: churn-query n={n} k={CQ_K} x {CQ_CHURN_ROUNDS} churned + "
+        f"{CQ_SMALL_SETTLE} settle rounds on the card == on the CPU "
+        f"(cluster, queries, countdown and trace leaves, stats, views, "
+        f"vote, {len(events['cpu'])} device events); {downs} nodes went "
+        f"down, fact kinds born {sorted(kinds)}; launches {launches}; "
+        f"host syncs per churned / settle round: card "
+        f"{syncs['cuda'][0]:.2f} / {syncs['cuda'][1]:.2f}, CPU "
+        f"{syncs['cpu'][0]:.2f} / {syncs['cpu'][1]:.2f}")
+
+    # a checkpoint written on the card restores on the CPU, equal
+    path = checkpoint_path("phase3.npz")
+    checkpoint.save(path, carries["cuda"])
+    back = checkpoint.restore(path, cq_template(cfg, qcfg, "cpu"))
+    bad = [p for p, x in carry_leaves(back).items()
+           if x.tobytes() != finals["cuda"][p].tobytes()]
+    if bad:
+        raise AssertionError(f"checkpoint card -> CPU differs: {bad}")
+    log("phase 3: a checkpoint saved on the card restored on the CPU "
+        "equals the card's state, bit for bit")
+    push_vs_cpu()
+
+
+def push_vs_cpu() -> None:
+    """push_round_step on the card == on the CPU, per-round and deferred
+    stamp flavors, from a state that three plain rounds populated."""
+    from serf_tpu_torch import convert, prng
+    from serf_tpu_torch.models.dissemination import (
+        K_USER_EVENT, GossipConfig, inject_fact, make_state,
+        push_round_step, round_step)
+    for unit in (1, 4):
+        cfg = GossipConfig(n=PUSH_N, k_facts=PUSH_K, stamp_flush_unit=unit)
+        finals = {}
+        for dev in ("cuda", "cpu"):
+            st = make_state(cfg, dev)
+            for i in range(8):
+                node = (i * 517 + 3) % PUSH_N
+                st = inject_fact(st, cfg, node, K_USER_EVENT, 0, i + 1, node)
+            for k in prng.split(prng.key(1), 3):
+                st = round_step(st, cfg, k)
+            for k in prng.split(prng.key(2), PUSH_ROUNDS):
+                st = push_round_step(st, cfg, k)
+            finals[dev] = convert.to_numpy(st)
+        bad = compare_states(finals["cpu"], finals["cuda"])
+        if bad:
+            raise AssertionError(f"push_round_step unit={unit}: CUDA != "
+                                 f"CPU: " + "; ".join(bad))
+        known = int((finals["cpu"]["known"] != 0).sum())
+        log(f"phase 3: push_round_step n={PUSH_N} k={PUSH_K} "
+            f"stamp_flush_unit={unit} x {PUSH_ROUNDS} rounds on the card "
+            f"== on the CPU ({known} nonzero known words)")
+
+
+def churn_query_full(profile: bool = False) -> dict:
+    """Phase 4: the churn-query path at N = CQ_N: the churn window and
+    the settle window, each timed; the reference test's outcome checks;
+    then the settle window again from a checkpoint of the state after
+    the churn window, which must equal the unbroken run."""
+    import torch
+
+    from serf_tpu_torch import host_syncs, prng
+    from serf_tpu_torch.models import checkpoint
+    from serf_tpu_torch.models.failure import believed_dead, \
+        detection_complete
+    from serf_tpu_torch.ops import round_kernels as rk
+    cfg, ccfg, qcfg = cq_configs(CQ_N, raised=False)
+    _, settle_ccfg, _ = cq_configs(CQ_N, raised=False, settle=True)
+    settle = cfg.failure.suspicion_rounds * 2 + 80
+    t0 = time.perf_counter()
+    carry, plane, origins = cq_start(cfg, qcfg, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rk.reset_launches()
+    s0 = host_syncs()
+    t0 = time.perf_counter()
+    carry, _ = cq_window(carry, cfg, ccfg, qcfg, prng.key(7),
+                         CQ_CHURN_ROUNDS, plane, origins)
+    torch.cuda.synchronize()
+    churn_s = time.perf_counter() - t0
+    churn_syncs = host_syncs() - s0
+    path = checkpoint_path("phase4.npz")
+    checkpoint.save(path, carry)
+    s0 = host_syncs()
+    t0 = time.perf_counter()
+    final, _ = cq_window(carry, cfg, settle_ccfg, qcfg, prng.key(8), settle)
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t0
+    settle_syncs = host_syncs() - s0
+    launches = dict(rk.LAUNCHES)
+    bad = {k: v for k, v in launches.items() if (v > 0) != (k in CQ_KERNELS)}
+    if bad:
+        raise AssertionError(f"phase 4 churn-query: should launch exactly "
+                             f"{CQ_KERNELS}; launches {launches}")
+
+    # the reference test's outcome checks
+    st, qs, _, tr = final
+    g = st.gossip
+    downs = int(tr.ever_down.sum())
+    if downs <= 10:
+        raise AssertionError(f"churn too quiet: {downs} down events")
+    if not bool(detection_complete(g, cfg.gossip, cfg.failure)):
+        raise AssertionError("down nodes not fully detected within the "
+                             "settle window")
+    false_dead = int((believed_dead(g, cfg.gossip, cfg.failure)
+                      & tr.always_up).sum())
+    if false_dead:
+        raise AssertionError(f"{false_dead} false deaths among always-up "
+                             "nodes")
+    reads = cq_readouts(final, cfg, plane)
+
+    # resume from the checkpoint into a fresh template
+    resumed = checkpoint.restore(path, cq_template(cfg, qcfg, "cuda"))
+    resumed, _ = cq_window(resumed, cfg, settle_ccfg, qcfg, prng.key(8),
+                           settle)
+    want, got = carry_leaves(final), carry_leaves(resumed)
+    differ = [p for p in want if want[p].tobytes() != got[p].tobytes()]
+    if differ:
+        raise AssertionError(f"resumed settle run != unbroken run: {differ}")
+    prof = None
+    if profile:
+        # 10 more churned rounds from the final state (queries gathering)
+        prof = profile_rounds(lambda n: cq_window(
+            final, cfg, ccfg, qcfg, prng.key(9), n))
+    log(f"phase 4: churn-query n={CQ_N} k={CQ_K}: {CQ_CHURN_ROUNDS} "
+        f"churned + {settle} settle rounds, {downs} nodes went down, "
+        f"detection complete, 0 false deaths among always-up nodes; the "
+        f"settle run resumed from a checkpoint equals the unbroken run "
+        f"on all {len(want)} leaves")
+    return dict(
+        churn_rps=CQ_CHURN_ROUNDS / churn_s, settle_rps=settle / settle_s,
+        churn_syncs=churn_syncs / CQ_CHURN_ROUNDS,
+        settle_syncs=settle_syncs / settle, launches=launches,
+        setup_s=setup_s, churn_s=churn_s, settle_s=settle_s,
+        settle=settle, downs=downs, reads=reads, profile=prof)
+
+
+def log_profile(path: str, prof: dict, rps: float) -> None:
+    """A path's profile against its timed rounds/s: busy time, idle
+    share and the host's waits on the stream."""
+    busy = prof["device_busy_ms"] / prof["rounds"]
+    log(f"{path} device_busy_ms_per_round: {busy:.3f} (profiled) of "
+        f"{1e3 / rps:.3f} ms wall per timed round: idle share "
+        f"{1 - busy * rps / 1e3:.3f}; "
+        f"{prof['stream_syncs'] / prof['rounds']:.1f} stream syncs per "
+        f"round (profiled), by operator {json.dumps(prof['waits'])}; "
+        f"clocks after: {prof['clocks']}")
+    log(f"{path} profile: " + json.dumps(prof))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -739,6 +1131,12 @@ def main() -> int:
     dev = torch.device("cuda")
     errs = check_kernels(rk, dev)
     times = measure_kernels(rk, dev)
+    times_cq = measure_kernels(rk, dev, CQ_N, CQ_K)
+    for name, t in times_cq.items():
+        log(f"kernel {name} at n={CQ_N} k={CQ_K}: {t['ms'] * 1e3:.2f} us "
+            f"(plain version {t['plain_ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, "
+            f"{t['bytes']} B)")
     for name, t in times.items():
         line = (f"kernel {name}: {t['ms'] * 1e3:.2f} us (plain version "
                 f"{t['plain_ms'] * 1e3:.2f} us, bound "
@@ -756,7 +1154,9 @@ def main() -> int:
                      f"issue limit")
         log(line + ")")
     slice_vs_cpu(rk)
+    churn_query_vs_cpu(rk)
     runs = {path: run_path(rk, path, args.profile) for path in PATHS}
+    cq = churn_query_full(args.profile)
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
         log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "
@@ -765,23 +1165,39 @@ def main() -> int:
         log(f"{path} setup_s: {run['setup_s']:.2f} warmup_s: "
             f"{run['warm_s']:.2f} timed_s: {run['run_s']:.3f}")
         if "profile" in run:
-            prof = run["profile"]
-            busy = prof["device_busy_ms"] / prof["rounds"]
-            log(f"{path} device_busy_ms_per_round: {busy:.3f} (profiled) "
-                f"of {1e3 / run['rps']:.3f} ms wall per timed round: idle "
-                f"share {1 - busy * run['rps'] / 1e3:.3f}; "
-                f"{prof['stream_syncs'] / prof['rounds']:.1f} stream "
-                f"syncs per round (profiled), by operator "
-                f"{json.dumps(prof['waits'])}; clocks after: "
-                f"{prof['clocks']}")
-            log(f"{path} profile: " + json.dumps(prof))
+            log_profile(path, run["profile"], run["rps"])
+    log(f"churn-query churn_rounds_per_s: {cq['churn_rps']:.2f} "
+        f"settle_rounds_per_s: {cq['settle_rps']:.2f}")
+    log(f"churn-query host_syncs_per_round: churn {cq['churn_syncs']:.2f} "
+        f"settle {cq['settle_syncs']:.2f}")
+    log(f"churn-query launches ({CQ_CHURN_ROUNDS} + {cq['settle']} "
+        f"rounds): "
+        f"{json.dumps(cq['launches'])}")
+    log(f"churn-query setup_s: {cq['setup_s']:.2f} churn_s: "
+        f"{cq['churn_s']:.3f} settle_s: {cq['settle_s']:.3f}")
+    if cq["profile"]:
+        log_profile("churn-query (churned rounds)", cq["profile"],
+                    cq["churn_rps"])
+    reads = cq["reads"]
+    log("churn-query readouts: " + json.dumps({
+        k: v.tolist() for k, v in reads.items() if k != "views"}))
+    views = reads["views"]
+    log("churn-query composed views (status: knower-subject cells): "
+        + json.dumps({int(v): int((views == v).sum())
+                      for v in sorted(set(views.ravel().tolist()))}))
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], path=KERNEL_PATH[name],
                     launches=runs[KERNEL_PATH[name]]["launches"][name],
+                    launches_by_path=dict(
+                        {p: r["launches"][name] for p, r in runs.items()},
+                        **{"churn-query": cq["launches"][name]}),
                     max_abs_err=errs[name],
                     ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                    library_ms=None)
+                    library_ms=None,
+                    ms_k256=times_cq[name]["ms"],
+                    plain_ms_k256=times_cq[name]["plain_ms"],
+                    bound_ms_k256=times_cq[name]["bound_ms"])
                for name, t in times.items()]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -294,6 +294,14 @@ def nibble_age_pred_words(lo: torch.Tensor, hi: torch.Tensor, round_,
     return pack_pred_words(q_lo < threshold, q_hi < threshold)
 
 
+def pack_stamp_nibbles(nib: torch.Tensor, packed: bool) -> torch.Tensor:
+    """Inverse of :func:`stamp_nibbles`: u8[..., K] 4-bit values back to
+    the storage flavor."""
+    if not packed:
+        return nib
+    return (nib[..., 0::2] & 0xF) | (nib[..., 1::2] << 4)
+
+
 def clamp_nibbles(nib: torch.Tensor, round_) -> torch.Tensor:
     """Re-pin stale 4-bit stamps at q-age ``AGE_PIN_Q`` (uint8 out)."""
     rq = round_q(round_)
@@ -375,6 +383,23 @@ def mod_age(state: GossipState, cfg: GossipConfig, round_=None
                           torch.zeros((), dtype=torch.uint8,
                                       device=age.device), age)
     return age
+
+
+def age_of(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
+    """u8[N, K]: knowledge age in quarter-round ticks, 255 where the
+    fact is unknown (the gated view for metrics and tests)."""
+    known = unpack_bits(state.known, cfg.k_facts)
+    return torch.where(known, mod_age(state, cfg),
+                       torch.full((), 255, dtype=torch.uint8,
+                                  device=known.device))
+
+
+def budgets_of(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
+    """u8[N, K]: remaining transmit budget in quarter-round ticks."""
+    limit = cfg.transmit_limit_q
+    age = age_of(state, cfg)
+    return torch.where(age < limit, limit - age,
+                       torch.zeros((), dtype=torch.uint8, device=age.device))
 
 
 def sending_mask(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
@@ -953,6 +978,56 @@ def round_step(state: GossipState, cfg: GossipConfig, key, group=None,
     return nxt
 
 
+def run_rounds(state: GossipState, cfg: GossipConfig, key,
+               num_rounds: int) -> GossipState:
+    """``num_rounds`` gossip rounds, keys split as the reference's scan
+    splits them."""
+    for k in prng.split(key, num_rounds):
+        state = round_step(state, cfg, k)
+    return state
+
+
+def push_round_step(state: GossipState, cfg: GossipConfig,
+                    key) -> GossipState:
+    """Exact push-gossip round (the conformance mode, O(N^2)): each alive
+    node sends its selected facts to ``fanout`` random targets; delivery
+    is ``incoming = (A^T @ B) > 0`` for the round's adjacency ``A[N, N]``
+    and the sending bit plane ``B[N, K]``.  The counts are sums of 0/1
+    values in float32, exact below 2^24, so ``> 0`` is exact.  The stamp
+    pass runs unconditionally (clamp, then the learns), and on the
+    deferred flavor it doubles as a cohort flush that retires the
+    overlay at the previous round's quarter.  The sendable cache is not
+    maintained, so it is invalidated."""
+    n, k = cfg.n, cfg.k_facts
+    dev = state.known.device
+    sending = sending_mask(state, cfg)
+    targets = prng.randint(key, (n, cfg.fanout), 0, n, dev).to(torch.int64)
+    adj = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    rows = torch.arange(n, device=dev)[:, None].expand(n, cfg.fanout)
+    adj[rows, targets] = 1.0
+    adj = adj * state.alive[:, None].to(torch.float32)
+    counts = torch.matmul(adj.T, sending.to(torch.float32))
+    new_mask = (counts > 0.0) & ~unpack_bits(state.known, k) \
+        & state.alive[:, None]
+    known = state.known | pack_bits(new_mask)
+    r1 = state.round + 1
+    nib = clamp_nibbles(stamp_nibbles(state.stamp, k, cfg.pack_stamp), r1)
+    if cfg.stamp_deferred:
+        nib = torch.where(unpack_bits(state.overlay, k),
+                          round_q(state.round).to(torch.uint8), nib)
+    nib = torch.where(new_mask, round_q(r1).to(torch.uint8), nib)
+    out = state._replace(
+        known=known, stamp=pack_stamp_nibbles(nib, cfg.pack_stamp),
+        last_learn=bump_last_learn(torch.any(new_mask), r1,
+                                   state.last_learn),
+        sendable_round=torch.full_like(state.sendable_round, -1),
+        last_clamp=r1, round=r1)
+    if cfg.stamp_deferred:
+        out = out._replace(overlay=torch.zeros_like(state.overlay),
+                           last_flush=r1)
+    return out
+
+
 # -- Lamport-time wrap window ------------------------------------------------
 
 
@@ -991,3 +1066,9 @@ def coverage(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
     den = torch.clamp(torch.sum(state.alive), min=1).to(torch.float32)
     return num / den
 
+
+def fully_disseminated(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
+    """bool[K]: every alive node knows the fact (True for invalid slots)."""
+    return torch.where(state.facts.valid, coverage(state, cfg) >= 1.0,
+                       torch.ones((), dtype=torch.bool,
+                                  device=state.known.device))

@@ -40,6 +40,7 @@ from serf_tpu_torch.models.dissemination import (
     nibble_age_pred_words,
     pick_bounded,
     rolled_rows,
+    round_step,
     sample_offsets,
     scatter_max_bool,
 )
@@ -300,6 +301,26 @@ def _declare_round_body(state: GossipState, cfg: GossipConfig,
                            fcfg.max_new_facts, key)
 
 
+def swim_round(state: GossipState, cfg: GossipConfig, fcfg: FailureConfig,
+               key) -> GossipState:
+    """One full protocol round: gossip exchange + probe + refute +
+    declare (no cadence: every phase every round)."""
+    k1, k2, k3, k4 = prng.split(key, 4)
+    state = round_step(state, cfg, k1)
+    state = probe_round(state, cfg, fcfg, k2)
+    state = refute_round(state, cfg, fcfg, k3)
+    return declare_round(state, cfg, fcfg, k4)
+
+
+def run_swim(state: GossipState, cfg: GossipConfig, fcfg: FailureConfig,
+             key, num_rounds: int) -> GossipState:
+    """``num_rounds`` of :func:`swim_round`, keys split as the
+    reference's scan splits them."""
+    for k in prng.split(key, num_rounds):
+        state = swim_round(state, cfg, fcfg, k)
+    return state
+
+
 # -- views / metrics -----------------------------------------------------------
 
 def believer_counts(state: GossipState, cfg: GossipConfig,
@@ -348,3 +369,11 @@ def believed_dead(state: GossipState, cfg: GossipConfig,
     cnt = believer_counts(state, cfg, fcfg, stretch_q)
     believed = believed_subjects(state, cfg.n, cnt, torch.sum(state.alive))
     return believed | state.tombstone
+
+
+def detection_complete(state: GossipState, cfg: GossipConfig,
+                       fcfg: FailureConfig) -> torch.Tensor:
+    """Scalar bool: every dead node is believed dead by every alive
+    node."""
+    believed = believed_dead(state, cfg, fcfg)
+    return torch.all(believed | state.alive)

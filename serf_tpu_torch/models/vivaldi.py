@@ -83,6 +83,17 @@ def _raw_distance(vec_a, h_a, vec_b, h_b):
     return _norm(vec_a - vec_b) + h_a + h_b
 
 
+def estimated_rtt(state: VivaldiState, i, j) -> torch.Tensor:
+    """Adjusted distance estimate between node indices (vectorized)."""
+    dev = state.vec.device
+    i = torch.as_tensor(i, device=dev).to(torch.int64)
+    j = torch.as_tensor(j, device=dev).to(torch.int64)
+    dist = _raw_distance(state.vec[i], state.height[i],
+                         state.vec[j], state.height[j])
+    adjusted = dist + state.adjustment[i] + state.adjustment[j]
+    return torch.where(adjusted > 0.0, adjusted, dist)
+
+
 def _unit_vectors(diff: torch.Tensor, key):
     """Unit vectors along ``diff`` rows; random directions where the
     points coincide."""
@@ -224,3 +235,18 @@ def ground_truth_rtt_rolled(positions: torch.Tensor, shift,
                             base: float = 0.005) -> torch.Tensor:
     """``ground_truth_rtt(positions, i, (i+shift)%n)`` for all i."""
     return base + _norm(positions - rolled_rows(positions, shift))
+
+
+def mean_relative_error(state: VivaldiState, cfg: VivaldiConfig,
+                        positions: torch.Tensor, key,
+                        samples: int = 4096) -> torch.Tensor:
+    """Estimation quality: mean ``|est - true| / true`` over ``samples``
+    random pairs (f32 scalar on the state's device)."""
+    n = state.vec.shape[0]
+    dev = state.vec.device
+    k1, k2 = prng.split(key)
+    i = prng.randint(k1, (samples,), 0, n, dev)
+    j = prng.randint(k2, (samples,), 0, n, dev)
+    est = estimated_rtt(state, i, j)
+    true = ground_truth_rtt(positions, i, j)
+    return torch.mean(torch.abs(est - true) / torch.clamp(true, min=1e-9))
