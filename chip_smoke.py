@@ -3,22 +3,25 @@
 
     python3 chip_smoke.py            # every phase, as a user would run it
     python3 chip_smoke.py --profile  # also trace 10 rounds of each path
+                                     # (and each chaos run once more)
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (``nvidia-smi``), then the kernel
    build from ``serf_tpu_torch/ops/csrc`` (``nvcc``, first use);
 2. all five kernels against their plain PyTorch versions, bit for bit,
-   at the flagship width (N = 1,000,000, K = 64), at the churn-query
-   width (N = 100,000, K = 256) and at a ragged small N with K = 32,
+   at the flagship width (N = 1,000,000, K = 64), at the chaos-shed
+   width (N = 1,000,000, K = 32), at the churn-query width (N =
+   100,000, K = 256) and at a ragged small N with K = 32,
    64, 96 and 256, for both stamp flavors, the cache on and off,
    transmit limits 1, 7 and 8, next rounds on all 16 stamp quarters and
    every phase of a quarter (the cohort quarter wrapping from 0 to 15
    included), and flush inputs with all-overlay, all-fresh and
    both-at-once words besides random overlay that overlaps the fresh
-   learns; then each kernel's time at the flagship and the churn-query
-   shapes beside its plain version's and its byte bound, with its SASS
-   instruction count's issue times as a diagnostic of the design;
+   learns; then each kernel's time at the flagship, churn-query and
+   chaos-shed shapes beside its plain version's and its byte bound,
+   with its SASS instruction count's issue times as a diagnostic of
+   the design;
 3. the slice on the card against the slice on the CPU, N = 4096, 40
    sustained rounds from one key, every integer leaf equal and the float
    leaves within tolerance (the CPU run is the one the tests hold against
@@ -53,6 +56,27 @@ rounds/s of each window, host syncs per round, launches per kernel
 ``fused_merge``), the reference test's outcome checks, and a run
 resumed from a checkpoint taken after the churn window that must equal
 the unbroken run.
+
+Phases 3 and 4 also run the device chaos executor and its record/
+replay plane on two named plans: ``partition-heal-loss`` (BASELINE
+config #4: a bisecting partition with 5% loss, then heal; per-round
+stamps) and both A/B legs of ``control-overload-shed`` (injection
+storms past ring capacity, the deferred flavor at unit 2, the
+controller on in one leg).  Phase 3 holds them on the card against the
+CPU at N = 4096, K = 32: the recordings equal line for line, the
+invariant report, ledger, watchdog, propagation summary, SLO verdicts,
+control rows and decisions equal; the CPU's recording replayed on the
+card with no divergence, and a recording with one flipped event
+replayed on both diverging first at the same round.  Phase 4 runs them
+at N = 1,000,000: the heal plan recorded, replayed on the card and
+diffed, both plans' per-round digest streams, reports, ledgers and
+decisions equal to the reference's (``tests/data/torch_chaos_1m.json``),
+with rounds/s, host syncs per round and launches per run, and the SLO
+verdicts of both legs (whether the reference's A/B contract holds at
+this size is logged, not asserted).  Under ``--profile`` the recorded
+heal run and the recorded controlled shed run are each run once more
+under the profiler, so that their busy time per round covers the same
+work as their timed wall.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Needs no network and imports no
@@ -236,10 +260,13 @@ CHECK_ROUNDS = tuple(192 + 4 * q + q % 4 for q in range(16)) + (64, 1024)
 #: phase 2's transmit limits: the flagship's 7 at N = 1M, the smallest
 #: that sends, and the age pin AGE_PIN_Q
 CHECK_LIMITS = (1, 7, 8)
-#: phase 2's (N, K): the flagship's, then a ragged N at K = 64 and at
-#: one and three words per row
-CHECK_SHAPES = ((N_MAIN, K_MAIN), (N_RAGGED, K_MAIN), (N_RAGGED, 32),
-                (N_RAGGED, 96), (N_RAGGED, 256), (100_000, 256))
+#: the chaos-shed path's K (one word per row) at N_MAIN
+K_SHED = 32
+#: phase 2's (N, K): the flagship's and chaos-shed's, then a ragged N at
+#: K = 64 and at one and three words per row
+CHECK_SHAPES = ((N_MAIN, K_MAIN), (N_MAIN, K_SHED), (N_RAGGED, K_MAIN),
+                (N_RAGGED, 32), (N_RAGGED, 96), (N_RAGGED, 256),
+                (100_000, 256))
 
 
 def check_kernels(rk, dev) -> dict:
@@ -470,7 +497,8 @@ def check_launches(rk, path: str, what: str) -> dict:
     """The launch counts since the last reset; raises unless exactly the
     path's kernels launched."""
     launches = dict(rk.LAUNCHES)
-    want = set(PATHS[path]["kernels"])
+    want = set(PATHS[path]["kernels"] if path in PATHS
+               else CHAOS_PATHS[path]["kernels"])
     bad = {k: v for k, v in launches.items() if (v > 0) != (k in want)}
     if bad:
         raise AssertionError(f"{what}: path {path} should launch exactly "
@@ -1076,6 +1104,345 @@ def churn_query_full(profile: bool = False) -> dict:
         settle=settle, downs=downs, reads=reads, profile=prof)
 
 
+# -- phases 3 and 4: the chaos and record/replay paths ------------------------
+
+#: the two chaos paths: a named plan, its A/B config's K at full width,
+#: and the kernels the path must launch (every other kernel must not).
+#: partition-heal-loss is BASELINE config #4 (push/pull sync under a
+#: partition and heal) on the default chaos config, per-round stamps;
+#: control-overload-shed runs the deferred flavor at unit 2 (both A/B
+#: legs), the path that runs ``fused_flush``.
+CHAOS_PATHS = {
+    "chaos-heal": dict(plan="partition-heal-loss", k=64, legs=(False,),
+                       kernels=PATHS["per-round"]["kernels"]),
+    "chaos-shed": dict(plan="control-overload-shed", k=K_SHED,
+                       legs=(False, True),
+                       kernels=PATHS["deferred"]["kernels"]),
+}
+#: phase 3's size against the CPU, at the chaos profiles' K
+CHAOS_SMALL_N, CHAOS_SMALL_K = 4096, 32
+#: the reference's full-width runs (``tests/test_torch_chaos.py`` writes
+#: it with ``-m slow``)
+CHAOS_FIXTURE = "tests/data/torch_chaos_1m.json"
+#: SLO verdict values are built on float telemetry rows (the float-summed
+#: coverage), compared to a few ulp
+SLO_RTOL = 1e-6
+#: every evidence row on (phase 3's partition-heal-loss runs)
+EVIDENCE = dict(collect_telemetry=True, collect_propagation=True,
+                collect_invariants=True)
+
+
+def chaos_config(plan: str, n: int, k: int, controlled: bool):
+    """The plan's A/B config (the reference's values) with the kernels
+    on."""
+    from serf_tpu_torch.control.profiles import device_ab_config
+    cfg = device_ab_config(plan, n, k, controlled)
+    return dataclasses.replace(cfg, gossip=dataclasses.replace(
+        cfg.gossip, use_pallas=True))
+
+
+def chaos_run(plan: str, cfg, device, record: bool = False, **flags):
+    """``run_device_plan`` of a named plan; returns ``(result, recording
+    or None)``."""
+    from serf_tpu_torch.faults.device import run_device_plan
+    from serf_tpu_torch.faults.plan import named_plan
+    from serf_tpu_torch.replay.recording import RunRecorder
+    recorder = RunRecorder() if record else None
+    res = run_device_plan(named_plan(plan), cfg, recorder=recorder,
+                          device=device, **flags)
+    return res, (recorder.to_recording() if record else None)
+
+
+def perturbed(rec, n: int):
+    """A copy of a recording with one event flipped: the first origin of
+    the first injection after the first scan moves by one node."""
+    import copy
+
+    from serf_tpu_torch.replay.recording import Recording
+    pert = Recording(copy.deepcopy(rec.header), copy.deepcopy(rec.records))
+    scans = 0
+    for r in pert.records:
+        if r["kind"] == "step" and r["op"] == "scan":
+            scans += 1
+        elif r["kind"] == "step" and r["op"] == "inject" and scans == 1:
+            r["args"]["origins"][0] = (r["args"]["origins"][0] + 1) % n
+            return pert
+    raise AssertionError("no injection after the first scan")
+
+
+def verdicts_differ(a, b) -> list:
+    """SLO verdicts of two runs: names, ``ok`` bits, details and skips
+    exact, values and burns within SLO_RTOL."""
+    import math
+    bad = []
+    if [v.slo for v in a] != [v.slo for v in b]:
+        return ["verdict names"]
+    for x, y in zip(a, b):
+        dx, dy = x.to_dict(), y.to_dict()
+        vx, vy = dx.pop("value"), dy.pop("value")
+        bx, by = dx.pop("burn"), dy.pop("burn")
+        if dx != dy or (vx is None) != (vy is None) or (
+                vx is not None and not math.isclose(vx, vy,
+                                                    rel_tol=SLO_RTOL)) \
+                or bx.keys() != by.keys() or any(
+                    not math.isclose(bx[w], by[w], rel_tol=1e-4)
+                    for w in bx):
+            bad.append(f"SLO {x.slo}")
+    return bad
+
+
+def chaos_evidence_differ(a, b) -> list:
+    """Two chaos results' report, ledger, watchdog, propagation summary
+    and control trajectory: exact but for the float-summed coverage."""
+    import numpy as np
+    bad = []
+    if a.report.to_dict() != b.report.to_dict():
+        bad.append("invariant report")
+    if (a.offered, a.dropped, a.rounds_run) != (b.offered, b.dropped,
+                                                b.rounds_run):
+        bad.append("offered/dropped/rounds")
+    if (a.watchdog is None) != (b.watchdog is None):
+        bad.append("watchdog collected on one side only")
+    elif a.watchdog is not None:
+        wa, wb = dict(a.watchdog), dict(b.watchdog)
+        if not np.array_equal(wa.pop("rows"), wb.pop("rows")) or wa != wb:
+            bad.append("watchdog")
+    if a.propagation is not None:
+        pa, pb = a.propagation, b.propagation
+        if not (np.array_equal(pa["rows"], pb["rows"])
+                and np.array_equal(pa["coverage"], pb["coverage"])):
+            bad.append("propagation rows")
+        for key, x in pa["summary"].items():
+            y = pb["summary"][key]
+            if isinstance(x, (float, list)) and key != "first_learn":
+                if not np.allclose(x, y, rtol=SLO_RTOL, atol=0):
+                    bad.append(f"propagation {key}")
+            elif x != y:
+                bad.append(f"propagation {key}")
+    if (a.control_rows is None) != (b.control_rows is None) or (
+            a.control_rows is not None
+            and not np.array_equal(a.control_rows, b.control_rows)):
+        bad.append("control rows")
+    if a.control_decisions != b.control_decisions:
+        bad.append("control decisions")
+    return bad
+
+
+def chaos_vs_cpu(rk, device: str = "cuda") -> None:
+    """Phase 3: the chaos paths on the card == on the CPU at N =
+    CHAOS_SMALL_N: ``partition-heal-loss`` recorded with every evidence
+    row (recordings equal line for line, every per-node digest
+    included), the CPU's recording replayed on the card with no
+    divergence, a perturbed recording replayed on both naming the same
+    first divergent round; both A/B legs of ``control-overload-shed``
+    (SLO verdicts, control rows and decisions, reports)."""
+    from serf_tpu_torch.faults.plan import named_plan
+    from serf_tpu_torch.obs.slo import judge_device_run
+    from serf_tpu_torch.replay.differ import diff_recordings
+    from serf_tpu_torch.replay.replayer import replay_device
+    n, k = CHAOS_SMALL_N, CHAOS_SMALL_K
+    plan = CHAOS_PATHS["chaos-heal"]["plan"]
+    cfg = chaos_config(plan, n, k, False)
+    res, rec, launches = {}, {}, {}
+    for dev in (device, "cpu"):
+        rk.reset_launches()
+        res[dev], rec[dev] = chaos_run(plan, cfg, dev, record=True,
+                                       **EVIDENCE)
+        if dev == "cuda":
+            launches = check_launches(rk, "chaos-heal", "phase 3")
+    card, cpu = rec[device], rec["cpu"]
+    bad = chaos_evidence_differ(res["cpu"], res[device])
+    if card.to_jsonl() != cpu.to_jsonl():
+        lines = list(zip(card.to_jsonl().splitlines(),
+                         cpu.to_jsonl().splitlines()))
+        first = next((i for i, (x, y) in enumerate(lines) if x != y),
+                     len(lines))
+        bad.append(f"recordings differ from line {first}")
+    if bad:
+        raise AssertionError(f"{plan}: card != CPU: " + "; ".join(bad))
+    report = res[device].report
+    if not report.ok:
+        raise AssertionError(f"{plan} at n={n}: {report.format()}")
+    replayed = replay_device(cpu, device=device).to_recording()
+    d = diff_recordings(cpu, replayed)
+    if not d.ok:
+        raise AssertionError(f"the CPU's recording replayed on the card "
+                             f"diverged: {d.to_dict()}")
+    pert = perturbed(cpu, n)
+    diffs = {dev: diff_recordings(cpu, replay_device(
+        pert, device=dev).to_recording()) for dev in (device, "cpu")}
+    if diffs[device].to_dict() != diffs["cpu"].to_dict() \
+            or diffs["cpu"].first_divergent_round is None:
+        raise AssertionError(
+            f"perturbed replay: card {diffs[device].first_divergent_round}"
+            f" vs CPU {diffs['cpu'].first_divergent_round}")
+    log(f"phase 3: {plan} n={n} k={k} ({res['cpu'].rounds_run} rounds, "
+        f"{len(cpu.views())} views with {n} node digests each) recorded "
+        f"on the card == on the CPU line for line; report, ledger "
+        f"({res['cpu'].offered} offered, {res['cpu'].dropped} dropped), "
+        f"watchdog and propagation equal; the CPU's recording replays on "
+        f"the card with no divergence; a flipped event diverges first at "
+        f"round {diffs['cpu'].first_divergent_round} ("
+        f"{len(diffs['cpu'].node_delta)} nodes) on both; launches "
+        f"{launches}")
+    plan = CHAOS_PATHS["chaos-shed"]["plan"]
+    for controlled in CHAOS_PATHS["chaos-shed"]["legs"]:
+        cfg = chaos_config(plan, n, k, controlled)
+        res, verdicts = {}, {}
+        for dev in (device, "cpu"):
+            rk.reset_launches()
+            res[dev], _ = chaos_run(plan, cfg, dev, collect_telemetry=True)
+            verdicts[dev] = judge_device_run(res[dev], named_plan(plan))
+            if dev == "cuda":
+                launches = check_launches(rk, "chaos-shed", "phase 3")
+        bad = chaos_evidence_differ(res["cpu"], res[device])
+        bad += verdicts_differ(verdicts["cpu"], verdicts[device])
+        if bad:
+            raise AssertionError(f"{plan} controlled={controlled}: card "
+                                 f"!= CPU: " + "; ".join(bad))
+        log(f"phase 3: {plan} n={n} k={k} controlled={controlled} on the "
+            f"card == on the CPU (SLO verdicts "
+            f"{[(v.slo, v.ok) for v in verdicts['cpu'] if not v.skipped]}, "
+            f"{len(res['cpu'].control_decisions)} decisions, report "
+            f"{'GREEN' if res['cpu'].report.ok else 'RED'}); launches "
+            f"{launches}")
+
+
+def load_chaos_fixture() -> dict:
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent / CHAOS_FIXTURE
+    return json.loads(path.read_text())["runs"]
+
+
+def fixture_differ(name: str, res, rec, want: dict) -> list:
+    """A full-width run against the reference's: the per-round digest
+    stream, rounds, report, ledger and decisions."""
+    bad = []
+    digests = [v["digest"] for v in rec.views()]
+    if digests != want["digests"]:
+        first = next((i for i, (a, b) in enumerate(zip(
+            digests, want["digests"])) if a != b), None)
+        bad.append(f"digest stream differs from round "
+                   f"{None if first is None else first + 1} "
+                   f"({len(digests)} vs {len(want['digests'])} rounds)")
+    if res.rounds_run != want["rounds_run"]:
+        bad.append("rounds_run")
+    if res.report.to_dict() != want["report"]:
+        bad.append("invariant report")
+    if (res.offered, res.dropped) != (want["offered"], want["dropped"]):
+        bad.append(f"ledger {res.offered}/{res.dropped} vs "
+                   f"{want['offered']}/{want['dropped']}")
+    if res.control_decisions != want["decisions"]:
+        bad.append("control decisions")
+    return [f"{name}: {b}" for b in bad]
+
+
+def chaos_full(rk, profile: bool = False) -> dict:
+    """Phase 4: the chaos paths at N = 1,000,000 with the kernels on.
+    ``partition-heal-loss`` is recorded, replayed on the card and diffed,
+    and its digest stream, report and ledger held against the
+    reference's fixture; ``control-overload-shed`` runs both A/B legs
+    with telemetry (the controlled one recorded and held to the
+    fixture), logging its SLO verdicts.  Each run is timed (host clock,
+    ending in a synchronize) with its host syncs and launches."""
+    import torch
+
+    from serf_tpu_torch import host_syncs
+    from serf_tpu_torch.faults.plan import named_plan
+    from serf_tpu_torch.obs.slo import judge_device_run
+    from serf_tpu_torch.replay.differ import diff_recordings
+    from serf_tpu_torch.replay.replayer import replay_device
+    fixture = load_chaos_fixture()
+    out, bad = {}, []
+
+    def timed(what, path, fn):
+        rk.reset_launches()
+        s0 = host_syncs()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        syncs = host_syncs() - s0
+        launches = check_launches(rk, path, f"phase 4 {what}")
+        return value, dict(s=secs, syncs=syncs, launches=launches)
+
+    plan = CHAOS_PATHS["chaos-heal"]["plan"]
+    cfg = chaos_config(plan, N_MAIN, CHAOS_PATHS["chaos-heal"]["k"], False)
+    (res, rec), run = timed(plan, "chaos-heal", lambda: chaos_run(
+        plan, cfg, "cuda", record=True))
+    rounds = res.rounds_run
+    replayed, rep = timed(f"{plan} replay", "chaos-heal",
+                          lambda: replay_device(rec).to_recording())
+    d = diff_recordings(rec, replayed)
+    if not d.ok:
+        bad.append(f"{plan}: record -> replay on the card diverged: "
+                   f"{d.to_dict()}")
+    bad += fixture_differ(plan, res, rec, fixture[plan])
+    out["chaos-heal"] = dict(
+        plan=plan, n=N_MAIN, k=cfg.gossip.k_facts, rounds=rounds,
+        rps=rounds / run["s"], replay_rps=rounds / rep["s"],
+        syncs_per_round=run["syncs"] / rounds,
+        replay_syncs_per_round=rep["syncs"] / rounds,
+        launches=run["launches"], replay_launches=rep["launches"],
+        report=res.report.to_dict(), offered=res.offered,
+        dropped=res.dropped, views_compared=d.compared_views)
+    if profile:
+        out["chaos-heal"]["profile"] = chaos_profile(plan, cfg, rounds,
+                                                     record=True)
+
+    plan = CHAOS_PATHS["chaos-shed"]["plan"]
+    legs = {}
+    for controlled in CHAOS_PATHS["chaos-shed"]["legs"]:
+        cfg = chaos_config(plan, N_MAIN, CHAOS_PATHS["chaos-shed"]["k"],
+                           controlled)
+        (res, rec), run = timed(
+            f"{plan} controlled={controlled}", "chaos-shed",
+            lambda: chaos_run(plan, cfg, "cuda", record=controlled,
+                              collect_telemetry=True))
+        if controlled:
+            bad += fixture_differ(plan, res, rec, fixture[plan])
+            if profile:
+                legs["profile"] = chaos_profile(
+                    plan, cfg, res.rounds_run, record=True,
+                    collect_telemetry=True)
+        verdicts = judge_device_run(res, named_plan(plan))
+        legs[controlled] = dict(
+            rounds=res.rounds_run, rps=res.rounds_run / run["s"],
+            syncs_per_round=run["syncs"] / res.rounds_run,
+            launches=run["launches"], offered=res.offered,
+            dropped=res.dropped, report=res.report.to_dict(),
+            decisions=res.control_decisions,
+            verdicts=[(v.slo, v.ok, v.value) for v in verdicts
+                      if not v.skipped])
+    static_breach = any(s == "shed-ratio" and not ok
+                        for s, ok, _ in legs[False]["verdicts"])
+    controlled_green = all(ok for _, ok, _ in legs[True]["verdicts"])
+    out["chaos-shed"] = dict(plan=plan, n=N_MAIN,
+                             k=CHAOS_PATHS["chaos-shed"]["k"],
+                             static=legs[False], controlled=legs[True],
+                             profile=legs.get("profile"),
+                             contract_holds=static_breach
+                             and controlled_green)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    log(f"phase 4: partition-heal-loss n={N_MAIN}: record -> replay on "
+        f"the card diffs clean over {out['chaos-heal']['views_compared']} "
+        f"rounds, and the digest stream, report and ledger equal the "
+        f"reference's; control-overload-shed controlled leg: digests, "
+        f"report and {len(legs[True]['decisions'])} decisions equal the "
+        f"reference's")
+    return out
+
+
+def chaos_profile(plan: str, cfg, rounds: int, **flags) -> dict:
+    """The timed chaos run once more, the same plan, config, seed and
+    flags (recorder included), under the profiler: its busy time per
+    round is set against the timed run's wall per round, so both cover
+    the same work (injections, per-round digests, read-outs)."""
+    return profile_rounds(lambda _: chaos_run(plan, cfg, "cuda", **flags),
+                          rounds)
+
+
 def log_profile(path: str, prof: dict, rps: float) -> None:
     """A path's profile against its timed rounds/s: busy time, idle
     share and the host's waits on the stream."""
@@ -1092,7 +1459,8 @@ def log_profile(path: str, prof: dict, rps: float) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace 10 rounds of each path with torch.profiler")
+                    help="trace 10 rounds of each path, and each recorded "
+                    "chaos run, with torch.profiler")
     args = ap.parse_args()
     try:
         import torch
@@ -1132,11 +1500,14 @@ def main() -> int:
     errs = check_kernels(rk, dev)
     times = measure_kernels(rk, dev)
     times_cq = measure_kernels(rk, dev, CQ_N, CQ_K)
-    for name, t in times_cq.items():
-        log(f"kernel {name} at n={CQ_N} k={CQ_K}: {t['ms'] * 1e3:.2f} us "
-            f"(plain version {t['plain_ms'] * 1e3:.2f} us, bound "
-            f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, "
-            f"{t['bytes']} B)")
+    times_shed = measure_kernels(rk, dev, N_MAIN, K_SHED)
+    for (n, k), ts in (((CQ_N, CQ_K), times_cq),
+                       ((N_MAIN, K_SHED), times_shed)):
+        for name, t in ts.items():
+            log(f"kernel {name} at n={n} k={k}: {t['ms'] * 1e3:.2f} us "
+                f"(plain version {t['plain_ms'] * 1e3:.2f} us, bound "
+                f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, "
+                f"{t['bytes']} B)")
     for name, t in times.items():
         line = (f"kernel {name}: {t['ms'] * 1e3:.2f} us (plain version "
                 f"{t['plain_ms'] * 1e3:.2f} us, bound "
@@ -1155,8 +1526,10 @@ def main() -> int:
         log(line + ")")
     slice_vs_cpu(rk)
     churn_query_vs_cpu(rk)
+    chaos_vs_cpu(rk)
     runs = {path: run_path(rk, path, args.profile) for path in PATHS}
     cq = churn_query_full(args.profile)
+    chaos = chaos_full(rk, args.profile)
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
         log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "
@@ -1185,19 +1558,60 @@ def main() -> int:
     log("churn-query composed views (status: knower-subject cells): "
         + json.dumps({int(v): int((views == v).sum())
                       for v in sorted(set(views.ravel().tolist()))}))
+    heal = chaos["chaos-heal"]
+    log(f"chaos-heal ({heal['plan']}, n={heal['n']} k={heal['k']}, "
+        f"{heal['rounds']} rounds, recorded): rounds_per_s "
+        f"{heal['rps']:.2f}, replay rounds_per_s {heal['replay_rps']:.2f}; "
+        f"host_syncs_per_round {heal['syncs_per_round']:.2f} (replay "
+        f"{heal['replay_syncs_per_round']:.2f}); launches "
+        f"{json.dumps(heal['launches'])} (replay "
+        f"{json.dumps(heal['replay_launches'])}); offered "
+        f"{heal['offered']} dropped {heal['dropped']}")
+    log("chaos-heal report: " + json.dumps(heal["report"]))
+    if "profile" in heal:
+        log_profile("chaos-heal (the recorded plan)", heal["profile"],
+                    heal["rps"])
+    shed = chaos["chaos-shed"]
+    for leg in ("static", "controlled"):
+        r = shed[leg]
+        log(f"chaos-shed {leg} ({shed['plan']}, n={shed['n']} "
+            f"k={shed['k']}, {r['rounds']} rounds): rounds_per_s "
+            f"{r['rps']:.2f}; host_syncs_per_round "
+            f"{r['syncs_per_round']:.2f}; launches "
+            f"{json.dumps(r['launches'])}; offered {r['offered']} dropped "
+            f"{r['dropped']}; {len(r['decisions'])} decisions; SLO "
+            f"verdicts {json.dumps(r['verdicts'])}")
+        log(f"chaos-shed {leg} report: " + json.dumps(r["report"]))
+    if shed["profile"]:
+        log_profile("chaos-shed controlled (the recorded plan)",
+                    shed["profile"], shed["controlled"]["rps"])
+    log(f"chaos-shed decisions (controlled): "
+        f"{json.dumps(shed['controlled']['decisions'])}")
+    log(f"chaos-shed A/B contract (static breaches shed-ratio, controlled "
+        f"all green) at n={shed['n']}: "
+        f"{'holds' if shed['contract_holds'] else 'does not hold'}")
+    chaos_launches = {"chaos-heal": heal["launches"],
+                      "chaos-heal-replay": heal["replay_launches"],
+                      "chaos-shed-static": shed["static"]["launches"],
+                      "chaos-shed-controlled":
+                          shed["controlled"]["launches"]}
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], path=KERNEL_PATH[name],
                     launches=runs[KERNEL_PATH[name]]["launches"][name],
                     launches_by_path=dict(
                         {p: r["launches"][name] for p, r in runs.items()},
-                        **{"churn-query": cq["launches"][name]}),
+                        **{"churn-query": cq["launches"][name]},
+                        **{p: c[name] for p, c in chaos_launches.items()}),
                     max_abs_err=errs[name],
                     ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=None,
                     ms_k256=times_cq[name]["ms"],
                     plain_ms_k256=times_cq[name]["plain_ms"],
-                    bound_ms_k256=times_cq[name]["bound_ms"])
+                    bound_ms_k256=times_cq[name]["bound_ms"],
+                    ms_k32=times_shed[name]["ms"],
+                    plain_ms_k32=times_shed[name]["plain_ms"],
+                    bound_ms_k32=times_shed[name]["bound_ms"])
                for name, t in times.items()]
     log(json.dumps({"kernels": kernels}))
     log(card)

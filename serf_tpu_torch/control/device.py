@@ -233,3 +233,28 @@ def control_row(control: ControlState) -> torch.Tensor:
         torch.stack([as_u64(control.shed).to(torch.float32),
                      as_u64(control.steps).to(torch.float32)]),
     ])
+
+
+def decisions_of(prev_row, rows, base_round: int):
+    """The controller DECISIONS (rounds where the knob vector changed) in
+    a host-side stacked control-row block ``rows[R, C]``.  Returns
+    ``(decisions, last_row)``; each decision is a JSON-ready dict.  The
+    executor and the recorder (``replay.recording.record_scan_controls``)
+    share this one formatting path, so recorded and replayed ``control``
+    steps compare equal only if the control rows are bit-exact."""
+    nk = len(KNOB_FIELDS)
+    out = []
+    prev = prev_row
+    for j, row in enumerate(np.asarray(rows)):
+        if prev is not None and np.array_equal(np.asarray(prev)[:nk],
+                                               row[:nk]):
+            prev = row
+            continue
+        out.append({
+            "round": int(base_round + j + 1),
+            "knobs": {name: int(row[i])
+                      for i, name in enumerate(KNOB_FIELDS)},
+            "shed": int(row[nk]),
+        })
+        prev = row
+    return out, prev

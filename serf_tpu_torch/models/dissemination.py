@@ -221,12 +221,17 @@ def _set_drop(target: torch.Tensor, idx: Tuple[torch.Tensor, ...], values,
 
 def scatter_max_bool(target: torch.Tensor, idx: torch.Tensor,
                      values: torch.Tensor) -> torch.Tensor:
-    """``target.at[idx].max(values)`` for bool planes (idx in range): an
+    """``target.at[idx].max(values)`` for bool planes (``idx >= 0``): an
     OR, taken as an integer count of the set values landing on each
-    entry (exact under duplicate indices, on every device)."""
+    entry (exact under duplicate indices, on every device).  Indices past
+    the end are dropped, as the reference's scatters drop them (a
+    user-event fact's subject is its event id, which may exceed N)."""
+    n = target.shape[0]
+    idx = idx.to(torch.int64)
     hits = torch.zeros(target.shape, dtype=torch.int32,
                        device=target.device).index_add_(
-        0, idx.to(torch.int64), values.to(torch.int32))
+        0, torch.clamp(idx, max=n - 1),
+        (values.to(torch.bool) & (idx < n)).to(torch.int32))
     return target | (hits > 0)
 
 
@@ -503,7 +508,8 @@ def inject_facts_batch(state: GossipState, cfg: GossipConfig, subjects,
     slots = torch.remainder(state.next_slot.to(torch.int64)
                             + torch.arange(m, dtype=torch.int64, device=dev),
                             k)
-    r_subj = torch.clamp(facts.subject[slots].to(torch.int64), min=0)
+    # a gather clamps an out-of-range subject, as the reference's does
+    r_subj = torch.clamp(facts.subject[slots].to(torch.int64), 0, n - 1)
     maybe_dead = facts.valid[slots] & (facts.kind[slots] == K_DEAD) & active
 
     tombstone = state.tombstone

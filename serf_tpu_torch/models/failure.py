@@ -79,8 +79,11 @@ def rotation_offset(round_, n: int) -> torch.Tensor:
 
 
 def subject_incarnations(state: GossipState) -> torch.Tensor:
-    """int32[K] (u32 bits): each fact subject's current incarnation."""
-    subj = torch.clamp(state.facts.subject, min=0).to(torch.int64)
+    """int32[K] (u32 bits): each fact subject's current incarnation (the
+    gather clamps a subject past N, as the reference's does: a user
+    event's subject is its event id)."""
+    subj = torch.clamp(state.facts.subject, 0,
+                       state.incarnation.shape[0] - 1).to(torch.int64)
     return state.incarnation[subj]
 
 
@@ -112,7 +115,8 @@ def _subject_covered(state: GossipState, cfg: GossipConfig,
 def accusations_pending(state: GossipState) -> torch.Tensor:
     """bool[K]: accusations (suspect/dead) that could still trigger a
     refutation."""
-    subj = torch.clamp(state.facts.subject, min=0).to(torch.int64)
+    subj = torch.clamp(state.facts.subject, 0,
+                       state.alive.shape[0] - 1).to(torch.int64)
     return (_facts_about(state, (K_SUSPECT, K_DEAD), inc_current=True)
             & state.alive[subj])
 
@@ -291,10 +295,12 @@ def _declare_round_body(state: GossipState, cfg: GossipConfig,
     candidates = subject_expired & ~already_dead
     # declarer per subject: the lowest-id knower whose suspicion expired
     declarer_of_fact = first_argmax(expired.to(torch.uint8), 0)
+    # (a subject past N is dropped: its write is a 0 on a clamped index)
     declarers_p1 = torch.zeros((n,), dtype=torch.int32,
                                device=dev).scatter_reduce(
-        0, subj, torch.where(fact_has_expired, declarer_of_fact + 1, 0).to(
-            torch.int32), reduce="amax", include_self=True)
+        0, torch.clamp(subj, max=n - 1),
+        torch.where(fact_has_expired & (subj < n), declarer_of_fact + 1,
+                    0).to(torch.int32), reduce="amax", include_self=True)
     declarers = torch.clamp(declarers_p1 - 1, min=0)
     return _bounded_inject(state, cfg, candidates, K_DEAD,
                            state.incarnation, declarers,

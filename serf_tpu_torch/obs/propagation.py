@@ -1,0 +1,127 @@
+"""The propagation summary of a traced device run (host side).
+
+The port's copy of the device reader in ``serf_tpu/obs/propagation.py``.
+A run with ``collect_propagation`` stacks one ``PROPAGATION_FIELDS`` row
+and one per-sentinel coverage row per round on the device and reads
+them once after the run; this module turns them into ring series,
+coverage curves, time-to-50/90/99% and the cumulative redundancy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from serf_tpu_torch.models.swim import PROPAGATION_FIELDS
+from serf_tpu_torch.obs.timeseries import DEFAULT_CAPACITY, SeriesStore
+
+#: per-round ring-series names for the propagation row (``alive`` rides
+#: the telemetry row's series)
+PROPAGATION_SERIES: Tuple[Tuple[str, str], ...] = (
+    ("slots_sent", "serf.propagation.slots-sent"),
+    ("slots_learned", "serf.propagation.slots-learned"),
+    ("slots_redundant", "serf.propagation.slots-redundant"),
+    ("redundancy", "serf.propagation.redundancy"),
+    ("cov_min", "serf.propagation.cov-min"),
+    ("cov_mean", "serf.propagation.cov-mean"),
+    ("cov_max", "serf.propagation.cov-max"),
+)
+
+#: the coverage-curve thresholds (percent)
+COVERAGE_MARKS = (50, 90, 99)
+
+
+def propagation_to_store(rows, base_round: int = 0, store=None,
+                         capacity: Optional[int] = None) -> SeriesStore:
+    """Stacked per-round propagation rows (``f32[R, P]``, on the host)
+    into ring series keyed by the ``serf.propagation.*`` names, stamped
+    ``base_round + i + 1``."""
+    if store is None:
+        store = SeriesStore(capacity=capacity or DEFAULT_CAPACITY)
+    idx = {f: i for i, f in enumerate(PROPAGATION_FIELDS)}
+    for i, row in enumerate(rows):
+        t = float(base_round + i + 1)
+        for field, name in PROPAGATION_SERIES:
+            store.append(name, t, float(row[idx[field]]), kind="gauge")
+    return store
+
+
+def monotone_coverage(cov) -> List[List[float]]:
+    """Per-sentinel running-max coverage curve (a recycled ring slot
+    reads 0; dissemination itself is monotone)."""
+    out: List[List[float]] = []
+    best: Optional[List[float]] = None
+    for row in cov:
+        vals = [float(v) for v in row]
+        best = vals if best is None else \
+            [max(b, v) for b, v in zip(best, vals)]
+        out.append(list(best))
+    return out
+
+
+def time_to_coverage(curve: Sequence[Sequence[float]], frac: float
+                     ) -> Optional[int]:
+    """Rounds (1-based) until EVERY sentinel's monotone coverage reaches
+    ``frac``; None if the window closed first."""
+    for i, row in enumerate(curve):
+        if row and min(row) >= frac:
+            return i + 1
+    return None
+
+
+def first_learn_rounds(curve: Sequence[Sequence[float]],
+                       alive: Sequence[float]) -> List[Optional[int]]:
+    """Per-sentinel round (1-based) at which anyone beyond the origin
+    learned the fact: the first round with coverage of 2 nodes or
+    more."""
+    if not curve:
+        return []
+    out: List[Optional[int]] = [None] * len(curve[0])
+    for i, (row, n_alive) in enumerate(zip(curve, alive)):
+        for j, v in enumerate(row):
+            if out[j] is None and v * max(float(n_alive), 1.0) >= 2.0:
+                out[j] = i + 1
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class PropagationSummary:
+    """Host-side digest of a traced device run."""
+    rounds: int                           # traced rounds
+    sentinels: int                        # M
+    time_to: Dict[int, Optional[int]]     # {50: r, 90: r, 99: r}
+    first_learn: List[Optional[int]]      # per sentinel, 1-based
+    final_coverage: float                 # min monotone coverage at end
+    slots_sent: float                     # run totals
+    slots_learned: float
+    redundancy: float                     # cumulative (sent-learned)/sent
+    curve: List[float]                    # per-round mean monotone cov
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["time_to"] = {str(k): v for k, v in self.time_to.items()}
+        return d
+
+
+def summarize_propagation(rows, cov) -> PropagationSummary:
+    """Fold the run's rows (``f32[R, P]``) and per-sentinel coverage
+    (``f32[R, M]``), both on the host, into a
+    :class:`PropagationSummary`."""
+    idx = {f: i for i, f in enumerate(PROPAGATION_FIELDS)}
+    rows = [[float(v) for v in r] for r in rows]
+    curve = monotone_coverage(cov)
+    sent = sum(r[idx["slots_sent"]] for r in rows)
+    learned = sum(r[idx["slots_learned"]] for r in rows)
+    alive = [r[idx["alive"]] for r in rows]
+    return PropagationSummary(
+        rounds=len(rows),
+        sentinels=len(curve[0]) if curve else 0,
+        time_to={m: time_to_coverage(curve, m / 100.0)
+                 for m in COVERAGE_MARKS},
+        first_learn=first_learn_rounds(curve, alive),
+        final_coverage=min(curve[-1]) if curve and curve[-1] else 0.0,
+        slots_sent=sent,
+        slots_learned=learned,
+        redundancy=(sent - learned) / sent if sent > 0 else 0.0,
+        curve=[sum(r) / len(r) if r else 0.0 for r in curve],
+    )

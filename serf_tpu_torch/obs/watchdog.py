@@ -1,0 +1,53 @@
+"""The device watchdog's verdict, read from the stacked invariant rows.
+
+The port's copy of ``summarize_invariants`` in
+``serf_tpu/obs/watchdog.py``: a run with ``collect_invariants`` stacks
+one ``INVARIANT_FIELDS`` row per round on the device
+(``models/swim.invariant_row``) and reads them once after the run; this
+names the first violating round per field and overall.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+
+from serf_tpu_torch.models.swim import INVARIANT_FIELDS
+
+
+def summarize_invariants(rows, base_round: int = 0) -> Dict[str, Any]:
+    """Fold stacked per-round invariant rows (``f32[R, F]``, on the host)
+    into the watchdog verdict: per-field first violating round, the
+    overall first breach, and violation counts.  Rounds are absolute
+    (``base_round + i + 1``: row i is the state after that round)."""
+    rows = np.asarray(rows, np.float32)
+    flags = INVARIANT_FIELDS[:-1]
+    ok_plane = rows[:, : len(flags)] >= 0.5 if len(rows) else \
+        np.ones((0, len(flags)), bool)
+    per_field: Dict[str, Any] = {}
+    first_round = None
+    first_fields: List[str] = []
+    for j, name in enumerate(flags):
+        bad = np.flatnonzero(~ok_plane[:, j])
+        r = int(base_round + bad[0] + 1) if len(bad) else None
+        per_field[name] = {
+            "first_violation_round": r,
+            "violations": int(len(bad)),
+        }
+        if r is not None and (first_round is None or r < first_round):
+            first_round = r
+            first_fields = [name]
+        elif r is not None and r == first_round:
+            first_fields.append(name)
+    ok = first_round is None
+    return {
+        "plane": "device",
+        "ok": ok,
+        "rounds": int(len(rows)),
+        "fields": list(flags),
+        "per_field": per_field,
+        "first_violation": None if ok else {
+            "round": first_round, "fields": first_fields},
+        "violations": int((~ok_plane).sum()),
+    }

@@ -146,10 +146,14 @@ def uniform_scalar(k: np.ndarray) -> np.float32:
 
 def bernoulli(k: np.ndarray, p: float = 0.5, shape=(), device=None):
     """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` in float32.
-    Shape ``()`` returns a host ``bool``; otherwise a bool tensor."""
+    Shape ``()`` returns a host ``bool``; otherwise a bool tensor.  ``p``
+    may be a 0-d float32 tensor on the draw's device (a chaos phase's
+    loss rate), which is compared as it is, with no copy."""
     if shape == ():
         return bool(uniform_scalar(k) < np.float32(p))
-    if not isinstance(p, torch.Tensor) and p <= 0.0:
+    if isinstance(p, torch.Tensor):
+        return uniform(k, shape, device) < p
+    if p <= 0.0:
         # uniform draws lie in [0, 1): none is below 0
         return torch.zeros(shape, dtype=torch.bool, device=device)
     u = uniform(k, shape, device)

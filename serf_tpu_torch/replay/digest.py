@@ -1,0 +1,89 @@
+"""Membership-view digests: the bit-exactness ledger of record/replay.
+
+:func:`state_digest` folds each node's knowledge view — its known-fact
+set (fact identity: subject/kind/incarnation/ltime/valid, weighted by
+ring slot), its ground-truth liveness, tombstone and incarnation — into
+one u32 per node plus one u32 for the whole cluster, with the
+reference's FNV-style mix (``serf_tpu/replay/digest.py``) bit for bit.
+The stamp plane and the send caches are not covered (retransmit
+budgets, not view state).
+
+u32 arithmetic: every value is held as an int64 tensor in ``[0, 2^32)``
+(int32-held u32 leaves through ``bits.as_u64``, bools and bytes as
+their integer values).  A product is taken modulo 2^32 by
+:func:`_mul32`, which splits one factor into 16-bit halves so that no
+partial product leaves int64; sums of at most 2^31 such values never
+do either.  Runs on whatever device the state is on.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from serf_tpu_torch.bits import MASK32, as_u64, unpack_bits
+from serf_tpu_torch.models.dissemination import GossipConfig, GossipState
+
+_FNV_PRIME = 16777619
+_FNV_BASIS = 2166136261
+#: odd slot/node weights make the commutative sums position-sensitive
+_SLOT_MULT = 2654435761
+_NODE_MULT = 2654435769
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """A leaf's ``astype(uint32)`` value as int64 (int32 leaves keep
+    their bits; bools and bytes their values)."""
+    if x.dtype == torch.int32:
+        return as_u64(x)
+    return x.to(torch.int64)
+
+
+def _mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """``a * b mod 2^32`` for u32 values held in int64 (``b`` a tensor or
+    a Python int)."""
+    lo = b & 0xFFFF
+    hi = b >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & MASK32
+
+
+def _mix(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return _mul32(h ^ _u32(x), _FNV_PRIME)
+
+
+def _odd_weights(m: int, mult: int, device) -> torch.Tensor:
+    """``(2 i + 1) * mult mod 2^32`` for ``i < m``."""
+    i = torch.arange(m, dtype=torch.int64, device=device)
+    return _mul32((2 * i + 1) & MASK32, mult)
+
+
+def fact_hashes(state: GossipState) -> torch.Tensor:
+    """int64[K] u32 values: one hash per ring slot over the fact's full
+    identity."""
+    f = state.facts
+    h = torch.full(f.subject.shape, _FNV_BASIS, dtype=torch.int64,
+                   device=f.subject.device)
+    for leaf in (f.subject, f.kind, f.incarnation, f.ltime, f.valid):
+        h = _mix(h, leaf)
+    return h
+
+
+def state_digest(state: GossipState, cfg: GossipConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(overall, per-node [N])`` knowledge-view digests as int64
+    tensors of u32 values, on the state's device (nothing is read on the
+    host)."""
+    k = cfg.k_facts
+    dev = state.known.device
+    weighted = _mul32(fact_hashes(state), _odd_weights(k, _SLOT_MULT, dev))
+    known = unpack_bits(state.known, k)
+    node = torch.sum(torch.where(known, weighted[None, :], 0),
+                     dim=1) & MASK32
+    node = _mix(node, state.alive)
+    node = _mix(node, state.tombstone)
+    node = _mix(node, state.incarnation)
+    n = node.shape[0]
+    overall = torch.sum(_mul32(node, _odd_weights(n, _NODE_MULT, dev))
+                        ) & MASK32
+    return _mix(overall, state.round), node
