@@ -78,6 +78,27 @@ heal run and the recorded controlled shed run are each run once more
 under the profiler, so that their busy time per round covers the same
 work as their timed wall.
 
+Phases 3 and 4 also run the measurement layer.  Every launch goes
+through a dispatch timer (``obs.device``); the launch counts and the
+timers are reset together, and after every run on the card each kernel's
+timed calls must equal its launches.  Phase 3 also holds, card against
+CPU: every device emitter's names and values (``emit_cluster_metrics``
+on each path's final state, with one counted read; the propagation,
+watchdog and control emitters on the controlled run's rows; the gauges,
+counters and flight events that the chaos runs, their SLO verdicts, a
+saved recording and a diverging replay land); the byte model of each
+path; and ``profile_round``'s contract (keys, phases, model bytes,
+passes), the card's phases launching what their path runs.  Phase 4
+profiles the three flagship paths at N = 1,000,000, K = 64
+(``obs.profile.profile_round``, as ``python -m
+serf_tpu_torch.tools.roundprof`` runs them, the deferred one at unit 4):
+each table and JSON is logged, ``attributed_device_frac`` must lie in
+[0.9, 1.1], and each phase must launch what its path runs (one select
+kind in the selection, the path's merge kernel in the merge, nothing
+elsewhere); then each path's ``dispatch_summary()`` is logged.  Under
+``--profile`` each profiled window also counts the blocking copies
+(``aten::to`` waits) and the card's pageable copies either way.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Needs no network and imports no
 JAX.
@@ -493,16 +514,42 @@ def kernel_config(n: int, control: bool = False, **gossip):
     return cfg
 
 
-def check_launches(rk, path: str, what: str) -> dict:
+def reset_counts(rk) -> None:
+    """Zero the launch counts and the dispatch timers' calls together
+    (the signatures seen stay: nothing is built after phase 1)."""
+    from serf_tpu_torch.obs.device import reset_dispatch_calls
+    rk.reset_launches()
+    reset_dispatch_calls()
+
+
+def check_dispatch(rk, what: str) -> dict:
+    """``dispatch_summary()`` since the last :func:`reset_counts`; raises
+    unless each kernel's timed calls equal its launches (every wrapper
+    call on the card launches once)."""
+    from serf_tpu_torch.obs.device import dispatch_summary
+    summary = dispatch_summary()
+    for name, op in rk.DISPATCH_OPS.items():
+        calls = summary.get(op, {}).get("calls", 0)
+        if calls != rk.LAUNCHES[name]:
+            raise AssertionError(f"{what}: {op} timed {calls} calls, "
+                                 f"{name} launched {rk.LAUNCHES[name]}")
+    return summary
+
+
+def check_launches(rk, path: str, what: str, want=None) -> dict:
     """The launch counts since the last reset; raises unless exactly the
-    path's kernels launched."""
+    path's kernels launched, and each as many times as its dispatch
+    timer counted."""
     launches = dict(rk.LAUNCHES)
-    want = set(PATHS[path]["kernels"] if path in PATHS
-               else CHAOS_PATHS[path]["kernels"])
-    bad = {k: v for k, v in launches.items() if (v > 0) != (k in want)}
+    if want is None:
+        want = (PATHS[path]["kernels"] if path in PATHS
+                else CHAOS_PATHS[path]["kernels"])
+    bad = {k: v for k, v in launches.items()
+           if (v > 0) != (k in set(want))}
     if bad:
         raise AssertionError(f"{what}: path {path} should launch exactly "
                              f"{sorted(want)}; launches {launches}")
+    check_dispatch(rk, what)
     return launches
 
 
@@ -583,6 +630,131 @@ def compare_rows(a, b) -> list:
     return bad
 
 
+#: the emitters' float gauges, card against CPU: the gossip plane's
+#: float32 ratios and the propagation summary's float means summed in
+#: another order (rtol 1e-6), the SLO burns (rtol 1e-4, as the verdicts);
+#: the Vivaldi means carry the Vivaldi leaves' tolerance (FLOAT_RTOL,
+#: FLOAT_ATOL); every other gauge is a count, exact
+GAUGE_RTOL = {"serf.model.gossip.coverage": 1e-6,
+              "serf.model.gossip.agreement": 1e-6,
+              "serf.model.gossip.fan-out": 1e-6,
+              "serf.propagation.redundancy": 1e-6,
+              "serf.propagation.cov-min": 1e-6,
+              "serf.propagation.cov-mean": 1e-6,
+              "serf.propagation.cov-max": 1e-6,
+              "serf.slo.burn": 1e-4}
+
+
+class Captured:
+    """A fresh metrics sink and flight recorder of the port for the
+    block: the gauges and counters it landed by name and labels, and the
+    flight events (times aside)."""
+
+    def __enter__(self):
+        from serf_tpu_torch.obs import flight
+        from serf_tpu_torch.utils import metrics
+        self._prev = (metrics.global_sink(), flight.global_recorder())
+        self.sink, self.rec = metrics.MetricsSink(), flight.FlightRecorder()
+        metrics.set_global_sink(self.sink)
+        flight.set_global_recorder(self.rec)
+        return self
+
+    def __exit__(self, *exc):
+        from serf_tpu_torch.obs import flight
+        from serf_tpu_torch.utils import metrics
+        metrics.set_global_sink(self._prev[0])
+        flight.set_global_recorder(self._prev[1])
+
+    def values(self) -> dict:
+        def key(name, labels):
+            return name + ("{" + ",".join(f"{k}={v}" for k, v in labels)
+                           + "}" if labels else "")
+        out = {key(*k): v for k, v in self.sink.gauges.items()}
+        out.update({key(*k) + "#count": v
+                    for k, v in self.sink.counters.items()})
+        return dict(sorted(out.items()))
+
+    def events(self) -> list:
+        return [{k: v for k, v in e.items() if k not in ("time",
+                                                          "monotonic")}
+                for e in self.rec.dump()]
+
+
+def gauges_differ(a: dict, b: dict, what: str) -> list:
+    """Two runs' emitted values (``Captured.values``): the same names and
+    labels, counts exact, floats within GAUGE_RTOL (Vivaldi: FLOAT_RTOL,
+    FLOAT_ATOL)."""
+    import math
+    if list(a) != list(b):
+        return [f"{what}: names {sorted(set(a) ^ set(b))} on one side"]
+    bad = []
+    for key, x in a.items():
+        y = b[key]
+        name = key.split("{")[0].split("#")[0]
+        if math.isnan(x) and math.isnan(y):
+            continue
+        if name.startswith("serf.model.vivaldi."):
+            ok = math.isclose(x, y, rel_tol=FLOAT_RTOL, abs_tol=FLOAT_ATOL)
+        elif name in GAUGE_RTOL:
+            ok = math.isclose(x, y, rel_tol=GAUGE_RTOL[name])
+        else:
+            ok = x == y
+        if not ok:
+            bad.append(f"{what}: {key} {x} != {y}")
+    return bad
+
+
+def events_differ(a: list, b: list, what: str) -> list:
+    """Two runs' flight events: kinds and fields equal, floats within
+    rtol 1e-6 (summaries of float rows), paths aside."""
+    import math
+    if [e["kind"] for e in a] != [e["kind"] for e in b]:
+        return [f"{what}: flight kinds {[e['kind'] for e in a]} vs "
+                f"{[e['kind'] for e in b]}"]
+    bad = []
+    for x, y in zip(a, b):
+        for k in set(x) | set(y):
+            u, v = x.get(k), y.get(k)
+            if k == "path":
+                continue
+            if isinstance(u, float) and isinstance(v, float):
+                if not math.isclose(u, v, rel_tol=1e-6):
+                    bad.append(f"{what}: {x['kind']}.{k} {u} != {v}")
+            elif u != v:
+                bad.append(f"{what}: {x['kind']}.{k} {u} != {v}")
+    return bad
+
+
+def emitted(state, cfg, rows=None) -> dict:
+    """Every device-plane emitter on a run's final state: the cluster
+    gauges (one counted read) and, with the run's rows, the propagation,
+    watchdog and control emitters on them.  Returns the landed values
+    (``Captured.values``)."""
+    from serf_tpu_torch import host_syncs
+    from serf_tpu_torch.control.device import control_row, \
+        emit_control_metrics
+    from serf_tpu_torch.models.swim import emit_cluster_metrics
+    from serf_tpu_torch.obs.propagation import emit_propagation_metrics, \
+        summarize_propagation
+    from serf_tpu_torch.obs.watchdog import emit_device_watchdog, \
+        summarize_invariants
+    with Captured() as cap:
+        s0 = host_syncs()
+        emit_cluster_metrics(state, cfg, {"plane": "device"})
+        if host_syncs() - s0 != 1:
+            raise AssertionError("emit_cluster_metrics read the device "
+                                 f"{host_syncs() - s0} times, not once")
+        if rows is not None:
+            _, (prop, cov), (inv, _) = rows
+            emit_propagation_metrics(summarize_propagation(
+                prop.cpu().numpy(), cov.cpu().numpy()), {"plane": "device"})
+            emit_device_watchdog(summarize_invariants(inv.cpu().numpy()))
+        if cfg.control.enabled:
+            emit_control_metrics(control_row(state.control).cpu().numpy(),
+                                 {"plane": "device"})
+    return cap.values()
+
+
 def slice_vs_cpu(rk) -> None:
     """Phase 3: each path's config on the card == on the CPU.  The
     deferred one runs at unit 2 (where the controller's cohort knob has
@@ -598,10 +770,10 @@ def slice_vs_cpu(rk) -> None:
         "phased": (kernel_config(SLICE_N, **PATHS["phased"]["gossip"]), {}),
     }
     for path, (cfg, flags) in runs.items():
-        finals, rows = {}, {}
+        finals, rows, gauges = {}, {}, {}
         for dev in ("cuda", "cpu"):
             st, _ = seeded_state(cfg, dev)
-            rk.reset_launches()
+            reset_counts(rk)
             out = run_cluster_sustained(st, cfg, prng.key(3), SLICE_ROUNDS,
                                         events_per_round=EVENTS_PER_ROUND,
                                         **flags)
@@ -610,16 +782,19 @@ def slice_vs_cpu(rk) -> None:
             finals[dev] = convert.to_numpy(out)
             if dev == "cuda":
                 launches = check_launches(rk, path, "phase 3")
+            gauges[dev] = emitted(out, cfg, rows.get(dev))
         bad = compare_states(finals["cpu"], finals["cuda"])
         if flags:
             bad += compare_rows(rows["cpu"], rows["cuda"])
+        bad += gauges_differ(gauges["cpu"], gauges["cuda"], "emitters")
         if bad:
             raise AssertionError(f"{path}: CUDA slice != CPU slice: "
                                  + "; ".join(bad))
         log(f"phase 3: {path} flagship n={SLICE_N} x {SLICE_ROUNDS} "
             f"sustained rounds{' (controlled, rows)' if flags else ''} on "
             f"the card == on the CPU (integer leaves exact, floats "
-            f"rtol={FLOAT_RTOL} atol={FLOAT_ATOL}); launches {launches}")
+            f"rtol={FLOAT_RTOL} atol={FLOAT_ATOL}; {len(gauges['cpu'])} "
+            f"emitted gauges equal); launches {launches}")
 
 
 def run_path(rk, path: str, profile: bool) -> dict:
@@ -636,7 +811,7 @@ def run_path(rk, path: str, profile: bool) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     k_warm, k_run, k_prof = prng.split(prng.key(3), 3)
-    rk.reset_launches()
+    reset_counts(rk)
     t0 = time.perf_counter()
     st = run_cluster_sustained(st, cfg, k_warm, WARMUP_ROUNDS,
                                events_per_round=EVENTS_PER_ROUND)
@@ -650,6 +825,8 @@ def run_path(rk, path: str, profile: bool) -> dict:
     run_s = time.perf_counter() - t0
     syncs = host_syncs() - s0
     launches = check_launches(rk, path, "phase 4")
+    from serf_tpu_torch.obs.device import dispatch_summary
+    dispatch = dispatch_summary()
 
     # protocol sanity on the final state
     g, v = st.gossip, st.vivaldi
@@ -678,7 +855,7 @@ def run_path(rk, path: str, profile: bool) -> dict:
         f"overflow {overflow}, vivaldi finite")
     out = dict(rps=TIMED_ROUNDS / run_s, launches=launches,
                syncs_per_round=syncs / TIMED_ROUNDS, setup_s=setup_s,
-               warm_s=warm_s, run_s=run_s)
+               warm_s=warm_s, run_s=run_s, dispatch=dispatch)
     if profile:
         from serf_tpu_torch.models.swim import run_cluster_sustained
         out["profile"] = profile_rounds(lambda n: run_cluster_sustained(
@@ -688,19 +865,17 @@ def run_path(rk, path: str, profile: bool) -> dict:
 
 def profile_rounds(run, rounds: int = 10) -> dict:
     """Device time by kernel over ``run(rounds)``, a call that runs
-    ``rounds`` rounds of a path."""
+    ``rounds`` rounds of a path (``obs.profile.reading``: busy time, the
+    host's waits on the stream by operator, the blocking copies and the
+    card's pageable copies either way)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]):
-        torch.zeros(1, device="cuda").add_(1)   # start the tracer up
-        torch.cuda.synchronize()
+    from serf_tpu_torch.obs import profile as tprof
+    dev = torch.device("cuda")
+    tprof.warm_tracer(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(rounds)
-        torch.cuda.synchronize()
+    _, rd = tprof.profiled(lambda: run(rounds), dev)
     wall_ms = (time.perf_counter() - t0) * 1e3
     # the clocks and power just after the window: a mostly idle card may
     # run its kernels at a lower SM clock, which stretches the busy time
@@ -708,44 +883,156 @@ def profile_rounds(run, rounds: int = 10) -> dict:
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    # a kernel's time shows twice: on the kernel's own (device) event and
-    # as the self device time of the operator that launched it — the busy
-    # sum takes the kernels only, the operator table says who launched
-    kernels, ops = [], []
-    # every wait of the host on the stream, counted or not by host_syncs
-    # (a blocking host-to-device copy waits too)
-    stream_syncs = 0
-    for ev in prof.key_averages():
-        if ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
-            stream_syncs += ev.count
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us:
-            on_device = ev.device_type != torch.autograd.DeviceType.CPU
-            (kernels if on_device else ops).append(
-                (dev_us, ev.key, ev.count))
-    kernels.sort(reverse=True)
-    ops.sort(reverse=True)
-    busy_ms = sum(r[0] for r in kernels) / 1e3
-    # who waited: each sync's outermost operator — aten::is_nonzero or
-    # aten::item for a host read, aten::to for a blocking copy
-    waits = {}
-    for ev in prof.events():
-        if ev.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
-            op = ev
-            while op.cpu_parent is not None:
-                op = op.cpu_parent
-            waits[op.name] = waits.get(op.name, 0) + 1
+    return dict(rounds=rounds, wall_ms=wall_ms, clocks=clocks, **rd)
 
-    def table(rows):
-        return [dict(name=k[:90], device_ms=us / 1e3, calls=c)
-                for us, k, c in rows[:15]]
 
-    return dict(rounds=rounds, wall_ms=wall_ms, device_busy_ms=busy_ms,
-                stream_syncs=stream_syncs, waits=waits, clocks=clocks,
-                kernels=table(kernels),
-                ops=table(ops))
+# -- phases 3 and 4: the byte model and the per-phase profile -------------
+
+#: the attribution self-check's band on the card: the phases' device time
+#: times their cadences against the whole round's (obs/profile.py)
+ATTRIBUTION_BAND = (0.9, 1.1)
+#: the kernels each profiled phase may launch, per path; every other
+#: phase launches none
+PHASE_KERNELS = {
+    "per-round": {"selection": ("fused_select_cached", "select_packets"),
+                  "merge": ("fused_merge",)},
+    "deferred": {"selection": ("fused_select_cached",),
+                 "merge": ("fused_flush",)},
+    "phased": {"selection": ("select_packets",),
+               "merge": ("merge_incoming",)},
+}
+#: the dispatch path each flagship path takes (accounting.KERNEL_PATHS)
+KERNEL_PATH_OF = {"per-round": "fused", "deferred": "fused",
+                  "phased": "kernels"}
+#: the profiles' depth: phase 4's warm-up and timed calls per phase
+PROFILE_WARM, PROFILE_CALLS = 16, 3
+#: phase 3's size and whole-round depth: the contract only (the
+#: attribution check runs at full width in phase 4, over
+#: obs.profile.WHOLE_ROUNDS)
+PROFILE_SMALL_N, PROFILE_SMALL = 1024, 10
+
+
+def path_config(path: str, n: int):
+    """A flagship path's config at ``n``: the deferred profile runs at
+    unit 4 (``roundprof --fused --stamp-unit 4``)."""
+    return kernel_config(n, **PATHS[path]["gossip"])
+
+
+def check_phase_launches(path: str, prof: dict) -> None:
+    """Each phase launched exactly the kernels its path runs there: one
+    kind of select in the selection, the path's merge kernel in the
+    merge, nothing anywhere else."""
+    allowed = PHASE_KERNELS[path]
+    for r in prof["phases"]:
+        got = {k for k, v in r["launches"].items() if v}
+        want = set(allowed.get(r["phase"], ()))
+        if (got and not got <= want) or (want and len(got) != 1):
+            raise AssertionError(f"{path} profile: phase {r['phase']} "
+                                 f"launched {r['launches']}, expected one "
+                                 f"of {sorted(want) or 'none'}")
+
+
+def model_report(path: str, n: int):
+    from serf_tpu_torch.models.accounting import round_traffic
+    return round_traffic(path_config(path, n), regime="sustained",
+                         sustained_rate=EVENTS_PER_ROUND,
+                         path=KERNEL_PATH_OF[path])
+
+
+def dispatch_us(runs: dict, op: str) -> float:
+    """A kernel's mean steady dispatch time (host µs per launch) on the
+    flagship path that launches it most."""
+    best = max((r["dispatch"].get(op, {"calls": 0}) for r in runs.values()),
+               key=lambda d: d["calls"])
+    return 1e3 * best.get("steady_ms_mean", 0.0)
+
+
+def profile_vs_cpu(rk) -> None:
+    """Phase 3: each path's byte model, then ``profile_round``'s contract
+    on the main path, on the card against the CPU at N = PROFILE_SMALL_N
+    (keys, phase names, model bytes, cadences, full-plane passes, the
+    dispatch path), the card's phases launching what the path runs (phase
+    4 checks every path's at full width)."""
+    from serf_tpu_torch.obs.profile import PHASE_NAMES, profile_round
+    for path in PATHS:
+        report = model_report(path, PROFILE_SMALL_N)
+        log(f"phase 3: {path} byte model n={PROFILE_SMALL_N}: "
+            f"{report.total_bytes / 1e6:.2f} MB/round, by plane "
+            f"{json.dumps({k: round(v) for k, v in report.by_plane().items()})}"
+            f", full-plane passes "
+            f"{json.dumps({k: round(v, 3) for k, v in report.passes_by_plane().items()})}")
+    path = "per-round"
+    report = model_report(path, PROFILE_SMALL_N)
+    profs = {}
+    for dev in ("cuda", "cpu"):
+        reset_counts(rk)
+        profs[dev] = profile_round(path_config(path, PROFILE_SMALL_N),
+                                   events_per_round=EVENTS_PER_ROUND,
+                                   timed_calls=1, warm_rounds=6, device=dev,
+                                   whole_rounds=PROFILE_SMALL)
+        if dev == "cuda":
+            # on the CPU the wrappers run their plain versions: timed
+            # calls with no launch
+            check_dispatch(rk, f"phase 3 {path} profile")
+    a, b = profs["cpu"], profs["cuda"]
+    bad = []
+    if sorted(a) != sorted(b) or [sorted(r) for r in a["phases"]] != \
+            [sorted(r) for r in b["phases"]]:
+        bad.append("keys")
+    if [r["phase"] for r in b["phases"]] != list(PHASE_NAMES):
+        bad.append("phase names")
+    for key in ("model_bytes", "model_amortized_bytes", "cadence"):
+        if [r[key] for r in a["phases"]] != [r[key] for r in b["phases"]]:
+            bad.append(key)
+    if (a["full_plane_passes"], a["kernel_path"]) != (
+            b["full_plane_passes"], b["kernel_path"]) or \
+            b["kernel_path"] != KERNEL_PATH_OF[path]:
+        bad.append("passes or path")
+    if b["whole_round"]["model_amortized_bytes"] != round(
+            report.total_bytes, 1) or b["backend"] != "cuda":
+        bad.append("whole-round model bytes or backend")
+    if bad:
+        raise AssertionError(f"phase 3 profile {path}: card != CPU: "
+                             + ", ".join(bad))
+    check_phase_launches(path, b)
+    log(f"phase 3: {path} profile_round contract n={PROFILE_SMALL_N} equal "
+        f"on the card and the CPU; card phase launches "
+        f"{ {r['phase']: r['launches'] for r in b['phases'] if r['launches']} }")
+
+
+def profile_full(rk) -> dict:
+    """Phase 4: ``profile_round`` on the three flagship paths at N =
+    N_MAIN, K = K_MAIN (``roundprof`` and ``roundprof --fused
+    --stamp-unit 4``): each table and JSON logged, the attribution
+    self-check in ATTRIBUTION_BAND, each phase's launches the path's."""
+    from serf_tpu_torch.obs.profile import profile_round, profile_table
+    out = {}
+    for path in PATHS:
+        reset_counts(rk)
+        t0 = time.perf_counter()
+        prof = profile_round(path_config(path, N_MAIN),
+                             events_per_round=EVENTS_PER_ROUND,
+                             timed_calls=PROFILE_CALLS,
+                             warm_rounds=PROFILE_WARM, device="cuda")
+        secs = time.perf_counter() - t0
+        check_dispatch(rk, f"phase 4 {path} profile")
+        for line in profile_table(prof).splitlines():
+            log(f"{path} roundprof: {line}")
+        log(f"{path} roundprof json: " + json.dumps(prof))
+        frac = prof["attributed_device_frac"]
+        if frac is None or not (ATTRIBUTION_BAND[0] <= frac
+                                <= ATTRIBUTION_BAND[1]):
+            raise AssertionError(f"phase 4 {path} profile: attributed "
+                                 f"device fraction {frac} outside "
+                                 f"{ATTRIBUTION_BAND}")
+        check_phase_launches(path, prof)
+        if prof["kernel_path"] != KERNEL_PATH_OF[path]:
+            raise AssertionError(f"{path} profile ran {prof['kernel_path']}")
+        log(f"phase 4: {path} profile n={N_MAIN} k={K_MAIN} in {secs:.1f} "
+            f"s: attributed device fraction {frac} in {ATTRIBUTION_BAND}, "
+            f"phase launches as the path runs them")
+        out[path] = prof
+    return out
 
 
 # -- phases 3 and 4: the churn-query path ------------------------------------
@@ -934,11 +1221,11 @@ def churn_query_vs_cpu(rk) -> None:
     n = CQ_SMALL_N
     cfg, ccfg, qcfg = cq_configs(n, raised=True)
     _, settle_ccfg, _ = cq_configs(n, raised=True, settle=True)
-    finals, reads, events, carries, syncs = {}, {}, {}, {}, {}
+    finals, reads, events, carries, syncs, gauges = {}, {}, {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
         carry, plane, origins = cq_start(cfg, qcfg, dev)
         stream = DeviceEventStream(cfg.gossip)
-        rk.reset_launches()
+        reset_counts(rk)
         s0 = host_syncs()
         carry, ev1 = cq_window(carry, cfg, ccfg, qcfg, prng.key(7),
                                CQ_CHURN_ROUNDS, plane, origins, stream)
@@ -948,14 +1235,10 @@ def churn_query_vs_cpu(rk) -> None:
         syncs[dev] = ((s1 - s0) / CQ_CHURN_ROUNDS,
                       (host_syncs() - s1) / CQ_SMALL_SETTLE)
         if dev == "cuda":
-            launches = dict(rk.LAUNCHES)
-            bad = {k: v for k, v in launches.items()
-                   if (v > 0) != (k in CQ_KERNELS)}
-            if bad:
-                raise AssertionError(f"phase 3 churn-query: should launch "
-                                     f"exactly {CQ_KERNELS}; launches "
-                                     f"{launches}")
+            launches = check_launches(rk, "churn-query", "phase 3",
+                                      CQ_KERNELS)
         carries[dev] = carry
+        gauges[dev] = emitted(carry[0], cfg)
         finals[dev] = carry_leaves(carry)
         reads[dev] = cq_readouts(carry, cfg, plane)
         events[dev] = ev1 + ev2
@@ -964,6 +1247,7 @@ def churn_query_vs_cpu(rk) -> None:
     if events["cpu"] != events["cuda"]:
         bad.append(f"device events differ ({len(events['cpu'])} on the "
                    f"CPU, {len(events['cuda'])} on the card)")
+    bad += gauges_differ(gauges["cpu"], gauges["cuda"], "emitters")
     if bad:
         raise AssertionError("churn-query: CUDA != CPU: " + "; ".join(bad))
     tr = carries["cpu"][3]
@@ -1040,7 +1324,7 @@ def churn_query_full(profile: bool = False) -> dict:
     carry, plane, origins = cq_start(cfg, qcfg, "cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    rk.reset_launches()
+    reset_counts(rk)
     s0 = host_syncs()
     t0 = time.perf_counter()
     carry, _ = cq_window(carry, cfg, ccfg, qcfg, prng.key(7),
@@ -1056,11 +1340,7 @@ def churn_query_full(profile: bool = False) -> dict:
     torch.cuda.synchronize()
     settle_s = time.perf_counter() - t0
     settle_syncs = host_syncs() - s0
-    launches = dict(rk.LAUNCHES)
-    bad = {k: v for k, v in launches.items() if (v > 0) != (k in CQ_KERNELS)}
-    if bad:
-        raise AssertionError(f"phase 4 churn-query: should launch exactly "
-                             f"{CQ_KERNELS}; launches {launches}")
+    launches = check_launches(rk, "churn-query", "phase 4", CQ_KERNELS)
 
     # the reference test's outcome checks
     st, qs, _, tr = final
@@ -1243,15 +1523,21 @@ def chaos_vs_cpu(rk, device: str = "cuda") -> None:
     n, k = CHAOS_SMALL_N, CHAOS_SMALL_K
     plan = CHAOS_PATHS["chaos-heal"]["plan"]
     cfg = chaos_config(plan, n, k, False)
-    res, rec, launches = {}, {}, {}
+    res, rec, launches, obs = {}, {}, {}, {}
     for dev in (device, "cpu"):
-        rk.reset_launches()
-        res[dev], rec[dev] = chaos_run(plan, cfg, dev, record=True,
-                                       **EVIDENCE)
+        reset_counts(rk)
+        with Captured() as cap:
+            res[dev], rec[dev] = chaos_run(plan, cfg, dev, record=True,
+                                           **EVIDENCE)
+            judge_device_run(res[dev], named_plan(plan))
+            rec[dev].save(checkpoint_path(f"phase3-{dev}.jsonl"))
+        obs[dev] = (cap.values(), cap.events(),
+                    emitted(res[dev].state, cfg))
         if dev == "cuda":
             launches = check_launches(rk, "chaos-heal", "phase 3")
     card, cpu = rec[device], rec["cpu"]
     bad = chaos_evidence_differ(res["cpu"], res[device])
+    bad += obs_differ(obs["cpu"], obs[device], plan)
     if card.to_jsonl() != cpu.to_jsonl():
         lines = list(zip(card.to_jsonl().splitlines(),
                          cpu.to_jsonl().splitlines()))
@@ -1269,8 +1555,18 @@ def chaos_vs_cpu(rk, device: str = "cuda") -> None:
         raise AssertionError(f"the CPU's recording replayed on the card "
                              f"diverged: {d.to_dict()}")
     pert = perturbed(cpu, n)
-    diffs = {dev: diff_recordings(cpu, replay_device(
-        pert, device=dev).to_recording()) for dev in (device, "cpu")}
+    diffs, div = {}, {}
+    for dev in (device, "cpu"):
+        replayed = replay_device(pert, device=dev).to_recording()
+        with Captured() as cap:
+            diffs[dev] = diff_recordings(cpu, replayed)
+        div[dev] = (cap.values(), cap.events())
+    bad = events_differ(div["cpu"][1], div[device][1], "replay")
+    bad += gauges_differ(div["cpu"][0], div[device][0], "replay")
+    if [e["kind"] for e in div["cpu"][1]] != ["replay-divergence"]:
+        bad.append(f"replay: flight {div['cpu'][1]}")
+    if bad:
+        raise AssertionError("; ".join(bad))
     if diffs[device].to_dict() != diffs["cpu"].to_dict() \
             or diffs["cpu"].first_divergent_round is None:
         raise AssertionError(
@@ -1284,19 +1580,27 @@ def chaos_vs_cpu(rk, device: str = "cuda") -> None:
         f"the card with no divergence; a flipped event diverges first at "
         f"round {diffs['cpu'].first_divergent_round} ("
         f"{len(diffs['cpu'].node_delta)} nodes) on both; launches "
-        f"{launches}")
+        f"{launches}; flight events "
+        f"{[e['kind'] for e in obs['cpu'][1]]} and "
+        f"{len(obs['cpu'][0]) + len(obs['cpu'][2])} gauges equal")
     plan = CHAOS_PATHS["chaos-shed"]["plan"]
     for controlled in CHAOS_PATHS["chaos-shed"]["legs"]:
         cfg = chaos_config(plan, n, k, controlled)
-        res, verdicts = {}, {}
+        res, verdicts, obs = {}, {}, {}
         for dev in (device, "cpu"):
-            rk.reset_launches()
-            res[dev], _ = chaos_run(plan, cfg, dev, collect_telemetry=True)
-            verdicts[dev] = judge_device_run(res[dev], named_plan(plan))
+            reset_counts(rk)
+            with Captured() as cap:
+                res[dev], _ = chaos_run(plan, cfg, dev,
+                                        collect_telemetry=True)
+                verdicts[dev] = judge_device_run(res[dev], named_plan(plan))
+            obs[dev] = (cap.values(), cap.events(),
+                        emitted(res[dev].state, cfg))
             if dev == "cuda":
                 launches = check_launches(rk, "chaos-shed", "phase 3")
         bad = chaos_evidence_differ(res["cpu"], res[device])
         bad += verdicts_differ(verdicts["cpu"], verdicts[device])
+        bad += obs_differ(obs["cpu"], obs[device],
+                          f"{plan} controlled={controlled}")
         if bad:
             raise AssertionError(f"{plan} controlled={controlled}: card "
                                  f"!= CPU: " + "; ".join(bad))
@@ -1304,8 +1608,18 @@ def chaos_vs_cpu(rk, device: str = "cuda") -> None:
             f"card == on the CPU (SLO verdicts "
             f"{[(v.slo, v.ok) for v in verdicts['cpu'] if not v.skipped]}, "
             f"{len(res['cpu'].control_decisions)} decisions, report "
-            f"{'GREEN' if res['cpu'].report.ok else 'RED'}); launches "
+            f"{'GREEN' if res['cpu'].report.ok else 'RED'}, flight events "
+            f"{sorted({e['kind'] for e in obs['cpu'][1]})}); launches "
             f"{launches}")
+
+
+def obs_differ(a, b, what: str) -> list:
+    """Two chaos runs' observability: the gauges and counters landed
+    during the run, its flight events, and the emitters on its final
+    state."""
+    return (gauges_differ(a[0], b[0], f"{what} run gauges")
+            + events_differ(a[1], b[1], f"{what} flight")
+            + gauges_differ(a[2], b[2], f"{what} emitters"))
 
 
 def load_chaos_fixture() -> dict:
@@ -1356,7 +1670,7 @@ def chaos_full(rk, profile: bool = False) -> dict:
     out, bad = {}, []
 
     def timed(what, path, fn):
-        rk.reset_launches()
+        reset_counts(rk)
         s0 = host_syncs()
         t0 = time.perf_counter()
         value = fn()
@@ -1453,6 +1767,12 @@ def log_profile(path: str, prof: dict, rps: float) -> None:
         f"{prof['stream_syncs'] / prof['rounds']:.1f} stream syncs per "
         f"round (profiled), by operator {json.dumps(prof['waits'])}; "
         f"clocks after: {prof['clocks']}")
+    log(f"{path} blocking_copies_per_round: "
+        f"{prof['blocking_copies'] / prof['rounds']:.2f} (profiled, "
+        f"aten::to waits); pageable host-to-device / device-to-host "
+        f"copies per round "
+        f"{prof['h2d_pageable'] / prof['rounds']:.2f} / "
+        f"{prof['d2h_pageable'] / prof['rounds']:.2f}")
     log(f"{path} profile: " + json.dumps(prof))
 
 
@@ -1497,6 +1817,11 @@ def main() -> int:
         log(f"  sass: {count} instructions in {fn}")
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def mark(what):
+        log(f"elapsed after {what}: {time.perf_counter() - t_start:.1f} s")
+
     errs = check_kernels(rk, dev)
     times = measure_kernels(rk, dev)
     times_cq = measure_kernels(rk, dev, CQ_N, CQ_K)
@@ -1524,12 +1849,20 @@ def main() -> int:
                      f"pipe, {insns / issue_rate * 1e6:.2f} us at the warp "
                      f"issue limit")
         log(line + ")")
+    mark("phase 2")
     slice_vs_cpu(rk)
     churn_query_vs_cpu(rk)
     chaos_vs_cpu(rk)
+    mark("phase 3 slice, churn-query and chaos")
+    profile_vs_cpu(rk)
+    mark("phase 3 profile contract")
     runs = {path: run_path(rk, path, args.profile) for path in PATHS}
+    mark("phase 4 flagships")
+    profiles = profile_full(rk)
+    mark("phase 4 profiles")
     cq = churn_query_full(args.profile)
     chaos = chaos_full(rk, args.profile)
+    mark("phase 4 churn-query and chaos")
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
         log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "
@@ -1537,6 +1870,17 @@ def main() -> int:
         log(f"{path} host_syncs_per_round: {run['syncs_per_round']:.2f}")
         log(f"{path} setup_s: {run['setup_s']:.2f} warmup_s: "
             f"{run['warm_s']:.2f} timed_s: {run['run_s']:.3f}")
+        prof = profiles[path]
+        w = prof["whole_round"]
+        log(f"{path} roundprof summary: attributed_device_frac "
+            f"{prof['attributed_device_frac']}, anomalous phase "
+            f"{json.dumps(prof['anomalous_phase'])}, whole round "
+            f"{w['wall_ms']:.3f} ms wall / {w['device_busy_ms']:.3f} ms "
+            f"device busy, {w['host_reads']:.2f} host reads and "
+            f"{w['h2d_pageable']:.2f} pageable host-to-device copies per "
+            f"round")
+        log(f"{path} dispatch_summary ({WARMUP_ROUNDS + TIMED_ROUNDS} "
+            f"rounds; calls == launches): {json.dumps(run['dispatch'])}")
         if "profile" in run:
             log_profile(path, run["profile"], run["rps"])
     log(f"churn-query churn_rounds_per_s: {cq['churn_rps']:.2f} "
@@ -1603,6 +1947,7 @@ def main() -> int:
                         **{"churn-query": cq["launches"][name]},
                         **{p: c[name] for p, c in chaos_launches.items()}),
                     max_abs_err=errs[name],
+                    dispatch_us=dispatch_us(runs, rk.DISPATCH_OPS[name]),
                     ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=None,

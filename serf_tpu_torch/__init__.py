@@ -13,8 +13,14 @@ kernel or raises.
 
 Host syncs: a ``lax.cond`` of the reference becomes a Python branch on
 a device scalar here, which is one device-to-host read.  Every such read
-goes through :func:`host_bool` / :func:`host_int`, which count them, so a
-run can report its syncs per round.
+goes through :func:`host_bool` / :func:`host_int` (or, for a batch of
+values read at once, :func:`host_copy`, which :func:`emit_gauges` uses),
+which count them, so a run can report its syncs per round.
+
+Device constants: a Python value made into a card tensor with
+``torch.tensor(v, device=)`` is a blocking host-to-device copy that no
+count sees.  The port makes them with :func:`const` instead, which fills
+the value in on the device.
 """
 
 from __future__ import annotations
@@ -57,6 +63,42 @@ def host_int(t) -> int:
     return int(t)
 
 
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """Copy a device tensor to the host (one counted sync): the one read
+    of an emitter that stacked all its values first."""
+    _SYNCS[0] += 1
+    return t.cpu()
+
+
+def emit_gauges(values: dict, labels=None) -> dict:
+    """Land ``{name: 0-d device tensor}`` as gauges on the metrics sink
+    from one counted copy: the values are stacked as float64 on the
+    device first (exact for every int32/u32 count and float32 value).
+    Returns ``{name: float}``: the device emitters' body."""
+    from serf_tpu_torch.utils import metrics
+
+    row = torch.stack([v.reshape(()).to(torch.float64)
+                       for v in values.values()])
+    vals = dict(zip(values, host_copy(row).tolist()))
+    for name, v in vals.items():
+        metrics.gauge(name, v, labels)
+    return vals
+
+
 def host_syncs() -> int:
-    """Device-to-host reads made through :func:`host_bool`/:func:`host_int`."""
+    """Device-to-host reads made through :func:`host_bool`,
+    :func:`host_int` and :func:`host_copy`."""
     return _SYNCS[0]
+
+
+def const(value, dtype, device) -> torch.Tensor:
+    """``value`` as a ``dtype`` tensor on ``device``.  A tensor is cast
+    and moved (no copy when it is already there); a Python or numpy
+    scalar is filled into a 0-d tensor on the device, as a kernel
+    argument, with no host-to-device copy.  A float fills a float32
+    tensor rounded as ``np.float32(value)``."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=dtype)
+    if hasattr(value, "item"):
+        value = value.item()
+    return torch.full((), value, dtype=dtype, device=device)

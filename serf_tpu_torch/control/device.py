@@ -31,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from serf_tpu_torch import const
 from serf_tpu_torch.bits import as_u64, wrap_i32
 from serf_tpu_torch.prng import to_device
 
@@ -41,6 +42,22 @@ KNOB_FIELDS = ("fanout", "probe_mult", "stretch_q", "inject_limit",
 #: the per-round control row (``control_row``): knobs, then the shed and
 #: actuation ledgers
 CONTROL_FIELDS = KNOB_FIELDS + ("shed", "steps")
+
+#: the control-law table: (signal, knob, direction).  Every knob of
+#: KNOB_FIELDS is a law's knob and every law's knob is a KNOB_FIELDS
+#: entry (the reference's table, letter for letter)
+DEVICE_LAWS = (
+    ("agreement-low", "fanout", "up"),
+    ("agreement-converged", "fanout", "down"),
+    ("false-dead", "probe_mult", "up"),
+    ("false-dead-clear", "probe_mult", "down"),
+    ("false-dead", "stretch_q", "up"),
+    ("false-dead-clear", "stretch_q", "down"),
+    ("overflow-pressure", "inject_limit", "down"),
+    ("overflow-calm", "inject_limit", "up"),
+    ("overflow-pressure", "stamp_unit", "up"),
+    ("agreement-low", "stamp_unit", "down"),
+)
 
 KNOB_FANOUT = KNOB_FIELDS.index("fanout")
 KNOB_PROBE_MULT = KNOB_FIELDS.index("probe_mult")
@@ -139,7 +156,7 @@ def make_control(ccfg: ControlConfig, gcfg, fcfg, device) -> ControlState:
     dev = torch.device(device)
 
     def scalar(v, dtype):
-        return torch.tensor(v, dtype=dtype, device=dev)
+        return const(v, dtype, dev)
 
     return ControlState(
         knobs=torch.from_numpy(base).to(dev),
@@ -258,3 +275,24 @@ def decisions_of(prev_row, rows, base_round: int):
         })
         prev = row
     return out, prev
+
+
+def emit_control_metrics(final_row, labels=None) -> dict:
+    """The final control row (on the host: the run's one read already
+    happened) on the process sink: one ``serf.control.knob.<name>`` gauge
+    per knob, the shed ledger, and the actuation count.  Returns the
+    ``{name: value}`` dict."""
+    from serf_tpu_torch.utils import metrics
+
+    row = np.asarray(final_row)
+    vals = {}
+    for i, name in enumerate(KNOB_FIELDS):
+        vals[f"serf.control.knob.{name}"] = float(row[i])
+        metrics.gauge(f"serf.control.knob.{name}", float(row[i]), labels)
+    shed = float(row[len(KNOB_FIELDS)])
+    vals["serf.control.shed"] = shed
+    metrics.gauge("serf.control.shed", shed, labels)
+    steps = float(row[len(KNOB_FIELDS) + 1])
+    if steps:
+        metrics.incr("serf.control.steps", steps, labels)
+    return vals

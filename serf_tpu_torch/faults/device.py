@@ -43,6 +43,7 @@ from serf_tpu_torch.control.device import (
     CONTROL_FIELDS,
     control_row,
     decisions_of,
+    emit_control_metrics,
     gate_injections,
     knob_bounds,
 )
@@ -64,12 +65,17 @@ from serf_tpu_torch.models.swim import (
     propagation_row,
     round_telemetry,
 )
+from serf_tpu_torch.obs import flight
 from serf_tpu_torch.obs.propagation import (
+    emit_propagation_metrics,
     propagation_to_store,
     summarize_propagation,
 )
 from serf_tpu_torch.obs.timeseries import telemetry_to_store
-from serf_tpu_torch.obs.watchdog import summarize_invariants
+from serf_tpu_torch.obs.watchdog import (
+    emit_device_watchdog,
+    summarize_invariants,
+)
 from serf_tpu_torch.replay.digest import state_digest
 from serf_tpu_torch.replay.recording import (
     NODE_DIGEST_CAP,
@@ -524,6 +530,11 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
         for base, rows in host_ctl:
             decs, prev = decisions_of(prev, rows, base)
             control_decisions.extend(decs)
+        for d in control_decisions:
+            flight.record("control-decision", plane="device",
+                          round=d["round"], knobs=d["knobs"],
+                          shed=d["shed"])
+        emit_control_metrics(control_rows[-1], {"plane": "device"})
         stretch_q = int(control_final["stretch_q"])
     report = inv.check_device(plan, state, cfg, init_alive,
                               rounds_run=total, offered=len(injected),
@@ -554,6 +565,14 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
         all_rows = np.concatenate([p for _, p in host_prop])
         all_cov = np.concatenate([c for _, c in _to_host(cov_chunks)])
         summary = summarize_propagation(all_rows, all_cov)
+        emit_propagation_metrics(summary, {"plane": "device"})
+        flight.record(
+            "propagation-trace", plane="device",
+            sentinels=int(summary.sentinels),
+            rounds=int(summary.rounds),
+            t99=summary.time_to.get(99),
+            redundancy=round(float(summary.redundancy), 4),
+            final_coverage=round(float(summary.final_coverage), 4))
         propagation = {"rows": all_rows, "coverage": all_cov,
                        "summary": summary.to_dict(),
                        "base_round": prop_chunks[0][0]}
@@ -562,6 +581,7 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
         watchdog = summarize_invariants(all_inv,
                                         base_round=invar_chunks[0][0])
         watchdog["rows"] = all_inv
+        emit_device_watchdog(watchdog)
     return DeviceChaosResult(plan=plan, schedule=sched, state=state,
                              report=report, rounds_run=total,
                              notes=sched.notes, injected=injected,

@@ -32,7 +32,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from serf_tpu_torch import host_bool, prng
+from serf_tpu_torch import const, emit_gauges, host_bool, prng
 from serf_tpu_torch.bits import (
     alive_words as _alive_words,
     as_u64,
@@ -155,7 +155,7 @@ class GossipConfig:
 
 
 def _scalar(v, device) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.int32, device=device)
+    return const(v, torch.int32, device)
 
 
 def make_state(cfg: GossipConfig, device) -> GossipState:
@@ -204,8 +204,7 @@ def _set_drop(target: torch.Tensor, idx: Tuple[torch.Tensor, ...], values,
     reference's own contract for its duplicate-index sets)."""
     m = keep.shape[0]
     dev = target.device
-    values = torch.as_tensor(values, dtype=target.dtype,
-                             device=dev).expand(m)
+    values = const(values, target.dtype, dev).expand(m)
     any_keep = keep.any()
     j = torch.argmax(keep.to(torch.uint8)).reshape(1)
     zero = torch.zeros((1,), dtype=torch.int64, device=dev)
@@ -320,8 +319,7 @@ def clamp_learn_bytes(stamp: torch.Tensor, new_words: torch.Tensor, round_,
                       k: int):
     """Packed-flavor clamp + learn-write per byte column.  Returns
     ``(bytes', lo', hi')``."""
-    rq = torch.as_tensor(round_q(round_), device=stamp.device).to(
-        torch.uint8)
+    rq = const(round_q(round_), torch.uint8, stamp.device)
     lo = clamp_nibbles(stamp & 0xF, round_)
     hi = clamp_nibbles(stamp >> 4, round_)
     lo_learn, hi_learn = learn_pairs_words(new_words, k)
@@ -333,8 +331,7 @@ def clamp_learn_bytes(stamp: torch.Tensor, new_words: torch.Tensor, round_,
 def clamp_learn_nibbles(stamp: torch.Tensor, new_words: torch.Tensor,
                         round_, k: int) -> torch.Tensor:
     """Unpacked-flavor clamp + learn-write: u8[N, K] nibbles'."""
-    rq = torch.as_tensor(round_q(round_), device=stamp.device).to(
-        torch.uint8)
+    rq = const(round_q(round_), torch.uint8, stamp.device)
     return torch.where(unpack_bits(new_words, k), rq,
                        clamp_nibbles(stamp, round_))
 
@@ -342,7 +339,7 @@ def clamp_learn_nibbles(stamp: torch.Tensor, new_words: torch.Tensor,
 def _quarters(round_, device):
     """``(round_q(round_), round_q(round_ - 1))`` as uint8 device
     scalars: a flush's write quarter and its cohort's quarter."""
-    r = torch.as_tensor(round_, dtype=torch.int32, device=device)
+    r = const(round_, torch.int32, device)
     return round_q(r).to(torch.uint8), round_q(r - 1).to(torch.uint8)
 
 
@@ -416,7 +413,7 @@ def sending_mask(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
 
 def bump_last_learn(learned_any, learn_round, prev) -> torch.Tensor:
     """``learn_round`` if ``learned_any`` else ``prev`` (i32 scalar)."""
-    lr = torch.as_tensor(learn_round, dtype=torch.int32, device=prev.device)
+    lr = const(learn_round, torch.int32, prev.device)
     if isinstance(learned_any, torch.Tensor):
         return torch.where(learned_any, lr, prev)
     return lr if learned_any else prev
@@ -434,8 +431,7 @@ def clamp_stamps(stamp: torch.Tensor, round_, last_clamp, cfg: GossipConfig):
         stamp = lo | (hi << 4)
     else:
         stamp = clamp_nibbles(stamp, round_)
-    return stamp, torch.as_tensor(round_, dtype=torch.int32,
-                                  device=stamp.device)
+    return stamp, const(round_, torch.int32, stamp.device)
 
 
 def select_words(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
@@ -461,8 +457,7 @@ def rolled_rows(x: torch.Tensor, shift) -> torch.Tensor:
     never a host read."""
     n = x.shape[0]
     idx = torch.arange(n, dtype=torch.int64, device=x.device)
-    idx = torch.remainder(idx + torch.as_tensor(shift, device=x.device)
-                          .to(torch.int64), n)
+    idx = torch.remainder(idx + const(shift, torch.int64, x.device), n)
     return x.index_select(0, idx)
 
 
@@ -482,7 +477,7 @@ def inject_fact(state: GossipState, cfg: GossipConfig, subject, kind: int,
     dev = state.known.device
 
     def one(v):
-        return torch.as_tensor(v, device=dev).reshape(1).to(torch.int64)
+        return const(v, torch.int64, dev).reshape(1)
 
     return inject_facts_batch(
         state, cfg, one(subject), kind, one(incarnation), one(ltime),
@@ -786,7 +781,7 @@ def _cache_of(known: torch.Tensor, stamp2: torch.Tensor, lo, hi,
                                              device=dev)
     return (cache_words(known, stamp2, lo, hi, next_round,
                         cfg.transmit_limit_q, cfg.pack_stamp),
-            torch.as_tensor(next_round, dtype=torch.int32, device=dev))
+            const(next_round, torch.int32, dev))
 
 
 def learn_stamp_pass(stamp: torch.Tensor, known: torch.Tensor,
@@ -1078,3 +1073,41 @@ def fully_disseminated(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
     return torch.where(state.facts.valid, coverage(state, cfg) >= 1.0,
                        torch.ones((), dtype=torch.bool,
                                   device=state.known.device))
+
+
+def gossip_metric_values(state: GossipState, cfg: GossipConfig) -> dict:
+    """The dissemination gauges as ``{name: 0-d device tensor}`` (nothing
+    read on the host): :func:`emit_gossip_metrics` reads them in one
+    copy, ``swim.emit_cluster_metrics`` with the other planes'."""
+    # local import: antientropy imports from this module at load time
+    from serf_tpu_torch.models.antientropy import knowledge_agreement
+
+    valid = state.facts.valid
+    n_valid = torch.clamp(torch.sum(valid), min=1).to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=valid.device)
+    mean_cov = torch.sum(torch.where(valid, coverage(state, cfg),
+                                     zero)) / n_valid
+    n_alive = torch.clamp(torch.sum(state.alive), min=1).to(torch.float32)
+    fan_out = torch.sum(sending_mask(state, cfg)).to(torch.float32) \
+        / n_alive
+    # in name order, as the reference's one device_get of a dict
+    return {
+        "serf.model.gossip.agreement": knowledge_agreement(state, cfg),
+        "serf.model.gossip.alive": torch.sum(state.alive),
+        "serf.model.gossip.coverage": mean_cov,
+        "serf.model.gossip.facts-valid": torch.sum(valid),
+        "serf.model.gossip.fan-out": fan_out,
+        "serf.model.gossip.round": state.round,
+        "serf.model.gossip.tombstones": torch.sum(state.tombstone),
+        # the overload ledger (u32 counters)
+        "serf.overload.device_dropped": as_u64(state.overflow),
+        "serf.overload.device_offered": as_u64(state.injected),
+    }
+
+
+def emit_gossip_metrics(state: GossipState, cfg: GossipConfig,
+                        labels=None) -> dict:
+    """The device-plane dissemination gauges on the process sink, from
+    one counted device-to-host copy (call it between rounds, never once
+    per round).  Returns the emitted ``{name: value}`` dict."""
+    return emit_gauges(gossip_metric_values(state, cfg), labels)

@@ -16,7 +16,7 @@ import dataclasses
 
 import torch
 
-from serf_tpu_torch import host_bool, prng
+from serf_tpu_torch import emit_gauges, host_bool, prng
 from serf_tpu_torch.bits import (
     MASK32,
     alive_words,
@@ -383,3 +383,31 @@ def detection_complete(state: GossipState, cfg: GossipConfig,
     node."""
     believed = believed_dead(state, cfg, fcfg)
     return torch.all(believed | state.alive)
+
+
+def swim_metric_values(state: GossipState, cfg: GossipConfig,
+                       fcfg: FailureConfig = FailureConfig()) -> dict:
+    """The SWIM round-outcome gauges as ``{name: 0-d device tensor}``:
+    live suspicions, refutable accusations, death facts in the ring,
+    undetected deaths, and alive nodes believed dead."""
+    believed = believed_dead(state, cfg, fcfg)
+    # in name order, as the reference's one device_get of a dict
+    return {
+        "serf.model.swim.accusations-pending":
+            torch.sum(accusations_pending(state)),
+        "serf.model.swim.dead-facts":
+            torch.sum(_facts_about(state, (K_DEAD,))),
+        "serf.model.swim.false-dead": torch.sum(believed & state.alive),
+        "serf.model.swim.live-suspicions":
+            torch.sum(live_suspicions(state)),
+        "serf.model.swim.undetected-deaths":
+            torch.sum(~state.alive & ~believed),
+    }
+
+
+def emit_swim_metrics(state: GossipState, cfg: GossipConfig,
+                      fcfg: FailureConfig = FailureConfig(),
+                      labels=None) -> dict:
+    """The SWIM gauges on the process sink, from one counted copy.
+    Returns the emitted ``{name: value}`` dict."""
+    return emit_gauges(swim_metric_values(state, cfg, fcfg), labels)

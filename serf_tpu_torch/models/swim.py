@@ -28,7 +28,8 @@ from typing import NamedTuple
 
 import torch
 
-from serf_tpu_torch import host_bool, host_int, prng, resolve_device
+from serf_tpu_torch import (emit_gauges, host_bool, host_int, prng,
+                            resolve_device)
 from serf_tpu_torch.bits import as_u64, unpack_bits
 from serf_tpu_torch.control.device import (
     KNOB_FANOUT,
@@ -524,3 +525,21 @@ def invariant_row(g: GossipState, row: torch.Tensor, sentinels=None,
     irow = torch.cat([flags.to(torch.float32),
                       viol_mask.to(torch.float32).reshape(1)])
     return irow, new_prev
+
+
+def emit_cluster_metrics(state: ClusterState, cfg: ClusterConfig,
+                         labels=None) -> dict:
+    """Every device-plane gauge of the flagship cluster on the process
+    sink: dissemination, SWIM outcomes and (when on) Vivaldi, read in
+    one counted copy between rounds.  Returns the merged ``{name:
+    value}`` dict."""
+    from serf_tpu_torch.models.dissemination import gossip_metric_values
+    from serf_tpu_torch.models.failure import swim_metric_values
+    from serf_tpu_torch.models.vivaldi import vivaldi_metric_values
+
+    values = gossip_metric_values(state.gossip, cfg.gossip)
+    values.update(swim_metric_values(state.gossip, cfg.gossip,
+                                     cfg.failure))
+    if cfg.with_vivaldi:
+        values.update(vivaldi_metric_values(state.vivaldi))
+    return emit_gauges(values, labels)

@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from serf_tpu_torch import prng
+from serf_tpu_torch import const, emit_gauges, prng
 from serf_tpu_torch.models.dissemination import rolled_rows
 
 ZERO_THRESHOLD = 1.0e-9
@@ -69,7 +69,7 @@ def make_vivaldi(n: int, cfg: VivaldiConfig, device) -> VivaldiState:
         adjustment=torch.zeros((n,), **f32),
         adj_samples=torch.zeros((n, cfg.adjustment_window), **f32),
         adj_sum=torch.zeros((n,), **f32),
-        adj_index=torch.tensor(0, dtype=torch.int32, device=dev),
+        adj_index=const(0, torch.int32, dev),
         rtt_ring=torch.zeros((n, max(1, cfg.latency_filter_size)), **f32),
         rtt_seen=torch.zeros((n,), dtype=torch.bool, device=dev),
     )
@@ -117,7 +117,7 @@ def vivaldi_update(state: VivaldiState, cfg: VivaldiConfig, peer, rtt, key,
         active = torch.ones((n,), dtype=torch.bool, device=dev)
     k_force, k_grav = prng.split(key)
     rtt = torch.clamp(rtt, min=ZERO_THRESHOLD)
-    hmin = torch.tensor(cfg.height_min, dtype=torch.float32, device=dev)
+    hmin = const(cfg.height_min, torch.float32, dev)
 
     fsize = cfg.latency_filter_size
     if fsize > 1:
@@ -196,7 +196,7 @@ def vivaldi_update(state: VivaldiState, cfg: VivaldiConfig, peer, rtt, key,
         (constant) value on reset rows."""
         mask = act if new.dim() == 1 else act[:, None]
         rmask = reset if new.dim() == 1 else reset[:, None]
-        fresh = torch.tensor(fresh, dtype=new.dtype, device=dev)
+        fresh = const(fresh, new.dtype, dev)
         return torch.where(rmask, fresh, torch.where(mask, new, old))
 
     adj_samples_f = torch.where(reset[:, None],
@@ -250,3 +250,20 @@ def mean_relative_error(state: VivaldiState, cfg: VivaldiConfig,
     est = estimated_rtt(state, i, j)
     true = ground_truth_rtt(positions, i, j)
     return torch.mean(torch.abs(est - true) / torch.clamp(true, min=1e-9))
+
+
+def vivaldi_metric_values(state: VivaldiState) -> dict:
+    """The coordinate gauges (population means) as ``{name: 0-d device
+    tensor}``."""
+    # in name order, as the reference's one device_get of a dict
+    return {
+        "serf.model.vivaldi.adjustment": torch.mean(state.adjustment),
+        "serf.model.vivaldi.error": torch.mean(state.error),
+        "serf.model.vivaldi.height": torch.mean(state.height),
+    }
+
+
+def emit_vivaldi_metrics(state: VivaldiState, labels=None) -> dict:
+    """The Vivaldi gauges on the process sink, from one counted copy.
+    Returns the emitted ``{name: value}`` dict."""
+    return emit_gauges(vivaldi_metric_values(state), labels)

@@ -1,3 +1,5 @@
-"""Host-side readers of a device run's evidence: ring time series
-(``timeseries``), the propagation summary (``propagation``), the
-watchdog summary (``watchdog``) and the SLO verdicts (``slo``)."""
+"""The device plane's observability: readers of a run's evidence (ring
+time series ``timeseries``, the ``propagation`` summary, the
+``watchdog`` summary, the ``slo`` verdicts), the flight recorder
+(``flight``, stamped by ``trace``'s context), the kernels' dispatch
+timers (``device``) and the per-phase round profiler (``profile``)."""

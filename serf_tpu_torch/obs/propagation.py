@@ -125,3 +125,54 @@ def summarize_propagation(rows, cov) -> PropagationSummary:
         redundancy=(sent - learned) / sent if sent > 0 else 0.0,
         curve=[sum(r) / len(r) if r else 0.0 for r in curve],
     )
+
+
+def analytic_redundancy(window_rounds: int, fanout: int) -> float:
+    """The model's steady-state redundancy of transmit-limited gossip:
+    each knower re-ships a fact for ``window_rounds`` rounds at
+    ``fanout`` reads a round and each node learns it once, so the useful
+    fraction is ``1/(window x fanout)`` and the redundancy its
+    complement."""
+    return 1.0 - 1.0 / float(max(window_rounds * fanout, 1))
+
+
+def analytic_rounds_to_coverage(n: int, fanout: int,
+                                frac: float = 0.99) -> int:
+    """The model's rounds for one fact to reach ``frac`` coverage under
+    pull gossip: the mean-field map ``p' = p + (1-p)(1 - (1-p)^f)`` from
+    a single origin."""
+    p = 1.0 / max(n, 2)
+    rounds = 0
+    while p < frac:
+        p = p + (1.0 - p) * (1.0 - (1.0 - p) ** fanout)
+        rounds += 1
+        if rounds > 10_000:     # unreachable for sane (n, fanout)
+            break
+    return rounds
+
+
+def emit_propagation_metrics(summary: PropagationSummary,
+                             labels=None) -> dict:
+    """The run's propagation gauges on the process sink (read after the
+    run, from the summary already on the host).  Returns the ``{name:
+    value}`` dict."""
+    from serf_tpu_torch.utils import metrics
+
+    t99 = summary.time_to.get(99)
+    vals = {
+        "serf.propagation.slots-sent": summary.slots_sent,
+        "serf.propagation.slots-learned": summary.slots_learned,
+        "serf.propagation.slots-redundant":
+            summary.slots_sent - summary.slots_learned,
+        "serf.propagation.redundancy": summary.redundancy,
+        "serf.propagation.cov-min": summary.final_coverage,
+        "serf.propagation.cov-mean":
+            summary.curve[-1] if summary.curve else 0.0,
+        "serf.propagation.cov-max":
+            summary.curve[-1] if summary.curve else 0.0,
+        "serf.propagation.t99-rounds":
+            float(t99) if t99 is not None else float("nan"),
+    }
+    for name, value in vals.items():
+        metrics.gauge(name, value, labels)
+    return vals

@@ -15,7 +15,9 @@ import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from serf_tpu_torch.obs import flight
 from serf_tpu_torch.obs.timeseries import SeriesStore, TimeSeries
+from serf_tpu_torch.utils import metrics
 
 #: burn-rate windows (ring points): short catches a fresh regression,
 #: long confirms it is sustained rather than a blip
@@ -219,12 +221,13 @@ class SLOVerdict:
 
 
 def judge(defn: SLODef, plane: str, value: Optional[float],
-          series: Optional[TimeSeries] = None,
-          detail: str = "") -> SLOVerdict:
+          series: Optional[TimeSeries] = None, detail: str = "",
+          emit: bool = True) -> SLOVerdict:
     """Judge one SLO on one plane.  ``value=None`` = not measured in
     this run: a skipped (green-but-marked) verdict.  ``series`` (ring
     evidence) adds multi-window burn rates and EWMA/MAD anomaly
-    counts."""
+    counts.  ``emit`` lands the ``serf.slo.*`` gauges and, on a breach,
+    the breach counter and a ``slo-breach`` flight event."""
     if value is None:
         return SLOVerdict(slo=defn.name, plane=plane, ok=True, value=None,
                           objective=defn.objective, better=defn.better,
@@ -240,10 +243,22 @@ def judge(defn: SLODef, plane: str, value: Optional[float],
     if series is not None and len(series):
         burn = burn_rates(series, defn.objective, defn.better)
         anomalies = len(ewma_mad_flags(series.values()))
-    return SLOVerdict(slo=defn.name, plane=plane, ok=ok, value=value,
-                      objective=defn.objective, better=defn.better,
-                      unit=defn.unit, detail=detail, burn=burn,
-                      anomalies=anomalies)
+    v = SLOVerdict(slo=defn.name, plane=plane, ok=ok, value=value,
+                   objective=defn.objective, better=defn.better,
+                   unit=defn.unit, detail=detail, burn=burn,
+                   anomalies=anomalies)
+    if emit:
+        labels = {"slo": defn.name, "plane": plane}
+        metrics.gauge("serf.slo.ok", 1.0 if ok else 0.0, labels)
+        for w, b in burn.items():
+            metrics.gauge("serf.slo.burn", b, dict(labels, window=w))
+        if not ok:
+            metrics.incr("serf.slo.breach", 1, labels)
+            flight.record("slo-breach", slo=defn.name, plane=plane,
+                          value=(value if math.isfinite(value) else None),
+                          objective=defn.objective, unit=defn.unit,
+                          detail=detail)
+    return v
 
 
 def all_ok(verdicts: Sequence[SLOVerdict]) -> bool:
@@ -288,7 +303,8 @@ def _ratio_series(store: Optional[SeriesStore]) -> Optional[TimeSeries]:
 
 
 def judge_device_run(result, plan, rps: Optional[float] = None,
-                     ceiling: Optional[float] = None) -> List[SLOVerdict]:
+                     ceiling: Optional[float] = None,
+                     emit: bool = True) -> List[SLOVerdict]:
     """SLO verdicts for a finished device chaos run
     (``faults.device.DeviceChaosResult`` with telemetry collected).
     ``rps``/``ceiling`` feed the measurement-integrity SLO when the
@@ -317,13 +333,13 @@ def judge_device_run(result, plan, rps: Optional[float] = None,
                 if store is not None else None
             if final is None or "agreement" not in final:
                 out.append(judge(d, "device", None,
-                                 detail="telemetry not collected"))
+                                 detail="telemetry not collected", emit=emit))
                 continue
             final_v = final["agreement"]
             if final_v < 1.0 - 1e-6:
                 out.append(judge(
                     d, "device", math.inf,
-                    detail=f"final agreement {final_v:.4f} < 1.0"))
+                    detail=f"final agreement {final_v:.4f} < 1.0", emit=emit))
                 continue
             # last (possibly merged) ring point that still had anything
             # to learn, relative to the settle window — an estimate of
@@ -343,11 +359,11 @@ def judge_device_run(result, plan, rps: Optional[float] = None,
             out.append(judge(
                 d, "device", value,
                 detail=f"converged ~{used:.0f} round(s) into the "
-                       f"{plan.settle_rounds}-round settle window"))
+                       f"{plan.settle_rounds}-round settle window", emit=emit))
         elif d.name == "false-dead":
             if final is None or "false_dead" not in final:
                 out.append(judge(d, "device", None,
-                                 detail="telemetry not collected"))
+                                 detail="telemetry not collected", emit=emit))
                 continue
             fd = final["false_dead"]
             series = store.get("serf.model.swim.false-dead") \
@@ -355,7 +371,7 @@ def judge_device_run(result, plan, rps: Optional[float] = None,
             out.append(judge(
                 d, "device", fd,
                 series=_tail_after(series, settle_start),
-                detail=f"{fd:.0f} alive node(s) believed dead"))
+                detail=f"{fd:.0f} alive node(s) believed dead", emit=emit))
         elif d.name == "shed-ratio":
             dropped = getattr(result, "dropped", 0)
             offered = getattr(result, "offered", 0)
@@ -363,23 +379,23 @@ def judge_device_run(result, plan, rps: Optional[float] = None,
                 d, "device", dropped / max(1, offered),
                 series=_ratio_series(store),
                 detail=f"{dropped} clobbered in-window of {offered} "
-                       "injected"))
+                       "injected", emit=emit))
         elif d.name == "sustained-rps-ceiling":
             if rps is None or ceiling is None or ceiling <= 0:
                 out.append(judge(d, "device", None,
                                  detail="throughput not timed in this "
-                                        "run"))
+                                        "run", emit=emit))
             else:
                 out.append(judge(
                     d, "device", rps / ceiling,
                     detail=f"measured {rps:.1f} rps vs analytic ceiling "
-                           f"{ceiling:.1f} rps"))
+                           f"{ceiling:.1f} rps", emit=emit))
         elif d.name == "coverage-settle":
             prop = getattr(result, "propagation", None)
             summary = (prop or {}).get("summary")
             if not summary:
                 out.append(judge(d, "device", None,
-                                 detail="propagation not traced"))
+                                 detail="propagation not traced", emit=emit))
                 continue
             t99 = (summary.get("time_to") or {}).get("99")
             rounds = max(1, summary.get("rounds", 1))
@@ -388,17 +404,17 @@ def judge_device_run(result, plan, rps: Optional[float] = None,
                     d, "device", math.inf,
                     detail=f"sentinels never reached 99% coverage "
                            f"(final min "
-                           f"{summary.get('final_coverage', 0):.3f})"))
+                           f"{summary.get('final_coverage', 0):.3f})", emit=emit))
             else:
                 out.append(judge(
                     d, "device", t99 / rounds,
-                    detail=f"99% coverage at round {t99} of {rounds}"))
+                    detail=f"99% coverage at round {t99} of {rounds}", emit=emit))
         elif d.name == "redundancy-ceiling":
             prop = getattr(result, "propagation", None)
             summary = (prop or {}).get("summary")
             if not summary or summary.get("slots_sent", 0) <= 0:
                 out.append(judge(d, "device", None,
-                                 detail="propagation not traced"))
+                                 detail="propagation not traced", emit=emit))
             else:
                 series = store.get("serf.propagation.redundancy") \
                     if store is not None else None
@@ -406,5 +422,5 @@ def judge_device_run(result, plan, rps: Optional[float] = None,
                     d, "device", summary["redundancy"], series=series,
                     detail=f"{summary['slots_sent'] - summary['slots_learned']:.0f} "
                            f"redundant of {summary['slots_sent']:.0f} "
-                           "slots sent"))
+                           "slots sent", emit=emit))
     return out

@@ -1,19 +1,22 @@
 """The device watchdog's verdict, read from the stacked invariant rows.
 
-The port's copy of ``summarize_invariants`` in
-``serf_tpu/obs/watchdog.py``: a run with ``collect_invariants`` stacks
+The port's copy of ``summarize_invariants`` and ``emit_device_watchdog``
+in ``serf_tpu/obs/watchdog.py``: a run with ``collect_invariants`` stacks
 one ``INVARIANT_FIELDS`` row per round on the device
 (``models/swim.invariant_row``) and reads them once after the run; this
-names the first violating round per field and overall.
+names the first violating round per field and overall, and lands the
+verdict on the sink and, on a breach, in the flight recorder.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from serf_tpu_torch.models.swim import INVARIANT_FIELDS
+from serf_tpu_torch.obs import flight
+from serf_tpu_torch.utils import metrics
 
 
 def summarize_invariants(rows, base_round: int = 0) -> Dict[str, Any]:
@@ -51,3 +54,24 @@ def summarize_invariants(rows, base_round: int = 0) -> Dict[str, Any]:
             "round": first_round, "fields": first_fields},
         "violations": int((~ok_plane).sum()),
     }
+
+
+def emit_device_watchdog(summary: Dict[str, Any],
+                         labels: Optional[Dict[str, str]] = None) -> None:
+    """The device watchdog verdict on the sink (``serf.watchdog.*``,
+    label ``plane=device``) and, on a breach, a ``watchdog-breach``
+    flight event naming the first violating round."""
+    labels = dict(labels or {}, plane="device")
+    metrics.incr("serf.watchdog.ticks", float(summary.get("rounds", 0)),
+                 labels)
+    metrics.gauge("serf.watchdog.ok",
+                  1.0 if summary.get("ok") else 0.0, labels)
+    metrics.gauge("serf.watchdog.armed",
+                  float(len(summary.get("fields", ()))), labels)
+    first = summary.get("first_violation")
+    if first is not None:
+        metrics.incr("serf.watchdog.breach", 1, labels)
+        flight.record("watchdog-breach", plane="device",
+                      round=first["round"],
+                      invariants=list(first["fields"]),
+                      violations=int(summary.get("violations", 0)))

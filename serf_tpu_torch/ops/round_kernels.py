@@ -24,6 +24,12 @@ PyTorch's current stream when they lie on a CUDA device — it never falls
 back from a CUDA tensor to the plain version.  Outputs are fresh buffers
 from ``torch.empty``; a kernel never allocates and never synchronises.
 Every launch adds one to ``LAUNCHES[name]`` and nothing else does.
+Every wrapper call, on the CPU as on the card, runs under
+``obs.device.dispatch_timer`` with the reference's op name
+(:data:`DISPATCH_OPS`) and signature, so on the card
+``dispatch_summary()[op]["calls"]`` equals ``LAUNCHES[name]`` when both
+were reset together.  The timer reads the host clock only; it never
+waits for the card.
 
 The plain versions compute the reference's arithmetic through the same
 helpers as ``models.dissemination`` (``nibble_age_pred_words``,
@@ -34,12 +40,15 @@ link.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
+from serf_tpu_torch import const
 from serf_tpu_torch.bits import alive_words, pack_bits
 from serf_tpu_torch.models import dissemination as dis
+from serf_tpu_torch.obs.device import dispatch_timer
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"select_packets": 0, "merge_incoming": 0,
@@ -50,9 +59,31 @@ LAUNCHES = {"select_packets": 0, "merge_incoming": 0,
 THREADS = 256
 
 
+#: each kernel's op name in the dispatch timers (the reference's names)
+DISPATCH_OPS = {"select_packets": "ops.select_packets",
+                "merge_incoming": "ops.merge_incoming",
+                "fused_select_cached": "ops.fused_select",
+                "fused_merge": "ops.fused_merge",
+                "fused_flush": "ops.fused_flush"}
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _timed(name: str, *keys: str):
+    """Run a wrapper under ``dispatch_timer``; the signature is N (the
+    first operand's rows) and the named keyword arguments, as the
+    reference's."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def timed(*args, **kw):
+            sig = (args[0].shape[0],) + tuple(kw[k] for k in keys)
+            with dispatch_timer(DISPATCH_OPS[name], signature=sig):
+                return fn(*args, **kw)
+        return timed
+    return deco
 
 
 def _block_for(n: int) -> int:
@@ -146,7 +177,7 @@ def _check_alive(alive: torch.Tensor, n: int) -> None:
 def _round_scalar(round_, device) -> torch.Tensor:
     """The round as a 0-d int32 device tensor (the kernels derive its
     stamp quarter on the device, so the host never waits to launch)."""
-    r = torch.as_tensor(round_, dtype=torch.int32, device=device)
+    r = const(round_, torch.int32, device)
     if r.dim() != 0:
         raise ValueError(f"round must be a scalar, got {tuple(r.shape)}")
     return r.contiguous()
@@ -225,6 +256,7 @@ def fused_flush_plain(known2, new_words, overlay, stamp, next_round, *,
 
 # -- wrappers ------------------------------------------------------------------
 
+@_timed("select_packets", "k_facts", "packed")
 def select_packets(stamp: torch.Tensor, known: torch.Tensor,
                    alive: torch.Tensor, limit_q: int, round_, *,
                    packed: bool, k_facts: int) -> torch.Tensor:
@@ -248,6 +280,7 @@ def select_packets(stamp: torch.Tensor, known: torch.Tensor,
     return out
 
 
+@_timed("merge_incoming", "k_facts", "packed")
 def merge_incoming(known: torch.Tensor, incoming: torch.Tensor,
                    alive: torch.Tensor, stamp: torch.Tensor, next_round, *,
                    packed: bool, k_facts: int):
@@ -276,6 +309,7 @@ def merge_incoming(known: torch.Tensor, incoming: torch.Tensor,
     return known2, stamp2
 
 
+@_timed("fused_select_cached", "k_facts")
 def fused_select_cached(sendable: torch.Tensor, known: torch.Tensor,
                         alive: torch.Tensor, *, k_facts: int,
                         stamp_cols: int) -> torch.Tensor:
@@ -296,6 +330,7 @@ def fused_select_cached(sendable: torch.Tensor, known: torch.Tensor,
     return out
 
 
+@_timed("fused_merge", "k_facts", "packed", "with_cache")
 def fused_merge(known: torch.Tensor, incoming: torch.Tensor,
                 alive: torch.Tensor, stamp: torch.Tensor, next_round, *,
                 limit_q: int, packed: bool, k_facts: int,
@@ -332,6 +367,7 @@ def fused_merge(known: torch.Tensor, incoming: torch.Tensor,
     return known2, stamp2, send, flags
 
 
+@_timed("fused_flush", "k_facts", "packed", "with_cache")
 def fused_flush(known2: torch.Tensor, new_words: torch.Tensor,
                 overlay: torch.Tensor, stamp: torch.Tensor, next_round, *,
                 limit_q: int, packed: bool, k_facts: int,

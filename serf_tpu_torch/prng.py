@@ -157,4 +157,6 @@ def bernoulli(k: np.ndarray, p: float = 0.5, shape=(), device=None):
         # uniform draws lie in [0, 1): none is below 0
         return torch.zeros(shape, dtype=torch.bool, device=device)
     u = uniform(k, shape, device)
-    return u < torch.tensor(p, dtype=torch.float32, device=u.device)
+    # p rounded to float32 as the reference's ``u < np.float32(p)``,
+    # filled in on the device (no host-to-device copy)
+    return u < torch.full((), p, dtype=torch.float32, device=u.device)

@@ -12,7 +12,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+from serf_tpu_torch.obs import flight
 from serf_tpu_torch.replay.recording import Recording
+from serf_tpu_torch.utils import metrics
 
 
 @dataclass
@@ -102,4 +104,9 @@ def diff_recordings(a: Recording, b: Recording) -> DiffReport:
         rep.ok = False
         rep.length_note = (f"streams differ in length: {len(sa)} vs "
                            f"{len(sb)} records")
+    if not rep.ok:
+        metrics.incr("serf.replay.divergence")
+        flight.record("replay-divergence",
+                      round=rep.first_divergent_round,
+                      step=(rep.first_divergent_step or {}).get("seq"))
     return rep

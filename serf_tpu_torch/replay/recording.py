@@ -33,6 +33,8 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 
 from serf_tpu_torch.faults.plan import EdgeFault, FaultPhase, FaultPlan
+from serf_tpu_torch.obs import flight
+from serf_tpu_torch.utils import metrics
 
 #: the declared record surface: kind -> ordered field names
 RECORDING_SCHEMA = {
@@ -175,8 +177,13 @@ class Recording:
                        + self.records)
 
     def save(self, path) -> str:
-        Path(path).write_text(self.to_jsonl())
-        return str(path)
+        p = Path(path)
+        p.write_text(self.to_jsonl())
+        metrics.incr("serf.replay.records", 1 + len(self.records))
+        flight.record("replay-recorded", path=str(p),
+                      plane=self.header.get("plane"),
+                      plan=self.header.get("plan", {}).get("name"))
+        return str(p)
 
 
 class RunRecorder:
@@ -229,12 +236,14 @@ class RunRecorder:
         if self._finished:
             return
         self._finished = True
+        n_views = sum(1 for r in self.records if r["kind"] == "view")
         self._seq += 1
         self.records.append({
             "kind": "end", "seq": self._seq,
             "steps": sum(1 for r in self.records if r["kind"] == "step"),
-            "views": sum(1 for r in self.records if r["kind"] == "view"),
+            "views": n_views,
         })
+        metrics.gauge("serf.replay.rounds", n_views)
 
     def to_recording(self) -> Recording:
         if self._header is None:

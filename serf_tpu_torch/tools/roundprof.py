@@ -1,0 +1,203 @@
+"""Per-phase profiler of the flagship round (command line).
+
+The port's counterpart of ``tools/roundprof.py``: every round phase runs
+in isolation on a warmed sustained-load state, timed with CUDA events,
+its device time read from ``torch.profiler``, its host reads, blocking
+copies and kernel launches counted, beside the byte model; the phase
+whose wall share its bytes cannot explain is flagged
+(``serf_tpu_torch/obs/profile.py`` has the method).
+
+Usage (the card unless ``--device cpu``)::
+
+    python -m serf_tpu_torch.tools.roundprof [--n 65536] [--k 64] \\
+        [--calls 3] [--warm 24] [--events 2] [--json]
+    python -m serf_tpu_torch.tools.roundprof --fused [--json]
+    python -m serf_tpu_torch.tools.roundprof --stamp-unit 4 [--fused]
+
+``--json`` prints the contract on stdout: one JSON object with ``n``,
+``k``, ``backend``, ``kernel_path``, ``full_plane_passes``,
+``hbm_bytes_per_s``, ``devices``, ``phases[]`` (each with ``wall_ms``,
+``device_busy_ms``, ``host_reads``, ``blocking_copies``,
+``h2d_pageable``, ``launches``, ``cadence``, ``model_bytes``,
+``model_amortized_bytes``, ``achieved_gbps``, ``roofline_frac``,
+``wall_share``, ``byte_share``, ``excess``), ``whole_round``,
+``attributed_device_frac`` and ``anomalous_phase``
+(``serf_tpu_torch/obs/profile.py`` defines each count).  The table
+always goes to stderr.
+
+``--fused`` profiles the fused kernel family against the standalone
+kernels (phased) and prints the removed stamp-plane pass; with
+``--stamp-unit U`` it compares the per-round stamps against cohort
+flushes of unit U, on the plain path or, with ``--fused``, on the
+kernels (where ``fused_flush`` runs).  ``--mesh``/``--schedule`` are
+refused: the sharded round is not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=65536)
+    ap.add_argument("--k", type=int, default=64)
+    ap.add_argument("--events", type=int, default=2,
+                    help="user events injected per round (sustained load)")
+    ap.add_argument("--calls", type=int, default=3,
+                    help="timed calls per phase")
+    ap.add_argument("--warm", type=int, default=24,
+                    help="sustained warm-up rounds before profiling")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="refused: the sharded round is not ported")
+    ap.add_argument("--schedule", choices=("ring", "allgather"),
+                    default=None,
+                    help="refused: the sharded round is not ported")
+    ap.add_argument("--fused", action="store_true",
+                    help="the fused kernels against the standalone kernels "
+                         "(with --stamp-unit: the kernels on both sides)")
+    ap.add_argument("--stamp-unit", type=int, default=0,
+                    help="per-round stamps against cohort flushes of this "
+                         "unit (2 or 4; 0 = off)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--json", action="store_true",
+                    help="print the JSON contract on stdout")
+    args = ap.parse_args(argv)
+
+    if args.mesh or args.schedule:
+        sys.stderr.write("--mesh/--schedule: the sharded round is not "
+                         "ported to this package yet\n")
+        return 2
+    if args.stamp_unit:
+        return _stamp_ab(args)
+    if args.fused:
+        return _fused_ab(args)
+
+    from serf_tpu_torch.models.swim import flagship_config
+    from serf_tpu_torch.obs.profile import profile_table
+
+    prof = _profile(flagship_config(args.n, k_facts=args.k), args)
+    sys.stderr.write(profile_table(prof) + "\n")
+    if args.json:
+        print(json.dumps(prof))
+    return 0
+
+
+def _profile(cfg, args):
+    from serf_tpu_torch.obs.profile import profile_round
+    return profile_round(cfg, events_per_round=args.events,
+                         timed_calls=args.calls, warm_rounds=args.warm,
+                         device=args.device)
+
+
+def _with_gossip(cfg, **gossip):
+    return dataclasses.replace(cfg, gossip=dataclasses.replace(
+        cfg.gossip, **gossip))
+
+
+def _wall(prof) -> float:
+    return round(sum(r["wall_ms"] for r in prof["phases"]), 3)
+
+
+def _fused_ab(args) -> int:
+    """``--fused``: the fused family against the standalone kernels, same
+    config and seeds, with the removed stamp-plane pass (the fused merge
+    keeps the sendable cache, so the selection's stamp read is gone)."""
+    from serf_tpu_torch.models.swim import flagship_config
+    from serf_tpu_torch.obs.profile import profile_table
+
+    base = flagship_config(args.n, k_facts=args.k)
+    profs = {}
+    for name, fused in (("phased", False), ("fused", True)):
+        cfg = _with_gossip(base, use_pallas=True, fused_kernels=fused)
+        profs[name] = _profile(cfg, args)
+        want = "fused" if fused else "kernels"
+        if profs[name]["kernel_path"] != want:
+            sys.stderr.write(
+                "--fused: the %s flavor dispatched kernel_path=%r, not %r "
+                "(the kernels' gate rejected n=%d k=%d); pick a supported "
+                "shape\n" % (name, profs[name]["kernel_path"], want,
+                             args.n, args.k))
+            return 2
+        sys.stderr.write(profile_table(profs[name]) + "\n\n")
+    fp = profs["fused"]["full_plane_passes"]
+    pp = profs["phased"]["full_plane_passes"]
+    planes = sorted(set(fp) | set(pp))
+    delta = {
+        "stamp_passes_removed": round(pp.get("stamp", 0.0)
+                                      - fp.get("stamp", 0.0), 3),
+        "passes": {p: {"phased": pp.get(p, 0.0), "fused": fp.get(p, 0.0)}
+                   for p in planes},
+        "wall_ms": {name: _wall(p) for name, p in profs.items()},
+        "attributed_device_frac": {
+            name: p["attributed_device_frac"] for name, p in profs.items()},
+    }
+    sys.stderr.write(
+        "fused vs phased kernel round @n=%d: stamp-plane passes "
+        "%.2f -> %.2f (%.2f full-plane pass(es)/round removed: the "
+        "selection's stamp read); phase wall %s -> %s ms\n" % (
+            args.n, pp.get("stamp", 0.0), fp.get("stamp", 0.0),
+            delta["stamp_passes_removed"], delta["wall_ms"]["phased"],
+            delta["wall_ms"]["fused"]))
+    if args.json:
+        print(json.dumps({"fused": profs["fused"],
+                          "phased": profs["phased"], "delta": delta}))
+    return 0
+
+
+def _stamp_ab(args) -> int:
+    """``--stamp-unit U``: cohort flushes of unit U against per-round
+    stamps, same config and seeds (the kernels on with ``--fused``)."""
+    from serf_tpu_torch.models.swim import flagship_config
+    from serf_tpu_torch.obs.profile import profile_table
+
+    if args.stamp_unit not in (2, 4):
+        sys.stderr.write("--stamp-unit must be 2 or 4\n")
+        return 2
+    base = flagship_config(args.n, k_facts=args.k)
+    if args.fused:
+        base = _with_gossip(base, use_pallas=True)
+    profs = {}
+    for name, unit in (("per_round", 1), ("deferred", args.stamp_unit)):
+        profs[name] = _profile(_with_gossip(base, stamp_flush_unit=unit),
+                               args)
+        sys.stderr.write(profile_table(profs[name]) + "\n\n")
+    dp = profs["deferred"]["full_plane_passes"]
+    pp = profs["per_round"]["full_plane_passes"]
+    planes = sorted(set(dp) | set(pp))
+    delta = {
+        "stamp_passes_removed": round(pp.get("stamp", 0.0)
+                                      - dp.get("stamp", 0.0), 3),
+        "overlay_passes_added": round(dp.get("overlay", 0.0), 3),
+        "passes": {p: {"per_round": pp.get(p, 0.0),
+                       "deferred": dp.get(p, 0.0)} for p in planes},
+        "model_bytes": {
+            name: p["whole_round"]["model_amortized_bytes"]
+            for name, p in profs.items()},
+        "wall_ms": {name: _wall(p) for name, p in profs.items()},
+        "attributed_device_frac": {
+            name: p["attributed_device_frac"] for name, p in profs.items()},
+    }
+    sys.stderr.write(
+        "deferred (unit %d) vs per-round stamps @n=%d: stamp-plane passes "
+        "%.2f -> %.2f (%.2f removed, +%.2f overlay pass(es)); modeled "
+        "%.1f -> %.1f MB/round; phase wall %s -> %s ms\n" % (
+            args.stamp_unit, args.n, pp.get("stamp", 0.0),
+            dp.get("stamp", 0.0), delta["stamp_passes_removed"],
+            delta["overlay_passes_added"],
+            delta["model_bytes"]["per_round"] / 1e6,
+            delta["model_bytes"]["deferred"] / 1e6,
+            delta["wall_ms"]["per_round"], delta["wall_ms"]["deferred"]))
+    if args.json:
+        print(json.dumps({"deferred": profs["deferred"],
+                          "per_round": profs["per_round"],
+                          "delta": delta}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

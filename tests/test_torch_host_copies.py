@@ -1,0 +1,80 @@
+"""No host-made device constants on the port's rounds.
+
+A Python value turned into a tensor on a device with ``torch.tensor(v,
+device=)`` or ``torch.as_tensor(v, device=)`` is, on the card, a blocking
+host-to-device copy that ``host_syncs()`` does not count (it shows as an
+``aten::to`` wait under ``chip_smoke.py --profile``).  The port fills
+such constants in on the device (``serf_tpu_torch.const``).  This guard
+counts every such call (data that is not a tensor, an explicit
+``device=``) while the paths ``chip_smoke.py`` drives run at N = 4096 on
+the CPU: the three flagships (100 sustained rounds after the seeding),
+churn-query's churned window and both chaos plans, and requires none."""
+
+import collections
+import traceback
+
+import pytest
+import torch
+
+import chip_smoke as cs
+from serf_tpu_torch import prng
+from serf_tpu_torch.models.swim import run_cluster_sustained
+
+N = 4096
+
+
+@pytest.fixture
+def made_on_host(monkeypatch):
+    """Counts (by the port's calling line) of host-made device
+    constants while the test runs."""
+    counts = collections.Counter()
+
+    def counting(fn):
+        def wrapper(data, *args, **kw):
+            if kw.get("device") is not None and \
+                    not isinstance(data, torch.Tensor):
+                frames = [f for f in traceback.extract_stack()[:-1]
+                          if "serf_tpu_torch" in f.filename]
+                where = frames[-1] if frames else None
+                counts[f"{where.filename.split('serf_tpu_torch')[-1]}:"
+                       f"{where.lineno}" if where else "?"] += 1
+            return fn(data, *args, **kw)
+        return wrapper
+
+    monkeypatch.setattr(torch, "tensor", counting(torch.tensor))
+    monkeypatch.setattr(torch, "as_tensor", counting(torch.as_tensor))
+    return counts
+
+
+@pytest.mark.parametrize("path", sorted(cs.PATHS))
+def test_flagship_rounds_make_no_host_constants(path, made_on_host):
+    cfg = cs.kernel_config(N, **cs.PATHS[path]["gossip"])
+    st, _ = cs.seeded_state(cfg, "cpu")
+    made_on_host.clear()
+    st = run_cluster_sustained(st, cfg, prng.key(3), 100,
+                               events_per_round=2)
+    assert int(st.gossip.round) == 100
+    assert dict(made_on_host) == {}
+
+
+def test_churn_query_rounds_make_no_host_constants(made_on_host):
+    cfg, ccfg, qcfg = cs.cq_configs(N, raised=True)
+    carry, plane, origins = cs.cq_start(cfg, qcfg, "cpu")
+    made_on_host.clear()
+    carry, _ = cs.cq_window(carry, cfg, ccfg, qcfg, prng.key(7), 30,
+                            plane, origins)
+    assert int(carry[0].gossip.round) == 30
+    assert dict(made_on_host) == {}
+
+
+@pytest.mark.parametrize("name,controlled", [("chaos-heal", False),
+                                             ("chaos-shed", False),
+                                             ("chaos-shed", True)])
+def test_chaos_plans_make_no_host_constants(name, controlled, made_on_host):
+    """A whole plan (seeding included: the executor builds its cluster
+    per run) at the chaos profiles' K = 32."""
+    spec = cs.CHAOS_PATHS[name]
+    cfg = cs.chaos_config(spec["plan"], N, cs.CHAOS_SMALL_K, controlled)
+    res, _ = cs.chaos_run(spec["plan"], cfg, "cpu", record=True)
+    assert res.rounds_run > 0
+    assert dict(made_on_host) == {}
