@@ -99,6 +99,27 @@ elsewhere); then each path's ``dispatch_summary()`` is logged.  Under
 ``--profile`` each profiled window also counts the blocking copies
 (``aten::to`` waits) and the card's pageable copies either way.
 
+Phase 5 runs the command lines as a user types them, each tool's
+``main(argv)`` in-process on the card at full width, with the
+reference's configs (``use_pallas`` off: no kernel may launch, and none
+does): ``chaos --plan partition-heal-loss --n 1000000 --k-facts 64
+--json --record-on-fail --export-timeline`` (its digest stream, report,
+ledger and decisions equal the fixture's, its timeline validates),
+``chaos --plan control-overload-shed --n 1000000 --k-facts 32
+--controller ab`` (exit 0: the static leg breaches shed-ratio, the
+controlled leg is green and equals the fixture's), ``replay record``
+and ``replay replay`` at 1M (exit 0) and ``replay diff`` against a copy
+with one digest flipped (exit 1 at that round), ``gossipscope --n
+1000000 --self-check`` (its exit code and ``--json`` trace the
+reference's, ``tests/data/torch_tools_1m.json``: the sentinels reach
+99.97% of a million nodes, so the self-check exits 1 in both packages),
+``obswatch --device-only --n 1000000 --self-check`` (exit 0) and
+``obswatch --degraded --n 1000000`` (exit 1), both JSON the reference's
+but for the measured rounds/s,
+``vivaldi_ab`` at N = 100,000 for 300 rounds, and ``entry()``'s round
+against the CPU's.  Each logs its wall time, rounds/s and host syncs
+per round.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Needs no network and imports no
 JAX.
@@ -1776,6 +1797,305 @@ def log_profile(path: str, prof: dict, rps: float) -> None:
     log(f"{path} profile: " + json.dumps(prof))
 
 
+#: phase 5: the command lines at full width (the reference's configs:
+#: ``use_pallas`` off, so no kernel may launch) and Vivaldi's A/B size
+VIVALDI_N, VIVALDI_ROUNDS = 100_000, 300
+#: the view whose digest the tampered recording flips
+TAMPERED_VIEW = 12
+
+
+#: the reference's gossipscope and obswatch runs at N = 1,000,000
+#: (``tests/test_torch_tools.py`` writes it with ``-m slow``)
+TOOLS_FIXTURE = "tests/data/torch_tools_1m.json"
+#: obswatch's rounds/s and the byte model's ceiling are this machine's
+OBSWATCH_RPS = ("device_rps", "device_ceiling_rps")
+
+
+def load_tools_fixture() -> dict:
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent / TOOLS_FIXTURE
+    return json.loads(path.read_text())["runs"]
+
+
+def obswatch_view(d: dict) -> dict:
+    """obswatch's JSON without what this machine measured: rounds/s, the
+    ceiling, the rps verdict's value and detail, event times."""
+    d = {k: v for k, v in d.items() if k not in OBSWATCH_RPS}
+    for v in d["verdicts"]["device"]:
+        if v["slo"] == "sustained-rps-ceiling":
+            v.pop("value")
+            v.pop("detail")
+    d["slo_breach_events"] = [
+        {k: v for k, v in e.items() if k not in ("time", "monotonic",
+                                                 "seq")}
+        for e in d["slo_breach_events"]]
+    return d
+
+
+def json_differ(a, b, path: str = "") -> list:
+    """Leaf-by-leaf differences between two JSON values: floats within
+    SLO_RTOL (they are built on the float-summed telemetry rows),
+    everything else equal."""
+    import math
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path}: keys {sorted(set(a) ^ set(b))}"]
+        return [d for k in a for d in json_differ(a[k], b[k],
+                                                  f"{path}.{k}")]
+    if isinstance(a, list) and isinstance(b, list):
+        if len(a) != len(b):
+            return [f"{path}: length {len(a)} vs {len(b)}"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in json_differ(x, y, f"{path}[{i}]")]
+    if isinstance(a, float) and isinstance(b, (int, float)) \
+            and not isinstance(b, bool):
+        return ([] if math.isclose(a, b, rel_tol=SLO_RTOL, abs_tol=0.0)
+                else [f"{path}: {a!r} vs {b!r}"])
+    return [] if a == b else [f"{path}: {a!r} vs {b!r}"]
+
+
+def run_tool(rk, what: str, main, argv, **kw) -> dict:
+    """One command line's ``main(argv)`` in-process on the card, its
+    stdout captured: the exit code, the output, the wall time (ending in
+    a synchronize), the host syncs, and the launches, which must be none
+    (the tools run the reference's configs, which leave the kernels
+    off)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from serf_tpu_torch import host_syncs
+    reset_counts(rk)
+    s0 = host_syncs()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(list(argv), **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = check_launches(rk, "tools", f"phase 5 {what}", want=())
+    return dict(rc=rc, out=out.getvalue(), s=secs,
+                syncs=host_syncs() - s0, launches=launches)
+
+
+def log_tool(what: str, run: dict, rounds: int) -> None:
+    log(f"phase 5 {what}: exit {run['rc']}, {run['s']:.2f} s wall, "
+        f"{rounds} rounds, rounds_per_s {rounds / run['s']:.2f}, "
+        f"host_syncs_per_round {run['syncs'] / rounds:.2f}, no kernel "
+        f"launched")
+
+
+def plan_rounds(plan) -> int:
+    return sum(p.rounds for p in plan.phases) + plan.settle_rounds
+
+
+def tools_full(rk) -> dict:
+    """Phase 5: each command line's ``main(argv)`` at full width on the
+    card, as a user would type it, with its exit code and its checks:
+    ``chaos`` on ``partition-heal-loss`` (recorded, timeline exported)
+    and on ``control-overload-shed --controller ab``, both held to the
+    reference's fixture; ``replay record``/``replay``/``diff`` (a
+    tampered recording must diverge at its round); ``gossipscope`` and
+    ``obswatch`` (and ``obswatch --degraded``, which must breach), each
+    exit code and JSON the reference's at 1M; ``vivaldi_ab`` at its
+    default size; and ``entry()``'s round against the CPU's.  Returns
+    each call's numbers."""
+    import os
+
+    import torch
+
+    from serf_tpu_torch import convert, host_syncs
+    from serf_tpu_torch.entry import ENTRY_N, entry
+    from serf_tpu_torch.faults.plan import named_plan
+    from serf_tpu_torch.obs import flight
+    from serf_tpu_torch.obs.timeline import validate_timeline
+    from serf_tpu_torch.replay.recording import Recording
+    from serf_tpu_torch.tools import (
+        chaos,
+        gossipscope,
+        obswatch,
+        replay,
+        vivaldi_ab,
+    )
+    fixture = load_chaos_fixture()
+    out, bad = {}, []
+    record_dir = checkpoint_path("tools")
+    os.makedirs(record_dir, exist_ok=True)
+
+    def expect(what, run, rc):
+        if (run["rc"] == 0) != (rc == 0):
+            bad.append(f"{what}: exit {run['rc']}, want "
+                       f"{'0' if rc == 0 else 'nonzero'}; stdout tail "
+                       f"{run['out'][-400:]!r}")
+
+    # chaos: the heal plan recorded, with the run timeline
+    plan = "partition-heal-loss"
+    trace = checkpoint_path("chaos-heal.trace.json")
+    keep = {}
+    run = run_tool(rk, "chaos heal", chaos.main, [
+        "--plan", plan, "--n", str(N_MAIN), "--k-facts", str(K_MAIN),
+        "--json", "--record-on-fail", "--record-dir", record_dir,
+        "--export-timeline", trace], keep=keep)
+    expect("chaos heal", run, 0)
+    res, rec = keep["result"], keep["recorder"].to_recording()
+    bad += fixture_differ("chaos cli heal", res, rec, fixture[plan])
+    doc = json.loads(open(trace).read())
+    problems = validate_timeline(doc)
+    if problems or "device" not in doc["otherData"]["surfaces"]:
+        bad.append(f"chaos heal timeline: {problems[:3]}, surfaces "
+                   f"{doc['otherData']['surfaces']}")
+    mb = os.path.getsize(trace) / 1e6
+    log_tool("chaos --plan partition-heal-loss", run, res.rounds_run)
+    log(f"phase 5 chaos heal timeline: {mb:.3f} MB, "
+        f"{len(doc['traceEvents'])} events, surfaces "
+        f"{doc['otherData']['surfaces']}")
+    out["chaos-heal"] = dict(s=run["s"], rounds=res.rounds_run,
+                             syncs=run["syncs"], timeline_mb=mb)
+
+    # chaos: the shed A/B (the controlled leg recorded)
+    plan = "control-overload-shed"
+    keep = {}
+    run = run_tool(rk, "chaos shed ab", chaos.main, [
+        "--plan", plan, "--n", str(N_MAIN), "--k-facts", str(K_SHED),
+        "--controller", "ab", "--json", "--record-on-fail",
+        "--record-dir", record_dir], keep=keep)
+    expect("chaos shed ab", run, 0)
+    res, rec = keep["result"], keep["recorder"].to_recording()
+    bad += fixture_differ("chaos cli shed (controlled leg)", res, rec,
+                          fixture[plan])
+    ab = json.loads(run["out"])["control_ab"]["device"]
+    if "shed-ratio" not in ab["static"]["breaches"] or \
+            not ab["controlled"]["ok"]:
+        bad.append(f"chaos shed ab: static breaches "
+                   f"{ab['static']['breaches']}, controlled ok "
+                   f"{ab['controlled']['ok']}")
+    log_tool("chaos --plan control-overload-shed --controller ab", run,
+             2 * res.rounds_run)
+    log(f"phase 5 chaos shed ab: static breaches "
+        f"{ab['static']['breaches']}, controlled "
+        f"{'GREEN' if ab['controlled']['ok'] else 'RED'}")
+    out["chaos-shed-ab"] = dict(s=run["s"], rounds=2 * res.rounds_run,
+                                syncs=run["syncs"])
+
+    # replay: record, replay, and diff against a tampered copy
+    src, again = checkpoint_path("heal.jsonl"), checkpoint_path(
+        "heal-replayed.jsonl")
+    run = run_tool(rk, "replay record", replay.main, [
+        "record", "--plan", "partition-heal-loss", "--n", str(N_MAIN),
+        "--k-facts", str(K_MAIN), "--out", src, "--json"])
+    expect("replay record", run, 0)
+    rounds = len(Recording.load(src).views())
+    log_tool("replay record", run, rounds)
+    out["replay-record"] = dict(s=run["s"], rounds=rounds,
+                                syncs=run["syncs"])
+    run = run_tool(rk, "replay replay", replay.main, [
+        "replay", src, "--out", again, "--json"])
+    expect("replay replay", run, 0)
+    log_tool("replay replay", run, rounds)
+    out["replay-replay"] = dict(s=run["s"], rounds=rounds,
+                                syncs=run["syncs"])
+    tampered = Recording.load(src)
+    view = tampered.views()[TAMPERED_VIEW]
+    view["digest"] = format(int(view["digest"], 16) ^ 1, "08x")
+    tampered.save(checkpoint_path("heal-tampered.jsonl"))
+    run = run_tool(rk, "replay diff", replay.main, [
+        "diff", src, checkpoint_path("heal-tampered.jsonl"), "--json"])
+    expect("replay diff (tampered)", run, 1)
+    first = json.loads(run["out"])["first_divergent_round"]
+    if first != view["round"]:
+        bad.append(f"replay diff: first divergent round {first}, the "
+                   f"tampered view is round {view['round']}")
+    log(f"phase 5 replay diff on a recording with view "
+        f"{TAMPERED_VIEW}'s digest flipped: exit {run['rc']}, first "
+        f"divergent round {first}")
+
+    # gossipscope and obswatch at full width, held to the reference's
+    # runs (tests/data/torch_tools_1m.json): at N = 1M the self-check
+    # plan's sentinels reach 99.97% of the nodes, so the reference's
+    # gossipscope self-check exits 1 there, and so must the port's
+    ref = load_tools_fixture()
+    want = ref["gossipscope"]
+    run = run_tool(rk, "gossipscope --self-check", gossipscope.main, [
+        "--n", str(N_MAIN), "--self-check"])
+    expect("gossipscope --self-check", run, want["self_check_rc"])
+    rounds = plan_rounds(named_plan("self-check"))
+    log_tool("gossipscope --self-check", run, rounds)
+    out["gossipscope"] = dict(s=run["s"], rounds=rounds,
+                              syncs=run["syncs"])
+    run = run_tool(rk, "gossipscope --json", gossipscope.main, [
+        "--n", str(N_MAIN), "--plan", "self-check", "--json"])
+    expect("gossipscope --json", run, 0)
+    got = json.loads(run["out"])
+    bad += [f"gossipscope --json: {d}" for d in
+            json_differ(got, want["trace"])[:4]]
+    s = got["summary"]
+    log(f"phase 5 gossipscope at n={N_MAIN}: final coverage "
+        f"{s['final_coverage']!r}, time to 50/90/99% "
+        f"{s['time_to']}, redundancy {s['redundancy']:.4f}; the "
+        f"self-check exits {want['self_check_rc']} as the reference's "
+        f"does")
+    for degraded in (False, True):
+        name = "obswatch-degraded" if degraded else "obswatch"
+        what = "obswatch --degraded" if degraded else \
+            "obswatch --device-only --self-check"
+        argv = (["--degraded"] if degraded
+                else ["--device-only", "--self-check"])
+        # the breach events of earlier phases stay out of this run's list
+        flight.set_global_recorder(flight.FlightRecorder())
+        run = run_tool(rk, what, obswatch.main,
+                       argv + ["--json", "--n", str(N_MAIN)])
+        expect(what, run, ref[name]["rc"])
+        view = obswatch_view(json.loads(run["out"]))
+        bad += [f"{what}: {d}" for d in
+                json_differ(view, ref[name]["json"])[:4]]
+        rounds = plan_rounds(obswatch.device_plan(degraded))
+        log_tool(what, run, rounds)
+        log(f"phase 5 {what}: verdicts " + json.dumps(
+            [(v["slo"], v["ok"]) for v in view["verdicts"]["device"]])
+            + f", {len(view['slo_breach_events'])} slo-breach events; "
+            f"equal to the reference's")
+        out[name] = dict(s=run["s"], rounds=rounds, syncs=run["syncs"])
+
+    # vivaldi_ab at its default size
+    run = run_tool(rk, "vivaldi_ab", vivaldi_ab.main, [
+        "--n", str(VIVALDI_N), "--rounds", str(VIVALDI_ROUNDS)])
+    expect("vivaldi_ab", run, 0)
+    rows = [ln for ln in run["out"].splitlines()
+            if ln.startswith("device n=")]
+    errs = [float(ln.rsplit(" ", 1)[1]) for ln in rows]
+    if len(rows) != 4 or not all(0.0 < e < 10.0 for e in errs):
+        bad.append(f"vivaldi_ab rows: {rows}")
+    log_tool("vivaldi_ab", run, 4 * VIVALDI_ROUNDS)
+    for ln in rows:
+        log(f"phase 5 vivaldi_ab {ln}")
+    out["vivaldi_ab"] = dict(s=run["s"], rounds=4 * VIVALDI_ROUNDS,
+                             syncs=run["syncs"], rows=rows)
+
+    # entry(): one round on the card against the CPU's
+    reset_counts(rk)
+    s0 = host_syncs()
+    t0 = time.perf_counter()
+    fn, args = entry()
+    state = fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check_launches(rk, "tools", "phase 5 entry", want=())
+    fn_cpu, args_cpu = entry(device="cpu")
+    diff = compare_states(convert.to_numpy(state),
+                          convert.to_numpy(fn_cpu(*args_cpu)))
+    if diff:
+        bad.append(f"entry: card vs CPU {diff[:4]}")
+    log(f"phase 5 entry(): one flagship_config({ENTRY_N}) round on the "
+        f"card in {secs:.3f} s (set-up included), "
+        f"{host_syncs() - s0} host syncs, every integer leaf equal to the "
+        f"CPU's (Vivaldi within tolerance), no kernel launched")
+    out["entry"] = dict(s=secs)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1863,6 +2183,8 @@ def main() -> int:
     cq = churn_query_full(args.profile)
     chaos = chaos_full(rk, args.profile)
     mark("phase 4 churn-query and chaos")
+    tools = tools_full(rk)
+    mark("phase 5 command lines")
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
         log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "
@@ -1934,6 +2256,11 @@ def main() -> int:
     log(f"chaos-shed A/B contract (static breaches shed-ratio, controlled "
         f"all green) at n={shed['n']}: "
         f"{'holds' if shed['contract_holds'] else 'does not hold'}")
+    for name, t in tools.items():
+        rate = (f", rounds_per_s {t['rounds'] / t['s']:.2f}, "
+                f"host_syncs_per_round {t['syncs'] / t['rounds']:.2f}"
+                if "rounds" in t else "")
+        log(f"tools {name}: wall_s {t['s']:.2f}{rate}")
     chaos_launches = {"chaos-heal": heal["launches"],
                       "chaos-heal-replay": heal["replay_launches"],
                       "chaos-shed-static": shed["static"]["launches"],

@@ -176,3 +176,53 @@ def emit_propagation_metrics(summary: PropagationSummary,
     for name, value in vals.items():
         metrics.gauge(name, value, labels)
     return vals
+
+
+def format_propagation(summary, plane: str = "device") -> str:
+    """One coverage-curve verdict line for the chaos and obswatch
+    reports, printed beside the invariant and SLO verdicts.  Takes a
+    :class:`PropagationSummary` or its dict form (the host probe's dict
+    waits with the host plane)."""
+    if isinstance(summary, PropagationSummary):
+        summary = summary.to_dict()
+    if summary is None:
+        return f"propagation[{plane}]: not traced"
+    tt = summary["time_to"]
+    marks = " ".join(
+        f"t{m}={tt.get(str(m), tt.get(m))}r" for m in COVERAGE_MARKS)
+    return (f"propagation[{plane}]: {marks} over "
+            f"{summary['rounds']}r ({summary['sentinels']} sentinels,"
+            f" final cov {summary['final_coverage']:.3f}), "
+            f"redundancy {summary['redundancy']:.3f}")
+
+
+_BARS = " ▁▂▃▄▅▆▇█"
+
+
+def render_coverage(curve: Sequence[float], width: int = 60,
+                    height: int = 8) -> str:
+    """ASCII coverage curve for ``tools/gossipscope``: rounds on x
+    (resampled to ``width``), coverage 0..1 on y, with the
+    :data:`COVERAGE_MARKS` thresholds as labeled gridlines."""
+    vals = [min(max(float(v), 0.0), 1.0) for v in curve]
+    if not vals:
+        return "(no coverage data)"
+    if len(vals) > width:
+        step = len(vals) / width
+        vals = [vals[min(int(i * step), len(vals) - 1)]
+                for i in range(width)]
+    lines = []
+    for level in range(height, 0, -1):
+        lo = (level - 1) / height
+        mark = next((m for m in reversed(COVERAGE_MARKS)
+                     if lo < m / 100.0 <= level / height), None)
+        label = f"{mark:>3d}%" if mark is not None else "    "
+        row = "".join(
+            "█" if v >= level / height else
+            _BARS[max(0, min(8, int((v - lo) * height * 8)))]
+            if v > lo else " "
+            for v in vals)
+        lines.append(f"{label} ┤{row}")
+    lines.append("     └" + "─" * len(vals)
+                 + f"  rounds 1..{len(curve)}")
+    return "\n".join(lines)

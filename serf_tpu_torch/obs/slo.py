@@ -265,6 +265,32 @@ def all_ok(verdicts: Sequence[SLOVerdict]) -> bool:
     return all(v.ok for v in verdicts)
 
 
+def format_verdicts(verdicts: Sequence[SLOVerdict], plane: str) -> str:
+    """Same shape as ``InvariantReport.format`` so the chaos report
+    reads as one column of judgments."""
+    lines = [f"[{plane}] SLOs: "
+             f"{'GREEN' if all_ok(verdicts) else 'BREACHED'}"]
+    for v in verdicts:
+        mark = "SKIP" if v.skipped else ("ok  " if v.ok else "FAIL")
+        val = ("n/a" if v.value is None or not math.isfinite(v.value)
+               else f"{v.value:.4g}")
+        extra = ""
+        if v.burn:
+            extra = " burn " + "/".join(
+                f"{w}:{b:g}" for w, b in sorted(v.burn.items(),
+                                                key=lambda kv: int(kv[0])))
+        if v.anomalies:
+            extra += f" anomalies={v.anomalies}"
+        lines.append(
+            f"  {mark}  {v.slo} — {val} vs {v.objective:g} {v.unit}"
+            + (f" ({v.detail})" if v.detail else "") + extra)
+    return "\n".join(lines)
+
+
+def verdicts_to_dict(verdicts: Sequence[SLOVerdict]) -> List[Dict[str, Any]]:
+    return [v.to_dict() for v in verdicts]
+
+
 def _series_of(result, name: str) -> Optional[TimeSeries]:
     store = getattr(result, "series", None)
     return store.get(name) if isinstance(store, SeriesStore) else None

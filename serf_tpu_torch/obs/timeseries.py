@@ -221,6 +221,17 @@ class SeriesStore:
         with self._lock:
             return len(self._series)
 
+    def summaries(self) -> Dict[str, Dict[str, Any]]:
+        with self._lock:
+            return {n: s.summary() for n, s in sorted(self._series.items())}
+
+    def tail(self, last: int = 32) -> Dict[str, List[Tuple[float, float]]]:
+        """Newest ``last`` points per series: the ring tails of the
+        obswatch JSON and the black-box bundle."""
+        with self._lock:
+            return {n: s.points(last=last)
+                    for n, s in sorted(self._series.items())}
+
     def to_dict(self) -> Dict[str, Any]:
         with self._lock:
             return {"capacity": self.capacity,

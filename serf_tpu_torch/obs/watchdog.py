@@ -75,3 +75,21 @@ def emit_device_watchdog(summary: Dict[str, Any],
                       round=first["round"],
                       invariants=list(first["fields"]),
                       violations=int(summary.get("violations", 0)))
+
+
+def format_invariants(summary: Dict[str, Any],
+                      plane: str = "device") -> str:
+    """One report block, the ``InvariantReport.format`` shape, so the
+    chaos and obswatch output reads as one column of judgments."""
+    lines = [f"[{plane}] watchdog: "
+             f"{'GREEN' if summary.get('ok') else 'BREACHED'} "
+             f"({summary.get('rounds', 0)} round(s) judged in-scan)"]
+    for name in summary.get("fields", ()):
+        row = summary["per_field"][name]
+        r = row["first_violation_round"]
+        mark = "ok  " if r is None else "FAIL"
+        detail = ("held every round" if r is None else
+                  f"first violated at round {r} "
+                  f"({row['violations']} round(s) total)")
+        lines.append(f"  {mark}  {name} — {detail}")
+    return "\n".join(lines)

@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from serf_tpu_torch import const
 from serf_tpu_torch.bits import MASK32, wrap_i32
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -136,6 +137,32 @@ def uniform(k: np.ndarray, shape, device) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in float32, on ``device``."""
     f = wrap_i32(_bits_to_unit(random_bits(k, shape, device)))
     return f.view(torch.float32) - 1.0
+
+
+#: ``jax.random.normal``'s open interval (-1, 1): its low end is the
+#: float32 after -1 towards 0
+_NORMAL_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))
+
+
+def normal_uniform(k: np.ndarray, shape, device) -> torch.Tensor:
+    """The uniform that ``jax.random.normal(key, shape)`` (float32) maps:
+    ``uniform(key, shape, minval=nextafter(-1, 0), maxval=1)``, each
+    step in float32 as ``random._uniform`` does it (scale, shift, clamp
+    at ``minval``).  Bit-exact with the reference."""
+    lo = const(float(_NORMAL_LO), torch.float32, device)
+    span = const(float(np.float32(1.0) - _NORMAL_LO), torch.float32,
+                 device)
+    f = uniform(k, shape, device)
+    return torch.maximum(lo, f * span + lo)
+
+
+def normal(k: np.ndarray, shape, device) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32: ``sqrt(2) *
+    erfinv(u)`` over :func:`normal_uniform` (``random._normal_real``).
+    The uniform is bit-exact; ``erfinv`` is ATen's, which differs from
+    XLA's by a few float32 ulp."""
+    root2 = const(float(np.float32(np.sqrt(2.0))), torch.float32, device)
+    return root2 * torch.erfinv(normal_uniform(k, shape, device))
 
 
 def uniform_scalar(k: np.ndarray) -> np.float32:

@@ -47,6 +47,31 @@ class DiffReport:
             "length_note": self.length_note,
         }
 
+    def format(self) -> str:
+        """The replay command line's report (the reference's text)."""
+        lines = [f"replay diff: {'IDENTICAL' if self.ok else 'DIVERGED'} "
+                 f"({self.compared_steps} steps, {self.compared_views} "
+                 "view rounds compared)"]
+        for note in self.header_notes:
+            lines.append(f"  header: {note}")
+        if self.first_divergent_step is not None:
+            s = self.first_divergent_step
+            lines.append(f"  first divergent step: seq {s['seq']} — "
+                         f"a={s['a']} vs b={s['b']}")
+        if self.first_divergent_round is not None:
+            lines.append(
+                f"  first divergent round: {self.first_divergent_round}")
+            shown = sorted(self.node_delta)[:8]
+            for node in shown:
+                a, b = self.node_delta[node]
+                lines.append(f"    node {node}: {a} vs {b}")
+            more = len(self.node_delta) - len(shown)
+            if more > 0:
+                lines.append(f"    ... {more} more node(s) differ")
+        if self.length_note:
+            lines.append(f"  {self.length_note}")
+        return "\n".join(lines)
+
 
 def _node_delta(a_nodes, b_nodes) -> Dict[str, List[Optional[str]]]:
     """Per-node digests are lists (index -> hex), dicts (id -> hex) or

@@ -11,6 +11,7 @@ import dataclasses
 import itertools
 
 import pytest
+import torch
 
 from serf_tpu.models import accounting as jacc
 from serf_tpu.models import swim as jswim
@@ -18,6 +19,11 @@ from serf_tpu.utils import metrics as jmetrics
 from serf_tpu_torch.models import accounting as tacc
 from serf_tpu_torch.utils import metrics as tmetrics
 from test_torch_cluster import _tcfg
+
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
 
 REGIMES = ("sustained", "active", "quiescent", "detection")
 UNITS = (1, 2, 4)

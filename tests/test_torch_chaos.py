@@ -31,6 +31,11 @@ from serf_tpu_torch.faults import plan as tplan
 from serf_tpu_torch.models import swim as tswim
 from test_torch_cluster import _leaves, _mismatches, _paths, _port_files
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FIXTURE = REPO / "tests" / "data" / "torch_chaos_1m.json"
 COVERAGE_RTOL = 1e-6

@@ -13,6 +13,7 @@ import zipfile
 import jax
 import numpy as np
 import pytest
+import torch
 
 from serf_tpu.analysis.schema import pytree_schema_version
 from serf_tpu.models import checkpoint as jck
@@ -25,6 +26,11 @@ from serf_tpu_torch.models import churn as tch
 from serf_tpu_torch.models import query as tq
 from serf_tpu_torch.models import swim as tswim
 from test_torch_cluster import _leaves, _mismatches, _seeded, _tcfg
+
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
 
 N = 256
 

@@ -30,6 +30,11 @@ from serf_tpu_torch.models import swim as tswim
 from serf_tpu_torch.ops import round_kernels as trk
 from test_torch_cluster import _leaves, _mismatches, _tcfg
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 #: the reference unit test's rates (tests/test_churn.py)
 SMALL_RATES = dict(fail_rate=0.2, leave_rate=0.2, rejoin_rate=0.5,
                    max_events=4)

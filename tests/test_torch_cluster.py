@@ -37,6 +37,11 @@ from serf_tpu_torch.models import failure as tfail
 from serf_tpu_torch.models import swim as tswim
 from serf_tpu_torch.ops import round_kernels as trk
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-4, 1e-5
 #: 48 rounds: 10 probe ticks, 3 push/pulls; 2 events per round as bench

@@ -34,6 +34,11 @@ from test_torch_cluster import _leaves, _mismatches, _seeded, _tcfg
 from test_torch_dissemination import _assert_same, _port
 from test_torch_telemetry import _assert_telemetry_rows
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 
 def _ctl_np(ctl):
     """A port ControlState as the reference's numpy leaves (the u32

@@ -34,6 +34,11 @@ from test_torch_cluster import (ATOL, EVENTS, ROUNDS, RTOL, _flagship,
 from test_torch_dissemination import (_assert_same, _inject_both, _port,
                                       _rand_state)
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 N, K = 512, 64
 
 

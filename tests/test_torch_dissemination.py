@@ -21,6 +21,11 @@ from serf_tpu.models import dissemination as jdis
 from serf_tpu_torch import convert, prng
 from serf_tpu_torch.models import dissemination as tdis
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 N, K = 512, 64
 
 

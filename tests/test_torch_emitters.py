@@ -15,6 +15,7 @@ import importlib
 import jax
 import numpy as np
 import pytest
+import torch
 
 from serf_tpu.control import device as jctl
 from serf_tpu.control.profiles import device_ab_config as j_ab
@@ -44,6 +45,11 @@ from serf_tpu_torch.obs import watchdog as twd
 from serf_tpu_torch.replay import differ as tdiffer
 from serf_tpu_torch.replay import recording as trec
 from test_torch_cluster import _flagship, _leaves, _seeded, _tcfg
+
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
 
 FLOAT_RTOL = 1e-6
 SINKS = {"reference": ("serf_tpu.utils.metrics", "serf_tpu.obs.flight"),

@@ -20,6 +20,11 @@ import chip_smoke as cs
 from serf_tpu_torch import prng
 from serf_tpu_torch.models.swim import run_cluster_sustained
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 N = 4096
 
 

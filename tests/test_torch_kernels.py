@@ -19,6 +19,11 @@ from serf_tpu.ops import round_kernels as jrk
 from serf_tpu_torch.models import dissemination as tdis
 from serf_tpu_torch.ops import round_kernels as trk
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 N = 512          # a Pallas node block divides it
 
 

@@ -28,6 +28,11 @@ from serf_tpu_torch.models import vivaldi as tviv
 from test_torch_cluster import _leaves, _mismatches, _seeded, _tcfg
 from test_torch_dissemination import _assert_same, _port, _rand_state
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 
 

@@ -11,6 +11,11 @@ import importlib
 import pytest
 import torch
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 PACKAGES = {
     "reference": ("serf_tpu.utils.metrics", "serf_tpu.obs.flight",
                   "serf_tpu.obs.device", "serf_tpu.obs.trace"),

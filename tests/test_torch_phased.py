@@ -10,6 +10,7 @@ bit-exact; Vivaldi f32 leaves within rtol 1e-4, atol 1e-5 (see
 import jax
 import numpy as np
 import pytest
+import torch
 
 from serf_tpu.models import dissemination as jdis
 from serf_tpu.models import swim as jswim
@@ -20,6 +21,11 @@ from serf_tpu_torch.models import swim as tswim
 from test_torch_cluster import (ATOL, EVENTS, ROUNDS, RTOL, _flagship,
                                 _leaves, _mismatches, _paths, _seeded, _tcfg)
 from test_torch_dissemination import _drive
+
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

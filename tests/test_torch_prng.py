@@ -7,8 +7,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from serf_tpu_torch import prng
+
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
 
 SEEDS = [0, 3, 12345, 2**32 - 5]
 #: one draw on each side of the host/tensor threshold

@@ -28,6 +28,11 @@ from serf_tpu_torch.obs import profile as tprof
 from serf_tpu_torch.tools import hbm_report, roundprof
 from test_torch_cluster import _tcfg
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 N, K = 512, 32
 CPU_BAND = (0.33, 3.0)
 #: the three flagship paths: gossip-config changes with the kernels on,

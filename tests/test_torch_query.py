@@ -23,6 +23,11 @@ from serf_tpu_torch.models import dissemination as tdis
 from serf_tpu_torch.models import query as tq
 from test_torch_cluster import _leaves, _mismatches
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 N, K = 256, 32
 
 

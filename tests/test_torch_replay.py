@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from serf_tpu.control.profiles import device_ab_config as j_ab
 from serf_tpu.faults import device as jdev
@@ -38,6 +39,11 @@ from serf_tpu_torch.replay import replayer as trep
 from serf_tpu_torch.replay import selfcheck as tself
 from serf_tpu_torch.replay.selfcheck import default_replay_cfg as t_cfg
 from test_torch_cluster import _leaves
+
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
 
 
 def _lines(rec):

@@ -9,6 +9,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 from serf_tpu.control.profiles import device_ab_config as j_ab
 from serf_tpu.faults import device as jdev
@@ -25,6 +26,11 @@ from serf_tpu_torch.obs import propagation as tprop
 from serf_tpu_torch.obs import slo as tslo
 from serf_tpu_torch.obs import timeseries as tts
 from serf_tpu_torch.obs import watchdog as twd
+
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
 
 RTOL = 1e-6
 

@@ -27,6 +27,11 @@ import torch
 from serf_tpu_torch.bits import unpack_bits
 from serf_tpu_torch.models import dissemination as dis
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 SOURCE = (Path(__file__).resolve().parents[1] / "serf_tpu_torch" / "ops"
           / "csrc" / "round_kernels.cu")
 

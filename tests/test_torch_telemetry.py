@@ -30,6 +30,11 @@ from serf_tpu_torch.models import swim as tswim
 from test_torch_cluster import (EVENTS, _flagship, _leaves, _mismatches,
                                 _seeded, _tcfg)
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 N_ROWS, R_ROWS = 512, 24
 FLAGS = dict(collect_telemetry=True, collect_propagation=True,
              collect_invariants=True)

@@ -25,6 +25,11 @@ from serf_tpu_torch.models import membership as tmem
 from serf_tpu_torch.models import views as tviews
 from test_torch_cluster import _leaves
 
+# one ATen thread per test process: tier-1 runs six xdist workers on
+# the machine's cores, and a full-width intra-op pool in each of them
+# oversubscribes the cores (the port's tests ran 3.6x slower so)
+torch.set_num_threads(1)
+
 N, K = 96, 64
 
 
