@@ -116,9 +116,27 @@ reference's, ``tests/data/torch_tools_1m.json``: the sentinels reach
 ``obswatch --device-only --n 1000000 --self-check`` (exit 0) and
 ``obswatch --degraded --n 1000000`` (exit 1), both JSON the reference's
 but for the measured rounds/s,
-``vivaldi_ab`` at N = 100,000 for 300 rounds, and ``entry()``'s round
+``vivaldi_ab`` at N = 100,000 for 300 rounds with its host per-peer
+oracle at 192 nodes for 120 rounds (the host errors must equal the
+reference oracle's on the same seeded clients, ``tests/data/
+torch_wire.json``, to the printed digits), and ``entry()``'s round
 against the CPU's.  Each logs its wall time, rounds/s and host syncs
 per round.
+
+Phase 6 runs the host plane's wire path and the coordinate client on
+this machine: the native codec builds from ``native/codec.cpp`` with
+its ``g++`` and loads (``codec._native.require``, no Python fallback);
+every message of ``tests/data/torch_wire.json`` (the reference's bytes)
+decodes and encodes back to its bytes, the packet encodes to each
+none/lz4/snappy frame (every checksum) and every frame of a compression
+this machine has decodes to the packet; the keyring frames of each
+backend it can run open under the fixture's key (the backends and
+compressions present are logged); the port's ``vivaldi_update`` on the
+card follows the port's ``CoordinateClient`` step for step at the
+reference test's tolerances (n = 4 and n = 1024, 25 steps); and one
+line gives the wire's encode+decode rates on this machine's host CPU
+for 10,000 user events and a 10,000-member push/pull.  No kernel may
+launch.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Needs no network and imports no
@@ -1899,8 +1917,8 @@ def tools_full(rk) -> dict:
     tampered recording must diverge at its round); ``gossipscope`` and
     ``obswatch`` (and ``obswatch --degraded``, which must breach), each
     exit code and JSON the reference's at 1M; ``vivaldi_ab`` at its
-    default size; and ``entry()``'s round against the CPU's.  Returns
-    each call's numbers."""
+    default size, host oracle included; and ``entry()``'s round against
+    the CPU's.  Returns each call's numbers."""
     import os
 
     import torch
@@ -2057,20 +2075,25 @@ def tools_full(rk) -> dict:
             f"equal to the reference's")
         out[name] = dict(s=run["s"], rounds=rounds, syncs=run["syncs"])
 
-    # vivaldi_ab at its default size
+    # vivaldi_ab at its default size, the host per-peer oracle included
     run = run_tool(rk, "vivaldi_ab", vivaldi_ab.main, [
-        "--n", str(VIVALDI_N), "--rounds", str(VIVALDI_ROUNDS)])
+        "--n", str(VIVALDI_N), "--rounds", str(VIVALDI_ROUNDS),
+        "--host-n", str(VIVALDI_HOST_N),
+        "--host-rounds", str(VIVALDI_HOST_ROUNDS)])
     expect("vivaldi_ab", run, 0)
     rows = [ln for ln in run["out"].splitlines()
             if ln.startswith("device n=")]
     errs = [float(ln.rsplit(" ", 1)[1]) for ln in rows]
     if len(rows) != 4 or not all(0.0 < e < 10.0 for e in errs):
         bad.append(f"vivaldi_ab rows: {rows}")
+    host_rows = [ln for ln in run["out"].splitlines()
+                 if ln.startswith("host  n=")]
+    bad += vivaldi_host_differ(host_rows)
     log_tool("vivaldi_ab", run, 4 * VIVALDI_ROUNDS)
-    for ln in rows:
+    for ln in rows + host_rows:
         log(f"phase 5 vivaldi_ab {ln}")
     out["vivaldi_ab"] = dict(s=run["s"], rounds=4 * VIVALDI_ROUNDS,
-                             syncs=run["syncs"], rows=rows)
+                             syncs=run["syncs"], rows=rows + host_rows)
 
     # entry(): one round on the card against the CPU's
     reset_counts(rk)
@@ -2093,6 +2116,381 @@ def tools_full(rk) -> dict:
     out["entry"] = dict(s=secs)
     if bad:
         raise AssertionError("; ".join(bad))
+    return out
+
+
+# -- phase 6: the host plane's wire path and the coordinate client --------
+
+#: the reference's messages, frames, keyring frames and host oracle
+#: errors (``tests/test_torch_wire.py`` writes it with ``-m slow``)
+WIRE_FIXTURE = "tests/data/torch_wire.json"
+#: compressions whose bytes the fixture pins on every machine (none, or
+#: the repository's own C++); zlib, zstd and brotli bytes follow the
+#: machine's libraries, so there the fixture's frames must only decode
+PINNED_COMPRESSIONS = ("none", "lz4", "snappy")
+#: ``vivaldi_ab``'s host oracle size (the reference tool's defaults)
+VIVALDI_HOST_N, VIVALDI_HOST_ROUNDS = 192, 120
+#: card against host Vivaldi, the reference test's tolerances
+#: (``tests/test_device_plane.py:175-230``): equal when within the
+#: relative or the field's absolute tolerance (``math.isclose``)
+VIVALDI_HOST_RTOL = 1e-3
+VIVALDI_HOST_ATOL = dict(error=1e-5, adjustment=1e-6, vec=1e-6,
+                         height=1e-7)
+#: (nodes, steps, random starts): the reference test's case (starts on
+#: a line), then a wide one with starts drawn from a fixed generator
+VIVALDI_HOST_CASES = ((4, 25, False), (1024, 25, True))
+#: the wire timing's workloads: user events at the default payload limit
+#: (``Options.max_user_event_size``), one push/pull of this many members
+WIRE_EVENTS, WIRE_MEMBERS, WIRE_PUSH_PULL_REPS = 10_000, 10_000, 5
+
+
+def load_wire_fixture() -> dict:
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent / WIRE_FIXTURE
+    return json.loads(path.read_text())
+
+
+def vivaldi_host_differ(rows, fixture=None) -> list:
+    """``vivaldi_ab``'s host rows against the reference oracle's errors
+    on the same seeded clients (the fixture), to the printed digits."""
+    host = (fixture or load_wire_fixture())["vivaldi_host"]
+    got = {ln.split()[2]: ln.rsplit(" ", 1)[1] for ln in rows}
+    want = {regime: f"{host[f'{regime}_perpeer_n{VIVALDI_HOST_N}']:.4f}"
+            for regime in ("clean", "spiky")}
+    return ([] if got == want else
+            [f"vivaldi_ab host errors {got}, the reference's {want}"])
+
+
+def _wire_codecs():
+    """The port's encoder and decoder for each kind of fixture value."""
+    from serf_tpu_torch import codec
+    from serf_tpu_torch.host import messages as sw
+    from serf_tpu_torch.types import filters, member, tags, trace
+    from serf_tpu_torch.types import messages as t
+
+    def relay_encode(msg):
+        return t.encode_relay_message(msg.node, msg.payload)
+
+    def compound_decode(buf):
+        parts = [codec.as_bytes(v) for f, _w, v, _p in
+                 codec.iter_fields(buf[1:]) if f == 1]
+        sw.decode_swim(buf)                  # the whole packet decodes
+        return parts
+
+    def own(v):
+        return v.encode()
+
+    return {
+        "serf": (t.decode_message, t.encode_message),
+        "relay": (t.decode_message, relay_encode),
+        "swim": (sw.decode_swim, sw.encode_swim),
+        "compound": (compound_decode, sw.encode_compound),
+        "user_events": (t.UserEvents.decode, own),
+        "filter": (filters.decode_filter, own),
+        "tags": (tags.Tags.decode, own),
+        "member": (member.Member.decode, own),
+        "node": (member.Node.decode, own),
+        "trace": (trace.TraceContext.decode, own),
+    }
+
+
+def wire_fixture_checks(fixture=None) -> dict:
+    """Phase 6 (b): every fixture message decodes in the port and encodes
+    back to its bytes; the packet encodes to each pinned frame and every
+    frame of an available compression decodes to the packet; each
+    backend's keyring frames open under the fixture's key.  Raises on
+    the first difference; returns what ran."""
+    import contextlib
+
+    from serf_tpu_torch.host import keyring, wire
+    fx = fixture or load_wire_fixture()
+    codecs = _wire_codecs()
+    for name, m in fx["messages"].items():
+        decode, encode = codecs[m["kind"]]
+        buf = bytes.fromhex(m["hex"])
+        if encode(decode(buf)) != buf:
+            raise AssertionError(f"phase 6: message {name} does not "
+                                 f"encode back to the fixture's bytes")
+    pt = bytes.fromhex(fx["wire"]["plaintext"])
+    frames = {"pinned": 0, "decoded": 0, "bytes_differ": [], "absent": []}
+    for name, hexed in fx["wire"]["frames"].items():
+        comp, ck = (None if x == "none" else x for x in name.split("/"))
+        frame = bytes.fromhex(hexed)
+        if comp is not None and not wire.compression_available(comp):
+            frames["absent"].append(name)
+            continue
+        if wire.decode_wire(frame, comp, ck) != pt:
+            raise AssertionError(f"phase 6: frame {name} does not decode "
+                                 f"to the fixture's packet")
+        ours = wire.encode_wire(pt, comp, ck)
+        if name.split("/")[0] in PINNED_COMPRESSIONS:
+            if ours != frame:
+                raise AssertionError(f"phase 6: frame {name} encodes to "
+                                     f"other bytes than the fixture's")
+            frames["pinned"] += 1
+        else:
+            if wire.decode_wire(ours, comp, ck) != pt:
+                raise AssertionError(f"phase 6: frame {name} does not "
+                                     f"round-trip")
+            if ours != frame:
+                frames["bytes_differ"].append(name)
+            frames["decoded"] += 1
+
+    @contextlib.contextmanager
+    def backend(name):
+        saved = keyring.AESGCM, keyring.CRYPTO_BACKEND
+        if name == "hmac-sha256-ctr":
+            keyring.AESGCM, keyring.CRYPTO_BACKEND = None, name
+        try:
+            yield
+        finally:
+            keyring.AESGCM, keyring.CRYPTO_BACKEND = saved
+
+    kr = fx["keyring"]
+    key, sec, aad, plain = (bytes.fromhex(kr[k]) for k in (
+        "key", "secondary", "aad", "plaintext"))
+    opened = []
+    for name, pair in kr["frames"].items():
+        if name == "aes-gcm" and keyring.AESGCM is None:
+            continue
+        with backend(name):
+            ring = keyring.SecretKeyring(key, [sec])
+            for which, hexed in pair.items():
+                if ring.decrypt(bytes.fromhex(hexed), aad) != plain:
+                    raise AssertionError(f"phase 6: {name} {which} frame "
+                                         f"does not decrypt")
+            if ring.decrypt(ring.encrypt(plain, aad), aad) != plain:
+                raise AssertionError(f"phase 6: {name} round trip")
+        opened.append(name)
+    return dict(messages=len(fx["messages"]), frames=frames,
+                backend=keyring.CRYPTO_BACKEND, keyring_opened=opened,
+                compressions=sorted(wire.COMPRESSIONS))
+
+
+def vivaldi_vs_host(n: int, steps: int, device,
+                    random_starts: bool = False) -> dict:
+    """Phase 6 (c): the port's ``vivaldi_update`` (float32 tensors on
+    ``device``) against the port's ``CoordinateClient`` (filter 1,
+    float64 Python) step for step: the reference test's case
+    (``tests/test_device_plane.py:175-230``) at ``n`` nodes, from
+    distinct starts (on a line, or drawn from a fixed generator), peers
+    and RTTs drawn from ``random.Random(0)``.  Raises at the first
+    element outside VIVALDI_HOST_RTOL/ATOL; returns the worst element's
+    share of its tolerance (at most 1)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.host.coordinate import (
+        Coordinate,
+        CoordinateClient,
+        CoordinateOptions,
+    )
+    from serf_tpu_torch.models.vivaldi import (
+        VivaldiConfig,
+        make_vivaldi,
+        vivaldi_update,
+    )
+    dev = torch.device(device)
+    vcfg = VivaldiConfig()
+    dim = vcfg.dimensionality
+    rng = random.Random(0)
+    if random_starts:
+        init = [[rng.uniform(0.0, 0.05) for _ in range(dim)]
+                for _ in range(n)]
+    else:
+        init = [[(i + 1) * 1e-3 * (d + 1) for d in range(dim)]
+                for i in range(n)]
+    state = make_vivaldi(n, vcfg, dev)
+    state = state._replace(vec=torch.tensor(init, dtype=torch.float32,
+                                            device=dev))
+    hosts = [CoordinateClient(CoordinateOptions(latency_filter_size=1),
+                              rng=random.Random(i)) for i in range(n)]
+    for i, h in enumerate(hosts):
+        h.set_coordinate(Coordinate(portion=tuple(init[i]),
+                                    error=vcfg.error_max, adjustment=0.0,
+                                    height=vcfg.height_min))
+    key = prng.key(0)
+    worst = (0.0, "")
+    for step in range(steps):
+        # never a self-peer: coincident points take random separations
+        peers = [(i + 1 + rng.randrange(n - 1)) % n for i in range(n)]
+        rtts = np.array([0.01 + 0.02 * rng.random() for _ in range(n)],
+                        np.float32)
+        coords = [h.get_coordinate() for h in hosts]
+        for i in range(n):
+            hosts[i].update(f"n{peers[i]}", coords[peers[i]],
+                            float(rtts[i]))
+        key, k2 = prng.split(key)
+        state = vivaldi_update(
+            state, vcfg, torch.tensor(peers, device=dev),
+            torch.from_numpy(rtts).to(dev), k2)
+        got = {f: getattr(state, f).cpu().double().numpy()
+               for f in ("error", "adjustment", "vec", "height")}
+        cs = [h.get_coordinate() for h in hosts]
+        want = dict(error=np.array([c.error for c in cs]),
+                    adjustment=np.array([c.adjustment for c in cs]),
+                    vec=np.array([c.portion for c in cs]),
+                    height=np.array([c.height for c in cs]))
+        for f, w in want.items():
+            g = got[f]
+            tol = np.maximum(VIVALDI_HOST_RTOL * np.maximum(np.abs(g),
+                                                            np.abs(w)),
+                             VIVALDI_HOST_ATOL[f])
+            share = np.abs(g - w) / tol
+            at = np.unravel_index(int(np.argmax(share)), share.shape)
+            if share[at] > 1.0:
+                raise AssertionError(
+                    f"vivaldi n={n} on {dev}: {f}{list(at)} diverged at "
+                    f"step {step}: {g[at]!r} vs host {w[at]!r}")
+            if share[at] > worst[0]:
+                worst = (float(share[at]), f)
+    return dict(n=n, steps=steps, worst_tol_ratio=worst[0],
+                worst_field=worst[1])
+
+
+def wire_throughput(events: int = WIRE_EVENTS,
+                    members: int = WIRE_MEMBERS,
+                    reps: int = WIRE_PUSH_PULL_REPS) -> dict:
+    """Phase 6 (d), on the host CPU: encode (``encode_message`` then
+    ``encode_wire`` with crc32) and decode (``decode_wire`` then
+    ``decode_message``) per available compression, for ``events`` user
+    events at the default payload limit and for a push/pull carrying
+    ``members`` members' status times.  Messages/s and MB/s of the
+    encoded messages, encode and decode together; each decode is
+    checked against its input."""
+    import random
+
+    from serf_tpu_torch.host import wire
+    from serf_tpu_torch.options import Options
+    from serf_tpu_torch.types import messages as t
+
+    rng = random.Random(6)
+    words = [b"deploy", b"web", b"eu-1", b"ok", b"version", b"canary",
+             b"region", b"42", b"{", b"}", b":", b","]
+    size = Options().max_user_event_size
+
+    def payload():
+        out = b""
+        while len(out) < size:
+            out += rng.choice(words) + b" "
+        return out[:size]
+
+    evs = [t.UserEventMessage(1000 + i, f"ev-{i % 97}", payload())
+           for i in range(events)]
+    pp = t.PushPullMessage(
+        77, {f"node-{i:06d}": rng.randrange(1 << 20)
+             for i in range(members)}, tuple(f"node-{i:06d}"
+                                             for i in range(0, members, 50)),
+        91, (), 13)
+    out = {}
+    for comp in [None] + sorted(wire.COMPRESSIONS):
+        if comp is not None and not wire.compression_available(comp):
+            continue
+        row = {}
+        for what, msgs in (("user_events", evs), ("push_pull", [pp] * reps)):
+            t0 = time.perf_counter()
+            raw = [t.encode_message(m) for m in msgs]
+            frames = [wire.encode_wire(r, comp, "crc32") for r in raw]
+            t1 = time.perf_counter()
+            back = [t.decode_message(wire.decode_wire(f, comp, "crc32"))
+                    for f in frames]
+            t2 = time.perf_counter()
+            if back[0] != msgs[0] or back[-1] != msgs[-1]:
+                raise AssertionError(f"phase 6: {what} over {comp} does "
+                                     f"not decode to its input")
+            nbytes = sum(len(r) for r in raw)
+            row[what] = dict(
+                msgs=len(msgs), mb=nbytes / 1e6,
+                wire_mb=sum(len(f) for f in frames) / 1e6,
+                encode_s=t1 - t0, decode_s=t2 - t1,
+                msgs_per_s=len(msgs) / (t2 - t0),
+                mb_per_s=nbytes / 1e6 / (t2 - t0))
+        out[comp or "none"] = row
+    return out
+
+
+def host_plane_full(rk) -> dict:
+    """Phase 6: the host plane on the card's machine.  (a) the native
+    codec builds and loads (``codec._native.require``: no Python
+    fallback); (b) the fixture's messages, frames and keyring frames
+    (:func:`wire_fixture_checks`); (c) card against host Vivaldi
+    (:func:`vivaldi_vs_host` on ``cuda``, VIVALDI_HOST_CASES); (d) the
+    wire's encode+decode rates on the host CPU, and the host oracle's
+    time.  No kernel may launch."""
+    import pathlib
+
+    import torch
+
+    from serf_tpu_torch.codec import _native
+    from serf_tpu_torch.options import Options
+    from serf_tpu_torch.tools import vivaldi_ab
+    fixture = load_wire_fixture()
+    reset_counts(rk)
+    out = {}
+    t0 = time.perf_counter()
+    _native.require()
+    out["native_s"] = time.perf_counter() - t0
+    log(f"phase 6: native codec {_native._SO} built and loaded in "
+        f"{out['native_s']:.2f} s")
+    out["fixture"] = fx = wire_fixture_checks(fixture)
+    fr = fx["frames"]
+    log(f"phase 6: {fx['messages']} fixture messages encode to the "
+        f"reference's bytes and decode back; {fr['pinned']} none/lz4/"
+        f"snappy frames equal the fixture's; {fr['decoded']} frames of "
+        f"zlib/zstd/brotli decode (bytes differ from the writer's: "
+        f"{fr['bytes_differ'] or 'none'}); absent here: "
+        f"{fr['absent'] or 'none'}")
+    log(f"phase 6: compressions available {fx['compressions']}; keyring "
+        f"backend {fx['backend']}; fixture keyring frames opened for "
+        f"{fx['keyring_opened']}")
+    out["vivaldi"] = []
+    for n, steps, random_starts in VIVALDI_HOST_CASES:
+        t0 = time.perf_counter()
+        r = vivaldi_vs_host(n, steps, "cuda", random_starts)
+        torch.cuda.synchronize()
+        r["s"] = time.perf_counter() - t0
+        out["vivaldi"].append(r)
+        log(f"phase 6: card vs host Vivaldi n={n} x {steps} steps "
+            f"({'random' if random_starts else 'line'} starts): every "
+            f"element within rel {VIVALDI_HOST_RTOL} / abs "
+            f"{VIVALDI_HOST_ATOL}; worst {r['worst_tol_ratio']:.3f} of its "
+            f"tolerance ({r['worst_field']}); {r['s']:.2f} s")
+    host = fixture["vivaldi_host"]
+    recorded = json.loads((pathlib.Path(__file__).resolve().parent
+                           / "VIVALDI_AB.json").read_text())["host"]
+    out["oracle"] = {}
+    for regime, spike_p in (("clean", 0.0), ("spiky", 0.05)):
+        t0 = time.perf_counter()
+        err = vivaldi_ab.host_oracle_run(VIVALDI_HOST_N, VIVALDI_HOST_ROUNDS,
+                                         spike_p)
+        secs = time.perf_counter() - t0
+        want = host[f"{regime}_perpeer_n{VIVALDI_HOST_N}"]
+        if f"{err:.4f}" != f"{want:.4f}":
+            raise AssertionError(f"phase 6: host oracle {regime} {err!r}, "
+                                 f"the reference's {want!r}")
+        out["oracle"][regime] = dict(err=err, s=secs)
+        runs = host[f"{regime}_unseeded_runs"]
+        log(f"phase 6: host oracle n={VIVALDI_HOST_N} x "
+            f"{VIVALDI_HOST_ROUNDS} {regime}: {err:.4f} in {secs:.2f} s "
+            f"(host CPU), the reference's on the same seeded clients "
+            f"{want:.4f}; its unseeded runs {min(runs):.4f}-"
+            f"{max(runs):.4f}; VIVALDI_AB.json (one unseeded run) "
+            f"{recorded[f'{regime}_perpeer_n{VIVALDI_HOST_N}']}")
+    out["wire"] = wire_throughput()
+    check_launches(rk, "tools", "phase 6", want=())
+    # one line: the host CPU's rates, beside the card of the machine
+    log(f"phase 6 wire encode+decode with crc32, host CPU of the machine "
+        f"with {card_line()} (msgs/s, MB/s, MB on the wire; "
+        f"{WIRE_EVENTS} user events of {Options().max_user_event_size} B "
+        f"payloads, "
+        f"a push/pull of {WIRE_MEMBERS} members): " + json.dumps(
+            {comp: {what: [round(r["msgs_per_s"], 1),
+                           round(r["mb_per_s"], 3), round(r["wire_mb"], 3)]
+                    for what, r in row.items()}
+             for comp, row in out["wire"].items()}))
     return out
 
 
@@ -2185,6 +2583,8 @@ def main() -> int:
     mark("phase 4 churn-query and chaos")
     tools = tools_full(rk)
     mark("phase 5 command lines")
+    host_plane = host_plane_full(rk)
+    mark("phase 6 host plane")
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
         log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "
@@ -2261,6 +2661,11 @@ def main() -> int:
                 f"host_syncs_per_round {t['syncs'] / t['rounds']:.2f}"
                 if "rounds" in t else "")
         log(f"tools {name}: wall_s {t['s']:.2f}{rate}")
+    for r in host_plane["vivaldi"]:
+        log(f"host plane vivaldi n={r['n']}: worst_tol_ratio "
+            f"{r['worst_tol_ratio']:.4f} ({r['worst_field']}) s {r['s']:.2f}")
+    for regime, r in host_plane["oracle"].items():
+        log(f"host plane oracle {regime}: err {r['err']:.4f} s {r['s']:.2f}")
     chaos_launches = {"chaos-heal": heal["launches"],
                       "chaos-heal-replay": heal["replay_launches"],
                       "chaos-shed-static": shed["static"]["launches"],

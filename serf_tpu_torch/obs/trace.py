@@ -3,8 +3,9 @@
 The port's copy of ``serf_tpu/obs/trace.py``.  ``span(name, **attrs)``
 is a (sync) context manager: one ``perf_counter`` pair, a contextvar
 swap and one ring append on exit.  (The reference keeps 1 in 16 of its
-per-packet ``wire.*`` spans in the ring; the port has no wire and keeps
-every span.)  Nesting rides :mod:`contextvars`, so
+per-packet ``wire.*`` spans in the ring; the port's engine, which would
+open them, is not ported yet, so it keeps every span.)  Nesting rides
+:mod:`contextvars`, so
 spans nest across ``await`` points.  Finished spans land in a bounded
 :class:`TraceBuffer` (drop-oldest) and feed the ``serf.trace.span-ms``
 histogram (label ``span=<name>``); the run timeline
@@ -13,37 +14,25 @@ histogram (label ``span=<name>``); the run timeline
 A :class:`TraceContext` (trace id, origin node, hop count) installed with
 :func:`trace_scope` stamps every span opened and every flight event
 recorded inside it (``obs.flight.record`` reads :func:`current_trace`).
-The context's wire form (and ``new_trace``) waits with the host plane.
+The class and its wire form live in ``types/trace.py``, since wire
+messages carry it; this module re-exports it, as the reference's does.
 """
 
 from __future__ import annotations
 
 import contextvars
 import itertools
+import os
 import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
+from serf_tpu_torch.types.trace import TRACE_ID_LEN, TraceContext  # noqa: F401
 from serf_tpu_torch.utils import metrics
 
 #: finished spans retained (ring, drop-oldest)
 TRACE_BUFFER_SIZE = 1024
-
-
-class TraceContext:
-    """Trace id + origin + hop count (immutable)."""
-
-    __slots__ = ("trace_id", "origin", "hops")
-
-    def __init__(self, trace_id: bytes, origin: str, hops: int = 0):
-        self.trace_id = trace_id
-        self.origin = origin
-        self.hops = hops
-
-    @property
-    def hex_id(self) -> str:
-        return self.trace_id.hex()
 
 
 _current_span: contextvars.ContextVar[Optional["Span"]] = \
@@ -52,6 +41,11 @@ _ids = itertools.count(1)
 
 _current_trace: contextvars.ContextVar[Optional[TraceContext]] = \
     contextvars.ContextVar("serf_tpu_torch_current_trace", default=None)
+
+
+def new_trace(origin: str) -> TraceContext:
+    """Mint a fresh trace context rooted at ``origin`` (hop 0)."""
+    return TraceContext(os.urandom(TRACE_ID_LEN), origin, 0)
 
 
 def current_trace() -> Optional[TraceContext]:

@@ -470,13 +470,18 @@ def test_vivaldi_ab_device_run_matches_reference(fsize, spike_p):
 
 def test_vivaldi_ab_main_writes_only_its_out(tmp_path, capsys):
     out = tmp_path / "ab.json"
-    rc, text = _call(tvab.main, ["--n", "64", "--rounds", "4", "--device",
+    rc, text = _call(tvab.main, ["--n", "64", "--rounds", "4", "--host-n",
+                                 "16", "--host-rounds", "5", "--device",
                                  "cpu", "--out", str(out)], capsys)
-    assert rc == 0 and tvab.HOST_ORACLE in text
+    assert rc == 0 and "not run" not in text
     d = json.loads(out.read_text())
     assert sorted(d["device"]) == ["clean_filter1", "clean_filter3",
                                    "spiky_filter1", "spiky_filter3"]
-    assert d["host"] is None
+    assert sorted(d["host"]) == ["clean_perpeer_n16", "spiky_perpeer_n16"]
+    assert d["host"]["clean_perpeer_n16"] == round(
+        tvab.host_oracle_run(16, 5, 0.0), 4)
+    assert "host_note" not in d and not hasattr(tvab, "HOST_ORACLE")
+    assert text.count("host  n=16 ") == 2
 
 
 @pytest.mark.parametrize("shape", [(1,), (100,), (5000,), (64, 3)])
