@@ -138,6 +138,24 @@ line gives the wire's encode+decode rates on this machine's host CPU
 for 10,000 user events and a 10,000-member push/pull.  No kernel may
 launch.
 
+Phase 7 runs the host engine (``serf_tpu_torch.host``: ``Serf`` over
+``Memberlist`` and its transports) on this machine's host CPU, held to
+the outcomes the reference's tests assert: (a) 64 nodes of
+``Options.cluster(64)`` on the loopback fabric join one seed and
+converge (64 alive in every view), a node partitioned off alone is
+FAILED in all 63 other views, and a graceful leave is LEFT in every
+remaining view; (b) 5 nodes of ``Options.local()``, one subscriber
+each: 500 user events of 64 bytes from seeded picks reach every
+subscriber exactly once, and 50 request_ack queries, 10 at a time, are
+each acked by all 5; (c) 5 nodes on 127.0.0.1 (port 0) over each of
+tcp, tls (a self-signed certificate made here with ``cryptography``)
+and udpstream, encrypted with one key: each converges, delivers one
+user event, answers one acked query and completes one leave; (d) a
+failure hook watches the whole phase: no background task may die or
+outlive its node, every node must shut down, and no kernel may launch.
+It logs each part's seconds (the host CPU's, beside the card line) and
+the keyring's backend.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Needs no network and imports no
 JAX.
@@ -2494,6 +2512,389 @@ def host_plane_full(rk) -> dict:
     return out
 
 
+#: phase 7: the host engine on the card's machine.  (a) the reference's
+#: large in-process cluster profile (``Options.cluster(64)``, the
+#: reference's options.py:356) over the loopback fabric; (b) and (c) its
+#: bench host plane's size (5 nodes, ``Options.local()``, the reference's
+#: faults/plan.py:272)
+ENGINE_N = 64
+ENGINE_CONVERGE_S = 60.0
+ENGINE_SMALL_N = 5
+ENGINE_EVENTS = 500
+ENGINE_EVENT_BYTES = 64
+ENGINE_QUERIES = 50
+ENGINE_QUERY_BATCH = 10
+#: a request_ack query's timeout in (b): the ack iterator runs to it.
+#: Twice what the reference needed, on a CPU, for every query of the
+#: batches to be acked by all five nodes (0.5 s; at 0.25 s some were
+#: not: ``PERF.md`` §6 has the rehearsal)
+ENGINE_QUERY_TIMEOUT = 1.0
+#: (c)'s query timeout and every wait's bound (seconds)
+ENGINE_SOCKET_QUERY_TIMEOUT = 1.0
+ENGINE_WAIT_S = 30.0
+#: the whole phase's bound: a hang fails the phase instead of the call
+ENGINE_LIMIT_S = 240.0
+ENGINE_SEED = 9
+
+
+def engine_modules():
+    """The port's host engine, as the names phase 7 drives."""
+    import importlib
+    from types import SimpleNamespace
+    mods = {m: importlib.import_module(f"serf_tpu_torch.{m}") for m in (
+        "host.serf", "host.transport", "host.events", "host.query",
+        "host.net", "host.dstream", "host.keyring", "options",
+        "utils.tasks")}
+    return SimpleNamespace(
+        Serf=mods["host.serf"].Serf,
+        LoopbackNetwork=mods["host.transport"].LoopbackNetwork,
+        EventSubscriber=mods["host.events"].EventSubscriber,
+        QueryParam=mods["host.query"].QueryParam, net=mods["host.net"],
+        dstream=mods["host.dstream"], keyring=mods["host.keyring"],
+        Options=mods["options"].Options, tasks=mods["utils.tasks"])
+
+
+async def engine_wait(cond, what: str, limit: float = ENGINE_WAIT_S) -> float:
+    """Poll ``cond`` every 20 ms; the seconds it took, or raise."""
+    import asyncio
+    loop = asyncio.get_running_loop()
+    t0 = loop.time()
+    while not cond():
+        if loop.time() - t0 > limit:
+            raise AssertionError(f"phase 7: {what} not reached in {limit} s")
+        await asyncio.sleep(0.02)
+    return loop.time() - t0
+
+
+def engine_views(nodes) -> list:
+    """``{member id: status name}`` of each node's view."""
+    return [{m.node.id: m.status.name for m in s.members()} for s in nodes]
+
+
+async def engine_membership(E, nodes: list) -> dict:
+    """(a): ENGINE_N nodes of ``Options.cluster(ENGINE_N)`` join node 0;
+    every view converges to ENGINE_N alive; one node partitioned off
+    alone is FAILED in all the other views; one node's graceful leave is
+    LEFT in every remaining view."""
+    import random
+    net = E.LoopbackNetwork()
+    opts = E.Options.cluster(ENGINE_N)
+    out = {}
+    t0 = time.perf_counter()
+    for i in range(ENGINE_N):
+        nodes.append(await E.Serf.create(
+            net.bind(f"m{i}"), opts, f"m-{i}",
+            rng=random.Random(ENGINE_SEED * 1000 + i)))
+    out["create_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for s in nodes[1:]:
+        await s.join("m0")
+    out["join_s"] = time.perf_counter() - t0
+    ids = {s.local_id for s in nodes}
+    out["converge_s"] = await engine_wait(
+        lambda: all(set(v) == ids and set(v.values()) == {"ALIVE"}
+                    for v in engine_views(nodes)),
+        f"{ENGINE_N}-node convergence", ENGINE_CONVERGE_S)
+    victim, leaver = nodes[ENGINE_N - 1], nodes[ENGINE_N // 2]
+    net.partition({f"m{i}" for i in range(ENGINE_N - 1)},
+                  {f"m{ENGINE_N - 1}"})
+    others = [s for s in nodes if s is not victim]
+    out["detect_s"] = await engine_wait(
+        lambda: all(v[victim.local_id] == "FAILED"
+                    for v in engine_views(others)),
+        f"{victim.local_id} FAILED in all {len(others)} other views")
+    t0 = time.perf_counter()
+    await leaver.leave()
+    remaining = [s for s in others if s is not leaver]
+    await engine_wait(lambda: all(v[leaver.local_id] == "LEFT"
+                                  for v in engine_views(remaining)),
+                      f"{leaver.local_id} LEFT in every remaining view")
+    out["leave_s"] = time.perf_counter() - t0
+    return out
+
+
+async def engine_events(nodes, subs, names, payload_of) -> dict:
+    """Wait until every subscriber holds every user event in ``names``;
+    then fail on any loss or duplicate."""
+    import asyncio
+    seen = [dict() for _ in subs]
+
+    def pull():
+        for got, sub in zip(seen, subs):
+            while (ev := sub.try_next()) is not None:
+                if hasattr(ev, "coalesce"):
+                    got[ev.name] = got.get(ev.name, 0) + 1
+                    if ev.payload != payload_of(ev.name):
+                        raise AssertionError(
+                            f"phase 7: {ev.name} arrived with another "
+                            f"payload")
+        return all(len(got) == len(names) for got in seen)
+
+    secs = await engine_wait(pull, "every event at every subscriber")
+    await asyncio.sleep(0.3)        # a duplicate would land by now
+    pull()
+    for s, got in zip(nodes, seen):
+        extra = set(got) - names
+        dup = {n: c for n, c in got.items() if c != 1}
+        if extra or dup or set(got) != names:
+            raise AssertionError(f"phase 7: {s.local_id} got unknown "
+                                 f"{sorted(extra)[:5]} or duplicates "
+                                 f"{dict(list(dup.items())[:5])}")
+    return dict(delivered_s=secs, per_node=len(names))
+
+
+async def engine_acks(E, node, name: str, timeout: float) -> set:
+    resp = await node.query(name, b"", E.QueryParam(request_ack=True,
+                                                    timeout=timeout))
+    return {a async for a in resp.acks()}
+
+
+async def engine_traffic(E, nodes: list) -> dict:
+    """(b): ENGINE_SMALL_N nodes of ``Options.local()``, one subscriber
+    each; ENGINE_EVENTS user events of ENGINE_EVENT_BYTES from seeded
+    picks, each delivered exactly once to every subscriber; then
+    ENGINE_QUERIES request_ack queries, ENGINE_QUERY_BATCH at a time,
+    each acked by every node."""
+    import asyncio
+    import random
+    net = E.LoopbackNetwork()
+    subs = [E.EventSubscriber() for _ in range(ENGINE_SMALL_N)]
+    for i, sub in enumerate(subs):
+        nodes.append(await E.Serf.create(
+            net.bind(f"t{i}"), E.Options.local(), f"t-{i}", subscriber=sub,
+            rng=random.Random(ENGINE_SEED * 2000 + i)))
+    for s in nodes[1:]:
+        await s.join("t0")
+    ids = {s.local_id for s in nodes}
+    await engine_wait(lambda: all(set(v) == ids and set(v.values())
+                                  == {"ALIVE"} for v in engine_views(nodes)),
+                      f"{ENGINE_SMALL_N}-node convergence")
+    rng = random.Random(ENGINE_SEED)
+
+    def payload_of(name):
+        return int(name[3:]).to_bytes(4, "big") * (ENGINE_EVENT_BYTES // 4)
+
+    names = {f"ev-{i}" for i in range(ENGINE_EVENTS)}
+    t0 = time.perf_counter()
+    for i in range(ENGINE_EVENTS):
+        await nodes[rng.randrange(ENGINE_SMALL_N)].user_event(
+            f"ev-{i}", payload_of(f"ev-{i}"), coalesce=False)
+    fired_s = time.perf_counter() - t0
+    got = await engine_events(nodes, subs, names, payload_of)
+    events_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    short = []
+    for b in range(0, ENGINE_QUERIES, ENGINE_QUERY_BATCH):
+        acks = await asyncio.gather(*(
+            engine_acks(E, nodes[rng.randrange(ENGINE_SMALL_N)],
+                        f"q-{b + j}", ENGINE_QUERY_TIMEOUT)
+            for j in range(ENGINE_QUERY_BATCH)))
+        short += [(b + j, len(a)) for j, a in enumerate(acks) if a != ids]
+    queries_s = time.perf_counter() - t0
+    if short:
+        raise AssertionError(f"phase 7: queries not acked by all "
+                             f"{ENGINE_SMALL_N} (query, acks): {short}")
+    return dict(fired_s=fired_s, events_s=events_s,
+                delivered_s=got["delivered_s"], queries_s=queries_s,
+                events_per_s=ENGINE_EVENTS * ENGINE_SMALL_N / events_s,
+                queries_per_s=ENGINE_QUERIES / queries_s)
+
+
+def engine_tls_contexts(E, workdir):
+    """A self-signed certificate for ``localhost``/127.0.0.1 and its TLS
+    contexts.  Needs the ``cryptography`` package: without it the phase
+    fails."""
+    import datetime
+    import ipaddress
+
+    from cryptography import x509
+    from cryptography.hazmat.primitives import hashes, serialization
+    from cryptography.hazmat.primitives.asymmetric import ec
+    from cryptography.x509.oid import NameOID
+    key = ec.generate_private_key(ec.SECP256R1())
+    name = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, "localhost")])
+    now = datetime.datetime.now(datetime.timezone.utc)
+    cert = (x509.CertificateBuilder().subject_name(name).issuer_name(name)
+            .public_key(key.public_key())
+            .serial_number(x509.random_serial_number())
+            .not_valid_before(now - datetime.timedelta(minutes=5))
+            .not_valid_after(now + datetime.timedelta(days=1))
+            .add_extension(x509.SubjectAlternativeName([
+                x509.DNSName("localhost"),
+                x509.IPAddress(ipaddress.ip_address("127.0.0.1"))]),
+                critical=False)
+            .add_extension(x509.BasicConstraints(ca=True, path_length=None),
+                           critical=True)
+            .sign(key, hashes.SHA256()))
+    workdir.mkdir(parents=True, exist_ok=True)
+    cert_pem, key_pem = workdir / "cert.pem", workdir / "key.pem"
+    cert_pem.write_bytes(cert.public_bytes(serialization.Encoding.PEM))
+    key_pem.write_bytes(key.private_bytes(
+        serialization.Encoding.PEM, serialization.PrivateFormat.PKCS8,
+        serialization.NoEncryption()))
+    return E.net.make_tls_contexts(str(cert_pem), str(key_pem))
+
+
+async def engine_socket_plane(E, plane: str, tls, nodes: list) -> dict:
+    """(c): ENGINE_SMALL_N nodes on 127.0.0.1 (port 0) over ``plane``,
+    encrypted with one key (each node its own ring): converge, deliver
+    one user event, answer one acked query, complete one leave."""
+    import os
+    import random
+    secret = os.urandom(32)
+    subs = [E.EventSubscriber() for _ in range(ENGINE_SMALL_N)]
+    mine = []
+    t0 = time.perf_counter()
+    for i, sub in enumerate(subs):
+        ring = E.keyring.SecretKeyring(secret)
+        addr = ("127.0.0.1", 0)
+        if plane == "udpstream":
+            t = await E.dstream.DatagramStreamTransport.bind(addr,
+                                                             keyring=ring)
+        elif plane == "tcp":
+            t = await E.net.NetTransport.bind(addr)
+        else:
+            t = await E.net.TlsNetTransport.bind(
+                addr, server_ctx=tls[0], client_ctx=tls[1])
+        s = await E.Serf.create(t, E.Options.local(), f"{plane}-{i}",
+                                subscriber=sub, keyring=ring,
+                                rng=random.Random(ENGINE_SEED * 3000 + i))
+        nodes.append(s)
+        mine.append(s)
+        if not s.encryption_enabled():
+            raise AssertionError(f"phase 7: {plane} node {i} not encrypted")
+    seed = mine[0].memberlist.transport.local_addr
+    for s in mine[1:]:
+        await s.join(seed)
+    ids = {s.local_id for s in mine}
+    await engine_wait(lambda: all(set(v) == ids and set(v.values())
+                                  == {"ALIVE"} for v in engine_views(mine)),
+                      f"{plane} convergence")
+    out = dict(converge_s=time.perf_counter() - t0)
+    await mine[1].user_event("sock", b"plane", coalesce=False)
+    await engine_events(mine, subs, {"sock"}, lambda name: b"plane")
+    acks = await engine_acks(E, mine[2], "sock-q", ENGINE_SOCKET_QUERY_TIMEOUT)
+    if acks != ids:
+        raise AssertionError(f"phase 7: {plane} query acked by "
+                             f"{sorted(acks)}, not all {ENGINE_SMALL_N}")
+    leaver = mine[-1]
+    await leaver.leave()
+    await engine_wait(lambda: all(v[leaver.local_id] == "LEFT"
+                                  for v in engine_views(mine[:-1])),
+                      f"{plane} leave")
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+async def engine_phase(E, workdir) -> dict:
+    import asyncio
+    died = []
+
+    def on_failure(name, exc):
+        died.append((name, repr(exc)))
+
+    E.tasks.add_failure_hook(on_failure)
+    nodes, shut = [], []
+    out = {}
+    try:
+        try:
+            t0 = time.perf_counter()
+            out["membership"] = await engine_membership(E, nodes)
+            out["membership"]["s"] = time.perf_counter() - t0
+        finally:
+            await engine_shutdown(nodes, shut)
+        try:
+            t0 = time.perf_counter()
+            out["traffic"] = await engine_traffic(E, nodes)
+            out["traffic"]["s"] = time.perf_counter() - t0
+        finally:
+            await engine_shutdown(nodes, shut)
+        tls = engine_tls_contexts(E, workdir)
+        out["sockets"] = {}
+        for plane in ("tcp", "tls", "udpstream"):
+            try:
+                out["sockets"][plane] = await engine_socket_plane(
+                    E, plane, tls, nodes)
+            finally:
+                await engine_shutdown(nodes, shut)
+        await asyncio.sleep(0.1)    # let the last done-callbacks run
+    finally:
+        E.tasks.remove_failure_hook(on_failure)
+    left = [t.get_name() for t in asyncio.all_tasks()
+            if t is not asyncio.current_task() and not t.done()]
+    if died or left:
+        raise AssertionError(f"phase 7: background tasks died {died}; "
+                             f"tasks still running {left[:10]}")
+    out["nodes"] = ENGINE_N + 4 * ENGINE_SMALL_N
+    out["backend"] = E.keyring.CRYPTO_BACKEND
+    if len(shut) != out["nodes"]:
+        raise AssertionError(f"phase 7: {len(shut)} of {out['nodes']} "
+                             f"nodes shut down")
+    return out
+
+
+async def engine_shutdown(nodes: list, shut: list) -> None:
+    """Shut down every node of a part, check each and note it in
+    ``shut``; ``nodes`` is emptied for the next part."""
+    for s in nodes:
+        await s.shutdown()
+        if s.state.name != "SHUTDOWN":
+            raise AssertionError(f"phase 7: {s.local_id} is {s.state.name} "
+                                 f"after shutdown")
+        shut.append(s.local_id)
+    nodes.clear()
+
+
+def host_engine_full(rk) -> dict:
+    """Phase 7: the host engine on the card's machine, held to the
+    outcomes the reference's tests assert (:func:`engine_membership`,
+    :func:`engine_traffic`, :func:`engine_socket_plane`).  A failure
+    hook (``utils.tasks.add_failure_hook``) watches the whole phase: a
+    background task that died, a task still running at the end or a
+    node not shut down fails it.  No kernel may launch."""
+    import asyncio
+    import pathlib
+    E = engine_modules()
+    reset_counts(rk)
+    workdir = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+    t0 = time.perf_counter()
+    out = asyncio.run(asyncio.wait_for(engine_phase(E, workdir),
+                                       ENGINE_LIMIT_S))
+    out["s"] = time.perf_counter() - t0
+    check_launches(rk, "tools", "phase 7", want=())
+    m, t = out["membership"], out["traffic"]
+    card = card_line()
+    log(f"phase 7 (a) membership, {ENGINE_N} nodes of Options.cluster("
+        f"{ENGINE_N}) on the loopback fabric, host CPU of the machine with "
+        f"{card}: create {m['create_s']:.2f} s, joins {m['join_s']:.2f} s, "
+        f"convergence {m['converge_s']:.2f} s after the joins, detection "
+        f"of a partitioned node in all {ENGINE_N - 1} other views "
+        f"{m['detect_s']:.2f} s, a graceful leave LEFT everywhere "
+        f"{m['leave_s']:.2f} s; part {m['s']:.2f} s")
+    log(f"phase 7 (b) traffic, {ENGINE_SMALL_N} nodes of Options.local(), "
+        f"host CPU of the machine with {card}: {ENGINE_EVENTS} of "
+        f"{ENGINE_EVENTS} user events of {ENGINE_EVENT_BYTES} B at all "
+        f"{ENGINE_SMALL_N} subscribers, no duplicate (fired in "
+        f"{t['fired_s']:.3f} s, delivered in {t['events_s']:.3f} s: "
+        f"{t['events_per_s']:.1f} deliveries/s); {ENGINE_QUERIES} of "
+        f"{ENGINE_QUERIES} request_ack queries acked by all "
+        f"{ENGINE_SMALL_N} in batches of {ENGINE_QUERY_BATCH} at a "
+        f"{ENGINE_QUERY_TIMEOUT} s timeout ({t['queries_s']:.2f} s: "
+        f"{t['queries_per_s']:.2f} queries/s); part {t['s']:.2f} s")
+    log(f"phase 7 (c) sockets, {ENGINE_SMALL_N} nodes on 127.0.0.1 per "
+        f"plane, keyring backend {out['backend']}, host CPU of the machine "
+        f"with {card}: " + ", ".join(
+            f"{p} {r['s']:.2f} s (convergence {r['converge_s']:.2f} s)"
+            for p, r in out["sockets"].items())
+        + "; each converged, delivered one event, answered one acked "
+        "query and completed one leave")
+    log(f"phase 7 (d) clean finish: {out['nodes']} nodes shut down, no "
+        f"background task died or outlived them, no kernel launched; "
+        f"phase 7 {out['s']:.2f} s on the host CPU of the machine with "
+        f"{card}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2585,6 +2986,8 @@ def main() -> int:
     mark("phase 5 command lines")
     host_plane = host_plane_full(rk)
     mark("phase 6 host plane")
+    host_engine_full(rk)
+    mark("phase 7 host engine")
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
         log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "

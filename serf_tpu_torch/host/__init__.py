@@ -1,21 +1,91 @@
-"""The host plane of the port: what is ported so far.
+"""The host plane of the port: the asyncio Serf engine.
 
-The wire path, as the reference's ``serf_tpu/host`` has it: the SWIM
-messages (``host.messages``), the compress → checksum pipeline
-(``host.wire``), the keyring's encryption (``host.keyring``), and the
-Vivaldi coordinate client (``host.coordinate``).  The engine itself
-(``Serf``, ``Memberlist``) and the transports wait for the next slice.
+The port's copy of ``serf_tpu/host``: the engine (``Serf`` over
+``Memberlist``), its transports (``LoopbackNetwork`` in process,
+``host.net``'s UDP + TCP/TLS and ``host.dstream``'s reliable streams
+over UDP), and the wire path under them (messages, compression and
+checksums, the keyring).  The engine holds no tensor and launches no
+kernel; its nodes interoperate with the reference's on the same wire.
+
+Quick start::
+
+    import asyncio
+
+    from serf_tpu_torch.host import EventSubscriber, LoopbackNetwork, Serf
+    from serf_tpu_torch.options import Options
+
+    async def main():
+        net = LoopbackNetwork()
+        sub = EventSubscriber()
+        a = await Serf.create(net.bind("a"), Options.local(), "node-a",
+                              subscriber=sub)
+        b = await Serf.create(net.bind("b"), Options.local(), "node-b")
+        await b.join("a")
+        await b.user_event("deploy", b"v2", coalesce=False)
+        resp = await a.query("ping", b"", None)
+        async for r in resp.responses():
+            print(r.from_id, r.payload)
+        await b.leave()
+        for s in (a, b):
+            await s.shutdown()
+
+    asyncio.run(main())
+
+The snapshot, the key manager, the agent and ``ctl`` wait for the next
+slice (``ROADMAP.md`` queue 1 item 6(b)); the calls that reach them
+raise ``NotImplementedError`` naming that item.
 """
 
+from serf_tpu_torch.host.admission import OverloadError, TokenBucket
+from serf_tpu_torch.host.serf import Serf, SerfState, Stats
+from serf_tpu_torch.obs.health import HealthReport  # Serf.health_report()
+from serf_tpu_torch.host.events import (
+    EventSubscriber,
+    MemberEvent,
+    MemberEventType,
+    QueryEvent,
+    UserEvent,
+)
+from serf_tpu_torch.host.query import NodeResponse, QueryParam, QueryResponse
+from serf_tpu_torch.host.transport import (
+    LoopbackNetwork,
+    LoopbackTransport,
+    Transport,
+)
+from serf_tpu_torch.host.memberlist import Memberlist
+from serf_tpu_torch.host.keyring import SecretKeyring
+from serf_tpu_torch.host.delegate import (
+    CompositeDelegate,
+    MergeDelegate,
+    ReconnectDelegate,
+)
 from serf_tpu_torch.host.coordinate import (
     Coordinate,
     CoordinateClient,
     CoordinateOptions,
 )
-from serf_tpu_torch.host.keyring import SecretKeyring
 
 __all__ = [
+    "Serf",
+    "SerfState",
+    "Stats",
+    "HealthReport",
+    "EventSubscriber",
+    "MemberEvent",
+    "MemberEventType",
+    "QueryEvent",
+    "UserEvent",
+    "NodeResponse",
+    "QueryParam",
+    "QueryResponse",
+    "LoopbackNetwork",
+    "LoopbackTransport",
+    "Transport",
+    "Memberlist",
     "SecretKeyring",
+    "CompositeDelegate",
+    "MergeDelegate",
+    "ReconnectDelegate",
     "Coordinate",
     "CoordinateClient",
     "CoordinateOptions",

@@ -1,15 +1,21 @@
-"""The propagation summary of a traced device run (host side).
+"""The propagation summary of a traced device run (host side), and the
+host engine's per-broadcast provenance ledger.
 
-The port's copy of the device reader in ``serf_tpu/obs/propagation.py``.
-A run with ``collect_propagation`` stacks one ``PROPAGATION_FIELDS`` row
-and one per-sentinel coverage row per round on the device and reads
-them once after the run; this module turns them into ring series,
-coverage curves, time-to-50/90/99% and the cumulative redundancy.
+The port's copy of ``serf_tpu/obs/propagation.py``.  A device run with
+``collect_propagation`` stacks one ``PROPAGATION_FIELDS`` row and one
+per-sentinel coverage row per round on the device and reads them once
+after the run; this module turns them into ring series, coverage
+curves, time-to-50/90/99% and the cumulative redundancy.  On the host
+plane, :class:`PropagationLedger` counts each node's accepts, dedup hits
+and rebroadcasts of user events by their ``TraceContext`` ids, and
+:func:`fold_propagation` merges the per-node summaries.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from serf_tpu_torch.models.swim import PROPAGATION_FIELDS
@@ -226,3 +232,118 @@ def render_coverage(curve: Sequence[float], width: int = 60,
     lines.append("     └" + "─" * len(vals)
                  + f"  rounds 1..{len(curve)}")
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# host plane: per-broadcast provenance
+# ---------------------------------------------------------------------------
+
+#: bounded recent-trace map size — provenance is a debugging tail, not
+#: a log (the flight-recorder sizing philosophy)
+RECENT_TRACES = 8
+#: recent traces shipped in the ``_serf_stats`` payload (the 1 KiB
+#: payload budget caps the per-node contribution)
+PAYLOAD_TRACES = 4
+
+
+class PropagationLedger:
+    """Per-node user-event propagation provenance (host plane).
+
+    Counts how the gossip fabric treats broadcasts at THIS node —
+    ``seen`` (first-sight accepts), ``duplicates`` (dedup-ring hits:
+    the host analog of a redundant wire slot), ``rebroadcasts``
+    (re-queued onto the event broadcast queue) — and keeps a bounded
+    map of recently seen ``TraceContext`` ids with first-seen
+    monotonic clocks and hop counts, so a traced event's
+    time-to-all-nodes can be folded cluster-wide
+    (:func:`fold_propagation` via the ``_serf_stats`` partials).
+
+    Wired into ``host/serf.py``'s ``_handle_user_event`` (accept +
+    dedup branches) and ``_dispatch`` (rebroadcast decision); every
+    method is O(1) on the hot path.
+    """
+
+    def __init__(self, recent: int = RECENT_TRACES):
+        self.seen = 0
+        self.duplicates = 0
+        self.rebroadcasts = 0
+        self._recent: "OrderedDict[str, Dict]" = OrderedDict()
+        self._cap = recent
+
+    def _note(self, tctx) -> None:
+        if tctx is None:
+            return
+        key = tctx.hex_id
+        if key not in self._recent:
+            self._recent[key] = {"first_seen": time.monotonic(),
+                                 "hops": int(tctx.hops)}
+            while len(self._recent) > self._cap:
+                self._recent.popitem(last=False)
+
+    def accept(self, tctx=None) -> None:
+        self.seen += 1
+        self._note(tctx)
+
+    def duplicate(self, tctx=None) -> None:
+        self.duplicates += 1
+
+    def rebroadcast(self, tctx=None) -> None:
+        self.rebroadcasts += 1
+
+    def first_seen(self, trace_hex: str) -> Optional[float]:
+        e = self._recent.get(trace_hex)
+        return None if e is None else e["first_seen"]
+
+    @property
+    def dup_ratio(self) -> float:
+        total = self.seen + self.duplicates
+        return self.duplicates / total if total else 0.0
+
+    def summary(self) -> list:
+        """The ``_serf_stats`` payload contribution: ``[seen, dup,
+        rebroadcast, {trace_hex: age_ms}]`` — ages instead of absolute
+        clocks so the fold needs no cross-node clock agreement beyond
+        the stats query's own skew."""
+        now = time.monotonic()
+        traces = {k: round((now - e["first_seen"]) * 1e3, 1)
+                  for k, e in list(self._recent.items())[-PAYLOAD_TRACES:]}
+        return [self.seen, self.duplicates, self.rebroadcasts, traces]
+
+
+def fold_propagation(nodes: Dict[str, Sequence]) -> dict:
+    """Fold per-node ledger summaries (``decode_node_stats``'s ``prop``
+    field, any merge order) into the cluster propagation aggregate for
+    ``ClusterSnapshot.propagation`` — pure sums plus per-trace
+    node-count/age-spread, so fold(union) == fold(fold(parts)) holds
+    by associativity (the ``_serf_stats`` partial-merge contract)."""
+    seen = dup = rebroadcast = 0
+    traces: Dict[str, Dict] = {}
+    for payload in nodes.values():
+        if not isinstance(payload, (list, tuple)) or len(payload) < 3:
+            continue
+        seen += int(payload[0])
+        dup += int(payload[1])
+        rebroadcast += int(payload[2])
+        tr = payload[3] if len(payload) > 3 else {}
+        if isinstance(tr, dict):
+            for hex_id, age_ms in tr.items():
+                t = traces.setdefault(hex_id,
+                                      {"nodes": 0, "spread_ms": 0.0,
+                                       "_min": None, "_max": None})
+                t["nodes"] += 1
+                age = float(age_ms)
+                t["_min"] = age if t["_min"] is None else min(t["_min"], age)
+                t["_max"] = age if t["_max"] is None else max(t["_max"], age)
+    for t in traces.values():
+        # age spread across nodes = propagation spread of that event
+        # (oldest first-sight minus newest), loopback-grade precision
+        t["spread_ms"] = round((t.pop("_max") or 0.0)
+                               - (t.pop("_min") or 0.0), 1)
+    total = seen + dup
+    return {
+        "seen": seen,
+        "duplicates": dup,
+        "rebroadcasts": rebroadcast,
+        "dup_ratio": dup / total if total else 0.0,
+        "traces": traces,
+    }

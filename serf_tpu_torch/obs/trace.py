@@ -2,14 +2,14 @@
 
 The port's copy of ``serf_tpu/obs/trace.py``.  ``span(name, **attrs)``
 is a (sync) context manager: one ``perf_counter`` pair, a contextvar
-swap and one ring append on exit.  (The reference keeps 1 in 16 of its
-per-packet ``wire.*`` spans in the ring; the port's engine, which would
-open them, is not ported yet, so it keeps every span.)  Nesting rides
-:mod:`contextvars`, so
-spans nest across ``await`` points.  Finished spans land in a bounded
-:class:`TraceBuffer` (drop-oldest) and feed the ``serf.trace.span-ms``
-histogram (label ``span=<name>``); the run timeline
-(``obs/timeline.py``) reads the ring through :func:`trace_dump`.
+swap and one ring append on exit.  The host engine's per-packet
+``wire.*`` spans keep 1 in 16 of each name in the ring
+(:data:`RING_SAMPLE_EVERY`; every span still feeds the histogram).
+Nesting rides :mod:`contextvars`, so spans nest across ``await``
+points.  Finished spans land in a bounded :class:`TraceBuffer`
+(drop-oldest) and feed the ``serf.trace.span-ms`` histogram (label
+``span=<name>``); the run timeline (``obs/timeline.py``) reads the ring
+through :func:`trace_dump`.
 
 A :class:`TraceContext` (trace id, origin node, hop count) installed with
 :func:`trace_scope` stamps every span opened and every flight event
@@ -33,6 +33,13 @@ from serf_tpu_torch.utils import metrics
 
 #: finished spans retained (ring, drop-oldest)
 TRACE_BUFFER_SIZE = 1024
+
+#: per-packet span names would flood the ring at gossip rates, evicting
+#: the rare spans (probe failures, compactions) the ring exists to keep
+#: after an incident — retain only 1-in-N of these (the first of each
+#: name always; every span still feeds the latency histogram)
+RING_SAMPLE_EVERY: Dict[str, int] = {"wire.encode": 16, "wire.decode": 16}
+_ring_counts: Dict[str, int] = {}
 
 
 _current_span: contextvars.ContextVar[Optional["Span"]] = \
@@ -171,6 +178,18 @@ def current_span() -> Optional[Span]:
     return _current_span.get()
 
 
+class _LiteSpan:
+    """Stand-in yielded by sampled-out spans: accepts attr/status writes
+    like a full Span but allocates no ids and joins no parent chain."""
+
+    __slots__ = ("name", "attrs", "status")
+
+    def __init__(self, name: str, attrs: Dict[str, Any]):
+        self.name = name
+        self.attrs = attrs
+        self.status = "ok"
+
+
 @contextmanager
 def span(name: str, **attrs):
     """Time a block, nested under the caller's active span (if any).
@@ -179,6 +198,25 @@ def span(name: str, **attrs):
     tc = _current_trace.get()
     if tc is not None and "trace" not in attrs:
         attrs["trace"] = tc.hex_id
+    every = RING_SAMPLE_EVERY.get(name, 1)
+    if every > 1:
+        n = _ring_counts.get(name, 0)
+        _ring_counts[name] = n + 1
+        if n % every:
+            # sampled out of the ring: histogram-only fast path — no Span
+            # allocation, no contextvar swap, no ring lock
+            t0 = time.perf_counter()
+            s = _LiteSpan(name, attrs)
+            try:
+                yield s
+            except BaseException:
+                s.status = "error"
+                raise
+            finally:
+                metrics.observe("serf.trace.span-ms",
+                                (time.perf_counter() - t0) * 1e3,
+                                {"span": name})
+            return
     parent = _current_span.get()
     s = Span(name, parent, attrs)
     token = _current_span.set(s)
