@@ -156,6 +156,31 @@ outlive its node, every node must shut down, and no kernel may launch.
 It logs each part's seconds (the host CPU's, beside the card line) and
 the keyring's backend.
 
+Phase 8 runs the serf agent and the cluster plane on this machine's
+host CPU: (a) seven agent processes (``python -m
+serf_tpu_torch.host.agent``, profile ``proc``, 127.0.0.1 port 0, each
+its own snapshot and black-box directory, one keyring file) converge;
+a user event and a query sent over the control channel are seen by all
+(their Lamport clocks); a SIGTERM'd agent exits 0 within 10 s with a
+client holding its control connection and is LEFT, never FAILED, in
+every survivor's view; a SIGKILL'd one is FAILED in every view,
+restarts from its snapshot directory as generation 1, rejoins, and its
+member and event clocks do not go back; a key rotation through the
+``keys`` op (install, use, remove) reaches a quorum at each step and
+leaves one keyring digest on every agent; each agent's ``blackbox`` op
+writes a bundle that validates; no agent holds a CUDA context
+(``nvidia-smi --query-compute-apps``) and none outlives the teardown;
+(b) 64 in-process nodes of ``Options.cluster(64)``, each with a
+snapshot, a keyring and a black box: ``cluster_stats`` and
+``cluster_blackbox`` from one node cover all 64 (one membership
+digest), a ``KeyManager`` rotation reaches all 64, eight nodes shut
+down and created again from their snapshots rejoin with no old user
+event delivered again, and a timeline with the lifecycle lanes from
+the run validates; (c) a ``Snapshotter`` logs 10,000 members' alive
+records, updates and clocks, compacts, and ``open_and_replay_snapshot``
+returns the same alive set and clocks before and after.  No kernel may
+launch; it logs each part's host-CPU seconds beside the card line.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Needs no network and imports no
 JAX.
@@ -2895,6 +2920,656 @@ def host_engine_full(rk) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the serf agent and the cluster plane
+# ---------------------------------------------------------------------------
+
+#: (a): the reference's largest process cluster (its 7-process soak)
+AGENT_N = 7
+AGENT_MODULE = "serf_tpu_torch.host.agent"
+#: seconds an agent may take from spawn to its ready file
+AGENT_READY_S = 30.0
+#: a SIGTERM'd agent's exit, as the reference's process test allows
+AGENT_EXIT_S = 10.0
+#: (b): in-process nodes, restarts from snapshots, old events
+CLUSTER_N = 64
+CLUSTER_RESTARTS = 8
+CLUSTER_OLD_EVENTS = 20
+#: (b)'s query timeout for the two scatters (they end early once every
+#: alive member answered)
+CLUSTER_QUERY_TIMEOUT = 10.0
+#: (c): members (phase 6's push/pull scale) and the member updates that
+#: grow the log past its compaction threshold (2 x 128 B per member)
+SNAP_MEMBERS = 10_000
+SNAP_UPDATES = 100_000
+PHASE8_LIMIT_S = 90.0
+PHASE8_SEED = 10
+
+
+def compute_app_pids() -> set:
+    """The pids ``nvidia-smi --query-compute-apps=pid`` lists: the
+    processes that hold a CUDA context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return {int(w) for w in out.stdout.split() if w.strip().isdigit()}
+
+
+def pids_under(path) -> list:
+    """Pids of live processes whose command line names ``path``: the
+    leak audit that does not trust the spawner's own bookkeeping."""
+    import glob
+    out = []
+    for cmdline in glob.glob("/proc/[0-9]*/cmdline"):
+        try:
+            with open(cmdline, "rb") as f:
+                if str(path).encode() in f.read():
+                    out.append(int(cmdline.split("/")[2]))
+        except OSError:
+            continue
+    return out
+
+
+def strays_under(path, grace: float = 1.0) -> list:
+    """:func:`pids_under`, looked up again for up to ``grace`` seconds
+    until it finds none: a killed group's last members are reaped by
+    the kernel a beat after their leader."""
+    end = time.perf_counter() + grace
+    while (found := pids_under(path)) and time.perf_counter() < end:
+        time.sleep(0.05)
+    return found
+
+
+class AgentProcs:
+    """The agent processes of one run: each ``python -m <module>
+    --config`` in its own process group on 127.0.0.1 port 0, with its
+    own snapshot, black-box directory and log under ``workdir``, driven
+    over its control channel by a ``client_cls`` (``host.ctl.
+    ControlClient`` of either package: the wire is one), and every one
+    of them reaped by :meth:`teardown`."""
+
+    def __init__(self, workdir):
+        import pathlib
+        self.workdir = pathlib.Path(workdir)
+        self.procs = []
+
+    def spawn(self, node_id: str, client_cls, generation: int = 0,
+              bind: str = "127.0.0.1:0", join=(), module=AGENT_MODULE,
+              keyring_file=None):
+        import os
+        import pathlib
+        from types import SimpleNamespace
+        d = self.workdir / node_id
+        (d / "blackbox").mkdir(parents=True, exist_ok=True)
+        ready = d / f"ready.g{generation}.json"
+        ready.unlink(missing_ok=True)
+        cfg = dict(node_id=node_id, bind=bind, ctl="127.0.0.1:0",
+                   join=list(join), snapshot_path=str(d / "serf.snap"),
+                   ready_file=str(ready), blackbox_dir=str(d / "blackbox"),
+                   profile="proc", generation=generation)
+        if keyring_file:
+            cfg["keyring_file"] = str(keyring_file)
+        config = d / f"agent.g{generation}.json"
+        config.write_text(json.dumps(cfg))
+        root = pathlib.Path(__file__).resolve().parent
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(root)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                           else []))
+        with open(d / f"agent.g{generation}.log", "ab") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", module, "--config", str(config)],
+                cwd=root, env=env, stdout=logf, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        self.procs.append(proc)
+        return SimpleNamespace(
+            node_id=node_id, generation=generation, proc=proc, ready=ready,
+            client_cls=client_cls, client=None,
+            addr=None, ctl=None, pid=proc.pid, t0=time.perf_counter())
+
+    async def wait_ready(self, a):
+        """Wait for ``a``'s ready file (written atomically), then connect
+        its control client."""
+        import asyncio
+        while not a.ready.exists():
+            if a.proc.poll() is not None:
+                raise AssertionError(
+                    f"agent {a.node_id} exited rc={a.proc.returncode} "
+                    f"before it was ready")
+            if time.perf_counter() - a.t0 > AGENT_READY_S:
+                raise AssertionError(f"agent {a.node_id} not ready after "
+                                     f"{AGENT_READY_S} s")
+            await asyncio.sleep(0.05)
+        a.ready_s = time.perf_counter() - a.t0
+        info = json.loads(a.ready.read_text())
+        a.addr, a.ctl = info["addr"], info["ctl"]
+        a.client = await a.client_cls.connect(a.ctl)
+        return a
+
+    @staticmethod
+    async def views(agents) -> dict:
+        """Each agent's view over the control channel: ``{node id:
+        {"alive": set, "failed": set, "left": set}}``."""
+        out = {}
+        for a in agents:
+            resp = await a.client.call("members", timeout=5.0)
+            view = {"alive": set(), "failed": set(), "left": set()}
+            for m in resp["members"]:
+                view.setdefault(m["status"].lower(), set()).add(m["id"])
+            out[a.node_id] = view
+        return out
+
+    async def converged(self, agents) -> bool:
+        ids = {a.node_id for a in agents}
+        return all(ids <= v["alive"]
+                   for v in (await self.views(agents)).values())
+
+    @staticmethod
+    def close_client(a) -> None:
+        if a.client is not None:
+            a.client.close_nowait()
+            a.client = None
+
+    def kill(self, a) -> None:
+        """SIGKILL ``a``'s process group (no leave, no snapshot flush) and
+        reap it."""
+        import os
+        import signal
+        os.killpg(os.getpgid(a.proc.pid), signal.SIGKILL)
+        a.proc.wait()
+        self.close_client(a)
+
+    @staticmethod
+    def terminate(a) -> None:
+        import os
+        import signal
+        os.kill(a.proc.pid, signal.SIGTERM)
+
+    @staticmethod
+    async def wait_exit(a, timeout: float):
+        """``a``'s exit code once it exits, or None after ``timeout``."""
+        import asyncio
+        end = time.perf_counter() + timeout
+        while a.proc.poll() is None and time.perf_counter() < end:
+            await asyncio.sleep(0.05)
+        return a.proc.poll()
+
+    def teardown(self) -> list:
+        """SIGKILL and reap every process ever spawned; return the pids
+        still alive after it (none, unless a kill failed)."""
+        import os
+        import signal
+        for proc in self.procs:
+            if proc.poll() is None:
+                try:
+                    os.killpg(os.getpgid(proc.pid), signal.SIGKILL)
+                except (ProcessLookupError, PermissionError):
+                    proc.kill()
+            try:
+                proc.wait(timeout=5.0)
+            except subprocess.TimeoutExpired:
+                pass
+        return [p.pid for p in self.procs if p.poll() is None]
+
+
+async def agents_wait(cond, what: str, limit: float = ENGINE_WAIT_S) -> float:
+    """Poll the async ``cond`` every 50 ms; the seconds it took, or
+    raise."""
+    import asyncio
+    t0 = time.perf_counter()
+    while not await cond():
+        if time.perf_counter() - t0 > limit:
+            raise AssertionError(f"phase 8: {what} not reached in {limit} s")
+        await asyncio.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+async def agent_stats(agents) -> dict:
+    return {a.node_id: await a.client.call("stats") for a in agents}
+
+
+async def agent_cluster(E, procs: "AgentProcs") -> dict:
+    """(a): AGENT_N agent processes on real sockets, driven over their
+    control channels as the reference's process tests drive them."""
+    import asyncio
+    import random
+    out = {}
+    t0 = time.perf_counter()
+    agents = [procs.spawn(f"a{i}", E.ctl.ControlClient,
+                          keyring_file=E.keyring_file)
+              for i in range(AGENT_N)]
+    await asyncio.gather(*(procs.wait_ready(a) for a in agents))
+    out["ready_s"] = max(a.ready_s for a in agents)
+    seed = agents[0].addr
+    await asyncio.gather(*(a.client.call("join", addrs=[seed])
+                           for a in agents[1:]))
+    out["converge_s"] = await agents_wait(
+        lambda: procs.converged(agents), f"{AGENT_N} agents converged")
+    # (2) a user event and a query over the control channel: each agent's
+    # Lamport clock passes the originator's (it witnessed the message)
+    before = await agent_stats(agents)
+    e_at = before[agents[1].node_id]["event_time"]
+    q_at = before[agents[2].node_id]["query_time"]
+    t1 = time.perf_counter()
+    await agents[1].client.call("user_event", name="phase-8",
+                                payload_b64=E.ctl.b64(b"agents"))
+    await agents[2].client.call("query", name="phase-8-q")
+
+    async def seen():
+        st = await agent_stats(agents)
+        return all(s["event_time"] > e_at and s["query_time"] > q_at
+                   for s in st.values())
+    await agents_wait(seen, "the event and the query seen by every agent")
+    out["seen_s"] = time.perf_counter() - t1
+    # (3) SIGTERM with a client holding the control connection: a
+    # graceful leave, LEFT (never FAILED) in every survivor's view
+    leaver, survivors = agents[-1], agents[:-1]
+    t1 = time.perf_counter()
+    procs.terminate(leaver)
+    rc = await procs.wait_exit(leaver, AGENT_EXIT_S)
+    if rc != 0:
+        raise AssertionError(f"phase 8: the SIGTERM'd agent exited {rc} "
+                             f"(None: still running after {AGENT_EXIT_S} s)")
+    out["sigterm_exit_s"] = time.perf_counter() - t1
+    procs.close_client(leaver)
+
+    async def left_everywhere():
+        views = await procs.views(survivors)
+        if any(leaver.node_id in v["failed"] for v in views.values()):
+            raise AssertionError(f"phase 8: {leaver.node_id} FAILED in a "
+                                 f"view after a graceful leave")
+        return all(leaver.node_id in v["left"] for v in views.values())
+    out["left_s"] = await agents_wait(left_everywhere,
+                                      f"{leaver.node_id} LEFT everywhere")
+    # (4) SIGKILL: FAILED in every survivor's view
+    victim, survivors = survivors[-1], survivors[:-1]
+    victim_before = await victim.client.call("stats")
+    t1 = time.perf_counter()
+    procs.kill(victim)
+
+    async def failed_everywhere():
+        return all(victim.node_id in v["failed"]
+                   for v in (await procs.views(survivors)).values())
+    await agents_wait(failed_everywhere, f"{victim.node_id} FAILED everywhere")
+    out["detect_s"] = time.perf_counter() - t1
+    # (5) restart from the same snapshot directory on the same address
+    t1 = time.perf_counter()
+    back = procs.spawn(victim.node_id, E.ctl.ControlClient, generation=1,
+                       bind=victim.addr, join=[agents[0].addr],
+                       keyring_file=E.keyring_file)
+    await procs.wait_ready(back)
+    live = survivors + [back]
+    await agents_wait(lambda: procs.converged(live),
+                      f"{back.node_id} rejoined everywhere")
+    out["restart_s"] = time.perf_counter() - t1
+    after = await back.client.call("stats")
+    if after["generation"] != 1 or any(
+            after[k] < victim_before[k] for k in ("member_time",
+                                                  "event_time")):
+        raise AssertionError(
+            f"phase 8: restarted agent generation {after['generation']}, "
+            f"clocks {after['member_time']}/{after['event_time']} against "
+            f"{victim_before['member_time']}/{victim_before['event_time']} "
+            f"before the kill")
+    out["clocks"] = dict(before=[victim_before["member_time"],
+                                 victim_before["event_time"]],
+                         after=[after["member_time"], after["event_time"]])
+    # (6) a key rotation through one agent's keys op
+    rng = random.Random(PHASE8_SEED)
+    old, new = E.keys[0], rng.randbytes(32)
+    t1 = time.perf_counter()
+    for action, key in (("install", new), ("use", new), ("remove", old)):
+        r = await live[0].client.call("keys", action=action,
+                                      key_b64=E.ctl.b64(key))
+        if not r["quorum_ok"] or r["num_resp"] != len(live):
+            raise AssertionError(f"phase 8: keys {action}: {r}")
+    digests = [(await a.client.call("keys", action="digest"))["digest"]
+               for a in live]
+    if any(d != digests[0] for d in digests) or \
+            digests[0]["primary"] != E.keyring.key_digest(new):
+        raise AssertionError(f"phase 8: keyring digests after the "
+                             f"rotation: {digests}")
+    out["rotation_s"] = time.perf_counter() - t1
+    # (7) a black-box bundle from every live agent validates
+    for a in live:
+        path = (await a.client.call("blackbox", reason="phase-8"))["bundle"]
+        E.blackbox.load_bundle(path)
+    # (9) no agent holds a CUDA context (only while they run is it news)
+    on_card = E.compute_app_pids() & {a.pid for a in agents + [back]}
+    if on_card:
+        raise AssertionError(f"phase 8: agent pids {sorted(on_card)} hold "
+                             f"a CUDA context")
+    out["agents"] = len(agents) + 1
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+async def cluster_plane(E, work) -> dict:
+    """(b): CLUSTER_N in-process nodes of ``Options.cluster(CLUSTER_N)``
+    on the loopback fabric, each with a snapshot, a keyring and a black
+    box."""
+    import asyncio
+    import random
+    from types import SimpleNamespace
+    out = {}
+    rng = random.Random(PHASE8_SEED + 1)
+    key = rng.randbytes(32)
+    net = E.LoopbackNetwork()
+    opts = E.Options.cluster(CLUSTER_N)
+    nodes, subs = [], []
+
+    async def create(i, ring_key):
+        sub = E.EventSubscriber()
+        s = await E.Serf.create(
+            net.bind(f"c{i}"),
+            opts.replace(snapshot_path=str(work / f"c{i}.snap")),
+            f"c-{i}", subscriber=sub, keyring=E.keyring.SecretKeyring(
+                ring_key), rng=random.Random(PHASE8_SEED * 4000 + i))
+        s.blackbox = E.blackbox.BlackBox(str(work / "blackbox" / f"c{i}"),
+                                         node=s.local_id)
+        return s, sub
+
+    try:
+        t0 = time.perf_counter()
+        for i in range(CLUSTER_N):
+            s, sub = await create(i, key)
+            nodes.append(s)
+            subs.append(sub)
+        for s in nodes[1:]:
+            await s.join("c0")
+        ids = {s.local_id for s in nodes}
+
+        def all_alive():
+            return all(set(v) == ids and set(v.values()) == {"ALIVE"}
+                       for v in engine_views(nodes))
+        await engine_wait(all_alive, f"{CLUSTER_N}-node convergence",
+                          ENGINE_CONVERGE_S)
+        out["converge_s"] = time.perf_counter() - t0
+        q = E.QueryParam(timeout=CLUSTER_QUERY_TIMEOUT)
+        t1 = time.perf_counter()
+        snap = await nodes[0].cluster_stats(q)
+        out["stats_s"] = time.perf_counter() - t1
+        if set(snap.nodes) != ids or not snap.complete or snap.divergent:
+            raise AssertionError(
+                f"phase 8: cluster_stats from {len(snap.nodes)} of "
+                f"{CLUSTER_N}, digests {sorted(set(snap.digests.values()))}")
+        for s in nodes:
+            s.blackbox.dump(reason="phase-8")
+        t1 = time.perf_counter()
+        inv = await nodes[0].cluster_blackbox(q)
+        out["blackbox_s"] = time.perf_counter() - t1
+        if set(inv.nodes) != ids or inv.bundles != CLUSTER_N:
+            raise AssertionError(f"phase 8: cluster_blackbox from "
+                                 f"{len(inv.nodes)}, {inv.bundles} bundles")
+        new = rng.randbytes(32)
+        km = nodes[0].key_manager()
+        t1 = time.perf_counter()
+        for op, k in ((km.install_key, new), (km.use_key, new),
+                      (km.remove_key, key)):
+            r = await op(k)
+            if not r.ok or r.num_resp != CLUSTER_N:
+                raise AssertionError(f"phase 8: {op.__name__} reached "
+                                     f"{r.num_resp} of {CLUSTER_N}: {r}")
+        out["rotation_s"] = time.perf_counter() - t1
+        want = {"primary": E.keyring.key_digest(new),
+                "keys": [E.keyring.key_digest(new)]}
+        if any(s.memberlist.keyring().digest() != want for s in nodes):
+            raise AssertionError("phase 8: a keyring missed the rotation")
+        # user events every node holds before the restarts
+        old = {f"old-{i}" for i in range(CLUSTER_OLD_EVENTS)}
+        for name in sorted(old):
+            await nodes[0].user_event(name, b"before", coalesce=False)
+        await engine_events(nodes, subs, old, lambda name: b"before")
+        # eight nodes shut down (no leave: their snapshots keep the
+        # alive set) and come back from their snapshots on their old
+        # addresses, with no join of their own
+        t1 = time.perf_counter()
+        back = range(CLUSTER_N - CLUSTER_RESTARTS, CLUSTER_N)
+        for i in back:
+            await nodes[i].shutdown()
+        gone = {nodes[i].local_id for i in back}
+        await engine_wait(
+            lambda: all(engine_views(nodes[:1])[0][g] in ("FAILED", "LEFT")
+                        for g in gone),
+            "the shut-down nodes detected")
+        for i in back:
+            nodes[i], subs[i] = await create(i, new)
+        await engine_wait(all_alive, "the restarted nodes rejoined",
+                          ENGINE_CONVERGE_S)
+        out["restart_s"] = time.perf_counter() - t1
+        await nodes[0].user_event("after", b"after", coalesce=False)
+        await engine_events([nodes[i] for i in back],
+                            [subs[i] for i in back], {"after"},
+                            lambda name: b"after")
+        # engine_events raised on any other name: no old event came back
+        ledger = E.lifecycle.global_ledger().snapshot()
+        path = E.timeline.export_run_timeline(
+            str(work / "timeline.json"),
+            host_result=SimpleNamespace(lifecycle=ledger, control=None,
+                                        watchdog=None),
+            meta={"phase": 8})
+        with open(path) as f:
+            doc = json.load(f)
+        problems = E.timeline.validate_timeline(doc)
+        lanes = {e["args"]["name"] for e in doc["traceEvents"]
+                 if e.get("name") == "thread_name"}
+        if problems or not ledger["stages"] or \
+                not any(n.startswith("stage.") for n in lanes):
+            raise AssertionError(f"phase 8: timeline problems {problems[:5]}"
+                                 f", lanes {sorted(lanes)}")
+        out["timeline_events"] = len(doc["traceEvents"])
+        out["sampled"] = ledger["sampled"]
+        out["s"] = time.perf_counter() - t0
+        return out
+    finally:
+        for s in nodes:
+            if s.state.name != "SHUTDOWN":
+                await s.shutdown()
+
+
+def snapshot_at_scale(E, work) -> dict:
+    """(c): a ``Snapshotter`` logs SNAP_MEMBERS members' alive records,
+    SNAP_UPDATES member updates, failures and rejoins, user events and
+    queries, its own loop stamps the clocks; then its loop compacts the
+    log and both logs replay to the script's alive set and clocks."""
+    import asyncio
+    import random
+    snap, ev, member = E.snapshot, E.events, E.member
+    path = work / "scale.snap"
+    for p in (path, work / "scale.snap.lock"):
+        p.unlink(missing_ok=True)
+    rng = random.Random(PHASE8_SEED + 2)
+    clocks = [0, 0, 0]
+    nodes = [member.Node(f"member-{i:05d}",
+                         (f"10.{i >> 16 & 255}.{i >> 8 & 255}.{i & 255}",
+                          7946)) for i in range(SNAP_MEMBERS)]
+    out = {}
+    t0 = time.perf_counter()
+    w = snap.Snapshotter(str(path), snap.open_and_replay_snapshot(str(path)),
+                         clock_fn=lambda: tuple(clocks),
+                         min_compact_size=1 << 40)
+    alive = set()
+
+    def note(ty, n):
+        w.observe(ev.MemberEvent(ty, (member.Member(n),)))
+        clocks[0] += 1
+    for n in nodes:
+        note(ev.MemberEventType.JOIN, n)
+        alive.add(n.id)
+    for k in range(SNAP_UPDATES):
+        n = nodes[rng.randrange(SNAP_MEMBERS)]
+        x = rng.random()
+        if x < 0.8:
+            note(ev.MemberEventType.UPDATE, n)
+            alive.add(n.id)
+        elif x < 0.9:
+            note(ev.MemberEventType.FAILED, n)
+            alive.discard(n.id)
+        else:
+            note(ev.MemberEventType.JOIN, n)
+            alive.add(n.id)
+        if k % 10 == 0:
+            clocks[1] += 1
+            w.observe(ev.UserEvent(clocks[1], f"e{k}", b""))
+        if k % 50 == 0:
+            clocks[2] += 1
+            w.observe(ev.QueryEvent(clocks[2], f"q{k}", b"", k, n, 0, 0.0))
+    out["write_s"] = time.perf_counter() - t0
+
+    async def one_tick():
+        task = asyncio.ensure_future(w.run())
+        await asyncio.sleep(snap.FLUSH_INTERVAL * 1.5)
+        task.cancel()
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+    asyncio.run(one_tick())         # stamps the clocks and flushes
+    out["bytes_before"] = path.stat().st_size
+    t1 = time.perf_counter()
+    before = snap.open_and_replay_snapshot(str(path))
+    out["replay_before_s"] = time.perf_counter() - t1
+    w.min_compact_size = 0
+    t1 = time.perf_counter()
+    asyncio.run(one_tick())         # the loop's compaction
+    out["compact_s"] = time.perf_counter() - t1
+    asyncio.run(w.shutdown())
+    out["bytes_after"] = path.stat().st_size
+    t1 = time.perf_counter()
+    after = snap.open_and_replay_snapshot(str(path))
+    out["replay_after_s"] = time.perf_counter() - t1
+    want = (sorted(alive), tuple(clocks))
+    for what, r in (("before", before), ("after", after)):
+        got = (sorted(n.id for n in r.alive_nodes),
+               (r.last_clock, r.last_event_clock, r.last_query_clock))
+        if got != want:
+            raise AssertionError(
+                f"phase 8: the log {what} compaction replays "
+                f"{len(got[0])} alive and clocks {got[1]}, not "
+                f"{len(want[0])} and {want[1]}")
+    if not out["bytes_after"] < out["bytes_before"]:
+        raise AssertionError(f"phase 8: no compaction ({out})")
+    out["alive"] = len(alive)
+    out["records"] = SNAP_MEMBERS + SNAP_UPDATES
+    return out
+
+
+def cluster_modules(work):
+    """The port's modules phase 8 drives, and the run's keyring file."""
+    import importlib
+    from types import SimpleNamespace
+    mods = {m: importlib.import_module(f"serf_tpu_torch.{m}") for m in (
+        "host.ctl", "host.keyring", "host.snapshot", "host.events",
+        "types.member", "obs.blackbox", "obs.lifecycle", "obs.timeline")}
+    E = engine_modules()
+    E.ctl, E.keyring = mods["host.ctl"], mods["host.keyring"]
+    E.snapshot, E.events = mods["host.snapshot"], mods["host.events"]
+    E.member, E.blackbox = mods["types.member"], mods["obs.blackbox"]
+    E.lifecycle, E.timeline = mods["obs.lifecycle"], mods["obs.timeline"]
+    E.compute_app_pids = compute_app_pids
+    import random
+    E.keys = [random.Random(PHASE8_SEED - 1).randbytes(32)]
+    E.keyring_file = work / "agents.keyring"
+    E.keyring.SecretKeyring(E.keys[0]).save(str(E.keyring_file))
+    return E
+
+
+def import_seconds(module: str) -> float:
+    """Seconds a fresh interpreter takes to import ``module``, less an
+    empty interpreter's start."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parent
+
+    def run(code):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+                       timeout=120)
+        return time.perf_counter() - t0
+    return run(f"import {module}") - run("pass")
+
+
+def host_cluster_full(rk) -> dict:
+    """Phase 8: the serf agent as OS processes (:func:`agent_cluster`),
+    the cluster plane in process (:func:`cluster_plane`) and the
+    snapshot at cluster scale (:func:`snapshot_at_scale`), on the card's
+    machine's host CPU.  A failure in any part fails the phase; every
+    agent process is reaped, and none may outlive the phase.  No kernel
+    may launch."""
+    import asyncio
+    import pathlib
+    import shutil
+    work = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke" \
+        / "phase8"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "agents").mkdir(parents=True)
+    (work / "cluster").mkdir()
+    E = cluster_modules(work)
+    reset_counts(rk)
+    t0 = time.perf_counter()
+    out = {"import_s": import_seconds("serf_tpu_torch.host.serf")}
+    procs = AgentProcs(work / "agents")
+
+    async def parts():
+        try:
+            out["agents"] = await agent_cluster(E, procs)
+        finally:
+            procs.teardown()
+        out["cluster"] = await cluster_plane(E, work / "cluster")
+    try:
+        asyncio.run(asyncio.wait_for(parts(), PHASE8_LIMIT_S))
+    finally:
+        leaked = procs.teardown() + strays_under(work / "agents")
+    if leaked:
+        raise AssertionError(f"phase 8: agent processes {leaked} outlived "
+                             f"the teardown")
+    out["snapshot"] = snapshot_at_scale(E, work)
+    out["s"] = time.perf_counter() - t0
+    check_launches(rk, "tools", "phase 8", want=())
+    if out["s"] > PHASE8_LIMIT_S:
+        raise AssertionError(f"phase 8 took {out['s']:.1f} s, over its "
+                             f"{PHASE8_LIMIT_S} s")
+    card = card_line()
+    a, c, s = out["agents"], out["cluster"], out["snapshot"]
+    log(f"phase 8 (a) {AGENT_N} agent processes (python -m {AGENT_MODULE},"
+        f" profile proc, 127.0.0.1 port 0), host CPU of the machine with "
+        f"{card}: import of serf_tpu_torch.host.serf {out['import_s']:.2f} "
+        f"s; all ready {a['ready_s']:.2f} s after spawn, converged "
+        f"{a['converge_s']:.2f} s after the joins; a user event and a query "
+        f"seen by all {a['seen_s']:.2f} s; SIGTERM with a client holding "
+        f"the control connection: exit 0 in {a['sigterm_exit_s']:.2f} s, "
+        f"LEFT everywhere {a['left_s']:.2f} s later, never FAILED; SIGKILL "
+        f"FAILED everywhere in {a['detect_s']:.2f} s; restart from the "
+        f"snapshot as generation 1 rejoined in {a['restart_s']:.2f} s "
+        f"(member/event clocks {a['clocks']['before']} before the kill, "
+        f"{a['clocks']['after']} after); key rotation install/use/remove "
+        f"{a['rotation_s']:.2f} s, one digest on every agent; every "
+        f"agent's black-box bundle validates; no agent pid in nvidia-smi's "
+        f"compute apps; {a['agents']} processes, none outlived the "
+        f"teardown; part {a['s']:.2f} s")
+    log(f"phase 8 (b) {CLUSTER_N} nodes of Options.cluster({CLUSTER_N}) "
+        f"with snapshots, keyrings and black boxes on the loopback fabric, "
+        f"host CPU of the machine with {card}: converged "
+        f"{c['converge_s']:.2f} s; cluster_stats from all {CLUSTER_N} "
+        f"(one digest) {c['stats_s']:.3f} s; cluster_blackbox "
+        f"{CLUSTER_N} bundles {c['blackbox_s']:.3f} s; KeyManager "
+        f"install/use/remove acked by all {CLUSTER_N} {c['rotation_s']:.2f} "
+        f"s; {CLUSTER_RESTARTS} nodes restarted from their snapshots "
+        f"rejoined in {c['restart_s']:.2f} s with none of "
+        f"{CLUSTER_OLD_EVENTS} old events delivered again; a timeline with "
+        f"the lifecycle lanes ({c['sampled']} sampled messages, "
+        f"{c['timeline_events']} events) validates; part {c['s']:.2f} s")
+    log(f"phase 8 (c) snapshot of {SNAP_MEMBERS} members ({s['records']} "
+        f"member records, {s['alive']} alive at the end), host CPU of the "
+        f"machine with {card}: written in {s['write_s']:.3f} s, "
+        f"{s['bytes_before']} B; replayed in {s['replay_before_s']:.3f} s; "
+        f"compacted by its loop to {s['bytes_after']} B (tick "
+        f"{s['compact_s']:.3f} s); replayed in {s['replay_after_s']:.3f} "
+        f"s; the same alive set and clocks both times")
+    log(f"phase 8 (d) no kernel launched; phase 8 {out['s']:.2f} s on the "
+        f"host CPU of the machine with {card}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2988,6 +3663,8 @@ def main() -> int:
     mark("phase 6 host plane")
     host_engine_full(rk)
     mark("phase 7 host engine")
+    host_cluster_full(rk)
+    mark("phase 8 agents and cluster plane")
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
         log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "

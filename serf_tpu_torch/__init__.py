@@ -21,11 +21,14 @@ Device constants: a Python value made into a card tensor with
 ``torch.tensor(v, device=)`` is a blocking host-to-device copy that no
 count sees.  The port makes them with :func:`const` instead, which fills
 the value in on the device.
+
+The functions here import ``torch`` when they are called, not when the
+package is imported: the host plane (``host``, ``obs``' host surfaces,
+``options``, ``codec``) uses none of them, so a serf agent process
+starts without loading torch, as the reference's starts without JAX.
 """
 
 from __future__ import annotations
-
-import torch
 
 DEFAULT_DEVICE = "cuda"
 
@@ -34,6 +37,7 @@ _SYNCS = [0]
 
 def require_cuda() -> None:
     """Raise unless a CUDA device is visible."""
+    import torch
     if not torch.cuda.is_available():
         raise RuntimeError(
             "serf_tpu_torch needs a CUDA device; none is visible "
@@ -43,6 +47,7 @@ def require_cuda() -> None:
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``"cuda"`` unless the caller
     names another.  A CUDA device without a card raises."""
+    import torch
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda":
         require_cuda()
@@ -51,6 +56,7 @@ def resolve_device(device=None) -> torch.device:
 
 def host_bool(t) -> bool:
     """Read a 0-d device predicate on the host (one counted sync)."""
+    import torch
     if isinstance(t, torch.Tensor):
         _SYNCS[0] += 1
     return bool(t)
@@ -58,6 +64,7 @@ def host_bool(t) -> bool:
 
 def host_int(t) -> int:
     """Read a 0-d device integer on the host (one counted sync)."""
+    import torch
     if isinstance(t, torch.Tensor):
         _SYNCS[0] += 1
     return int(t)
@@ -75,6 +82,8 @@ def emit_gauges(values: dict, labels=None) -> dict:
     from one counted copy: the values are stacked as float64 on the
     device first (exact for every int32/u32 count and float32 value).
     Returns ``{name: float}``: the device emitters' body."""
+    import torch
+
     from serf_tpu_torch.utils import metrics
 
     row = torch.stack([v.reshape(()).to(torch.float64)
@@ -97,6 +106,7 @@ def const(value, dtype, device) -> torch.Tensor:
     scalar is filled into a 0-d tensor on the device, as a kernel
     argument, with no host-to-device copy.  A float fills a float32
     tensor rounded as ``np.float32(value)``."""
+    import torch
     if isinstance(value, torch.Tensor):
         return value.to(device=device, dtype=dtype)
     if hasattr(value, "item"):

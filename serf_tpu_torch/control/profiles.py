@@ -11,7 +11,10 @@ except the controller's headroom, so the A/B isolates the control law.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 from serf_tpu_torch.control.device import ControlConfig
+from serf_tpu_torch.control.host import HostControlConfig
 
 
 def device_ab_config(plan_name: str, n: int, k_facts: int,
@@ -56,3 +59,30 @@ def device_ab_config(plan_name: str, n: int, k_facts: int,
                               probe_schedule="round_robin"),
         push_pull_every=8,
         control=ControlConfig(enabled=controlled, fanout_base=3))
+
+
+def host_ab_profile(plan_name: str, controlled: bool
+                    ) -> Tuple[Optional[object],
+                               Optional[HostControlConfig]]:
+    """(opts, control_cfg) for one host-plane A/B leg.  ``opts=None``
+    keeps the executor defaults."""
+    if plan_name == "control-overload-shed":
+        from serf_tpu_torch.options import Options
+
+        # deliberately conservative static buckets: rate-2 trickle +
+        # burst 2 per node against a 900 ops/s storm -> the static leg
+        # sheds >95% of offered load (shed-ratio breach); the controller
+        # may widen up to 8x while health holds
+        opts = Options.local(
+            user_event_rate=2.0, user_event_burst=2,
+            query_rate=2.0, query_burst=2,
+            max_query_responses=64,
+            event_queue_bytes=256 * 1024,
+            query_queue_bytes=128 * 1024,
+            event_inbox_max=2048,
+        )
+        return opts, (HostControlConfig(enabled=True, hyst_up=2,
+                                        hyst_down=8, step=1.6,
+                                        max_scale=8.0)
+                      if controlled else None)
+    return None, (HostControlConfig(enabled=True) if controlled else None)

@@ -4,8 +4,9 @@ The port's copy of the device half of the reference's
 ``serf_tpu/faults/invariants.py``: post-heal convergence, no false DEAD
 among responsive nodes, the Lamport window, round accounting, the
 overflow ledger, and — on controlled runs — the stability of the
-controller's knob trajectory.  Every verdict and detail string is the
-reference's for the same state.
+controller's knob trajectory; and the host controller's stability
+(``check_control_host``, over a ``control.host.ControllerTick``).  Every
+verdict and detail string is the reference's for the same state.
 """
 
 from __future__ import annotations
@@ -188,3 +189,27 @@ def check_control_device(rep: InvariantReport, control_rows, ccfg,
             f"{n_act} actuation(s) over {len(rows)} rounds, "
             f"shed {int(rows[-1, len(KNOB_FIELDS)])}, knobs settled "
             "inside clamps")
+
+
+def check_control_host(rep: InvariantReport, controller) -> None:
+    """Append the ``control-stability`` invariant to a host report from
+    a ``control.host.ControllerTick`` decision log: bounded
+    (multiplicative or integer) steps inside the clamp bands,
+    hysteresis-spaced ticks, no limit cycle."""
+    from serf_tpu_torch.control.host import _INT_KNOBS
+
+    cfg = controller.cfg
+    bounds = controller.bounds() if controller._base is not None else {}
+    problems = []
+    min_gap = float(min(cfg.hyst_up, cfg.hyst_down))
+    for knob, traj in controller.trajectories().items():
+        if len(traj) < 2:
+            continue
+        lo, hi, step = bounds[knob]
+        for p in _trajectory_stability(
+                traj, step, lo, hi, min_gap, mult=knob not in _INT_KNOBS):
+            problems.append(f"{knob}: {p}")
+    rep.add("control-stability", not problems,
+            "; ".join(problems[:4]) if problems else
+            f"{len(controller.decisions)} actuation(s) over "
+            f"{controller.ticks} ticks, knobs settled inside clamps")

@@ -31,13 +31,14 @@ Quick start::
 
     asyncio.run(main())
 
-The snapshot, the key manager, the agent and ``ctl`` wait for the next
-slice (``ROADMAP.md`` queue 1 item 6(b)); the calls that reach them
-raise ``NotImplementedError`` naming that item.
+Beside the engine: the snapshot log (``host.snapshot``), cluster key
+rotation (``host.key_manager``), and the agent process with its control
+channel (``python -m serf_tpu_torch.host.agent``, ``host.ctl``).
 """
 
 from serf_tpu_torch.host.admission import OverloadError, TokenBucket
 from serf_tpu_torch.host.serf import Serf, SerfState, Stats
+from serf_tpu_torch.obs.cluster import ClusterSnapshot  # Serf.cluster_stats()
 from serf_tpu_torch.obs.health import HealthReport  # Serf.health_report()
 from serf_tpu_torch.host.events import (
     EventSubscriber,
@@ -64,11 +65,13 @@ from serf_tpu_torch.host.coordinate import (
     CoordinateClient,
     CoordinateOptions,
 )
+from serf_tpu_torch.host.key_manager import KeyManager, KeyResponse
 
 __all__ = [
     "Serf",
     "SerfState",
     "Stats",
+    "ClusterSnapshot",
     "HealthReport",
     "EventSubscriber",
     "MemberEvent",
@@ -89,4 +92,6 @@ __all__ = [
     "Coordinate",
     "CoordinateClient",
     "CoordinateOptions",
+    "KeyManager",
+    "KeyResponse",
 ]

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 from serf_tpu_torch.host.events import QueryEvent
 from serf_tpu_torch.host.keyring import KeyringError
-from serf_tpu_torch.host.serf import not_ported
 from serf_tpu_torch.types.messages import (
     ConflictResponseMessage,
     KeyRequestMessage,
@@ -82,8 +81,11 @@ async def _handle_conflict(serf, ev: QueryEvent) -> None:
 async def _handle_stats(serf, ev: QueryEvent) -> None:
     """Answer with this node's health/stats self-report (the scatter half
     lives in ``serf_tpu_torch.obs.cluster.collect_cluster_stats``)."""
-    raise NotImplementedError(
-        not_ported("the cluster plane (obs/cluster.py)", "6(c)"))
+    from serf_tpu_torch.obs.cluster import node_stats_payload
+    try:
+        await ev.respond(node_stats_payload(serf))
+    except (TimeoutError, ValueError) as e:
+        log.warning("could not respond to %r: %s", ev.name, e)
 
 
 async def _handle_blackbox(serf, ev: QueryEvent) -> None:
@@ -91,9 +93,11 @@ async def _handle_blackbox(serf, ev: QueryEvent) -> None:
     half lives in ``serf_tpu_torch.obs.blackbox.collect_cluster_blackbox``).
     Nodes with no attached box still answer — an explicit empty
     inventory, so the collector can tell "no bundles" from "no reply"."""
-    raise NotImplementedError(
-        not_ported("the black box's cluster inventory (obs/blackbox.py)",
-                   "6(c)"))
+    from serf_tpu_torch.obs.blackbox import node_blackbox_payload
+    try:
+        await ev.respond(node_blackbox_payload(serf))
+    except (TimeoutError, ValueError) as e:
+        log.warning("could not respond to %r: %s", ev.name, e)
 
 
 def _keyring_or_error(serf):

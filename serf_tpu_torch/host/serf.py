@@ -100,13 +100,6 @@ from serf_tpu_torch.utils.logging import get_logger
 
 log = get_logger("serf")
 
-
-def not_ported(what: str, item: str) -> str:
-    """The message of the ``NotImplementedError`` a reach into a module
-    the port does not have yet raises: what is missing and the
-    ``ROADMAP.md`` item that ports it."""
-    return f"{what} is not ported yet: ROADMAP.md queue 1 item {item}"
-
 # Internal query name-space (reference event/crate_event.rs:60-69)
 INTERNAL_PING = "_serf_ping"
 INTERNAL_CONFLICT = "_serf_conflict"
@@ -541,18 +534,36 @@ class Serf:
                      rng: Optional[random.Random] = None) -> "Serf":
         """Async constructor: snapshot replay, memberlist start, background
         tasks, auto-rejoin (reference Serf::new + new_in)."""
-        if opts.snapshot_path:
-            raise NotImplementedError(
-                not_ported("the snapshot (host/snapshot.py)", "6(b)"))
         s = cls(transport, opts, node_id, user_delegate, keyring, rng)
         s._subscriber = subscriber
         s._pipeline = s._build_pipeline()
 
-        # snapshot replay (reference base.rs:130-155) waits with the
-        # snapshot module, so there are no nodes to rejoin from it yet
+        # snapshot replay (reference base.rs:130-155)
         replay_nodes: List[Node] = []
+        if opts.snapshot_path:
+            from serf_tpu_torch.host.snapshot import open_and_replay_snapshot, Snapshotter
+            replay = open_and_replay_snapshot(opts.snapshot_path,
+                                              opts.rejoin_after_leave)
+            s.clock.witness(replay.last_clock)
+            s.event_clock.witness(replay.last_event_clock)
+            s.query_clock.witness(replay.last_query_clock)
+            s._event_min_time = replay.last_event_clock + 1
+            s._query_min_time = replay.last_query_clock + 1
+            replay_nodes = replay.alive_nodes
+            s.snapshotter = Snapshotter(
+                opts.snapshot_path, replay, s._labels,
+                clock_fn=lambda: (s.clock.time(), s.event_clock.time(),
+                                  s.query_clock.time()),
+                min_compact_size=opts.snapshot_min_compact_size,
+                rejoin_after_leave=opts.rejoin_after_leave)
+            s._track(s.snapshotter.run(), f"serf-snapshot-{node_id}")
 
         await s.memberlist.start()
+
+        # key manager (encryption feature)
+        if keyring is not None:
+            from serf_tpu_torch.host.key_manager import KeyManager
+            s._key_manager = KeyManager(s)
 
         # background tasks (reference base.rs:284-335)
         s._track(s._reaper(), f"serf-reaper-{node_id}")
@@ -698,9 +709,6 @@ class Serf:
         return self.memberlist.encryption_enabled()
 
     def key_manager(self):
-        if self.memberlist.keyring() is not None:
-            raise NotImplementedError(
-                not_ported("the key manager (host/key_manager.py)", "6(b)"))
         return self._key_manager
 
     def tags(self) -> Tags:
@@ -779,17 +787,16 @@ class Serf:
         unhealthy-node list, membership-view divergence).  ``params``
         tunes the underlying query (e.g. a longer timeout for large
         clusters)."""
-        raise NotImplementedError(
-            not_ported("the cluster plane (obs/cluster.py)", "6(c)"))
+        from serf_tpu_torch.obs.cluster import collect_cluster_stats
+        return await collect_cluster_stats(self, params)
 
     async def cluster_blackbox(self, params: Optional[QueryParam] = None):
         """Scatter the ``_serf_blackbox`` internal query and fold every
         node's black-box bundle inventory (``obs.blackbox``) into one
         ``ClusterBlackbox`` — which nodes hold forensic bundles, their
         latest dump reason, and where to read them."""
-        raise NotImplementedError(
-            not_ported("the black box's cluster inventory (obs/blackbox.py)",
-                       "6(c)"))
+        from serf_tpu_torch.obs.blackbox import collect_cluster_blackbox
+        return await collect_cluster_blackbox(self, params)
 
     async def _health_monitor(self) -> None:
         """Periodic health plane tick: measure event-loop lag (sleep

@@ -76,6 +76,9 @@ from serf_tpu_torch.models.vivaldi import (
     make_vivaldi,
     vivaldi_update,
 )
+# the propagation row's field order lives with its readers (as in the
+# reference); re-exported here beside TELEMETRY_FIELDS
+from serf_tpu_torch.obs.propagation import PROPAGATION_FIELDS  # noqa: F401
 
 #: ICI schedules of the reference's sharded exchange leg (validated for
 #: config parity; the port's sharded path is a later slice)
@@ -362,11 +365,6 @@ def run_cluster_sustained(state: ClusterState, cfg: ClusterConfig, key,
 TELEMETRY_FIELDS = ("alive", "facts_valid", "agreement", "coverage",
                     "overflow", "injected", "suspicions", "false_dead")
 
-#: field order of the propagation row (the reference's
-#: ``obs/propagation.PROPAGATION_FIELDS``)
-PROPAGATION_FIELDS = ("slots_sent", "slots_learned", "slots_redundant",
-                      "redundancy", "alive", "cov_min", "cov_mean",
-                      "cov_max")
 
 #: field order of the invariant row (the reference's
 #: ``obs/watchdog.INVARIANT_FIELDS``): 1.0 = the predicate holds;

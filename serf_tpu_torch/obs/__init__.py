@@ -7,14 +7,15 @@ the ``slo`` verdicts), the flight recorder (``flight``, stamped by
 per-phase round profiler (``profile``).  The host engine's surfaces:
 trace spans (``trace``), the Lifeguard-style health score (``health``),
 the message lifecycle ledger (``lifecycle``), the Prometheus/JSON
-renderers of the metrics sink (``export``) and the per-broadcast
-``PropagationLedger`` (``propagation``).
+renderers of the metrics sink (``export``), the per-broadcast
+``PropagationLedger`` (``propagation``) and the cluster plane
+(``cluster``: the ``_serf_stats`` scatter folded into one
+``ClusterSnapshot``).
 
 The names below are the ones the reference's ``serf_tpu/obs/__init__.py``
 exports for these modules; the host engine calls several of them through
 ``obs.`` (``record``, ``metrics_snapshot``, ``trace_dump``,
-``flight_dump``).  The cluster plane (``cluster``) waits with the rest of
-the host plane.
+``flight_dump``).
 """
 
 from serf_tpu_torch.obs.trace import (  # noqa: F401
@@ -54,6 +55,12 @@ from serf_tpu_torch.obs.health import (  # noqa: F401
     UNHEALTHY_THRESHOLD,
     serf_sources,
 )
+from serf_tpu_torch.obs.cluster import (  # noqa: F401
+    ClusterSnapshot,
+    STATS_QUERY,
+    collect_cluster_stats,
+    render_table,
+)
 from serf_tpu_torch.obs.lifecycle import (  # noqa: F401
     STAGES as LIFECYCLE_STAGES,
     LifecycleLedger,
@@ -74,6 +81,8 @@ __all__ = [
     "dispatch_timer", "dispatch_summary", "record_dispatch",
     "reset_dispatch_registry",
     "HealthScorer", "HealthReport", "UNHEALTHY_THRESHOLD", "serf_sources",
+    "ClusterSnapshot", "STATS_QUERY", "collect_cluster_stats",
+    "render_table",
     "LIFECYCLE_STAGES", "LifecycleLedger", "StageClock",
     "format_waterfall", "global_ledger", "set_global_ledger",
 ]

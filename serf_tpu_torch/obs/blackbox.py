@@ -13,9 +13,14 @@ The layout (:data:`BLACKBOX_SCHEMA`) and its version
 (:data:`BLACKBOX_SCHEMA_VERSION`) are the reference's: a bundle written
 by either package validates in the other.  The reference pins the
 version in ``serf_tpu/analysis/pins/schema_pins.json``; the port keeps
-its own copy, and a test holds the two equal.  The cluster inventory
-(the ``_serf_blackbox`` internal query, ``node_blackbox_payload``,
-``ClusterBlackbox``, ``BlackboxPartial``) waits with the host plane.
+its own copy, and a test holds the two equal.
+
+Cluster collection rides the gossip plane itself: the
+``_serf_blackbox`` internal query (the mergeable-partials discipline of
+``_serf_stats``, ``obs/cluster.py``) scatters, every node answers with a
+compact bundle inventory, and :func:`collect_cluster_blackbox` folds the
+answers — any node can pull "where are everyone's bundles" without a
+side channel.
 
 Self-telemetry: ``serf.blackbox.bundles`` / ``serf.blackbox.bytes`` /
 ``serf.blackbox.rotated``.
@@ -26,6 +31,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 from serf_tpu_torch.obs import flight
@@ -54,6 +60,10 @@ DEFAULT_MAX_BUNDLES = 8
 DEFAULT_MAX_BYTES = 4 << 20
 #: ring-tail points captured per series (a bounded bundle, not a dump)
 SERIES_TAIL_POINTS = 32
+
+#: the internal query name (rides the ``_serf_`` dispatch prefix)
+BLACKBOX_QUERY = "_serf_blackbox"
+BLACKBOX_QUERY_VERSION = 1
 
 
 def blackbox_schema_version() -> int:
@@ -242,3 +252,150 @@ def load_bundle(path: str) -> Dict[str, Any]:
     if problems:
         raise ValueError(f"invalid bundle {path}: " + "; ".join(problems))
     return bundle
+
+
+# ---------------------------------------------------------------------------
+# the _serf_blackbox internal query (mergeable partials, like _serf_stats)
+# ---------------------------------------------------------------------------
+
+
+def node_blackbox_payload(serf) -> bytes:
+    """This node's ``_serf_blackbox`` answer: a compact bundle inventory
+    (NOT bundle contents — those stay on disk; the inventory fits the
+    1 KiB response budget)::
+
+        {"v": 1, "id": node_id, "n": bundle count, "rotated": n,
+         "dir": bundle directory,
+         "latest": {"seq", "reason", "wall_time", "path"} | null}
+    """
+    box = getattr(serf, "blackbox", None)
+    inv: Dict[str, Any] = {
+        "v": BLACKBOX_QUERY_VERSION,
+        "id": serf.local_id,
+        "n": 0,
+        "rotated": 0,
+        "dir": None,
+        "latest": None,
+    }
+    if box is not None:
+        paths = box.bundle_paths()
+        inv["n"] = len(paths)
+        inv["rotated"] = box.rotated
+        inv["dir"] = box.directory
+        if paths:
+            latest = paths[-1]
+            entry: Dict[str, Any] = {"path": latest}
+            try:
+                meta = load_bundle(latest)["meta"]
+                entry.update(seq=meta["seq"], reason=meta["reason"],
+                             wall_time=meta["wall_time"])
+            except ValueError:
+                entry["invalid"] = True
+            inv["latest"] = entry
+    return json.dumps(inv, separators=(",", ":"), sort_keys=True).encode()
+
+
+def decode_node_blackbox(raw: bytes) -> Dict[str, Any]:
+    """Parse and validate one responder inventory; raises ``ValueError``
+    on anything malformed (the folder skips bad responders)."""
+    try:
+        d = json.loads(raw.decode("utf-8"))
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise ValueError(f"bad blackbox payload: {e}") from e
+    if not isinstance(d, dict) or d.get("v") != BLACKBOX_QUERY_VERSION:
+        raise ValueError(
+            f"unsupported blackbox payload version "
+            f"{d.get('v') if isinstance(d, dict) else None!r}")
+    if not isinstance(d.get("id"), str) or not d["id"]:
+        raise ValueError("blackbox payload missing node id")
+    if not isinstance(d.get("n"), int) or d["n"] < 0:
+        raise ValueError("blackbox payload missing bundle count")
+    d.setdefault("rotated", 0)
+    d.setdefault("dir", None)
+    d.setdefault("latest", None)
+    return d
+
+
+@dataclass(frozen=True)
+class ClusterBlackbox:
+    """The folded cluster bundle inventory one ``cluster_blackbox()``
+    call produces."""
+
+    origin: str
+    expected: int
+    nodes: Dict[str, Dict[str, Any]]
+
+    @property
+    def responders(self) -> int:
+        return len(self.nodes)
+
+    @property
+    def complete(self) -> bool:
+        return self.responders >= self.expected
+
+    @property
+    def bundles(self) -> int:
+        return sum(d.get("n", 0) for d in self.nodes.values())
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "origin": self.origin,
+            "expected": self.expected,
+            "responders": self.responders,
+            "complete": self.complete,
+            "bundles": self.bundles,
+            "nodes": {nid: dict(d)
+                      for nid, d in sorted(self.nodes.items())},
+        }
+
+
+@dataclass(frozen=True)
+class BlackboxPartial:
+    """A mergeable partial fold of ``_serf_blackbox`` answers — the
+    ``StatsPartial`` contract verbatim: partials over disjoint responder
+    sets combine associatively and commutatively (node-id-keyed dict
+    union; one node answers with one inventory) to exactly the fold of
+    the union, so a relay tier can fold its subtree locally and ship one
+    partial upward."""
+
+    nodes: Dict[str, Dict[str, Any]] = field(default_factory=dict)
+
+    @classmethod
+    def of(cls, reports: Dict[str, Dict[str, Any]]) -> "BlackboxPartial":
+        return cls(nodes=dict(reports))
+
+    def merge(self, other: "BlackboxPartial") -> "BlackboxPartial":
+        merged = dict(other.nodes)
+        merged.update(self.nodes)
+        return BlackboxPartial(nodes=merged)
+
+    def finish(self, origin: str, expected: int) -> ClusterBlackbox:
+        return ClusterBlackbox(origin=origin, expected=expected,
+                               nodes=self.nodes)
+
+
+async def collect_cluster_blackbox(serf, params=None) -> ClusterBlackbox:
+    """Scatter ``_serf_blackbox`` and fold every valid answer (plus this
+    node's own inventory — the originator is authoritative about itself)
+    into a :class:`ClusterBlackbox`."""
+    from serf_tpu_torch.obs.trace import span
+    from serf_tpu_torch.types.member import MemberStatus
+
+    with span("serf.cluster.blackbox", node=serf.local_id) as sp:
+        local = decode_node_blackbox(node_blackbox_payload(serf))
+        nodes: Dict[str, Dict[str, Any]] = {local["id"]: local}
+        alive = {m.node.id for m in serf.members()
+                 if m.status == MemberStatus.ALIVE}
+        resp = await serf.query(BLACKBOX_QUERY, b"", params)
+        async for r in resp.responses():
+            try:
+                d = decode_node_blackbox(r.payload)
+            except ValueError:
+                continue
+            nodes.setdefault(d["id"], d)
+            if alive <= set(nodes):
+                break
+        expected = len(alive) if alive else 1
+        sp.attrs["responders"] = len(nodes)
+        sp.attrs["bundles"] = sum(d.get("n", 0) for d in nodes.values())
+        return BlackboxPartial.of(nodes).finish(serf.local_id, expected)

@@ -18,8 +18,14 @@ import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from serf_tpu_torch.models.swim import PROPAGATION_FIELDS
 from serf_tpu_torch.obs.timeseries import DEFAULT_CAPACITY, SeriesStore
+
+#: field order of the per-round device propagation row (``f32[P]``),
+#: which ``models/swim.propagation_row`` stacks; ``slots_*`` are exact
+#: integer counts carried in f32 (exact up to 2^24 per round)
+PROPAGATION_FIELDS = ("slots_sent", "slots_learned", "slots_redundant",
+                      "redundancy", "alive", "cov_min", "cov_mean",
+                      "cov_max")
 
 #: per-round ring-series names for the propagation row (``alive`` rides
 #: the telemetry row's series)

@@ -5,14 +5,14 @@ The port's copy of ``serf_tpu/obs/timeline.py``, device plane and
 shared lanes: trace spans (``obs/trace``), flight events
 (``obs/flight``), per-round device telemetry and series
 (``models/swim`` -> ``obs/timeseries``), control decisions and knob
-values (``control/device``), SLO verdicts (``obs/slo``), the watchdog
-lane and the device invariant rows.  The host lifecycle lane
-(``add_lifecycle`` and the slow-message stage waterfall, which read the
-host's ``obs/lifecycle.STAGES``) waits with the host plane.
+values (``control/device``, ``control/host``), SLO verdicts
+(``obs/slo``), the watchdog lane, the device invariant rows and the
+host's message lifecycle (``obs/lifecycle``: per-stage counter tracks
+and each ``slow-message`` event's stage waterfall).
 
 **Lanes** (stable, deterministic): each node is a trace *process*
-(pid) with per-surface *threads* (spans, flight, control, SLO,
-propagation, watchdog).  The device plane is its own process; its
+(pid) with per-surface *threads* (spans, flight, lifecycle stages,
+control, SLO, propagation, watchdog).  The device plane is its own process; its
 round-indexed series are mapped onto the host wall clock through the
 run's anchors (:class:`DeviceRunAnchors`: round r of R lands at ``t0 +
 r/R (t1 - t0)``; :class:`PiecewiseAnchors` does the same per scan
@@ -20,8 +20,10 @@ chunk, from ``DeviceChaosResult.scan_walls``).
 
 **Event shapes**: finished spans export as matched ``B``/``E`` pairs
 (sub-microsecond spans stretched to 1 µs); flight events, control
-decisions and SLO verdicts as instants (``i``); device telemetry as
-counter (``C``) tracks.
+decisions and SLO verdicts as instants (``i``); device telemetry and
+lifecycle aggregates as counter (``C``) tracks; ``slow-message`` flight
+events also lay their per-stage waterfall out as ``X`` events on the
+owning node's stage lanes (the stage breakdown rides the flight event).
 
 :func:`validate_timeline` is the schema check: sorted timestamps, every
 ``B`` matched by an ``E`` on its lane, every referenced pid/tid named.
@@ -34,13 +36,12 @@ import json
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
-#: the surfaces a full bundle carries (each is an event ``cat``; the
-#: host plane's ``lifecycle`` lane is not written by the port yet)
+#: the surfaces a full bundle carries (each is an event ``cat``)
 SURFACES = ("span", "flight", "lifecycle", "device", "control", "slo",
             "propagation", "watchdog")
 
-#: fixed per-process thread lanes (the host's lifecycle stages take 10
-#: + stage index; overlapping-span overflow lanes get 100 + lane index)
+#: fixed per-process thread lanes (lifecycle stages get 10 + stage idx;
+#: overlapping-span overflow lanes get 100 + lane idx)
 TID_SPANS = 1
 TID_FLIGHT = 2
 TID_CONTROL = 3
@@ -64,12 +65,6 @@ _FLIGHT_ROUTES = {"control-decision": ("control", TID_CONTROL),
 #: minimum exported span duration (µs): matched B/E pairs must be
 #: strictly orderable even for sub-µs spans
 _MIN_SPAN_US = 1.0
-
-#: what the lanes of the host plane wait for
-HOST_LANES = ("the host plane's lanes (lifecycle stages, the host run's "
-              "control, SLO and watchdog lanes) are not ported yet: "
-              "ROADMAP.md queue 1 item 6")
-
 
 @dataclass(frozen=True)
 class DeviceRunAnchors:
@@ -139,10 +134,19 @@ class TimelineBuilder:
         self._events: List[Dict[str, Any]] = []
         self._seq = 0
         self._nodes: set = set()
+        #: stage-lane registry, shared across processes: stage name ->
+        #: tid offset is GLOBAL so "queue-wait" is the same lane index
+        #: on every node's process
+        self._stages: List[str] = []
         self._device_used = False
         self.meta = dict(meta or {})
 
     # -- lane bookkeeping ----------------------------------------------------
+
+    def _stage_tid(self, stage: str) -> int:
+        if stage not in self._stages:
+            self._stages.append(stage)
+        return TID_STAGE_BASE + self._stages.index(stage)
 
     def _push(self, ph: str, cat: str, name: str, ts: float, pid_key,
               tid: int, *, dur_us: Optional[float] = None,
@@ -211,23 +215,62 @@ class TimelineBuilder:
                 self._push("E", "span", s.get("name", "?"), end, node,
                            tid, tie=-depth)
 
-    def add_flight(self, events: Iterable[Dict[str, Any]]) -> None:
+    def add_flight(self, events: Iterable[Dict[str, Any]],
+                   reconstruct_slow: bool = True) -> None:
         """Flight-recorder events as instants.  ``control-decision`` and
-        ``slo-breach`` kinds route to their own lanes.  A host
-        ``slow-message`` event with its ``stages_ms`` waterfall raises
-        ``NotImplementedError``: the stage lanes wait with the host
-        plane."""
+        ``slo-breach`` kinds route to their own lanes; ``slow-message``
+        events additionally reconstruct the per-stage waterfall carried
+        in their ``stages_ms`` payload onto the node's stage lanes."""
         for ev in events:
             kind = ev.get("kind", "?")
             node = ev.get("node")
             cat, tid = _FLIGHT_ROUTES.get(kind, ("flight", TID_FLIGHT))
             args = {k: _jsonable(v) for k, v in ev.items()
                     if k not in ("kind", "time", "monotonic", "node")}
-            if kind == "slow-message" and isinstance(ev.get("stages_ms"),
-                                                     dict):
-                raise NotImplementedError(HOST_LANES)
             self._push("i", cat, kind, float(ev.get("time", 0.0)),
                        node, tid, args=args)
+            if reconstruct_slow and kind == "slow-message" \
+                    and isinstance(ev.get("stages_ms"), dict):
+                self._reconstruct_slow(ev, node)
+
+    def _reconstruct_slow(self, ev: Dict[str, Any],
+                          node: Optional[str]) -> None:
+        """One sampled slow message's stage clocks as X events ending at
+        the flight event's wall time, laid back-to-back in hot-path
+        stage order (the chain contract: stages partition end-to-end)."""
+        from serf_tpu_torch.obs.lifecycle import STAGES
+        stages = ev["stages_ms"]
+        ordered = [s for s in STAGES if s in stages] \
+            + sorted(set(stages) - set(STAGES))
+        end = float(ev.get("time", 0.0))
+        start = end - sum(float(stages[s]) for s in ordered) / 1e3
+        t = start
+        for s in ordered:
+            dur_us = float(stages[s]) * 1e3
+            self._push("X", "lifecycle", s, t, node,
+                       self._stage_tid(s), dur_us=dur_us,
+                       args={"message": ev.get("message"),
+                             "e2e_ms": ev.get("e2e_ms")})
+            t += dur_us / 1e6
+
+    def add_lifecycle(self, snapshot: Dict[str, Any], at_wall: float,
+                      node: Optional[str] = None) -> None:
+        """A lifecycle-ledger snapshot as counter tracks (per-stage mean
+        and p99 ms + the e2e percentiles) stamped at ``at_wall`` — the
+        aggregate view that is always present even when no sampled
+        message crossed the slow threshold."""
+        for row in snapshot.get("stages") or ():
+            self._push("C", "lifecycle", f"stage.{row['stage']}", at_wall,
+                       node, self._stage_tid(row["stage"]),
+                       args={"mean_ms": row.get("mean_ms"),
+                             "p99_ms": row.get("p99_ms"),
+                             "share": row.get("share")})
+        e2e = snapshot.get("e2e") or {}
+        if e2e:
+            self._push("C", "lifecycle", "e2e", at_wall, node,
+                       TID_STAGE_BASE - 1,
+                       args={"p50_ms": e2e.get("p50_ms"),
+                             "p99_ms": e2e.get("p99_ms")})
 
     def add_device_telemetry(self, rows: Sequence[Sequence[float]],
                              anchors: DeviceRunAnchors,
@@ -368,6 +411,7 @@ class TimelineBuilder:
         out.sort(key=lambda t: t[:4])
         events = [e for *_k, e in out]
         meta_events: List[Dict[str, Any]] = []
+        stage_names = self._stages
         for pid in sorted(used):
             pname = "device-plane" if pid == PID_DEVICE else (
                 "cluster" if pid == PID_CLUSTER else
@@ -389,8 +433,13 @@ class TimelineBuilder:
                     tname = "propagation"
                 elif tid == TID_WATCHDOG:
                     tname = "watchdog"
+                elif tid == TID_STAGE_BASE - 1:
+                    tname = "lifecycle.e2e"
                 elif tid >= TID_SPAN_EXTRA:
                     tname = f"spans-{tid - TID_SPAN_EXTRA + 1}"
+                elif tid >= TID_STAGE_BASE and \
+                        tid - TID_STAGE_BASE < len(stage_names):
+                    tname = f"stage.{stage_names[tid - TID_STAGE_BASE]}"
                 else:
                     tname = f"lane-{tid}"
                 meta_events.append(_meta("thread_name", pid, tid,
@@ -506,25 +555,41 @@ def export_run_timeline(path: str, *,
                         meta: Optional[Dict[str, Any]] = None,
                         builder: Optional[TimelineBuilder] = None,
                         spans=None, flight=None) -> str:
-    """Assemble the bundle of a finished device run and write it.  Spans
+    """Assemble the bundle of a finished run and write it.  Spans
     and flight events come from the process-global rings unless the
     caller passes ``spans``/``flight`` snapshots taken earlier (a program
     that runs more work between the run and the export must snapshot
-    the drop-oldest rings right after the run).  The device leg adds its
-    telemetry series, control decisions and knob values, SLO verdicts
-    and invariant rows, mapped through ``device_anchors``.  A host leg
-    (``host_result``/``host_verdicts``) raises ``NotImplementedError``:
-    its lanes wait with the host plane."""
+    the drop-oldest rings right after the run).  The host leg
+    (``host_result``, read duck-typed: its ``lifecycle`` snapshot,
+    ``control`` dict and ``watchdog`` state; ``host_verdicts``) adds
+    the lifecycle lanes, the host knob values, SLO verdicts and
+    watchdog lane at export time; the device leg its telemetry series,
+    control decisions and knob values, SLO verdicts and invariant rows,
+    mapped through ``device_anchors``."""
+    import time as _time
+
     from serf_tpu_torch.obs import flight as _flight
     from serf_tpu_torch.obs import trace as _trace
     from serf_tpu_torch.obs.slo import verdicts_to_dict
 
-    if host_result is not None or host_verdicts is not None:
-        raise NotImplementedError(HOST_LANES)
     b = builder if builder is not None else TimelineBuilder(meta=meta)
     b.add_spans(spans if spans is not None else _trace.trace_dump())
     b.add_flight(flight if flight is not None
                  else _flight.flight_dump())
+    now = _time.time()
+    if host_result is not None:
+        lc = getattr(host_result, "lifecycle", None)
+        if lc:
+            b.add_lifecycle(lc, now)
+        ctl = getattr(host_result, "control", None)
+        if ctl and ctl.get("values"):
+            b.add_control_values(ctl["values"], now, plane="host")
+        if host_verdicts:
+            b.add_slo_verdicts(verdicts_to_dict(host_verdicts), now,
+                               plane="host")
+        wd_state = getattr(host_result, "watchdog", None)
+        if wd_state:
+            b.add_watchdog(wd_state, now)
     if device_result is not None and device_anchors is not None:
         store = getattr(device_result, "telemetry", None)
         if store is not None:

@@ -21,6 +21,7 @@ Every async scenario runs under ``asyncio.wait_for`` with its own limit
 (the reference's scenarios already do).
 """
 
+import ast
 import asyncio
 import collections
 import errno
@@ -46,6 +47,10 @@ BIND_ATTEMPTS = 5
 
 _modules = {}
 _summaries = {}
+#: test module name -> the tests of it that run here, for modules that
+#: also hold tests reaching what the port does not have (see
+#: :func:`scenarios`' ``only``)
+_only = {}
 
 
 def retry_port0_binds(pkg: str, monkeypatch) -> None:
@@ -104,9 +109,41 @@ def close_dropped_streams(monkeypatch) -> None:
     monkeypatch.setattr(net.NetTransport, "shutdown", shutdown)
 
 
+def _partial_tree(src: str, path: str, only) -> ast.Module:
+    """``src`` without the test functions outside ``only``, with every
+    other top-level statement guarded: an import or a module constant
+    that reaches what the port does not have yet fails alone (the tests
+    kept never read it), instead of failing the whole module."""
+    tree = ast.parse(src, path)
+    body = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            if node.name.startswith("test_") and node.name not in only:
+                continue
+            body.append(node)
+            continue
+        if isinstance(node, (ast.ClassDef, ast.Expr)) or (
+                isinstance(node, ast.ImportFrom)
+                and node.module == "__future__"):
+            body.append(node)
+            continue
+        guard = ast.Try(
+            body=[node],
+            handlers=[ast.ExceptHandler(
+                type=ast.Tuple([ast.Name(e, ast.Load()) for e in (
+                    "ImportError", "NameError", "AttributeError")],
+                    ast.Load()),
+                name=None, body=[ast.Pass()])],
+            orelse=[], finalbody=[])
+        body.append(ast.copy_location(guard, node))
+    tree.body = body
+    return ast.fix_missing_locations(tree)
+
+
 def scenario_module(name: str, pkg: str):
     """The reference test module ``tests/<name>.py`` compiled for ``pkg``
-    (cached per process)."""
+    (cached per process); only the tests :func:`scenarios` was given
+    for it, when it was given some."""
     key = (name, pkg)
     if key not in _modules:
         path = TESTS / f"{name}.py"
@@ -115,7 +152,9 @@ def scenario_module(name: str, pkg: str):
             src = re.sub(r"\bserf_tpu\b", pkg, src)
         mod = type(importlib)(f"_scenario_{name}_{pkg}")
         mod.__file__ = str(path)
-        exec(compile(src, str(path), "exec"), mod.__dict__)
+        code = (_partial_tree(src, str(path), _only[name])
+                if name in _only else src)
+        exec(compile(code, str(path), "exec"), mod.__dict__)
         _modules[key] = mod
     return _modules[key]
 
@@ -146,10 +185,14 @@ def _param_sets(fn):
     return out
 
 
-def scenarios(name: str, exclude=()):
+def scenarios(name: str, exclude=(), only=None):
     """``(scenario id, test name, params)`` for every test of
     ``tests/<name>.py`` except ``exclude`` (the ones that reach a module
-    the port does not have yet) and those marked slow."""
+    the port does not have yet) and those marked slow; with ``only``,
+    just those tests, from a module compiled without the others (its
+    imports reach modules the port does not have yet)."""
+    if only is not None:
+        _only[name] = frozenset(only)
     mod = scenario_module(name, "serf_tpu")
     out = []
     for attr, fn in vars(mod).items():
@@ -325,10 +368,25 @@ class Recorder:
         }
 
 
+def _module_fixture(mod, name: str, stack):
+    """Run the module's own fixture ``name`` by hand: a generator
+    fixture is advanced to its ``yield`` and finished after the test."""
+    value = getattr(mod, name)._get_wrapped_function()()
+    if inspect.isgenerator(value):
+        gen, value = value, next(value)
+        stack.append(gen)
+    return value
+
+
 def _call_fixtures(mod, fn, kw, request, stack):
     """Fill ``fn``'s arguments: its parameters from ``kw``, pytest's own
-    fixtures through ``request``, and the module's generator fixtures
-    (``fresh_obs``) by running their function by hand."""
+    fixtures through ``request``, and the module's fixtures (``fresh_obs``)
+    by running their function by hand; the module's autouse fixtures run
+    first."""
+    for attr, obj in vars(mod).items():
+        marker = getattr(obj, "_fixture_function_marker", None)
+        if marker is not None and marker.autouse:
+            _module_fixture(mod, attr, stack)
     args = {}
     for arg in inspect.signature(fn).parameters:
         if arg in kw:
@@ -336,9 +394,7 @@ def _call_fixtures(mod, fn, kw, request, stack):
             continue
         local = getattr(mod, arg, None)
         if local is not None and hasattr(local, "_get_wrapped_function"):
-            gen = local._get_wrapped_function()()
-            args[arg] = next(gen)
-            stack.append(gen)
+            args[arg] = _module_fixture(mod, arg, stack)
         else:
             args[arg] = request.getfixturevalue(arg)
     return args
@@ -406,12 +462,6 @@ class _FreshTmp:
         return self._request.getfixturevalue(name)
 
 
-#: scenarios that reach a module the port does not have yet
-SERF_EXCLUDE = {
-    # host/key_manager.py, ROADMAP.md queue 1 item 6(b)
-    "test_key_manager_cluster_rotation",
-}
-
 #: scenarios whose nodes' final views hold SUSPECT by the timer's phase:
 #: they isolate or mute a node on purpose, and whether a suspicion is
 #: still open at teardown differs from run to run in the reference
@@ -424,7 +474,7 @@ OPEN_SUSPICIONS = {
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)
-@pytest.mark.parametrize("name,test,kw", scenarios("test_serf", SERF_EXCLUDE)
+@pytest.mark.parametrize("name,test,kw", scenarios("test_serf")
                          + scenarios("test_memberlist"))
 def test_engine_scenario(name, test, kw, pkg, request, monkeypatch,
                          tmp_path_factory):

@@ -12,21 +12,12 @@ from test_torch_host_scenarios import PACKAGES, check_scenario, scenarios
 
 torch.set_num_threads(1)
 
-#: scenarios that reach a module the port does not have yet
-MATRIX_EXCLUDE = {
-    # host/snapshot.py, ROADMAP.md queue 1 item 6(b)
-    "test_snapshot_restart_auto_rejoins",
-    "test_snapshot_compaction_then_restart_rejoins",
-    # host/key_manager.py, item 6(b)
-    "test_cluster_key_rotation",
-}
-
 
 @pytest.mark.parametrize("pkg", PACKAGES)
 @pytest.mark.parametrize(
     "name,test,kw",
     scenarios("test_dstream")
-    + scenarios("test_transport_matrix", MATRIX_EXCLUDE))
+    + scenarios("test_transport_matrix"))
 def test_transport_scenario(name, test, kw, pkg, request, monkeypatch,
                             tmp_path_factory):
     check_scenario(name, test, kw, pkg, request, monkeypatch,

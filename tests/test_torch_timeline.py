@@ -214,14 +214,47 @@ def test_piecewise_anchors_match_and_carry_a_base_round(tmp_path):
             assert ttl.validate_timeline(doc) == []
 
 
-def test_host_lanes_wait_with_the_host_plane(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ttl.export_run_timeline(str(tmp_path / "h.json"),
-                                host_result=object(), spans=[], flight=[])
-    slow = {"seq": 1, "time": T0, "kind": "slow-message", "node": "n1",
-            "stages_ms": {"apply": 1.0}}
-    with pytest.raises(NotImplementedError):
-        ttl.TimelineBuilder().add_flight([slow])
+def test_host_lanes_wait_with_the_host_plane(tmp_path, monkeypatch):
+    """The host lanes are ported: a ``slow-message`` event's stage
+    waterfall and ``export_run_timeline``'s host leg (lifecycle
+    snapshot, host knob values, host SLO verdicts, watchdog state, read
+    from a stand-in ``host_result``) write the reference's document."""
+    import time
+    monkeypatch.setattr(time, "time", lambda: T0 + 2.0)
+    d = _inputs()
+    flight = d["flight"] + [
+        {"seq": 6, "time": T0 + 0.5, "kind": "slow-message", "node": "n1",
+         "message": "user-event", "e2e_ms": 300.0,
+         "stages_ms": {"transport": 100.0, "apply": 150.0, "tee": 50.0,
+                       "custom": 1.0}},
+        {"seq": 7, "time": T0 + 0.6, "kind": "slow-message", "node": "n2",
+         "message": "query", "e2e_ms": 20.0,
+         "stages_ms": {"queue-wait": 12.0, "decode": 8.0}}]
+    host = types.SimpleNamespace(
+        lifecycle={"stages": [{"stage": "apply", "mean_ms": 1.0,
+                               "p99_ms": 2.0, "share": 0.5},
+                              {"stage": "queue-wait", "mean_ms": 3.0,
+                               "p99_ms": 9.0, "share": 0.4}],
+                   "e2e": {"p50_ms": 1.0, "p99_ms": 2.0}},
+        control={"values": {"user_event_rate": 8.0, "gossip_nodes": 4.0}},
+        watchdog=d["watchdog"])
+    docs = {}
+    for name, p in PKG.items():
+        verdicts = [p.slo.SLOVerdict(**dict(v, plane="host"))
+                    for v in d["verdicts"]]
+        path = p.tl.export_run_timeline(
+            str(tmp_path / f"{name}.json"), host_result=host,
+            host_verdicts=verdicts, spans=d["spans"], flight=flight,
+            meta={"plan": "host"})
+        docs[name] = json.loads(open(path).read())
+    assert docs["port"] == docs["reference"]
+    assert ttl.validate_timeline(docs["port"]) == []
+    assert jtl.validate_timeline(docs["port"]) == []
+    cats = {e.get("cat") for e in docs["port"]["traceEvents"]}
+    assert {"lifecycle", "control", "slo", "watchdog"} <= cats
+    lanes = {e["args"]["name"] for e in docs["port"]["traceEvents"]
+             if e.get("name") == "thread_name"}
+    assert {"stage.apply", "stage.queue-wait", "lifecycle.e2e"} <= lanes
 
 
 def test_validator_flags_the_same_problems():
