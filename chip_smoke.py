@@ -181,6 +181,30 @@ records, updates and clocks, compacts, and ``open_and_replay_snapshot``
 returns the same alive set and clocks before and after.  No kernel may
 launch; it logs each part's host-CPU seconds beside the card line.
 
+Phase 9 runs the host chaos plane on this machine's host CPU, each part
+a run a user makes with the command lines: (a) every named plan on the
+host plane at the reference's sizes (4-8 nodes), ``chaos --plan NAME
+--plane host --json`` in-process with ``host_ab_profile``'s options:
+exit 0, every invariant green, the reference tool's JSON keys; it logs
+each plan's seconds, offered and shed counts, SLO breaches and
+degradation counters; (b) ``partition-heal-loss`` resized to 64 nodes
+of ``Options.cluster(64)`` on the loopback fabric: at the settle barrier
+every view holds all 64 ALIVE and no responsive node is FAILED, clocks
+stay monotone (the final report's membership invariants are logged: a
+suspicion that outlived the heal can still expire into a late false
+death, in both packages); (c) ``partition-heal-loss`` recorded
+with a ``RunRecorder`` and replayed with ``replay_host``: the same
+digest at every barrier, and ``replay diff`` exits 0 on the two; (d)
+``chaos --plan control-overload-shed --plane host --controller ab``:
+the static leg breaches ``shed-ratio``, the controller decides, the
+controlled leg's invariants hold (its SLO verdicts are logged); (e)
+``crash-restart`` and ``rotate-crash-restart`` through
+``run_proc_plan`` on five ``python -m serf_tpu_torch.host.agent``
+processes each: green, no agent pid among ``nvidia-smi``'s compute apps
+while they run, none left after the teardown.  No kernel may launch;
+the phase must end inside 180 s; it logs each part's host-CPU seconds
+beside the card line.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Needs no network and imports no
 JAX.
@@ -1995,7 +2019,8 @@ def tools_full(rk) -> dict:
     trace = checkpoint_path("chaos-heal.trace.json")
     keep = {}
     run = run_tool(rk, "chaos heal", chaos.main, [
-        "--plan", plan, "--n", str(N_MAIN), "--k-facts", str(K_MAIN),
+        "--plan", plan, "--plane", "device", "--n", str(N_MAIN),
+        "--k-facts", str(K_MAIN),
         "--json", "--record-on-fail", "--record-dir", record_dir,
         "--export-timeline", trace], keep=keep)
     expect("chaos heal", run, 0)
@@ -2018,7 +2043,8 @@ def tools_full(rk) -> dict:
     plan = "control-overload-shed"
     keep = {}
     run = run_tool(rk, "chaos shed ab", chaos.main, [
-        "--plan", plan, "--n", str(N_MAIN), "--k-facts", str(K_SHED),
+        "--plan", plan, "--plane", "device", "--n", str(N_MAIN),
+        "--k-facts", str(K_SHED),
         "--controller", "ab", "--json", "--record-on-fail",
         "--record-dir", record_dir], keep=keep)
     expect("chaos shed ab", run, 0)
@@ -2107,7 +2133,12 @@ def tools_full(rk) -> dict:
         run = run_tool(rk, what, obswatch.main,
                        argv + ["--json", "--n", str(N_MAIN)])
         expect(what, run, ref[name]["rc"])
-        view = obswatch_view(json.loads(run["out"]))
+        d = json.loads(run["out"])
+        # the device leg alone has no lifecycle snapshot (the reference's
+        # key is null there too; the fixture leaves it out)
+        if d.pop("lifecycle", "missing") is not None:
+            bad.append(f"{what}: a lifecycle snapshot without the host leg")
+        view = obswatch_view(d)
         bad += [f"{what}: {d}" for d in
                 json_differ(view, ref[name]["json"])[:4]]
         rounds = plan_rounds(obswatch.device_plan(degraded))
@@ -3072,11 +3103,15 @@ class AgentProcs:
 
     def kill(self, a) -> None:
         """SIGKILL ``a``'s process group (no leave, no snapshot flush) and
-        reap it."""
+        reap it, waiting at most 5 s (as ``teardown`` does): a reap that
+        never returns must not hold the caller's event loop."""
         import os
         import signal
-        os.killpg(os.getpgid(a.proc.pid), signal.SIGKILL)
-        a.proc.wait()
+        try:
+            os.killpg(os.getpgid(a.proc.pid), signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            a.proc.kill()
+        a.proc.wait(timeout=5.0)
         self.close_client(a)
 
     @staticmethod
@@ -3570,6 +3605,287 @@ def host_cluster_full(rk) -> dict:
     return out
 
 
+# -- phase 9: the host chaos plane ---------------------------------------------
+#
+# Each part is a run a user makes with ``python -m serf_tpu_torch.tools.chaos``
+# or ``tools.replay``, on this machine's host CPU: (a) every named plan
+# on the host plane at the reference's sizes, through ``chaos.main``;
+# (b) ``partition-heal-loss`` resized to phase 7a's 64 nodes of
+# ``Options.cluster(64)``; (c) ``partition-heal-loss`` recorded, replayed
+# with ``replay_host`` and diffed by ``replay diff``; (d) the controller
+# A/B on ``control-overload-shed``; (e) ``crash-restart`` and
+# ``rotate-crash-restart`` on agent processes through ``run_proc_plan``.
+
+#: phase 9's bound on the whole phase, seconds of this machine's clock
+PHASE9_LIMIT_S = 180.0
+#: (b): phase 7a's in-process scale
+CHAOS_HOST_N = 64
+#: (e): the process plane's plans (their default sizes, five agents)
+PROC_PLANS = ("crash-restart", "rotate-crash-restart")
+#: the reference tool's ``--json`` keys on the host plane, controller off
+CHAOS_JSON_KEYS = frozenset((
+    "plan", "ok", "slo_ok", "reports", "slo", "ring_summaries",
+    "degradation_counters", "lowering_notes", "overload", "lifecycle",
+    "propagation", "rotation", "device_mesh_devices", "recordings",
+    "blackboxes", "watchdog", "timeline"))
+#: ``--controller ab`` adds these
+CHAOS_AB_KEYS = frozenset(("controller", "control", "control_ab"))
+
+
+def call_tool(main, argv) -> tuple:
+    """``main(argv)`` with its stdout captured: ``(exit code, stdout,
+    seconds)``."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def fresh_sinks() -> None:
+    """A fresh metrics sink and flight recorder: each run's degradation
+    counters are its own (the process-global sink keeps every earlier
+    phase's totals)."""
+    from serf_tpu_torch.obs import flight
+    from serf_tpu_torch.utils import metrics
+    metrics.set_global_sink(metrics.MetricsSink())
+    flight.set_global_recorder(flight.FlightRecorder())
+
+
+def host_plans(chaos) -> dict:
+    """(a): every named plan, ``chaos --plan NAME --plane host --json``:
+    exit 0 and every invariant green (the reference's tests expect
+    that of each plan on the host plane), the reference tool's keys."""
+    from serf_tpu_torch.faults.plan import plan_names
+    out = {}
+    for name in plan_names():
+        fresh_sinks()
+        rc, text, secs = call_tool(chaos.main, [
+            "--plan", name, "--plane", "host", "--json"])
+        d = json.loads(text)
+        if set(d) != CHAOS_JSON_KEYS:
+            raise AssertionError(f"phase 9 (a) {name}: JSON keys "
+                                 f"{sorted(set(d) ^ CHAOS_JSON_KEYS)} "
+                                 f"differ from the reference tool's")
+        red = [i["name"] for r in d["reports"] for i in r["invariants"]
+               if not i["ok"]]
+        if rc != 0 or not d["ok"] or red:
+            raise AssertionError(f"phase 9 (a) {name}: exit {rc}, red "
+                                 f"invariants {red}")
+        load = d["overload"].get("host", {})
+        out[name] = dict(
+            s=secs, offered=load.get("events_offered", 0)
+            + load.get("queries_offered", 0),
+            shed=load.get("ingress_shed", 0),
+            breaches=[v["slo"] for v in d["slo"]["host"] if not v["ok"]],
+            counters={k: v for k, v in sorted(
+                d["degradation_counters"].items()) if v})
+    return out
+
+
+async def host_scale(work) -> dict:
+    """(b): ``partition-heal-loss`` at 64 nodes of ``Options.cluster(64)``
+    on the loopback fabric: every live view holds all 64 ALIVE at the
+    settle barrier (the run's ``settle_converged``) with no responsive
+    node FAILED there (``false_dead``), clocks monotone.  The report's
+    two membership invariants are judged later, after the propagation
+    probe: a suspicion raised during the partition whose gossip budget
+    ran out before the heal can still expire into a false FAILED there,
+    in the reference as in the port (``ROADMAP.md`` §3), so they are
+    logged, not required."""
+    from serf_tpu_torch.faults.host import run_host_plan
+    from serf_tpu_torch.faults.plan import named_plan
+    from serf_tpu_torch.options import Options
+    plan = named_plan("partition-heal-loss", CHAOS_HOST_N)
+    t0 = time.perf_counter()
+    r = await run_host_plan(plan, tmp_dir=str(work),
+                            opts=Options.cluster(CHAOS_HOST_N))
+    late = {x.name: x.detail for x in r.report.results
+            if not x.ok and x.name in ("membership-convergence",
+                                       "no-false-dead")}
+    red = [x.name for x in r.report.results
+           if not x.ok and x.name not in late]
+    if not r.settle_converged or r.false_dead or red:
+        raise AssertionError(f"phase 9 (b): settle converged "
+                             f"{r.settle_converged}, false dead "
+                             f"{r.false_dead}: {r.report.format()[:2000]}")
+    return dict(s=time.perf_counter() - t0, quiet_s=r.quiet_convergence_s,
+                settle_s=r.settle_convergence_s, nodes=plan.n,
+                final_ok=r.report.ok, late=late)
+
+
+async def host_record_replay(work) -> dict:
+    """(c): ``partition-heal-loss`` on the host plane recorded with a
+    ``RunRecorder``, replayed with ``replay_host``: the same digest at
+    every barrier."""
+    from serf_tpu_torch.faults.host import run_host_plan
+    from serf_tpu_torch.faults.plan import named_plan
+    from serf_tpu_torch.replay.differ import diff_recordings
+    from serf_tpu_torch.replay.recording import RunRecorder
+    from serf_tpu_torch.replay.replayer import replay_host
+    (work / "rec").mkdir()
+    (work / "rep").mkdir()
+    recorder = RunRecorder()
+    t0 = time.perf_counter()
+    r = await run_host_plan(named_plan("partition-heal-loss"),
+                            tmp_dir=str(work / "rec"), recorder=recorder)
+    rec = recorder.to_recording()
+    t1 = time.perf_counter()
+    replayed = (await replay_host(rec, tmp_dir=str(work / "rep"))
+                ).to_recording()
+    t2 = time.perf_counter()
+    d = diff_recordings(rec, replayed)
+    if not (r.report.ok and d.ok and len(rec.views()) == 2):
+        raise AssertionError(f"phase 9 (c): report ok {r.report.ok}, "
+                             f"{len(rec.views())} views, diff "
+                             f"{d.format()}")
+    return dict(record_s=t1 - t0, replay_s=t2 - t1,
+                steps=sum(1 for _ in rec.steps()),
+                digests=[v["digest"] for v in rec.views()],
+                paths=(rec.save(str(work / "host.jsonl")),
+                       replayed.save(str(work / "replayed.jsonl"))))
+
+
+def host_ab(chaos) -> dict:
+    """(d): ``chaos --plan control-overload-shed --plane host --controller
+    ab --json``: the static leg breaches ``shed-ratio`` (what
+    ``host_ab_profile``'s buckets are sized for), the controller decides
+    and the controlled leg's invariants hold (what both packages give
+    in ``tests/test_torch_tools_host.py``; no reference test holds the
+    controlled host leg to more)."""
+    fresh_sinks()
+    rc, text, secs = call_tool(chaos.main, [
+        "--plan", "control-overload-shed", "--plane", "host",
+        "--controller", "ab", "--json"])
+    d = json.loads(text)
+    if set(d) != CHAOS_JSON_KEYS | CHAOS_AB_KEYS:
+        raise AssertionError(f"phase 9 (d): JSON keys differ from the "
+                             f"reference tool's: {sorted(d)}")
+    ab = d["control_ab"]["host"]
+    decisions = d["control"]["host"].get("decisions", [])
+    if "shed-ratio" not in ab["static"]["breaches"] or \
+            not ab["controlled"]["report"]["ok"] or not decisions:
+        raise AssertionError(f"phase 9 (d): static breaches "
+                             f"{ab['static']['breaches']}, controlled "
+                             f"invariants ok {ab['controlled']['report']['ok']}"
+                             f", {len(decisions)} decisions")
+    return dict(s=secs, rc=rc, static=ab["static"]["breaches"],
+                controlled_ok=ab["controlled"]["ok"],
+                controlled=ab["controlled"]["breaches"],
+                decisions=decisions)
+
+
+async def proc_plans(work) -> dict:
+    """(e): each of :data:`PROC_PLANS` through ``run_proc_plan`` on
+    ``python -m serf_tpu_torch.host.agent`` processes: green; no agent
+    pid among ``nvidia-smi``'s compute apps while they run; none left
+    after the teardown."""
+    import asyncio
+    from serf_tpu_torch.faults.plan import named_plan
+    from serf_tpu_torch.faults.proc import run_proc_plan
+    out = {}
+    for name in PROC_PLANS:
+        d = work / name
+        d.mkdir()
+        t0 = time.perf_counter()
+        task = asyncio.ensure_future(run_proc_plan(named_plan(name), str(d)))
+        seen, on_card = set(), set()
+        while not task.done():
+            await asyncio.sleep(0.5)
+            agents = set(pids_under(d))
+            if agents:
+                seen |= agents
+                on_card |= agents & await asyncio.to_thread(
+                    compute_app_pids)
+        r = task.result()
+        secs = time.perf_counter() - t0
+        left = strays_under(d)
+        if not r.report.ok or on_card or left or not seen:
+            raise AssertionError(
+                f"phase 9 (e) {name}: report ok {r.report.ok}, agents on "
+                f"the card {sorted(on_card)}, left {left}, seen "
+                f"{len(seen)}: {r.report.format()[:2000]}")
+        out[name] = dict(s=secs, pids=len(r.all_pids),
+                         settle_s=r.settle_convergence_s,
+                         rotation=(r.rotation or {}).get("latency_s"),
+                         invariants=[i.name for i in r.report.results])
+    return out
+
+
+def host_chaos_full(rk) -> dict:
+    """Phase 9: the host chaos plane on the card's machine (parts (a)-(e)
+    above), each part logged as it ends; a failure in any part fails the
+    phase.  No kernel may launch; it logs each part's host-CPU seconds
+    beside the card line."""
+    import asyncio
+    import pathlib
+    import shutil
+    from serf_tpu_torch.tools import chaos, replay
+    work = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke" \
+        / "phase9"
+    shutil.rmtree(work, ignore_errors=True)
+    for part in ("scale", "replay", "proc"):
+        (work / part).mkdir(parents=True)
+    card = card_line()
+    reset_counts(rk)
+    t0 = time.perf_counter()
+    out = {"plans": host_plans(chaos)}
+    for name, p in out["plans"].items():
+        log(f"phase 9 (a) chaos --plan {name} --plane host: exit 0, "
+            f"invariants green, {p['s']:.2f} s on the host CPU of the "
+            f"machine with {card}; offered {p['offered']}, shed "
+            f"{p['shed']}; SLO breaches {p['breaches']}; degradation "
+            f"counters {json.dumps(p['counters'])}")
+    b = out["scale"] = asyncio.run(asyncio.wait_for(
+        host_scale(work / "scale"), PHASE9_LIMIT_S))
+    log(f"phase 9 (b) partition-heal-loss at {b['nodes']} nodes of "
+        f"Options.cluster({b['nodes']}) on the loopback fabric, host CPU "
+        f"of the machine with {card}: joined in {b['quiet_s']:.2f} s; at "
+        f"the settle barrier all {b['nodes']} ALIVE in every view "
+        f"{b['settle_s']:.3f} s after the heal, no false death; the final "
+        f"report {'GREEN' if b['final_ok'] else 'RED'}"
+        + (f" (late: {json.dumps(b['late'])})" if b["late"] else "")
+        + f"; part {b['s']:.2f} s")
+    c = out["replay"] = asyncio.run(asyncio.wait_for(
+        host_record_replay(work / "replay"), PHASE9_LIMIT_S))
+    rc, text, _ = call_tool(replay.main, ["diff", *c["paths"], "--json"])
+    if rc != 0 or not json.loads(text)["ok"]:
+        raise AssertionError(f"phase 9 (c): replay diff exit {rc}: "
+                             f"{text[-400:]}")
+    log(f"phase 9 (c) partition-heal-loss recorded ({c['steps']} steps) in "
+        f"{c['record_s']:.2f} s and replayed with replay_host in "
+        f"{c['replay_s']:.2f} s on the host CPU of the machine with {card}:"
+        f" barrier digests {c['digests']} equal; replay diff exit 0")
+    d = out["ab"] = host_ab(chaos)
+    log(f"phase 9 (d) chaos --plan control-overload-shed --plane host "
+        f"--controller ab: exit {d['rc']} in {d['s']:.2f} s on the host CPU "
+        f"of the machine with {card}; static leg breaches {d['static']}; "
+        f"controlled leg {'GREEN' if d['controlled_ok'] else 'breaches'} "
+        f"{d['controlled']} (invariants green); {len(d['decisions'])} "
+        f"controller decisions {json.dumps(d['decisions'])}")
+    out["proc"] = asyncio.run(asyncio.wait_for(
+        proc_plans(work / "proc"), PHASE9_LIMIT_S))
+    for name, e in out["proc"].items():
+        log(f"phase 9 (e) run_proc_plan {name} on python -m {AGENT_MODULE} "
+            f"processes, host CPU of the machine with {card}: green "
+            f"({', '.join(e['invariants'])}), {e['pids']} incarnations, "
+            f"settle {e['settle_s']:.2f} s"
+            + (f", rotation reconciled in {e['rotation']} s"
+               if e["rotation"] is not None else "")
+            + f"; no agent pid among nvidia-smi's compute apps, none left "
+            f"after the teardown; part {e['s']:.2f} s")
+    out["s"] = time.perf_counter() - t0
+    check_launches(rk, "tools", "phase 9", want=())
+    if out["s"] > PHASE9_LIMIT_S:
+        raise AssertionError(f"phase 9 took {out['s']:.1f} s, over its "
+                             f"{PHASE9_LIMIT_S} s")
+    log(f"phase 9 (f) no kernel launched; phase 9 {out['s']:.2f} s on the "
+        f"host CPU of the machine with {card}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3665,6 +3981,8 @@ def main() -> int:
     mark("phase 7 host engine")
     host_cluster_full(rk)
     mark("phase 8 agents and cluster plane")
+    host_chaos_full(rk)
+    mark("phase 9 host chaos plane")
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
         log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "

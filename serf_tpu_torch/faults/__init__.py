@@ -1,4 +1,6 @@
-"""The chaos plane: seeded fault plans (``plan``), their lowering to
-per-round masks and the device executor (``device``), the invariants
-judged after a run (``invariants``), and the real-transport chaos seam
-the serf agent arms (``host.attach_transport_chaos``)."""
+"""The chaos plane: seeded fault plans (``plan``) and their three
+executors over the same plan objects: the device executor (``device``:
+per-round masks in the flagship round), the in-process host executor
+(``host``: a loopback cluster, with the real-transport chaos seam the
+serf agent arms) and the process executor (``proc``: agent processes on
+real sockets); the invariants judged after a run (``invariants``)."""

@@ -79,6 +79,9 @@ from serf_tpu_torch.models.vivaldi import (
 # the propagation row's field order lives with its readers (as in the
 # reference); re-exported here beside TELEMETRY_FIELDS
 from serf_tpu_torch.obs.propagation import PROPAGATION_FIELDS  # noqa: F401
+# so does the invariant row's (``obs/watchdog.py``): 1.0 = the predicate
+# holds; ``viol_mask`` ORs bit i for each failed predicate i
+from serf_tpu_torch.obs.watchdog import INVARIANT_FIELDS  # noqa: F401
 
 #: ICI schedules of the reference's sharded exchange leg (validated for
 #: config parity; the port's sharded path is a later slice)
@@ -366,12 +369,6 @@ TELEMETRY_FIELDS = ("alive", "facts_valid", "agreement", "coverage",
                     "overflow", "injected", "suspicions", "false_dead")
 
 
-#: field order of the invariant row (the reference's
-#: ``obs/watchdog.INVARIANT_FIELDS``): 1.0 = the predicate holds;
-#: ``viol_mask`` ORs bit i for each failed predicate i
-INVARIANT_FIELDS = ("overflow_ok", "ltime_ok", "no_false_dead",
-                    "coverage_monotone", "stamp_staleness_ok",
-                    "viol_mask")
 
 
 def telemetry_counts(g: GossipState, cfg: ClusterConfig, stretch_q=None,

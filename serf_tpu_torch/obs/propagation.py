@@ -193,19 +193,27 @@ def emit_propagation_metrics(summary: PropagationSummary,
 def format_propagation(summary, plane: str = "device") -> str:
     """One coverage-curve verdict line for the chaos and obswatch
     reports, printed beside the invariant and SLO verdicts.  Takes a
-    :class:`PropagationSummary` or its dict form (the host probe's dict
-    waits with the host plane)."""
+    :class:`PropagationSummary`, its dict form, or the host plane's
+    probe dict (``faults/host.measure_propagation``)."""
     if isinstance(summary, PropagationSummary):
         summary = summary.to_dict()
     if summary is None:
         return f"propagation[{plane}]: not traced"
-    tt = summary["time_to"]
-    marks = " ".join(
-        f"t{m}={tt.get(str(m), tt.get(m))}r" for m in COVERAGE_MARKS)
-    return (f"propagation[{plane}]: {marks} over "
-            f"{summary['rounds']}r ({summary['sentinels']} sentinels,"
-            f" final cov {summary['final_coverage']:.3f}), "
-            f"redundancy {summary['redundancy']:.3f}")
+    if "time_to" in summary:               # device summary
+        tt = summary["time_to"]
+        marks = " ".join(
+            f"t{m}={tt.get(str(m), tt.get(m))}r" for m in COVERAGE_MARKS)
+        return (f"propagation[{plane}]: {marks} over "
+                f"{summary['rounds']}r ({summary['sentinels']} sentinels,"
+                f" final cov {summary['final_coverage']:.3f}), "
+                f"redundancy {summary['redundancy']:.3f}")
+    cov = summary.get("coverage", 0.0)     # host probe dict
+    tta = summary.get("time_to_all_ms")
+    tta_s = f"{tta:.0f}ms" if tta is not None else "never"
+    return (f"propagation[{plane}]: probe reached "
+            f"{summary.get('reached', 0)}/{summary.get('nodes', 0)} "
+            f"nodes (cov {cov:.2f}) in {tta_s}, "
+            f"dup-ratio {summary.get('dup_ratio', 0.0):.3f}")
 
 
 _BARS = " ▁▂▃▄▅▆▇█"

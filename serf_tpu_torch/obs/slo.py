@@ -1,12 +1,17 @@
-"""Declarative SLOs judged on a device chaos run.
+"""Declarative SLOs judged on a chaos run, on either plane.
 
-The port's copy of the device half of ``serf_tpu/obs/slo.py``: the one
-SLO table (both planes' rows, as data), multi-window burn rates,
-EWMA/MAD anomaly flags, verdicts and :func:`judge_device_run`, which
-reads a :class:`~serf_tpu_torch.faults.device.DeviceChaosResult`.  Point
-verdicts come from the exact final telemetry row; the ring series are
-burn and anomaly evidence only.  Every verdict's name, ``ok`` bit and
-detail is the reference's for the same run.
+The port's copy of ``serf_tpu/obs/slo.py``: the one SLO table (both
+planes' rows, as data), multi-window burn rates, EWMA/MAD anomaly
+flags, verdicts, the two plane judges and the bench gate.
+:func:`judge_device_run` reads a
+:class:`~serf_tpu_torch.faults.device.DeviceChaosResult`: point verdicts
+come from the exact final telemetry row, the ring series are burn and
+anomaly evidence only.  :func:`judge_host_run` reads a
+:class:`~serf_tpu_torch.faults.host.HostChaosResult`: its sampler rings,
+lifecycle ledger snapshot, propagation probe and rotation evidence.
+:func:`score_bench` scores a bench detail dict against committed bands.
+Every verdict's name, ``ok`` bit and detail is the reference's for the
+same run.
 """
 
 from __future__ import annotations
@@ -291,6 +296,159 @@ def verdicts_to_dict(verdicts: Sequence[SLOVerdict]) -> List[Dict[str, Any]]:
     return [v.to_dict() for v in verdicts]
 
 
+# ---------------------------------------------------------------------------
+# plane judges (chaos + obswatch drive these)
+# ---------------------------------------------------------------------------
+
+
+def _host_query_p99(sink: Optional[metrics.MetricsSink] = None
+                    ) -> Optional[float]:
+    """p99 over every retained ``serf.query.rtt-ms`` sample, merged
+    across label sets; None when no query ever ran."""
+    sink = sink or metrics.global_sink()
+    samples: List[float] = []
+    with sink._lock:
+        for (name, _labels), h in sink.histograms.items():
+            if name == "serf.query.rtt-ms":
+                samples.extend(h.recent())
+    if not samples:
+        return None
+    return metrics.percentile_of(sorted(samples), 99)
+
+
+def judge_host_run(result, plan, emit: bool = True) -> List[SLOVerdict]:
+    """SLO verdicts for a finished host chaos run
+    (``faults.host.HostChaosResult``) — the same table the device judge
+    uses, fed by the host runner's measurements."""
+    out: List[SLOVerdict] = []
+    for d in SLO_TABLE:
+        if "host" not in d.planes:
+            continue
+        if d.name == "convergence-settle":
+            # getattr throughout: chaos tests drive main() with stub
+            # result objects — an SLO the stub can't answer is a
+            # skipped verdict, never a crash
+            settle_s = getattr(result, "settle_convergence_s", None)
+            if settle_s is None:
+                out.append(judge(d, "host", None, emit=emit))
+            elif getattr(result, "settle_converged", True):
+                value = settle_s / max(plan.settle_s, _EPS)
+                out.append(judge(
+                    d, "host", value,
+                    detail=f"settled in {settle_s:.2f}s of "
+                           f"{plan.settle_s:.2f}s", emit=emit))
+            else:
+                out.append(judge(
+                    d, "host", math.inf,
+                    detail="views never re-converged within the settle "
+                           "budget", emit=emit))
+        elif d.name == "false-dead":
+            fd = getattr(result, "false_dead", 0)
+            out.append(judge(
+                d, "host", float(fd),
+                detail=f"{fd} responsive node(s) held FAILED", emit=emit))
+        elif d.name == "shed-ratio":
+            load = getattr(result, "load", None)
+            if load is None:
+                out.append(judge(d, "host", 0.0,
+                                 detail="no load offered", emit=emit))
+            else:
+                offered = load.events_offered + load.queries_offered
+                ratio = load.ingress_shed / max(1, offered)
+                out.append(judge(
+                    d, "host", ratio,
+                    series=_host_ratio_series(result),
+                    detail=f"shed {load.ingress_shed} of {offered} "
+                           "offered", emit=emit))
+        elif d.name == "query-p99":
+            out.append(judge(d, "host", _host_query_p99(), emit=emit))
+        elif d.name == "apply-stage-p99":
+            lc = getattr(result, "lifecycle", None)
+            apply_row = _lifecycle_stage(lc, "apply")
+            if apply_row is None:
+                out.append(judge(d, "host", None,
+                                 detail="no sampled messages", emit=emit))
+            else:
+                out.append(judge(
+                    d, "host", apply_row["p99_ms"],
+                    detail=f"over {apply_row['count']} sampled "
+                           "message(s)", emit=emit))
+        elif d.name == "queue-wait-share":
+            lc = getattr(result, "lifecycle", None)
+            share = (lc or {}).get("queue_wait_share")
+            if share is None:
+                out.append(judge(d, "host", None,
+                                 detail="no sampled messages", emit=emit))
+            else:
+                out.append(judge(
+                    d, "host", share,
+                    detail=f"queue-wait owns {share:.0%} of sampled "
+                           "e2e latency", emit=emit))
+        elif d.name == "coverage-settle":
+            prop = getattr(result, "propagation", None)
+            if not prop or prop.get("trace") is None:
+                out.append(judge(d, "host", None,
+                                 detail="no propagation probe",
+                                 emit=emit))
+            elif prop.get("coverage", 0.0) < 1.0 - _EPS:
+                out.append(judge(
+                    d, "host", math.inf,
+                    detail=f"probe reached {prop.get('reached', 0)} of "
+                           f"{prop.get('nodes', 0)} node(s)", emit=emit))
+            else:
+                t_ms = prop.get("time_to_all_ms") or 0.0
+                value = (t_ms / 1e3) / max(plan.settle_s, _EPS)
+                out.append(judge(
+                    d, "host", value,
+                    detail=f"probe covered {prop.get('nodes', 0)} "
+                           f"node(s) in {t_ms:.1f}ms of "
+                           f"{plan.settle_s:.1f}s budget", emit=emit))
+        elif d.name == "redundancy-ceiling":
+            prop = getattr(result, "propagation", None)
+            if not prop or (prop.get("seen", 0)
+                            + prop.get("duplicates", 0)) <= 0:
+                out.append(judge(d, "host", None,
+                                 detail="no events disseminated",
+                                 emit=emit))
+            else:
+                dr = prop["dup_ratio"]
+                out.append(judge(
+                    d, "host", dr,
+                    detail=f"{prop['duplicates']} duplicate(s) of "
+                           f"{prop['seen'] + prop['duplicates']} "
+                           "delivered", emit=emit))
+        elif d.name == "rotation-latency":
+            rot = getattr(result, "rotation", None)
+            if rot is None:
+                out.append(judge(d, "host", None,
+                                 detail="plan not encrypted", emit=emit))
+            elif not rot.get("converged", False):
+                out.append(judge(
+                    d, "host", math.inf,
+                    detail="keyrings never reconverged within "
+                           f"{rot.get('reconcile_s')}s", emit=emit))
+            else:
+                out.append(judge(
+                    d, "host", float(rot.get("latency_s", 0.0)),
+                    detail=f"{len(rot.get('keyrings', {}))} ring(s) on "
+                           f"primary {rot.get('expected_primary')} in "
+                           f"{rot.get('reconcile_rounds')} round(s)",
+                    emit=emit))
+    return out
+
+
+def _lifecycle_stage(lc, stage: str):
+    """The named stage's row from a lifecycle ledger snapshot
+    (``obs.lifecycle.LifecycleLedger.snapshot()``); None when the run
+    carried no snapshot or the stage was never stamped."""
+    if not lc:
+        return None
+    for row in lc.get("stages", ()):
+        if row.get("stage") == stage and row.get("count"):
+            return row
+    return None
+
+
 def _series_of(result, name: str) -> Optional[TimeSeries]:
     store = getattr(result, "series", None)
     return store.get(name) if isinstance(store, SeriesStore) else None
@@ -325,6 +483,38 @@ def _ratio_series(store: Optional[SeriesStore]) -> Optional[TimeSeries]:
                        capacity=max(dropped.capacity, 8))
     for (t, dv), (_, ov) in zip(dropped.points(), offered.points()):
         ratio.append(t, dv / max(1.0, ov))
+    return ratio
+
+
+def _host_ratio_series(result) -> Optional[TimeSeries]:
+    """Derived per-tick shed/(admitted+shed) ratio from the host
+    sampler's delta rings — same rule as the device path: burn evidence
+    in the SLO's own units, never raw event counts against a ratio
+    objective."""
+    shed = _series_of(result, "serf.overload.ingress_shed")
+    admitted = _series_of(result, "serf.overload.ingress_admitted")
+    if shed is None or admitted is None:
+        return None
+    # RUNNING cumulative ratio, aligned by a two-pointer timestamp walk:
+    # the two counter rings start ticks apart and downsample on
+    # different schedules, so per-index (or equal-stamp) pairing reads
+    # time-misaligned, stride-mismatched deltas.  Delta-kind
+    # downsampling preserves SUMS exactly, so prefix totals are
+    # stride-independent — the ratio stays correct however either ring
+    # has been merged.
+    ratio = TimeSeries("shed-ratio", kind="gauge",
+                       capacity=max(shed.capacity, 8))
+    adm_pts = admitted.points()
+    ai = 0
+    cum_adm = 0.0
+    cum_shed = 0.0
+    for t, sv in shed.points():
+        while ai < len(adm_pts) and adm_pts[ai][0] <= t:
+            cum_adm += adm_pts[ai][1]
+            ai += 1
+        cum_shed += sv
+        total = cum_shed + cum_adm
+        ratio.append(t, cum_shed / total if total > 0 else 0.0)
     return ratio
 
 
@@ -450,3 +640,65 @@ def judge_device_run(result, plan, rps: Optional[float] = None,
                            f"redundant of {summary['slots_sent']:.0f} "
                            "slots sent", emit=emit))
     return out
+
+
+
+# ---------------------------------------------------------------------------
+# bench regression gate (bench.py embeds the verdict in BENCH_DETAIL.json)
+# ---------------------------------------------------------------------------
+
+
+def _lookup(detail: Dict[str, Any], dotted: str) -> Optional[float]:
+    cur: Any = detail
+    for part in dotted.split("."):
+        if not isinstance(cur, dict) or part not in cur:
+            return None
+        cur = cur[part]
+    try:
+        return float(cur)
+    except (TypeError, ValueError):
+        return None
+
+
+def score_bench(detail: Dict[str, Any], bands: Optional[Dict[str, Any]],
+                platform: str) -> Dict[str, Any]:
+    """Score a bench ``detail`` dict against the committed BASELINE.json
+    bands for ``platform`` ("cpu" | "tpu").
+
+    Band format (documented in README "Time series & SLOs")::
+
+        "bands": {"cpu": {"cluster_round_sustained_rps": {"min": 2.0},
+                          "sharded.sustained_rps": {"min": 1.0}}, ...}
+
+    Keys are dotted paths into the detail dict; each band may carry
+    ``min`` and/or ``max``.  A metric absent from the run is reported
+    (never a violation — CPU fallbacks legitimately skip TPU-only
+    sections).  No bands for the platform → ``rebaseline: true`` and a
+    green verdict: the first round re-baselines instead of failing.
+    """
+    plat_bands = (bands or {}).get(platform) or {}
+    checked: List[Dict[str, Any]] = []
+    violations: List[str] = []
+    missing: List[str] = []
+    for dotted in sorted(plat_bands):
+        band = plat_bands[dotted] or {}
+        value = _lookup(detail, dotted)
+        if value is None:
+            missing.append(dotted)
+            continue
+        lo = band.get("min")
+        hi = band.get("max")
+        ok = ((lo is None or value >= lo)
+              and (hi is None or value <= hi))
+        checked.append({"metric": dotted, "value": value,
+                        "min": lo, "max": hi, "ok": ok})
+        if not ok:
+            violations.append(dotted)
+    return {
+        "platform": platform,
+        "rebaseline": not plat_bands,
+        "checked": checked,
+        "missing": missing,
+        "violations": violations,
+        "ok": not violations,
+    }

@@ -14,11 +14,17 @@ their integer values).  A product is taken modulo 2^32 by
 :func:`_mul32`, which splits one factor into 16-bit halves so that no
 partial product leaves int64; sums of at most 2^31 such values never
 do either.  Runs on whatever device the state is on.
+
+:func:`host_view_digest` is the host plane's: a sha256 fold of each live
+``Serf`` node's membership view (``obs/cluster.membership_digest``),
+taken at a host run's convergence barriers; equal to the reference's
+hex for the same views.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import hashlib
+from typing import Dict, Tuple
 
 import torch
 
@@ -87,3 +93,22 @@ def state_digest(state: GossipState, cfg: GossipConfig
     overall = torch.sum(_mul32(node, _odd_weights(n, _NODE_MULT, dev))
                         ) & MASK32
     return _mix(overall, state.round), node
+
+
+def host_view_digest(serfs) -> Tuple[str, Dict[str, str]]:
+    """(overall 16-hex, {node_id: 12-hex}) membership-view digest over
+    the given live Serf nodes (host plane, barrier points only)."""
+    from serf_tpu_torch.obs.cluster import membership_digest
+
+    nodes = {
+        s.local_id: membership_digest(
+            [(m.node.id, m.status.name) for m in s.members()])
+        for s in serfs
+    }
+    h = hashlib.sha256()
+    for nid, d in sorted(nodes.items()):
+        h.update(nid.encode("utf-8", errors="replace"))
+        h.update(b"\x00")
+        h.update(d.encode("ascii"))
+        h.update(b"\x01")
+    return h.hexdigest()[:16], nodes

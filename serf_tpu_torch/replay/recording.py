@@ -28,7 +28,7 @@ import dataclasses
 import hashlib
 import json
 from pathlib import Path
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -48,6 +48,13 @@ RECORDING_SCHEMA = {
 #: reference pins its version in ``serf_tpu/analysis/pins`` (a test holds
 #: the two equal)
 RECORDING_VERSION = 1
+
+
+def recording_schema_version() -> int:
+    """The pinned recording-format version (the reference reads its pin
+    from ``serf_tpu/analysis``; the port keeps its own copy,
+    :data:`RECORDING_VERSION`)."""
+    return RECORDING_VERSION
 
 #: per-node digests are embedded in ``view`` records only up to this
 #: node count; past it only the overall digest is stored
@@ -231,6 +238,14 @@ class RunRecorder:
                "digest": digest, "nodes": nodes}
         self.records.append(rec)
         return rec
+
+    def ingress_tap(self) -> Callable:
+        """The callable ``Serf.set_ingress_tap`` expects: records every
+        offered ``user_event``/``query`` as a step (payload hex-encoded)."""
+        def tap(op: str, node: str, **args: Any) -> None:
+            payload = args.pop("payload", b"")
+            self.step(op, node=node, payload=payload.hex(), **args)
+        return tap
 
     def finish(self) -> None:
         if self._finished:

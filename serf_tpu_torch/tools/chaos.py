@@ -1,43 +1,57 @@
-"""Run a named FaultPlan on the device plane and print the invariant report
+"""Run a named FaultPlan on any plane and print the invariant report
 (command line).
 
-The port's counterpart of ``tools/chaos.py``, device plane::
+The port's counterpart of ``tools/chaos.py``::
 
-    python -m serf_tpu_torch.tools.chaos --plan partition-heal-loss [--json]
+    python -m serf_tpu_torch.tools.chaos --plan partition-heal-loss --plane both
+    python -m serf_tpu_torch.tools.chaos --plan crash-restart --plane host --json
+    python -m serf_tpu_torch.tools.chaos --plan crash-restart --plane proc
     python -m serf_tpu_torch.tools.chaos --plan control-overload-shed \\
-        --controller ab --n 4096
+        --plane host --controller ab
     python -m serf_tpu_torch.tools.chaos --self-check
-    python -m serf_tpu_torch.tools.chaos --plan partition-heal-loss \\
-        --record-on-fail --export-timeline run.trace.json
 
-The device plane runs the flagship ``cluster_round`` with the plan
-lowered to per-round masks (``faults/device.run_device_plan``), on the
-card unless ``--device cpu``, with the reference's A/B configs
+The host plane stands up an in-process loopback cluster
+(``faults/host.run_host_plan``, snapshots in a temp dir, so crash/restart
+plans exercise replay) with ``control/profiles.host_ab_profile``'s
+options; the device plane runs the flagship ``cluster_round`` with the
+plan lowered to per-round masks (``faults/device.run_device_plan``), on
+the card unless ``--device cpu``, with the reference's A/B configs
 (``control/profiles.device_ab_config``: ``use_pallas`` off, so the
-rounds run the array path and launch no hand-written kernel, as the
-reference's tool runs none of its Pallas kernels).  Exit 0 iff every
-invariant is green; under ``--controller ab`` iff the controlled leg is
-green on invariants and SLOs (the static leg may breach).
-
-``--plane host``, ``proc`` and ``both`` exit 2: the host plane is not
-ported yet (``ROADMAP.md`` queue 1 item 6).  So the ``--json`` object
-leaves out the keys the reference fills from the host plane:
-``degradation_counters``, ``lifecycle``, ``rotation`` and ``proc``.
-``--devices`` takes 0 or 1 (the unsharded round); more raises, as the
-sharded round is not ported.
+rounds launch no hand-written kernel, as the reference's tool runs none
+of its Pallas kernels); the proc plane spawns one OS process per node
+(``python -m serf_tpu_torch.host.agent`` on real sockets, never on the
+card) and lowers crashes to SIGKILL, pauses to SIGSTOP and restarts to
+re-exec from the same snapshot directory.  Only the device plane needs
+the card.  Exit 0 iff every invariant on every requested plane is green
+(and, on an encrypted plan, the rotation-latency SLO); under
+``--controller ab`` iff every controlled leg is green on invariants and
+SLOs (the static legs may breach).  The degradation counter block is the
+``serf.faults.*`` / ``serf.degraded.*`` / ``serf.overload.*`` /
+``serf.proc.*`` totals accumulated during the run.  ``--devices`` takes
+0 or 1 (the unsharded round); more raises, as the sharded round is not
+ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import os
 import sys
-import time
+import tempfile
 
-#: what ``--plane host|proc|both`` and ``--host`` options print
-HOST_PLANE = ("the host and proc planes are not ported to serf_tpu_torch "
-              "yet (ROADMAP.md queue 1 item 6); run --plane device")
+
+def run_host(plan, recorder=None, controlled: bool = False):
+    from serf_tpu_torch.control.profiles import host_ab_profile
+    from serf_tpu_torch.faults.host import run_host_plan
+
+    opts, ccfg = host_ab_profile(plan.name, controlled)
+    with tempfile.TemporaryDirectory(prefix="serf-chaos-") as td:
+        return asyncio.run(run_host_plan(plan, tmp_dir=td, opts=opts,
+                                         recorder=recorder,
+                                         controller=controlled,
+                                         control_cfg=ccfg))
 
 
 def run_device(plan, n: int, k_facts: int, devices: int = 0,
@@ -57,93 +71,164 @@ def run_device(plan, n: int, k_facts: int, devices: int = 0,
                             collect_invariants=True, device=device), 1)
 
 
+def run_proc(plan, record_dir: str = ".", record_on_fail: bool = False):
+    """Proc plane: real processes on real sockets.  On a red run with
+    ``record_on_fail``, EVERY process dumps its black-box bundle over
+    the control channel and the bundles are copied out of the temp
+    cluster dir before it is torn down."""
+    import shutil
+
+    from serf_tpu_torch.faults.proc import run_proc_plan
+
+    bundles = {}
+    with tempfile.TemporaryDirectory(prefix="serf-chaos-proc-") as td:
+        result = asyncio.run(run_proc_plan(
+            plan, tmp_dir=td, blackbox_on_fail=record_on_fail))
+        if record_on_fail and not result.report.ok:
+            dest_root = os.path.join(record_dir,
+                                     f"chaos-{plan.name}-proc.blackbox")
+            for node_id, bdir in sorted(result.blackbox_dirs.items()):
+                try:
+                    if bdir and os.path.isdir(bdir) and os.listdir(bdir):
+                        dst = os.path.join(dest_root, node_id)
+                        shutil.copytree(bdir, dst, dirs_exist_ok=True)
+                        bundles[node_id] = dst
+                except OSError as e:
+                    print(f"record-on-fail: could not copy {node_id} "
+                          f"black box: {e}", file=sys.stderr)
+            rot = getattr(result, "rotation", None)
+            if rot is not None:
+                # per-process keyring digests beside the copied bundles:
+                # a red encrypted run must show which ring each process
+                # died holding (never raw key material — digests only)
+                try:
+                    os.makedirs(dest_root, exist_ok=True)
+                    with open(os.path.join(dest_root, "keyrings.json"),
+                              "w", encoding="utf-8") as f:
+                        json.dump(_rotation_forensics(rot), f, indent=1,
+                                  sort_keys=True)
+                        f.write("\n")
+                    bundles["keyrings"] = os.path.join(dest_root,
+                                                       "keyrings.json")
+                except OSError as e:
+                    print(f"record-on-fail: could not write keyring "
+                          f"digests: {e}", file=sys.stderr)
+    return result, bundles
+
+
+def _rotation_forensics(rot):
+    """The JSON-safe keyring-state slice of a rotation evidence dict:
+    per-node ring digests, the expected post-rotation primary, and the
+    convergence verdict (digests only — raw keys never leave a node)."""
+    return {k: rot.get(k) for k in
+            ("keyrings", "expected_primary", "converged", "latency_s",
+             "reconcile_rounds") if k in rot}
+
+
 def _dump_red_bundle(record_dir: str, plan, plane: str, result) -> str:
     """A red run's forensic half: one black-box bundle beside the replay
-    recording, from the process flight ring and the run's invariant
-    summary."""
+    artifact, fed from the process flight ring + the run's live watchdog
+    verdict (host ``Watchdog.state()`` / device invariant summary)."""
     from serf_tpu_torch.obs import flight
     from serf_tpu_torch.obs.blackbox import BlackBox
 
     wd = getattr(result, "watchdog", None)
     if isinstance(wd, dict) and "rows" in wd:
-        wd = {k: v for k, v in wd.items() if k != "rows"}
+        wd = {k: v for k, v in wd.items() if k != "rows"}  # host-side array
+    rot = getattr(result, "rotation", None)
+    if rot is not None:
+        # keyring state digests ride the bundle's free-form watchdog
+        # state (the schema pins sections, not state keys): a red
+        # encrypted run is undiagnosable without "who held which ring"
+        wd = dict(wd or {})
+        wd["rotation"] = _rotation_forensics(rot)
     box = BlackBox(record_dir, node=f"{plan.name}-{plane}",
                    recorder=flight.global_recorder())
     return box.dump(reason="invariant-red",
                     detail=f"plan {plan.name} [{plane}]", watchdog=wd)
 
 
-def _ab_header(plane: str, plan_name: str, controlled: bool) -> str:
-    leg = "CONTROLLED" if controlled else "STATIC"
-    return f"=== [{plane}] {plan_name}: {leg} leg " + "=" * 20
-
-
 def main(argv=None, keep=None) -> int:
-    """The command line.  ``keep``, a dict, receives the final leg's
-    ``result`` and ``recorder`` (None without ``--record-on-fail``), for
-    a caller that checks the run further."""
+    """The command line.  ``keep``, a dict, receives the last plane's
+    final leg: its ``result`` and ``recorder`` (None without
+    ``--record-on-fail``), for a caller that checks the run further."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plan", default="partition-heal-loss")
     ap.add_argument("--plane", choices=("host", "device", "proc", "both"),
-                    default="device",
-                    help="only 'device' is ported; the others exit 2")
+                    default="both",
+                    help="'proc' spawns one real OS process per node "
+                         "(serf_tpu_torch.host.agent over real sockets); "
+                         "'both' = host + device")
+    ap.add_argument("--device", default="cuda",
+                    help="the device plane's device: cuda (default) or "
+                         "cpu")
     ap.add_argument("--n", type=int, default=256,
                     help="device-plane simulated node count")
     ap.add_argument("--k-facts", type=int, default=32)
     ap.add_argument("--devices", type=int, default=0,
                     help="0 or 1: the unsharded round (the sharded round "
                          "is not ported)")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu")
     ap.add_argument("--json", action="store_true")
     ap.add_argument("--self-check", action="store_true",
-                    help="run the tiny self-check plan (device plane)")
+                    help="run the tiny self-check plan on both planes")
     ap.add_argument("--record-on-fail", dest="record_on_fail",
                     action="store_true", default=None,
                     help="attach the record/replay recorder and, on any "
                          "invariant failure, write the run's recording "
-                         "plus a black-box bundle beside it (default: on "
-                         "for --self-check)")
+                         "plus a black-box bundle beside it as repro "
+                         "artifacts (default: on for --self-check)")
     ap.add_argument("--no-record-on-fail", dest="record_on_fail",
                     action="store_false")
     ap.add_argument("--record-dir", default=".",
                     help="directory the failure recording is written to")
     ap.add_argument("--export-timeline", metavar="PATH", default=None,
                     help="write the run timeline (obs/timeline.py: spans, "
-                         "flight, device rounds, control decisions, SLO "
-                         "verdicts on one wall-clock axis) to PATH; open "
-                         "it in Perfetto")
+                         "flight, lifecycle, device rounds, control "
+                         "decisions, SLO verdicts on one wall-clock axis) "
+                         "to PATH; open it in Perfetto")
     ap.add_argument("--controller", choices=("off", "on", "ab"),
                     default="off",
                     help="'on' runs the plan with the controller; 'ab' "
-                         "runs it static, then controlled, and prints the "
-                         "SLO verdicts side by side")
+                         "runs each plane static, then controlled, and "
+                         "prints the SLO verdicts side by side (config "
+                         "profiles: serf_tpu_torch/control/profiles.py)")
     args = ap.parse_args(argv)
 
-    from serf_tpu_torch import resolve_device
+    from serf_tpu_torch.faults.host import degradation_counters
     from serf_tpu_torch.faults.plan import named_plan, plan_names
-    from serf_tpu_torch.obs import slo
 
-    if args.plane != "device" and not args.self_check:
-        print(f"--plane {args.plane}: {HOST_PLANE}", file=sys.stderr)
-        return 2
-    device = resolve_device(args.device)
     if args.self_check:
-        plan_name = "self-check"
+        plan_name, planes = "self-check", ("host", "device")
+        # the self-check keeps the device side small and unsharded
         args.n = min(args.n, 96)
+        if args.devices == 0:
+            args.devices = 1
     else:
         plan_name = args.plan
-    plane = "device"
+        planes = ("host", "device") if args.plane == "both" \
+            else (args.plane,)
     try:
         plan = named_plan(plan_name)
     except KeyError:
         print(f"unknown plan {plan_name!r}; available: "
               f"{', '.join(plan_names())}", file=sys.stderr)
         return 2
+    device = None
+    if "device" in planes:
+        from serf_tpu_torch import resolve_device
+        device = resolve_device(args.device)
 
     record_on_fail = args.record_on_fail
     if record_on_fail is None:
         record_on_fail = args.self_check
+
+    def make_recorder():
+        if not record_on_fail:
+            return None
+        from serf_tpu_torch.replay.recording import RunRecorder
+        return RunRecorder()
+
+    from serf_tpu_torch.obs import slo
 
     reports = []
     notes = []
@@ -154,106 +239,205 @@ def main(argv=None, keep=None) -> int:
     slo_verdicts = {}
     ring_summaries = {}
     control_info = {}
+    lifecycle_info = {}
     propagation_info = {}
+    rotation_info = {}
     ab = {}
     device_mesh = 1
-    #: A/B runs the plan twice (static leg first); 'on' replaces the
-    #: single run with the controlled one
+    #: A/B mode runs each plane twice (static leg first); 'on' replaces
+    #: the single run with the controlled one
     legs = {"off": (False,), "on": (True,), "ab": (False, True)}[
         args.controller]
-    final = {}
 
-    for controlled in legs:
-        is_final = controlled == legs[-1]
-        recorder = None
-        if is_final and record_on_fail:
-            from serf_tpu_torch.replay.recording import RunRecorder
-            recorder = RunRecorder()
-        t0 = time.time()
-        result, device_mesh = run_device(plan, args.n, args.k_facts,
-                                         args.devices, recorder=recorder,
-                                         controlled=controlled,
-                                         device=device)
-        final = dict(result=result, recorder=recorder,
-                     wall=(t0, time.time()))
-        verdicts = slo.judge_device_run(result, plan)
-        if args.controller == "ab":
-            ab.setdefault(plane, {})[
-                "controlled" if controlled else "static"] = {
-                "ok": result.report.ok and slo.all_ok(verdicts),
-                "report": result.report.to_dict(),
-                "slo": slo.verdicts_to_dict(verdicts),
-                "breaches": [v.slo for v in verdicts if not v.ok],
+    #: final-leg results + device wall anchors for --export-timeline
+    import time as _time
+    final_results = {}
+    final_verdicts = {}
+    device_anchor = {}
+
+    def run_leg(plane, controlled, recorder):
+        nonlocal device_mesh
+        if plane == "host":
+            result = run_host(plan, recorder=recorder,
+                              controlled=controlled)
+            verdicts = slo.judge_host_run(result, plan)
+        else:
+            t0 = _time.time()
+            result, device_mesh = run_device(plan, args.n, args.k_facts,
+                                             args.devices,
+                                             recorder=recorder,
+                                             controlled=controlled,
+                                             device=device)
+            device_anchor[plane] = (t0, _time.time())
+            verdicts = slo.judge_device_run(result, plan)
+        final_results[plane] = result
+        final_verdicts[plane] = verdicts
+        if keep is not None:
+            keep.update(result=result, recorder=recorder)
+        return result, verdicts
+
+    proc_info = {}
+    for plane in planes:
+        if plane == "proc":
+            # real processes, one run: no controller legs, no SLO
+            # judging (host-plane SLOs assume in-process series access)
+            result, proc_bundles = run_proc(plan, args.record_dir,
+                                            record_on_fail)
+            reports.append(result.report)
+            if result.load is not None:
+                overload["proc"] = result.load.to_dict()
+            degraded = {k: v for k, v in sorted(
+                result.survivor_counters.items())
+                if k.startswith("serf.degraded.")
+                or k == "memberlist.probe.failed"}
+            proc_info = {
+                "survivor_degradation": degraded,
+                "settle_convergence_s": result.settle_convergence_s,
+                "quiet_convergence_s": result.quiet_convergence_s,
+                "processes": len(result.views),
+                "spawned_pids": len(result.all_pids),
             }
-            if not args.json:
-                print(_ab_header(plane, plan.name, controlled))
-                print(result.report.format())
-                print(slo.format_verdicts(verdicts, plane))
-            if not is_final:
-                continue
-        notes.extend(result.notes)
-        if plan.has_load():
-            overload[plane] = {"offered": result.offered,
-                               "dropped": result.dropped}
-        if result.telemetry is not None:
-            ring_summaries[plane] = result.telemetry.summaries()
-        if result.propagation is not None:
-            # rows and coverage stay host arrays; the summary is the
-            # JSON-safe, printable digest
-            propagation_info[plane] = result.propagation["summary"]
-        if result.control_final is not None:
-            control_info[plane] = {"final": result.control_final,
-                                   "decisions": result.control_decisions}
-        slo_verdicts[plane] = verdicts
-        reports.append(result.report)
-        if isinstance(result.watchdog, dict):
-            watchdog_info[plane] = {k: v for k, v in result.watchdog.items()
-                                    if k != "rows"}
-        # a red run writes its repro artifacts (the recording and the
-        # black-box bundle beside it); a green run keeps neither
-        if recorder is not None and not result.report.ok:
-            path = os.path.join(args.record_dir,
-                                f"chaos-{plan.name}-{plane}.replay.jsonl")
-            try:
-                recordings[plane] = recorder.save(path)
-            except OSError as e:
-                # best effort: a bad --record-dir must not eat the report
-                # of the red run it was meant to make debuggable
-                print(f"record-on-fail: could not write {path}: {e}",
-                      file=sys.stderr)
-            try:
-                blackboxes[plane] = _dump_red_bundle(
-                    args.record_dir, plan, plane, result)
-            except (OSError, TypeError, ValueError) as e:
-                print(f"record-on-fail: could not dump black box: {e}",
-                      file=sys.stderr)
+            rot = getattr(result, "rotation", None)
+            if rot is not None:
+                # rotation-latency is the ONE host SLO the proc plane can
+                # judge without in-process series access: the finale hands
+                # back the measured reconvergence latency directly
+                import math as _math
+                rot_val = (float(rot.get("latency_s", _math.inf))
+                           if rot.get("converged") else _math.inf)
+                probes = rot.get("probes", {})
+                slo_verdicts["proc"] = [slo.judge(
+                    slo.slo_def("rotation-latency"), "proc", rot_val,
+                    detail=f"{len(rot.get('keyrings', {}))} ring(s), "
+                           f"{rot.get('reconcile_rounds', 0)} reconcile "
+                           f"round(s)")]
+                rotation_info["proc"] = rot
+            lifecycle_info.update(
+                {f"proc:{nid}": lc
+                 for nid, lc in sorted(result.lifecycle.items())}
+                if args.json else {})
+            for node_id, path in sorted(proc_bundles.items()):
+                blackboxes[f"proc:{node_id}"] = path
+            continue
+        for controlled in legs:
+            is_final = controlled == legs[-1]
+            recorder = make_recorder() if is_final else None
+            result, verdicts = run_leg(plane, controlled, recorder)
+            if args.controller == "ab":
+                ab.setdefault(plane, {})[
+                    "controlled" if controlled else "static"] = {
+                    "ok": result.report.ok and slo.all_ok(verdicts),
+                    "report": result.report.to_dict(),
+                    "slo": slo.verdicts_to_dict(verdicts),
+                    "breaches": [v.slo for v in verdicts if not v.ok],
+                }
+                if not args.json:
+                    print(_ab_header(plane, plan.name, controlled))
+                    print(result.report.format())
+                    print(slo.format_verdicts(verdicts, plane))
+                if not is_final:
+                    continue
+            if plane == "host":
+                if result.load is not None:
+                    overload["host"] = result.load.to_dict()
+                lc = getattr(result, "lifecycle", None)
+                if lc is not None:
+                    lifecycle_info[plane] = lc
+                series = getattr(result, "series", None)
+                if series is not None:
+                    ring_summaries[plane] = series.summaries()
+                if getattr(result, "propagation", None) is not None:
+                    propagation_info[plane] = result.propagation
+                if getattr(result, "rotation", None) is not None:
+                    rotation_info[plane] = result.rotation
+                if getattr(result, "control", None) is not None:
+                    control_info[plane] = result.control
+            else:
+                notes.extend(result.notes)
+                if plan.has_load():
+                    overload["device"] = {"offered": result.offered,
+                                          "dropped": result.dropped}
+                telemetry = getattr(result, "telemetry", None)
+                if telemetry is not None:
+                    ring_summaries[plane] = telemetry.summaries()
+                prop = getattr(result, "propagation", None)
+                if prop is not None:
+                    # rows/coverage stay host-side arrays; the summary
+                    # is the JSON-safe, printable digest
+                    propagation_info[plane] = prop["summary"]
+                if getattr(result, "control_final", None) is not None:
+                    control_info[plane] = {
+                        "final": result.control_final,
+                        "decisions": result.control_decisions,
+                    }
+            slo_verdicts[plane] = verdicts
+            reports.append(result.report)
+            wd = getattr(result, "watchdog", None)
+            if isinstance(wd, dict):
+                watchdog_info[plane] = {k: v for k, v in wd.items()
+                                        if k != "rows"}
+            # a red run writes its repro artifacts (recording + digest
+            # stream, and the black-box bundle beside it); green runs
+            # keep neither — the recorder stayed in-memory
+            if recorder is not None and not result.report.ok:
+                path = os.path.join(
+                    args.record_dir,
+                    f"chaos-{plan.name}-{plane}.replay.jsonl")
+                try:
+                    recordings[plane] = recorder.save(path)
+                except OSError as e:
+                    # the repro artifact is best-effort: a bad
+                    # --record-dir must not eat the invariant report of
+                    # exactly the red run it was meant to make debuggable
+                    print(f"record-on-fail: could not write {path}: {e}",
+                          file=sys.stderr)
+                try:
+                    blackboxes[plane] = _dump_red_bundle(
+                        args.record_dir, plan, plane, result)
+                except (OSError, TypeError, ValueError) as e:
+                    print(f"record-on-fail: could not dump black box: "
+                          f"{e}", file=sys.stderr)
 
     timeline_path = None
     if args.export_timeline:
+        # one bundle for the whole invocation: spans/flight ride the
+        # process-global rings (added once), the host leg contributes
+        # its lifecycle + SLO lanes, the device leg its round series +
+        # control decisions mapped through the measured wall anchors
         from serf_tpu_torch.obs.timeline import (
             DeviceRunAnchors,
             PiecewiseAnchors,
             export_run_timeline,
         )
-        dev = final["result"]
+        dev = final_results.get("device")
         try:
-            if dev.scan_walls:
-                # per-chunk stamps: a slow first chunk skews only itself
-                anchors = PiecewiseAnchors(dev.scan_walls)
-            else:
-                t0, t1 = final["wall"]
-                anchors = DeviceRunAnchors(wall_start=t0, wall_end=t1,
-                                           rounds=dev.rounds_run)
+            anchors = None
+            if dev is not None:
+                if getattr(dev, "scan_walls", None):
+                    # per-chunk stamps: a first-chunk compile skews
+                    # only that chunk, not the whole run's round→wall
+                    # mapping
+                    anchors = PiecewiseAnchors(dev.scan_walls)
+                elif "device" in device_anchor:
+                    t0, t1 = device_anchor["device"]
+                    anchors = DeviceRunAnchors(wall_start=t0, wall_end=t1,
+                                               rounds=dev.rounds_run)
             timeline_path = export_run_timeline(
-                args.export_timeline, device_result=dev,
-                device_anchors=anchors,
-                device_verdicts=slo_verdicts.get(plane),
-                meta={"plan": plan.name, "planes": [plane],
+                args.export_timeline,
+                host_result=final_results.get("host"),
+                host_verdicts=final_verdicts.get("host"),
+                device_result=dev, device_anchors=anchors,
+                device_verdicts=final_verdicts.get("device"),
+                meta={"plan": plan.name, "planes": list(planes),
                       "controller": args.controller})
-        except Exception as e:  # noqa: BLE001 - best effort, as above
+        except Exception as e:  # noqa: BLE001 - same best-effort
+            # contract as --record-on-fail: the artifact (bad path OR
+            # exporter bug) must not eat the invariant report of the
+            # run it was meant to make debuggable
             print(f"export-timeline: could not write "
                   f"{args.export_timeline}: {e!r}", file=sys.stderr)
 
+    counters = degradation_counters()
     if args.json:
         out = {
             "plan": plan.name,
@@ -263,15 +447,20 @@ def main(argv=None, keep=None) -> int:
             "slo": {p: slo.verdicts_to_dict(v)
                     for p, v in sorted(slo_verdicts.items())},
             "ring_summaries": ring_summaries,
+            "degradation_counters": counters,
             "lowering_notes": notes,
             "overload": overload,
+            "lifecycle": lifecycle_info,
             "propagation": propagation_info,
+            "rotation": rotation_info,
             "device_mesh_devices": device_mesh,
             "recordings": recordings,
             "blackboxes": blackboxes,
             "watchdog": watchdog_info,
             "timeline": timeline_path,
         }
+        if proc_info:
+            out["proc"] = proc_info
         if args.controller != "off":
             out["controller"] = args.controller
             out["control"] = control_info
@@ -279,67 +468,104 @@ def main(argv=None, keep=None) -> int:
             out["control_ab"] = ab
         print(json.dumps(out, indent=1, sort_keys=True))
     else:
-        _print_report(args, plan, reports, slo_verdicts, ab, control_info,
-                      watchdog_info, recordings, blackboxes, timeline_path,
-                      device_mesh, notes, overload, propagation_info)
-    if keep is not None:
-        keep.update(result=final["result"], recorder=final["recorder"])
+        if args.controller != "ab":
+            # (ab mode printed each leg inline above)
+            for r, plane in zip(reports, planes):
+                print(r.format())
+                if plane in slo_verdicts:
+                    print(slo.format_verdicts(slo_verdicts[plane], plane))
+        else:
+            for plane in planes:
+                st = ab[plane]["static"]
+                ct = ab[plane]["controlled"]
+                print(f"[{plane}] A/B: static "
+                      f"{'GREEN' if st['ok'] else 'BREACHED (' + ', '.join(st['breaches'] + [i['name'] for i in st['report']['invariants'] if not i['ok']]) + ')'}"
+                      f" -> controlled "
+                      f"{'GREEN' if ct['ok'] else 'STILL RED'}")
+        for plane, d in sorted(control_info.items()):
+            decs = d.get("decisions", [])
+            print(f"controller [{plane}]: {len(decs)} decision(s)"
+                  + (f", final {d['final']}" if "final" in d
+                     else f", values {d.get('values')}"))
+        if proc_info:
+            deg = ", ".join(f"{k}={v:.0f}" for k, v in
+                            proc_info["survivor_degradation"].items()) \
+                or "none"
+            print(f"[proc] {proc_info['processes']} processes "
+                  f"({proc_info['spawned_pids']} incarnations), settle "
+                  f"convergence {proc_info['settle_convergence_s']:.2f}s, "
+                  f"survivor degradation: {deg}")
+        for plane, wd in sorted(watchdog_info.items()):
+            first = wd.get("first_breach") or wd.get("first_violation")
+            print(f"watchdog [{plane}]: "
+                  f"{'ok' if wd.get('ok') else 'BREACHED'}"
+                  + (f" (first: {first})" if first else ""))
+        for plane, path in sorted(recordings.items()):
+            print(f"repro recording [{plane}]: {path} (replay with "
+                  "`python -m serf_tpu_torch.tools.replay replay <path>`)")
+        for plane, path in sorted(blackboxes.items()):
+            print(f"black-box bundle [{plane}]: {path}")
+        if timeline_path:
+            print(f"timeline bundle: {timeline_path} "
+                  "(open at https://ui.perfetto.dev)")
+        if "device" in planes:
+            print(f"device mesh: {device_mesh} device(s)"
+                  + (" (sharded flagship round)" if device_mesh > 1
+                     else ""))
+        if notes:
+            print("lowering notes: " + "; ".join(notes))
+        if overload:
+            print("overload accounting:")
+            for plane, data in sorted(overload.items()):
+                row = ", ".join(f"{k}={v}" for k, v in sorted(data.items()))
+                print(f"  [{plane}] {row}")
+        if lifecycle_info:
+            # the per-stage latency decomposition of the host hot path
+            # (obs/lifecycle.py), printed beside the invariant and SLO
+            # verdicts it contextualizes
+            from serf_tpu_torch.obs.lifecycle import format_waterfall
+            for plane, lc in sorted(lifecycle_info.items()):
+                print(f"[{plane}] {format_waterfall(lc)}")
+                if lc.get("slow"):
+                    print(f"  slow-message flight events: {lc['slow']} "
+                          f"(> {lc['slow_ms']:g} ms e2e)")
+        if propagation_info:
+            # the coverage-curve verdict (obs/propagation.py), printed
+            # beside the invariant and SLO verdicts on both planes
+            from serf_tpu_torch.obs.propagation import format_propagation
+            for plane, p in sorted(propagation_info.items()):
+                print(format_propagation(p, plane))
+        for plane, rot in sorted(rotation_info.items()):
+            probes = rot.get("probes", {})
+            print(f"rotation [{plane}]: "
+                  f"{'converged' if rot.get('converged') else 'NOT CONVERGED'}"
+                  f" in {rot.get('latency_s', float('nan')):.3f}s "
+                  f"({rot.get('reconcile_rounds', 0)} reconcile round(s)), "
+                  f"{len(rot.get('ops', []))} op(s), mid-rotation probes "
+                  f"{probes.get('delivered', 0)}/{probes.get('offered', 0)}"
+                  f" delivered, decrypt fallback/fail "
+                  f"{rot.get('decrypt_fallback', 0):.0f}/"
+                  f"{rot.get('decrypt_fail', 0):.0f}, rings -> "
+                  f"{rot.get('expected_primary', '?')}")
+        print("degradation counters:")
+        for name in sorted(counters):
+            print(f"  {name} = {counters[name]:.0f}")
     if args.controller == "ab":
-        # the A/B verdict: the controlled leg must be all green
-        # (invariants and SLOs); the static leg may breach
+        # A/B verdict: the CONTROLLED legs must be all-green (invariants
+        # AND SLOs) — the static legs are allowed (expected, for the
+        # control-* plans) to breach
         return 0 if all(ab[p]["controlled"]["ok"] for p in ab) else 1
-    return 0 if all(r.ok for r in reports) else 1
+    # rotation-latency is part of the rotation proof, not advisory: an
+    # encrypted run that reconverges too slowly (or never) exits red even
+    # when every invariant held (other SLOs stay report-only here)
+    rotation_ok = all(v.ok for vs in slo_verdicts.values()
+                      for v in vs if v.slo == "rotation-latency")
+    return 0 if (all(r.ok for r in reports) and rotation_ok) else 1
 
 
-def _print_report(args, plan, reports, slo_verdicts, ab, control_info,
-                  watchdog_info, recordings, blackboxes, timeline_path,
-                  device_mesh, notes, overload, propagation_info) -> None:
-    """The human-readable report (the reference's layout, device plane)."""
-    from serf_tpu_torch.obs import slo
-    from serf_tpu_torch.obs.propagation import format_propagation
-
-    if args.controller != "ab":
-        for r in reports:
-            print(r.format())
-            if r.plane in slo_verdicts:
-                print(slo.format_verdicts(slo_verdicts[r.plane], r.plane))
-    else:
-        for plane in sorted(ab):
-            st = ab[plane]["static"]
-            ct = ab[plane]["controlled"]
-            red = st["breaches"] + [i["name"] for i in
-                                    st["report"]["invariants"]
-                                    if not i["ok"]]
-            print(f"[{plane}] A/B: static "
-                  f"{'GREEN' if st['ok'] else 'BREACHED (' + ', '.join(red) + ')'}"
-                  f" -> controlled "
-                  f"{'GREEN' if ct['ok'] else 'STILL RED'}")
-    for plane, d in sorted(control_info.items()):
-        print(f"controller [{plane}]: {len(d['decisions'])} decision(s), "
-              f"final {d['final']}")
-    for plane, wd in sorted(watchdog_info.items()):
-        first = wd.get("first_violation")
-        print(f"watchdog [{plane}]: "
-              f"{'ok' if wd.get('ok') else 'BREACHED'}"
-              + (f" (first: {first})" if first else ""))
-    for plane, path in sorted(recordings.items()):
-        print(f"repro recording [{plane}]: {path} (replay with `python -m "
-              f"serf_tpu_torch.tools.replay replay <path>`)")
-    for plane, path in sorted(blackboxes.items()):
-        print(f"black-box bundle [{plane}]: {path}")
-    if timeline_path:
-        print(f"timeline bundle: {timeline_path} "
-              "(open at https://ui.perfetto.dev)")
-    print(f"device mesh: {device_mesh} device(s)")
-    if notes:
-        print("lowering notes: " + "; ".join(notes))
-    if overload:
-        print("overload accounting:")
-        for plane, data in sorted(overload.items()):
-            row = ", ".join(f"{k}={v}" for k, v in sorted(data.items()))
-            print(f"  [{plane}] {row}")
-    for plane, p in sorted(propagation_info.items()):
-        print(format_propagation(p, plane))
+def _ab_header(plane: str, plan_name: str, controlled: bool) -> str:
+    leg = "CONTROLLED" if controlled else "STATIC"
+    return f"=== [{plane}] {plan_name}: {leg} leg " + "=" * 20
 
 
 if __name__ == "__main__":

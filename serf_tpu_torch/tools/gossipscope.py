@@ -1,7 +1,7 @@
-"""gossipscope: trace how facts spread on the device plane (command line).
+"""gossipscope: trace how facts spread (command line).
 
-The port's counterpart of ``tools/gossipscope.py``, device trace.  It
-runs a named FaultPlan with the sentinel tracer on (the first injected
+The port's counterpart of ``tools/gossipscope.py``.  Device mode (the
+default) runs a named FaultPlan with the sentinel tracer on (the first injected
 event batch is followed round by round on the device) and renders:
 
 - the coverage curve (ASCII, rounds on x, coverage on y, the 50/90/99%
@@ -13,26 +13,33 @@ event batch is followed round by round on the device) and renders:
   (``models/accounting.propagation_split``) at the traced N and at the
   1M flagship.
 
-Usage (the card unless ``--device cpu``)::
+Host mode (``--host``) stands up the loopback self-check cluster
+(``faults/host.run_host_plan``) and fires a traced probe: one user event
+whose trace id is polled across every node's propagation ledger for
+coverage and time-to-all-nodes; it exits 0 iff the run is green and the
+probe covered every node.
+
+Usage (the device trace on the card unless ``--device cpu``; the host
+probe never touches it)::
 
     python -m serf_tpu_torch.tools.gossipscope [--plan crash-restart] \\
         [--n 128] [--json]
+    python -m serf_tpu_torch.tools.gossipscope --host [--json]
     python -m serf_tpu_torch.tools.gossipscope --self-check [--n N]
 
 ``--self-check`` traces the ``self-check`` plan at K = 32 (N = 64 unless
 ``--n`` names another) and exits 0 iff the run is sane: invariants
 green, full sentinel coverage, a finite time-to-99% and a redundancy in
-(0, 1).  ``--host`` (the loopback probe) exits 2: the host plane is not
-ported yet.  The config is the reference's (``use_pallas`` off).
+(0, 1).  The device config is the reference's (``use_pallas`` off).
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import sys
-
-from serf_tpu_torch.tools.chaos import HOST_PLANE
+import tempfile
 
 FLAGSHIP_N = 1_000_000
 
@@ -69,6 +76,19 @@ def run_device_trace(plan_name: str, n: int, k_facts: int,
             cfg, measured_redundancy=summary["redundancy"]),
         "split_flagship": propagation_split(flagship_config(FLAGSHIP_N)),
     }
+
+
+def run_host_probe() -> dict:
+    """Loopback cluster + traced probe; returns the propagation dict
+    (coverage, time-to-all, fold of every node's ledger)."""
+    from serf_tpu_torch.faults.host import run_host_plan
+    from serf_tpu_torch.faults.plan import named_plan
+
+    plan = named_plan("self-check")
+    with tempfile.TemporaryDirectory(prefix="serf-gossipscope-") as td:
+        result = asyncio.run(run_host_plan(plan, tmp_dir=td))
+    return {"plan": plan.name, "report_ok": result.report.ok,
+            "propagation": result.propagation}
 
 
 def _mb(b: float) -> str:
@@ -117,6 +137,18 @@ def print_device(out: dict) -> None:
         print(f"  other planes     {_mb(sp['other_bytes'])}")
 
 
+def print_host(out: dict) -> None:
+    from serf_tpu_torch.obs.propagation import format_propagation
+
+    p = out["propagation"]
+    print(f"gossipscope: plan {out['plan']!r} (host loopback)")
+    print(format_propagation(p, "host"))
+    if p and p.get("trace"):
+        print(f"  probe trace id {p['trace']} — ledger fold: "
+              f"{p['seen']} seen, {p['duplicates']} duplicate(s), "
+              f"{p['rebroadcasts']} rebroadcast(s)")
+
+
 def self_check(out: dict) -> int:
     """Exit status of ``--self-check``: the traced run must be sane."""
     s = out["summary"]
@@ -146,9 +178,11 @@ def main(argv=None) -> int:
                     help="simulated node count (default 64)")
     ap.add_argument("--k-facts", type=int, default=32)
     ap.add_argument("--host", action="store_true",
-                    help="the host loopback probe (not ported: exits 2)")
+                    help="host loopback probe instead of the device "
+                         "sentinel trace")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu")
+                    help="the device trace's device: cuda (default) or "
+                         "cpu")
     ap.add_argument("--json", action="store_true")
     ap.add_argument("--self-check", action="store_true",
                     help="trace the self-check plan, exit 0 iff sane "
@@ -156,14 +190,22 @@ def main(argv=None) -> int:
                          "(0,1))")
     args = ap.parse_args(argv)
 
-    if args.host and not args.self_check:
-        print(f"--host: {HOST_PLANE}", file=sys.stderr)
-        return 2
+    if args.self_check:
+        args.host = False
+        args.plan, args.k_facts = "self-check", 32
+
+    if args.host:
+        out = run_host_probe()
+        if args.json:
+            print(json.dumps(out, indent=1, sort_keys=True))
+        else:
+            print_host(out)
+        p = out["propagation"] or {}
+        return 0 if out["report_ok"] and p.get("coverage") == 1.0 else 1
+
     from serf_tpu_torch import resolve_device
     device = resolve_device(args.device)
     n = args.n if args.n is not None else SELF_CHECK_N
-    if args.self_check:
-        args.plan, args.k_facts = "self-check", 32
 
     out = run_device_trace(args.plan, n, args.k_facts, device=device)
     if args.json:

@@ -1,40 +1,42 @@
-"""obswatch: run the telemetry scenario on the device plane and judge the
-SLOs (command line).
+"""obswatch: run the telemetry scenario on both planes and judge the SLOs
+(command line).
 
-The port's counterpart of ``tools/obswatch.py``, device leg: a seeded
-partition + loss FaultPlan through the flagship ``cluster_round`` with
-the per-round telemetry, the sentinel propagation tracer and the
-invariant rows collected on the device (one read after the run), timed
-so that the measured rounds/s is judged against the byte model's
-ceiling (``models/accounting.round_traffic(cfg).ceiling_rounds_per_sec
-()``, at the card's HBM rate) — every verdict from the one SLO table
-(``obs/slo.py``).
+The port's counterpart of ``tools/obswatch.py``.  One run:
 
-Usage (the card unless ``--device cpu``)::
+- **device leg**: a seeded partition + loss FaultPlan through the
+  flagship ``cluster_round`` with the per-round telemetry, the sentinel
+  propagation tracer and the invariant rows collected on the device (one
+  read after the run), timed so that the measured rounds/s is judged
+  against the byte model's ceiling (``models/accounting.round_traffic
+  (cfg).ceiling_rounds_per_sec()``, at the card's HBM rate);
+- **host leg**: the loopback self-check chaos plan
+  (``faults/host.run_host_plan``) with the ``MetricsSampler`` ticking
+  throughout, the message-lifecycle ledger and the live watchdog;
+- both planes judged against the one SLO table (``obs/slo.py``):
+  verdicts, burn rates, anomaly flags, ring tails.
 
-    python -m serf_tpu_torch.tools.obswatch --device-only [--n 64] [--json]
-    python -m serf_tpu_torch.tools.obswatch --device-only --self-check
+Usage (the device leg on the card unless ``--device cpu``)::
+
+    python -m serf_tpu_torch.tools.obswatch [--n 64] [--json]
+    python -m serf_tpu_torch.tools.obswatch --self-check
+    python -m serf_tpu_torch.tools.obswatch --device-only
     python -m serf_tpu_torch.tools.obswatch --degraded
         # 90% loss past the heal and no settle budget: the cluster cannot
         # re-converge, so the run must fire `slo-breach` and exit nonzero
+        # (device leg only)
 
-Exit 0 iff every evaluated (non-skipped) verdict is green.  The host leg
-(the loopback cluster with its sampler, lifecycle ledger and watchdog)
-is not ported yet, so ``--device-only`` is required unless
-``--degraded`` is given (which runs the device leg alone, as in the
-reference); without either the tool exits 2.  The ``--json`` object
-leaves out the reference's ``lifecycle`` key.  The config is the
-reference's (``use_pallas`` off).
+Exit 0 iff every evaluated (non-skipped) verdict on every plane is
+green.  The device config is the reference's (``use_pallas`` off).
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import sys
+import tempfile
 import time
-
-from serf_tpu_torch.tools.chaos import HOST_PLANE
 
 
 def device_plan(degraded: bool = False):
@@ -93,6 +95,22 @@ def run_device_leg(n: int, degraded: bool, device=None):
     return verdicts, result.telemetry, rps, ceiling, prop, wd
 
 
+def run_host_leg():
+    """Run the host self-check chaos plan (sampler rings + the message
+    lifecycle ledger ride along); returns (verdict list — including the
+    stage-latency rows judged from the ledger snapshot —, ring store,
+    lifecycle snapshot)."""
+    from serf_tpu_torch.faults.host import run_host_plan
+    from serf_tpu_torch.faults.plan import named_plan
+    from serf_tpu_torch.obs import slo
+
+    plan = named_plan("self-check")
+    with tempfile.TemporaryDirectory(prefix="serf-obswatch-") as td:
+        result = asyncio.run(run_host_plan(plan, tmp_dir=td))
+    return (slo.judge_host_run(result, plan), result.series,
+            result.lifecycle, result.propagation, result.watchdog)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=64,
@@ -106,18 +124,13 @@ def main(argv=None) -> int:
                     help="raise loss past heal so the SLOs must breach "
                          "(exit becomes nonzero)")
     ap.add_argument("--device-only", action="store_true",
-                    help="the device leg alone (the host leg is not "
-                         "ported)")
+                    help="skip the host leg (fast in-process smoke)")
     ap.add_argument("--tail", type=int, default=16,
                     help="ring-tail points per series in --json output")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu")
+                    help="the device leg's device: cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if not args.device_only and not args.degraded:
-        print(f"the host leg: {HOST_PLANE} (pass --device-only)",
-              file=sys.stderr)
-        return 2
     from serf_tpu_torch import resolve_device
     from serf_tpu_torch.obs import flight, slo
 
@@ -135,6 +148,17 @@ def main(argv=None) -> int:
         propagation["device"] = dev_prop
     if dev_wd:
         watchdog["device"] = dev_wd
+    lifecycle_snap = None
+    if not args.device_only and not args.degraded:
+        host_verdicts, host_store, lifecycle_snap, host_prop, host_wd = \
+            run_host_leg()
+        verdicts["host"] = host_verdicts
+        if host_store is not None:
+            rings["host"] = host_store
+        if host_prop is not None:
+            propagation["host"] = host_prop
+        if host_wd:
+            watchdog["host"] = host_wd
 
     ok = all(slo.all_ok(v) for v in verdicts.values())
     breaches = flight.flight_dump(kind="slo-breach")
@@ -148,6 +172,7 @@ def main(argv=None) -> int:
             "slo_breach_events": breaches,
             "rings": {p: s.tail(last=args.tail)
                       for p, s in sorted(rings.items())},
+            "lifecycle": lifecycle_snap,
             "propagation": propagation,
             "watchdog": watchdog,
         }, indent=1, sort_keys=True))
@@ -160,6 +185,16 @@ def main(argv=None) -> int:
                 print(format_propagation(propagation[plane], plane))
         if "device" in watchdog:
             print(format_invariants(watchdog["device"], "device"))
+        if "host" in watchdog:
+            wd = watchdog["host"]
+            print(f"[host] watchdog: "
+                  f"{'GREEN' if wd.get('ok') else 'BREACHED'} "
+                  f"({wd.get('ticks', 0)} tick(s), "
+                  f"{len(wd.get('armed') or ())} armed, "
+                  f"{len(wd.get('bundles') or ())} bundle(s))")
+        if lifecycle_snap is not None:
+            from serf_tpu_torch.obs.lifecycle import format_waterfall
+            print(format_waterfall(lifecycle_snap))
         print(f"device: {rps:.1f} measured rounds/s vs analytic "
               f"ceiling {ceiling:.1f}")
         if breaches:

@@ -15,30 +15,28 @@ recording and diffs the replayed digest stream against it: exit 0 iff
 bit-identical.  ``diff`` compares two recordings' digest streams and
 names the first divergent round and the per-node view delta there;
 exit 1 on any divergence.  Recordings made by either package replay in
-the other (``replay/recording.py``).  Both runs are on the card unless
-``--device cpu``.  Host-plane recordings (``record --plane host``, or
-replaying one) exit 2: the host plane is not ported yet.
+the other (``replay/recording.py``).  ``record --plane host`` runs the
+plan on an in-process loopback cluster (``faults/host.run_host_plan``,
+snapshots in a temp dir) and records a digest at each convergence
+barrier; a host recording replays with virtualized timing
+(``replay/replayer.replay_host``).  Device runs are on the card unless
+``--device cpu``; host runs never touch it.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import sys
-
-from serf_tpu_torch.tools.chaos import HOST_PLANE
+import tempfile
 
 
 def cmd_record(args) -> int:
-    from serf_tpu_torch import resolve_device
-    from serf_tpu_torch.faults.device import run_device_plan
     from serf_tpu_torch.faults.plan import named_plan, plan_names
     from serf_tpu_torch.replay.recording import RunRecorder
     from serf_tpu_torch.replay.selfcheck import default_replay_cfg
 
-    if args.plane != "device":
-        print(f"record --plane {args.plane}: {HOST_PLANE}", file=sys.stderr)
-        return 2
     try:
         plan = named_plan(args.plan)
     except KeyError:
@@ -46,9 +44,19 @@ def cmd_record(args) -> int:
               f"{', '.join(plan_names())}", file=sys.stderr)
         return 2
     recorder = RunRecorder()
-    result = run_device_plan(
-        plan, default_replay_cfg(args.n, args.k_facts), recorder=recorder,
-        device=resolve_device(args.device))
+    if args.plane == "device":
+        from serf_tpu_torch import resolve_device
+        from serf_tpu_torch.faults.device import run_device_plan
+
+        result = run_device_plan(
+            plan, default_replay_cfg(args.n, args.k_facts),
+            recorder=recorder, device=resolve_device(args.device))
+    else:
+        from serf_tpu_torch.faults.host import run_host_plan
+
+        with tempfile.TemporaryDirectory(prefix="serf-replay-") as td:
+            result = asyncio.run(
+                run_host_plan(plan, tmp_dir=td, recorder=recorder))
     rec = recorder.to_recording()
     path = rec.save(args.out)
     views = len(rec.views())
@@ -64,18 +72,19 @@ def cmd_record(args) -> int:
 
 
 def cmd_replay(args) -> int:
-    from serf_tpu_torch import resolve_device
     from serf_tpu_torch.replay.differ import diff_recordings
     from serf_tpu_torch.replay.recording import Recording
-    from serf_tpu_torch.replay.replayer import replay_device
+    from serf_tpu_torch.replay.replayer import replay_recording
 
     rec = Recording.load(args.recording)
-    if rec.plane != "device":
-        print(f"replay of a {rec.plane}-plane recording: {HOST_PLANE}",
-              file=sys.stderr)
-        return 2
-    replayed = replay_device(
-        rec, device=resolve_device(args.device)).to_recording()
+    device = None
+    if rec.plane == "device":
+        from serf_tpu_torch import resolve_device
+        device = resolve_device(args.device)
+    with tempfile.TemporaryDirectory(prefix="serf-replay-") as td:
+        replayed = replay_recording(
+            rec, tmp_dir=td if rec.plane == "host" else None,
+            device=device).to_recording()
     if args.out:
         replayed.save(args.out)
     rep = diff_recordings(rec, replayed)
@@ -109,13 +118,14 @@ def main(argv=None) -> int:
     rec = sub.add_parser("record", help="run a plan and write a recording")
     rec.add_argument("--plan", default="partition-heal-loss")
     rec.add_argument("--plane", choices=("host", "device"),
-                     default="device", help="only 'device' is ported")
+                     default="device")
     rec.add_argument("--n", type=int, default=96,
                      help="device-plane simulated node count")
     rec.add_argument("--k-facts", type=int, default=32)
     rec.add_argument("--out", default="serf-replay.jsonl")
     rec.add_argument("--device", default="cuda",
-                     help="cuda (default) or cpu")
+                     help="the device plane's device: cuda (default) or "
+                          "cpu")
     rec.add_argument("--json", action="store_true")
     rec.set_defaults(fn=cmd_record)
 
@@ -125,7 +135,8 @@ def main(argv=None) -> int:
     rp.add_argument("--out", default=None,
                     help="also write the replayed digest stream here")
     rp.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu")
+                    help="a device recording's device: cuda (default) or "
+                         "cpu")
     rp.add_argument("--json", action="store_true")
     rp.set_defaults(fn=cmd_replay)
 

@@ -24,9 +24,8 @@ from serf_tpu_torch.utils.logging import get_logger
 log = get_logger("tasks")
 
 #: process-fatal-exception observers (``fn(task_name, exc)``): the
-#: host watchdog (the reference's ``obs/watchdog.Watchdog.
-#: install_task_hook``; the port's waits with the host plane) registers here
-#: so a background task dying with a real exception counts as a breach
+#: host watchdog (``obs/watchdog.Watchdog.install_task_hook``) registers
+#: here so a background task dying with a real exception counts as a breach
 #: and triggers the black-box dump — the "crash forensics" half of the
 #: spawn contract.  Hooks must never raise; a raising hook is logged and
 #: dropped for the event (never unregistered behind the owner's back).

@@ -5,13 +5,12 @@ The reference's unit tests of ``tests/test_proc_cluster.py`` (control
 frames, chaos-rule serde, ``addr_key``, ``AgentConfig``, the snapshot
 flock, atomic writes) run on both packages through the scenario harness
 of ``test_torch_host_scenarios.py``; the rest of that module drives
-``faults/proc.ProcCluster`` and ``run_proc_plan`` (``ROADMAP.md`` queue
-1 item 6(d)).  Frames and rules encoded by either package decode in the
-other.
+``faults/proc.ProcCluster`` and ``run_proc_plan``, and runs in
+``test_torch_proc_chaos.py``.  Frames and rules encoded by either
+package decode in the other.
 
 The process tests spawn agents with ``chip_smoke.AgentProcs`` (the
-spawner ``chip_smoke.py`` phase 8 uses; ``ProcCluster`` waits for item
-6(d)):
+spawner ``chip_smoke.py`` phase 8 uses):
 
 - three port agents pass the steps of the reference's
   ``test_sigterm_leaves_sigkill_fails_restart_rejoins`` word for word;
@@ -33,7 +32,12 @@ from pathlib import Path
 import pytest
 import torch
 
-from test_torch_host_scenarios import PACKAGES, check_scenario, scenarios
+from test_torch_host_scenarios import (
+    PACKAGES,
+    bounded,
+    check_scenario,
+    scenarios,
+)
 
 torch.set_num_threads(1)
 
@@ -46,6 +50,10 @@ CASE_LIMIT = 90.0
 #: a convergence, leave or detection's bound, and a SIGTERM'd agent's
 #: exit (the reference test's own numbers)
 WAIT = 10.0
+
+#: each test's hard limit, blocking calls included (a case, and a
+#: reference rerun beside it)
+_bounded = bounded(2 * CASE_LIMIT)
 
 PROC_CLUSTER_ONLY = {
     "test_ctl_frame_roundtrip",

@@ -247,6 +247,7 @@ def test_new_modules_are_in_the_import_scan():
     ``serf_tpu``) covers every module of this slice."""
     scanned = {p.relative_to(REPO).as_posix() for p in _port_files()}
     for mod in ("faults/plan", "faults/device", "faults/invariants",
+                "faults/host", "faults/proc", "tools/chaos", "tools/replay",
                 "control/profiles", "replay/digest", "replay/recording",
                 "replay/replayer", "replay/differ", "replay/selfcheck",
                 "obs/timeseries", "obs/propagation", "obs/watchdog",

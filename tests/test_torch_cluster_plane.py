@@ -10,18 +10,18 @@ summaries held equal:
 
 - ``tests/test_cluster_obs.py``: its unit and in-process tests; not
   ``test_metrics_lint_covers_cluster_plane_gauges`` (the reference's
-  lint tool over the reference's tree and README) nor
-  ``test_obstop_json_self_check`` (``tools/obstop.py``, ``ROADMAP.md``
-  queue 1 item 6(d));
+  lint tool over the reference's tree and README, ``ROADMAP.md`` queue
+  1 item 6) nor ``test_obstop_json_self_check`` (``tools/obstop.py``,
+  item 5);
 - ``tests/test_watchdog.py``: the two black-box inventory tests (the
-  rest of the module drives the device watchdog and ``Watchdog``, item
-  6(d));
+  host watchdog's run in ``test_torch_observers.py``);
 - ``tests/test_control.py``: the two host controller tests;
-- ``tests/test_timeline.py``: the synthetic-bundle tests (the query
-  storm bundle needs ``run_host_plan``, item 6(d));
+- ``tests/test_timeline.py``: the synthetic-bundle tests and the query
+  storm bundle (a host plan with the controller on, and a device leg
+  that the port runs on the CPU here);
 - ``tests/test_key_rotation.py``: the three ``KeyResponse`` unit tests
-  (the rotation plans need ``run_host_plan`` and ``faults/proc.py``,
-  item 6(d)).
+  and the two small ``rotate-crash-restart`` plans, on the loopback
+  cluster and on agent processes (a SIGKILL at the key switch).
 
 Then a mixed cluster, two reference and two port nodes on TCP sockets
 with one shared key: each package's ``cluster_stats`` and
@@ -39,6 +39,7 @@ import torch
 
 from test_torch_host_scenarios import (
     PACKAGES,
+    bounded,
     check_scenario,
     retry_port0_binds,
     scenarios,
@@ -48,6 +49,9 @@ torch.set_num_threads(1)
 
 CASE_LIMIT = 40.0
 WAIT = 10.0
+#: each test's hard limit, blocking calls included (a case, and a
+#: reference rerun beside it)
+_bounded = bounded(2 * CASE_LIMIT)
 
 CLUSTER_OBS_EXCLUDE = {
     # the reference's metrics lint over its own tree and README
@@ -69,11 +73,14 @@ TIMELINE_ONLY = {
     "test_json_round_trip_and_stable_pid_tid_mapping",
     "test_validator_rejects_broken_bundles",
     "test_device_anchor_round_mapping_is_clamped_linear",
+    "test_query_storm_bundle_has_all_six_surfaces",
 }
 KEY_ROTATION_ONLY = {
     "test_key_response_quorum_is_strict_majority",
     "test_key_response_empty_cluster_fails_closed",
     "test_key_response_attempts_defaults_to_one",
+    "test_rotate_crash_restart_host_plan_small",
+    "test_rotate_crash_restart_proc_plan_small",
 }
 
 
@@ -87,8 +94,14 @@ KEY_ROTATION_ONLY = {
     + scenarios("test_key_rotation", only=KEY_ROTATION_ONLY))
 def test_cluster_plane_scenario(name, test, kw, pkg, request, monkeypatch,
                                 tmp_path_factory):
+    if pkg == "serf_tpu_torch":
+        # the port's entry points take the card unless asked for another
+        # device; a scenario's device leg runs on the CPU here
+        dev = importlib.import_module("serf_tpu_torch.faults.device")
+        monkeypatch.setattr(dev, "resolve_device",
+                            lambda device=None: torch.device(device or "cpu"))
     check_scenario(name, test, kw, pkg, request, monkeypatch,
-                   tmp_path_factory)
+                   tmp_path_factory, limit=CASE_LIMIT)
 
 
 def pkg(name: str, module: str):

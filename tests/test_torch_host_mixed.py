@@ -21,13 +21,15 @@ import pytest
 import torch
 
 from test_serf import _self_signed_cert
-from test_torch_host_scenarios import retry_port0_binds
+from test_torch_host_scenarios import bounded, retry_port0_binds
 
 torch.set_num_threads(1)
 
 PACKAGES = ("serf_tpu", "serf_tpu_torch")
 #: seconds one mixed-cluster case may take (about 4-6 s here)
 CASE_LIMIT = 30.0
+#: each test's hard limit, blocking calls included
+_bounded = bounded(2 * CASE_LIMIT)
 #: seconds a convergence, delivery or detection may take
 WAIT = 10.0
 #: a request_ack query's timeout: the ack iterator runs to it

@@ -71,7 +71,9 @@ def test_agent_imports_without_torch():
             "sys.modules['jax'] = None\n"
             "import serf_tpu_torch.host.agent, serf_tpu_torch.tools.serfd\n"
             "import serf_tpu_torch.obs.cluster, serf_tpu_torch.obs.timeline\n"
-            "import serf_tpu_torch.faults.host\n")
+            "import serf_tpu_torch.faults.host, serf_tpu_torch.faults.proc\n"
+            "import serf_tpu_torch.faults.invariants\n"
+            "import serf_tpu_torch.obs.watchdog, serf_tpu_torch.obs.slo\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -1,11 +1,10 @@
 """The port's per-phase round profiler (``serf_tpu_torch.obs.profile``)
-and its command lines (``serf_tpu_torch.tools.roundprof``,
-``serf_tpu_torch.tools.hbm_report``) on the CPU: the ``roundprof`` JSON
-contract at N = 512, K = 32 on the three flagship paths (per-round
+on the CPU (its command lines in ``test_torch_roundprof.py`` and
+``test_torch_roundprof_ab.py``): the ``roundprof`` JSON contract at N =
+512, K = 32 on the three flagship paths (per-round
 fused, deferred at unit 4, phased), the model bytes and full-plane passes
 equal to the reference's byte model, the anomaly arithmetic, the
-attribution self-check's arithmetic and its CPU band, and the CLIs'
-stdout/stderr split.
+attribution self-check's arithmetic and its CPU band.
 
 ``attributed_device_frac`` on the CPU: CPU self time per phase times the
 phase's cadence over the whole round's mean CPU self time.  Isolated
@@ -25,7 +24,6 @@ from serf_tpu.models import accounting as jacc
 from serf_tpu.models import swim as jswim
 from serf_tpu_torch.models import accounting as tacc
 from serf_tpu_torch.obs import profile as tprof
-from serf_tpu_torch.tools import hbm_report, roundprof
 from test_torch_cluster import _tcfg
 
 # one ATen thread per test process: tier-1 runs six xdist workers on
@@ -186,70 +184,3 @@ def test_reading_of_a_cpu_profile():
     assert rd["device_busy_ms"] > 0
     assert rd["stream_syncs"] == 0 and rd["blocking_copies"] == 0
     assert rd["waits"] == {}
-
-
-# -- the command lines ---------------------------------------------------------
-
-ARGS = ["--n", str(N), "--k", str(K), "--calls", "1", "--warm", "4",
-        "--device", "cpu"]
-
-
-def test_roundprof_cli_json_contract(capsys):
-    assert roundprof.main(ARGS + ["--json"]) == 0
-    out = capsys.readouterr()
-    p = json.loads(out.out)
-    assert p["n"] == N and p["backend"] == "cpu"
-    assert p["kernel_path"] == "xla"
-    assert [r["phase"] for r in p["phases"]] == list(tprof.PHASE_NAMES)
-    for r in p["phases"]:
-        for key in ROW_KEYS:
-            assert key in r
-    assert "per-phase round profile" in out.err
-    assert "per-phase round profile" not in out.out
-
-
-def test_roundprof_cli_fused_ab(capsys):
-    assert roundprof.main(ARGS + ["--fused", "--json"]) == 0
-    out = capsys.readouterr()
-    ab = json.loads(out.out)
-    assert ab["fused"]["kernel_path"] == "fused"
-    assert ab["phased"]["kernel_path"] == "kernels"
-    assert ab["delta"]["stamp_passes_removed"] == 1.0
-    assert "fused vs phased" in out.err
-
-
-def test_roundprof_cli_stamp_unit_on_the_kernels(capsys):
-    assert roundprof.main(ARGS + ["--fused", "--stamp-unit", "4",
-                                  "--json"]) == 0
-    ab = json.loads(capsys.readouterr().out)
-    assert ab["deferred"]["stamp_flush_unit"] == 4
-    assert ab["deferred"]["kernel_path"] == "fused"
-    assert ab["delta"]["stamp_passes_removed"] > 0
-    assert ab["delta"]["overlay_passes_added"] > 0
-
-
-@pytest.mark.parametrize("bad", [["--mesh", "4"], ["--schedule", "ring"],
-                                 ["--stamp-unit", "3"]])
-def test_roundprof_cli_refuses(bad, capsys):
-    assert roundprof.main(ARGS + bad) == 2
-
-
-def test_roundprof_cli_defaults_to_the_card():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is visible: the default is usable")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        roundprof.main(["--n", str(N), "--k", str(K)])
-
-
-def test_hbm_report_cli(capsys):
-    assert hbm_report.main(["--n", "1000000", "--device", "cpu",
-                            "--hlo"]) == 0
-    out = capsys.readouterr().out
-    for regime in ("sustained", "detection", "active", "quiescent"):
-        assert f"regime={regime}" in out
-    assert "TOTAL 233.4 MB/round" in out
-    assert "fused vs kernels" in out
-    assert "no compiled-bytes counterpart" in out
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            hbm_report.main([])

@@ -21,11 +21,18 @@ import os
 import pytest
 import torch
 
-from test_torch_host_scenarios import PACKAGES, check_scenario, scenarios
+from test_torch_host_scenarios import (
+    PACKAGES,
+    bounded,
+    check_scenario,
+    scenarios,
+)
 
 torch.set_num_threads(1)
 
 LIMIT = 20.0
+#: each test's hard limit, blocking calls included
+_bounded = bounded(6 * LIMIT)
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

@@ -1,38 +1,32 @@
 """The port's command lines (``python -m serf_tpu_torch.tools.*``) beside
-the reference's ``tools/*.py`` on the same plans and seeds, on the CPU.
+the reference's ``tools/*.py`` on the same plans and seeds, on the CPU:
+``chaos`` and ``replay`` on the device plane here (``gossipscope``,
+``obswatch`` and ``vivaldi_ab`` in ``test_torch_tools_scope.py``, the
+host and process planes in ``test_torch_tools_host.py``).
 
-Each tool's ``main(argv)`` runs in-process (``--device cpu`` on the
-port's side; the reference's device plane with ``--devices 1``), and
-the device fields of their JSON must agree leaf for leaf: invariant
+Each tool's ``main(argv)`` runs in-process (``--plane device --device
+cpu`` on the port's side; the reference's device plane with
+``--devices 1``), and their JSON must agree leaf for leaf: invariant
 reports, SLO verdicts (apart from the measured rounds/s and the
 hardware's byte-model ceiling), propagation summaries, watchdog
-summaries, control decisions, recordings.  Floats built on the
-float-summed telemetry rows agree within ``FLOAT_RTOL``; everything
-else is equal.  So do the exit codes: green, red, A/B, a tampered
-replay; the port's host-plane options exit 2.  Also the ``normal``
-twin that ``vivaldi_ab`` draws its jitter with: its uniform bits equal
-``jax.random.normal``'s, its floats within ``NORMAL_RTOL`` (``erfinv``
-differs between XLA and ATen)."""
+summaries, control decisions, recordings, degradation counters.
+Floats built on the float-summed telemetry rows agree within
+``FLOAT_RTOL``; everything else is equal.  So do the exit codes: green,
+red, A/B, a tampered replay.  The helpers here serve the other tools
+files too."""
 
 import importlib.util
 import json
-import os
 import pathlib
 import subprocess
 import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from serf_tpu_torch import prng
 from serf_tpu_torch.tools import chaos as tchaos
-from serf_tpu_torch.tools import gossipscope as tgs
-from serf_tpu_torch.tools import obswatch as tow
 from serf_tpu_torch.tools import replay as trp
-from serf_tpu_torch.tools import vivaldi_ab as tvab
 
 # one ATen thread per test process: tier-1 runs six xdist workers on
 # the machine's cores, and a full-width intra-op pool in each of them
@@ -42,11 +36,6 @@ torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parents[1]
 #: the telemetry row's float-summed coverage and what is built on it
 FLOAT_RTOL = 1e-6
-#: ``prng.normal`` against ``jax.random.normal`` (measured: 4.3e-6 at
-#: |x| ~ 4, the tails of erfinv)
-NORMAL_RTOL, NORMAL_ATOL = 1e-5, 1e-6
-#: the Vivaldi tolerance (``test_torch_cluster``)
-VIVALDI_RTOL = 1e-4
 N_SMALL = 64
 
 
@@ -120,10 +109,6 @@ def _differ(a, b, path="", skip=()):
 
 # -- chaos ------------------------------------------------------------------------
 
-#: the reference fills these from the host plane; the port leaves them out
-HOST_KEYS = ("degradation_counters", "lifecycle", "rotation")
-
-
 @pytest.mark.parametrize("plan,controller", [
     ("partition-heal-loss", "off"),
     ("control-overload-shed", "ab"),
@@ -132,16 +117,13 @@ def test_chaos_json_matches_reference(plan, controller, capsys,
                                       monkeypatch, fresh_obs):
     """The device plane's JSON and the exit code, static and A/B."""
     argv = ["--plan", plan, "--n", str(N_SMALL), "--json",
-            "--controller", controller]
+            "--controller", controller, "--plane", "device"]
     rc_t, out_t = _call(tchaos.main, argv + ["--device", "cpu"], capsys)
-    rc_j, out_j = _call(_ref_tool("chaos").main,
-                        argv + ["--plane", "device", "--devices", "1"],
+    rc_j, out_j = _call(_ref_tool("chaos").main, argv + ["--devices", "1"],
                         capsys, monkeypatch, prog="chaos.py")
     t, j = _json(out_t), _json(out_j)
     assert rc_t == rc_j
-    assert set(j) - set(t) == set(HOST_KEYS)
-    assert _differ(t, {k: v for k, v in j.items() if k not in HOST_KEYS}
-                   ) == []
+    assert _differ(t, j) == []
     if controller == "ab":
         # the contract: the static leg breaches, the controlled one holds
         assert rc_t == 0
@@ -170,7 +152,7 @@ def test_chaos_record_on_fail_writes_the_reference_artifacts(
 
     ref = _ref_tool("chaos")
     argv = ["--plan", "self-check", "--n", "48", "--record-on-fail",
-            "--json"]
+            "--json", "--plane", "device"]
     run_device = tchaos.run_device
     monkeypatch.setattr(tchaos, "run_device", forced_red(run_device))
     monkeypatch.setattr(ref, "run_device", forced_red(ref.run_device))
@@ -179,9 +161,8 @@ def test_chaos_record_on_fail_writes_the_reference_artifacts(
     rc_t, out_t = _call(tchaos.main, argv + [
         "--device", "cpu", "--record-dir", str(tmp_path / "t")], capsys)
     rc_j, out_j = _call(ref.main, argv + [
-        "--plane", "device", "--devices", "1",
-        "--record-dir", str(tmp_path / "j")], capsys, monkeypatch,
-        prog="chaos.py")
+        "--devices", "1", "--record-dir", str(tmp_path / "j")], capsys,
+        monkeypatch, prog="chaos.py")
     assert rc_t == rc_j == 1
     t, j = _json(out_t), _json(out_j)
     rec_t = TRecording.load(t["recordings"]["device"])
@@ -212,16 +193,10 @@ def test_chaos_record_on_fail_writes_the_reference_artifacts(
         (tmp_path / "g").iterdir())
 
 
-@pytest.mark.parametrize("argv", [
-    ["--plane", "host"], ["--plane", "proc"], ["--plane", "both"]])
-def test_chaos_host_planes_exit_2(argv, capsys):
-    assert tchaos.main(argv + ["--device", "cpu"]) == 2
-    assert "not ported" in capsys.readouterr().err
-
-
 def test_chaos_refuses_a_mesh(capsys):
     with pytest.raises(SystemExit, match="sharded round"):
-        tchaos.main(["--devices", "2", "--device", "cpu", "--n", "48"])
+        tchaos.main(["--devices", "2", "--device", "cpu", "--n", "48",
+                     "--plane", "device"])
 
 
 def test_chaos_timeline_validates(tmp_path, capsys, fresh_obs):
@@ -235,7 +210,8 @@ def test_chaos_timeline_validates(tmp_path, capsys, fresh_obs):
     path = tmp_path / "run.trace.json"
     rc, out = _call(tchaos.main, [
         "--plan", "partition-heal-loss", "--n", "48", "--device", "cpu",
-        "--json", "--export-timeline", str(path)], capsys)
+        "--plane", "device", "--json", "--export-timeline", str(path)],
+        capsys)
     assert rc == 0 and _json(out)["timeline"] == str(path)
     doc = json.loads(path.read_text())
     assert t_validate(doc) == [] and j_validate(doc) == []
@@ -301,12 +277,6 @@ def flip_digest(rec, i):
     return out
 
 
-def test_replay_host_plane_exits_2(tmp_path, capsys):
-    rc, _ = _call(trp.main, ["record", "--plane", "host", "--out",
-                             str(tmp_path / "h.jsonl")], capsys)
-    assert rc == 2
-
-
 def test_replay_diff_runs_as_a_module(tmp_path):
     """``python -m serf_tpu_torch.tools.replay diff`` on a recording and
     itself exits 0, and on a truncated copy fails."""
@@ -323,30 +293,6 @@ def test_replay_diff_runs_as_a_module(tmp_path):
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-
-
-# -- gossipscope ------------------------------------------------------------------
-
-def test_gossipscope_matches_reference(capsys):
-    """The traced run's summary and both byte-split tables, and the
-    self-check's exit code."""
-    ref = _ref_tool("gossipscope")
-    rc_t, out_t = _call(tgs.main, ["--json", "--device", "cpu"], capsys)
-    rc_j, out_j = _call(ref.main, ["--json"], capsys)
-    assert rc_t == rc_j == 0
-    assert _differ(_json(out_t), _json(out_j)) == []
-    rc_t, out_t = _call(tgs.main, ["--self-check", "--device", "cpu"],
-                        capsys)
-    rc_j, out_j = _call(ref.main, ["--self-check"], capsys)
-    assert rc_t == rc_j == 0 and out_t == out_j
-    rc, out = _call(tgs.main, ["--device", "cpu", "--plan", "self-check"],
-                    capsys)
-    assert rc == 0 and "redundancy — 1M flagship" in out
-
-
-def test_gossipscope_host_exits_2(capsys):
-    rc, _ = _call(tgs.main, ["--host"], capsys)
-    assert rc == 2
 
 
 # -- obswatch -----------------------------------------------------------------------
@@ -369,38 +315,6 @@ def _obswatch_view(out):
                                                  "seq")}
         for e in d["slo_breach_events"]]
     return d
-
-
-@pytest.mark.parametrize("degraded", [False, True])
-def test_obswatch_matches_reference(degraded, capsys, fresh_obs):
-    """Verdicts, ring tails, propagation, watchdog and the slo-breach
-    events (the measured rounds/s set aside), and the exit code: green,
-    and ``--degraded`` breaching."""
-    ref = _ref_tool("obswatch")
-    argv = ["--json", "--degraded"] if degraded else [
-        "--json", "--device-only"]
-    rc_t, out_t = _call(tow.main, argv + ["--device", "cpu"], capsys)
-    rc_j, out_j = _call(ref.main, argv, capsys)
-    assert rc_t == rc_j == (1 if degraded else 0)
-    t, j = _obswatch_view(out_t), _obswatch_view(out_j)
-    assert set(j) - set(t) == {"lifecycle"}
-    j.pop("lifecycle")
-    assert _differ(t, j) == []
-    assert bool(t["slo_breach_events"]) == degraded
-
-
-def test_obswatch_needs_device_only(capsys):
-    rc, _ = _call(tow.main, ["--device", "cpu"], capsys)
-    assert rc == 2
-
-
-def test_obswatch_text_report(capsys, fresh_obs):
-    rc, out = _call(tow.main, ["--device-only", "--self-check", "--n",
-                               "48", "--device", "cpu"], capsys)
-    assert rc == 0
-    assert "[device] SLOs: GREEN" in out and "[device] watchdog: GREEN" \
-        in out and "measured rounds/s vs analytic ceiling" in out
-
 
 # -- the full-width reference fixture ---------------------------------------------
 
@@ -456,63 +370,3 @@ def test_full_width_tools_fixture_loads():
         0, 1)
     assert runs["obswatch"]["json"]["ok"]
     assert runs["obswatch-degraded"]["json"]["slo_breach_events"]
-
-
-# -- vivaldi_ab and the normal twin -----------------------------------------------
-
-@pytest.mark.parametrize("fsize,spike_p", [(1, 0.0), (3, 0.05)])
-def test_vivaldi_ab_device_run_matches_reference(fsize, spike_p):
-    ref = _ref_tool("vivaldi_ab")
-    a = ref.device_run(256, 20, fsize, spike_p)
-    b = tvab.device_run(256, 20, fsize, spike_p, device="cpu")
-    assert b == pytest.approx(a, rel=VIVALDI_RTOL)
-
-
-def test_vivaldi_ab_main_writes_only_its_out(tmp_path, capsys):
-    out = tmp_path / "ab.json"
-    rc, text = _call(tvab.main, ["--n", "64", "--rounds", "4", "--host-n",
-                                 "16", "--host-rounds", "5", "--device",
-                                 "cpu", "--out", str(out)], capsys)
-    assert rc == 0 and "not run" not in text
-    d = json.loads(out.read_text())
-    assert sorted(d["device"]) == ["clean_filter1", "clean_filter3",
-                                   "spiky_filter1", "spiky_filter3"]
-    assert sorted(d["host"]) == ["clean_perpeer_n16", "spiky_perpeer_n16"]
-    assert d["host"]["clean_perpeer_n16"] == round(
-        tvab.host_oracle_run(16, 5, 0.0), 4)
-    assert "host_note" not in d and not hasattr(tvab, "HOST_ORACLE")
-    assert text.count("host  n=16 ") == 2
-
-
-@pytest.mark.parametrize("shape", [(1,), (100,), (5000,), (64, 3)])
-@pytest.mark.parametrize("seed", [0, 7, 123])
-def test_normal_twin_matches_jax(seed, shape):
-    """``prng.normal_uniform`` equals ``jax.random.normal``'s uniform bit
-    for bit; ``prng.normal`` its floats within NORMAL_RTOL/ATOL."""
-    key = jax.random.key(seed)
-    kd = np.asarray(jax.random.key_data(key))
-    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    want_u = np.asarray(jax.random.uniform(key, shape, jnp.float32, lo, 1.0))
-    got_u = prng.normal_uniform(kd, shape, "cpu").numpy()
-    assert np.array_equal(want_u.view(np.uint32), got_u.view(np.uint32))
-    want = np.asarray(jax.random.normal(key, shape))
-    got = prng.normal(kd, shape, "cpu").numpy()
-    assert got.dtype == np.float32
-    np.testing.assert_allclose(got, want, rtol=NORMAL_RTOL,
-                               atol=NORMAL_ATOL)
-
-
-# -- no card ------------------------------------------------------------------------
-
-def test_tools_need_a_card_unless_asked_for_the_cpu():
-    """Without ``--device cpu`` a tool resolves the card, and without one
-    it exits nonzero (as a module: the way a user runs it)."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is visible")
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    proc = subprocess.run(
-        [sys.executable, "-m", "serf_tpu_torch.tools.chaos", "--plan",
-         "self-check", "--n", "48"], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0
-    assert "CUDA" in proc.stderr
