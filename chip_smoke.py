@@ -170,8 +170,10 @@ member and event clocks do not go back; a key rotation through the
 leaves one keyring digest on every agent; each agent's ``blackbox`` op
 writes a bundle that validates; no agent holds a CUDA context
 (``nvidia-smi --query-compute-apps``) and none outlives the teardown;
-(b) 64 in-process nodes of ``Options.cluster(64)``, each with a
-snapshot, a keyring and a black box: ``cluster_stats`` and
+(b) 64 in-process nodes of ``Options.cluster(64)`` (its
+``query_timeout_mult`` 64: a 2.56 s default query timeout, which the
+key manager's queries run to), each with a snapshot, a keyring and a
+black box: ``cluster_stats`` and
 ``cluster_blackbox`` from one node cover all 64 (one membership
 digest), a ``KeyManager`` rotation reaches all 64, eight nodes shut
 down and created again from their snapshots rejoin with no old user
@@ -204,6 +206,28 @@ processes each: green, no agent pid among ``nvidia-smi``'s compute apps
 while they run, none left after the teardown.  No kernel may launch;
 the phase must end inside 180 s; it logs each part's host-CPU seconds
 beside the card line.
+
+Phase 10 runs serflint, the last command lines and the example on this
+machine, each as a user runs it: (a) the port's serflint over
+``serf_tpu_torch/`` (``python -m serf_tpu_torch.tools.serflint --json``
+in-process): exit 0, no new finding, its baselined and suppressed counts
+and wall time logged; the four schema pins equal the fingerprints
+recomputed from the port's sources; ``metrics_lint`` exit 0; (b)
+``obsexport --plan partition-heal-loss --plane both --n 1000000``, the
+device leg on the card at full width, then ``--validate`` on the
+bundle: exit 0 both; the bundle's size, the wall time, the device leg's
+rounds/s and host reads per round and the launches (the reference
+tool's config: ``use_pallas`` off, so none) logged; (c) ``blackbox
+self-check``, then ``render``, ``ls``, ``diff`` and ``timeline`` on two
+bundles a watchdog breach writes here; (d) ``obstop --json`` (3 of 3
+nodes answer with their health) and ``obstop --watch 0.5 --iterations
+3``; (e) the toyregistry example: the in-process ``demo``, then two
+agent processes (``python -m serf_tpu_torch.examples.toyregistry
+agent``, torch blocked in them) on real UDP and TCP, driven by the
+``client`` verb over their unix sockets (``register``, ``list``,
+``members``), and the same over ``--tls`` and over ``--udpstream``: no
+agent pid among ``nvidia-smi``'s compute apps, none left after the
+kill.  No kernel may launch; the phase must end inside 180 s.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Needs no network and imports no
@@ -2969,6 +2993,11 @@ CLUSTER_OLD_EVENTS = 20
 #: (b)'s query timeout for the two scatters (they end early once every
 #: alive member answered)
 CLUSTER_QUERY_TIMEOUT = 10.0
+#: (b)'s ``query_timeout_mult``: the key manager's queries take the
+#: default timeout and run to it, and ``Options.cluster(64)``'s 16 gives
+#: 0.64 s, in which 64 nodes on one event loop of a busy host answered
+#: 1-16 of 64 (three attempts each); 64 gives 2.56 s an attempt
+CLUSTER_QUERY_TIMEOUT_MULT = 64
 #: (c): members (phase 6's push/pull scale) and the member updates that
 #: grow the log past its compaction threshold (2 x 128 B per member)
 SNAP_MEMBERS = 10_000
@@ -3011,6 +3040,18 @@ def strays_under(path, grace: float = 1.0) -> list:
     return found
 
 
+def checkout_env() -> dict:
+    """This process's environment with the checkout first on the path,
+    for the processes the phases spawn."""
+    import os
+    import pathlib
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(pathlib.Path(__file__).resolve().parent)]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return env
+
+
 class AgentProcs:
     """The agent processes of one run: each ``python -m <module>
     --config`` in its own process group on 127.0.0.1 port 0, with its
@@ -3027,7 +3068,6 @@ class AgentProcs:
     def spawn(self, node_id: str, client_cls, generation: int = 0,
               bind: str = "127.0.0.1:0", join=(), module=AGENT_MODULE,
               keyring_file=None):
-        import os
         import pathlib
         from types import SimpleNamespace
         d = self.workdir / node_id
@@ -3043,15 +3083,11 @@ class AgentProcs:
         config = d / f"agent.g{generation}.json"
         config.write_text(json.dumps(cfg))
         root = pathlib.Path(__file__).resolve().parent
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            [str(root)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
-                           else []))
         with open(d / f"agent.g{generation}.log", "ab") as logf:
             proc = subprocess.Popen(
                 [sys.executable, "-m", module, "--config", str(config)],
-                cwd=root, env=env, stdout=logf, stderr=subprocess.STDOUT,
-                start_new_session=True)
+                cwd=root, env=checkout_env(), stdout=logf,
+                stderr=subprocess.STDOUT, start_new_session=True)
         self.procs.append(proc)
         return SimpleNamespace(
             node_id=node_id, generation=generation, proc=proc, ready=ready,
@@ -3290,7 +3326,8 @@ async def cluster_plane(E, work) -> dict:
     rng = random.Random(PHASE8_SEED + 1)
     key = rng.randbytes(32)
     net = E.LoopbackNetwork()
-    opts = E.Options.cluster(CLUSTER_N)
+    opts = E.Options.cluster(CLUSTER_N).replace(
+        query_timeout_mult=CLUSTER_QUERY_TIMEOUT_MULT)
     nodes, subs = [], []
 
     async def create(i, ring_key):
@@ -3886,6 +3923,360 @@ def host_chaos_full(rk) -> dict:
     return out
 
 
+# -- phase 10: serflint, the last command lines and the example ------------------
+
+#: phase 10's bound on the whole phase, seconds of this machine's clock
+PHASE10_LIMIT_S = 180.0
+#: (b): obsexport's device leg, at the flagship width
+OBSEXPORT_N = 1_000_000
+OBSEXPORT_PLAN = "partition-heal-loss"
+#: (e): the example's module, and the seconds an agent may take to bind
+EXAMPLE_MODULE = "serf_tpu_torch.examples.toyregistry"
+EXAMPLE_READY_S = 30.0
+#: (e): seconds a registration may take to reach the other agent
+EXAMPLE_CONVERGE_S = 15.0
+#: the example's process prelude: torch and jax blocked, so an agent
+#: that imports either fails to start; then the module's command line
+EXAMPLE_PRELUDE = (
+    "import runpy, sys\nsys.modules['torch'] = None\n"
+    "sys.modules['jax'] = None\nsys.argv = ['toyregistry'] + sys.argv[1:]\n"
+    f"runpy.run_module({EXAMPLE_MODULE!r}, run_name='__main__')\n")
+
+
+def serflint_part() -> dict:
+    """(a): the port's serflint over ``serf_tpu_torch/`` (``--json``):
+    exit 0, no new finding; the four pins equal the fingerprints
+    recomputed from the port's sources; ``metrics_lint`` exit 0."""
+    from serf_tpu_torch.analysis import schema
+    from serf_tpu_torch.tools import metrics_lint, serflint
+    rc, text, secs = call_tool(serflint.main, ["--json"])
+    d = json.loads(text)
+    if rc != 0 or d["findings"] or d["stale_baseline"]:
+        raise AssertionError(f"phase 10 (a): serflint exit {rc}: "
+                             f"{json.dumps(d['findings'])[:2000]}")
+    pins = schema.load_pins()
+    fps = {kind: getattr(schema, f"{kind}_fingerprint")()
+           for kind in ("pytree", "wire", "recording", "blackbox")}
+    drift = {k: (fp, pins[k]["fingerprint"]) for k, fp in fps.items()
+             if pins[k]["fingerprint"] != fp}
+    if drift or d["schema_pins"] != pins:
+        raise AssertionError(f"phase 10 (a): pins drift {drift}")
+    lint_rc, lint_text, lint_s = call_tool(lambda argv: metrics_lint.run(),
+                                           [])
+    if lint_rc != 0:
+        raise AssertionError(f"phase 10 (a): metrics_lint exit {lint_rc}: "
+                             f"{lint_text[-2000:]}")
+    return dict(s=secs, rc=rc, baselined=d["baselined"],
+                suppressed=d["suppressed"], rules=len(d["rules"]),
+                pins={k: (pins[k]["fingerprint"], pins[k]["version"])
+                      for k in fps}, lint_s=lint_s)
+
+
+def obsexport_part(rk, work) -> dict:
+    """(b): ``obsexport --plan partition-heal-loss --plane both --n
+    1000000``, its device leg on the card, then ``--validate`` on the
+    bundle: exit 0 both; the device leg's rounds/s and host reads per
+    round, and the launches (the reference tool's config: ``use_pallas``
+    off, so none)."""
+    import torch
+
+    from serf_tpu_torch import host_syncs
+    from serf_tpu_torch.faults import device as fdev
+    from serf_tpu_torch.tools import obsexport
+    leg = {}
+    run_device_plan = fdev.run_device_plan
+
+    def timed(*a, **kw):
+        syncs = host_syncs()
+        t0 = time.perf_counter()
+        res = run_device_plan(*a, **kw)
+        torch.cuda.synchronize()
+        leg.update(s=time.perf_counter() - t0, rounds=res.rounds_run,
+                   syncs=host_syncs() - syncs, n=a[1].gossip.n,
+                   device=str(res.state.gossip.known.device))
+        return res
+
+    out = work / "obsexport.trace.json"
+    reset_counts(rk)
+    fdev.run_device_plan = timed
+    try:
+        rc, text, secs = call_tool(obsexport.main, [
+            "--plan", OBSEXPORT_PLAN, "--plane", "both", "--n",
+            str(OBSEXPORT_N), "-o", str(out)])
+    finally:
+        fdev.run_device_plan = run_device_plan
+    launches = check_launches(rk, "tools", "phase 10 (b)", want=())
+    if rc != 0 or "(valid)" not in text or not leg:
+        raise AssertionError(f"phase 10 (b): obsexport exit {rc}: "
+                             f"{text[-2000:]}")
+    if leg["n"] != OBSEXPORT_N or not leg["device"].startswith("cuda"):
+        raise AssertionError(f"phase 10 (b): the device leg ran at "
+                             f"n={leg['n']} on {leg['device']}")
+    vrc, vtext, _ = call_tool(obsexport.main, ["--validate", str(out)])
+    if vrc != 0:
+        raise AssertionError(f"phase 10 (b): --validate exit {vrc}: "
+                             f"{vtext[-2000:]}")
+    doc = json.loads(out.read_text())
+    return dict(s=secs, bytes=out.stat().st_size, leg=leg,
+                launches=launches, line=text.splitlines()[0],
+                surfaces=doc["otherData"]["surfaces"],
+                events=len(doc["traceEvents"]))
+
+
+def blackbox_part(work) -> dict:
+    """(c): ``blackbox self-check``, then ``render``, ``ls``, ``diff``
+    and ``timeline`` on two bundles a watchdog breach writes here."""
+    import os
+
+    from serf_tpu_torch.obs.blackbox import BlackBox
+    from serf_tpu_torch.obs.flight import FlightRecorder
+    from serf_tpu_torch.obs.watchdog import Watchdog, WatchdogConfig
+    from serf_tpu_torch.tools import blackbox, obsexport
+    t0 = time.perf_counter()
+    rc, text, _ = call_tool(blackbox.main, ["self-check", "--json"])
+    if rc != 0 or not json.loads(text)["ok"]:
+        raise AssertionError(f"phase 10 (c): self-check exit {rc}: {text}")
+    rec = FlightRecorder()
+    wd = Watchdog(cfg=WatchdogConfig(dump_every_ticks=1), recorder=rec)
+    flag = {"ok": True}
+    wd.arm("phase10-invariant", lambda: (flag["ok"], "flipped by phase 10"))
+    box = BlackBox(str(work / "bb"), node="p10", recorder=rec,
+                   health=lambda: {"score": 90.0, "components": {}})
+    wd.add_blackbox(box)
+    rec.record("probe-failed", node="p10", peer="p11")
+    wd.tick(now=1.0)
+    flag["ok"] = False
+    wd.tick(now=2.0)
+    wd.tick(now=3.0)
+    a, b = box.bundle_paths()
+    trace = work / "bb.trace.json"
+    runs = {
+        "render": (call_tool(blackbox.main, ["render", a]), 0),
+        "ls": (call_tool(blackbox.main, ["ls", str(work / "bb"), "--json"]),
+               0),
+        "diff": (call_tool(blackbox.main, ["diff", a, b, "--json"]), 1),
+        "timeline": (call_tool(blackbox.main, ["timeline", b, "-o",
+                                               str(trace)]), 0),
+        "validate": (call_tool(obsexport.main, ["--validate", str(trace)]),
+                     0)}
+    for what, ((rc, text, _), want) in runs.items():
+        if rc != want:
+            raise AssertionError(f"phase 10 (c): blackbox {what} exit {rc}, "
+                                 f"want {want}: {text[-1000:]}")
+    render = runs["render"][0][1]
+    rows = json.loads(runs["ls"][0][1])
+    diff = json.loads(runs["diff"][0][1])
+    with open(a) as f:
+        breached = "phase10-invariant" in json.dumps(json.load(f)["watchdog"])
+    if not breached or "black box" not in render \
+            or [r["valid"] for r in rows] != [True, True] or diff["same"]:
+        raise AssertionError(f"phase 10 (c): render {render!r}, ls {rows}, "
+                             f"diff {diff}")
+    return dict(s=time.perf_counter() - t0, bundles=2,
+                bytes=sum(os.path.getsize(p) for p in (a, b)),
+                trace_bytes=trace.stat().st_size)
+
+
+def obstop_part() -> dict:
+    """(d): ``obstop --json`` (3 nodes: every node answers with its
+    health) and ``obstop --watch 0.5 --iterations 3``."""
+    from serf_tpu_torch.tools import obstop
+    rc, text, secs = call_tool(obstop.main, ["--json"])
+    snap = json.loads(text)
+    if rc != 0 or snap["responders"] != 3 or not snap["complete"]:
+        raise AssertionError(f"phase 10 (d): obstop --json exit {rc}: "
+                             f"{text[-1000:]}")
+    wrc, wtext, wsecs = call_tool(obstop.main, [
+        "--watch", "0.5", "--iterations", "3"])
+    if wrc != 0 or "refresh #3" not in wtext or "watchdog" not in wtext:
+        raise AssertionError(f"phase 10 (d): obstop --watch exit {wrc}: "
+                             f"{wtext[-1000:]}")
+    return dict(s=secs, watch_s=wsecs, health=snap["aggregates"]["health"],
+                watch_lines=len(wtext.splitlines()))
+
+
+def example_cmd(*argv) -> list:
+    return [sys.executable, "-c", EXAMPLE_PRELUDE, *argv]
+
+
+def example_client(sock, *verb) -> dict:
+    """One ``client`` verb over an agent's unix socket (its own process,
+    as a user runs it)."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parent
+    out = subprocess.run(example_cmd("client", str(sock), *verb), cwd=root,
+                         env=checkout_env(), capture_output=True, text=True,
+                         timeout=60)
+    if out.returncode != 0:
+        raise AssertionError(f"phase 10 (e): client {verb} exit "
+                             f"{out.returncode}: {out.stderr[-1000:]}")
+    return json.loads(out.stdout)
+
+
+def example_pair(work, flavor: str, extra=()) -> dict:
+    """(e): two agent processes (``python -m serf_tpu_torch.examples.
+    toyregistry agent``, torch blocked) on 127.0.0.1 over ``flavor``, the
+    second joining the first; ``register`` on one reaches ``list`` on the
+    other, ``members`` shows both ALIVE; no agent pid on the card; none
+    left after the kill."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parent
+    d = work / flavor
+    d.mkdir(parents=True)
+    socks = [d / "a.sock", d / "b.sock"]
+    procs = []
+    t0 = time.perf_counter()
+
+    def spawn(i, join=None):
+        argv = ["agent", str(socks[i]), "127.0.0.1:0", *extra]
+        if join:
+            argv += ["--join", join]
+        with open(d / f"agent{i}.log", "ab") as logf:
+            procs.append(subprocess.Popen(
+                example_cmd(*argv), cwd=root, env=checkout_env(),
+                stdout=logf, stderr=subprocess.STDOUT,
+                start_new_session=True))
+        end = time.perf_counter() + EXAMPLE_READY_S
+        while not socks[i].exists():
+            if procs[-1].poll() is not None or time.perf_counter() > end:
+                raise AssertionError(
+                    f"phase 10 (e) {flavor}: agent {i} did not start (exit "
+                    f"{procs[-1].poll()}): "
+                    f"{(d / f'agent{i}.log').read_text()[-1500:]}")
+            time.sleep(0.05)
+
+    try:
+        spawn(0)
+        first = example_client(socks[0], "members")["members"][0]
+        spawn(1, join=f"127.0.0.1:{first['addr'][1]}")
+        up_s = time.perf_counter() - t0
+        if not example_client(socks[0], "register", "api",
+                              "10.0.0.1:80")["ok"]:
+            raise AssertionError(f"phase 10 (e) {flavor}: register failed")
+        end = time.perf_counter() + EXAMPLE_CONVERGE_S
+        while True:
+            listing = example_client(socks[1], "list")
+            members = example_client(socks[1], "members")["members"]
+            if listing["services"] == {"api": "10.0.0.1:80"} and \
+                    len(members) == 2 and \
+                    {m["status"] for m in members} == {"ALIVE"}:
+                break
+            if time.perf_counter() > end:
+                raise AssertionError(f"phase 10 (e) {flavor}: list "
+                                     f"{listing}, members {members}")
+            time.sleep(0.2)
+        converge_s = time.perf_counter() - t0 - up_s
+        pids = {p.pid for p in procs}
+        on_card = pids & compute_app_pids()
+        if on_card:
+            raise AssertionError(f"phase 10 (e) {flavor}: agents on the "
+                                 f"card: {sorted(on_card)}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            try:
+                p.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                pass
+    left = strays_under(d)
+    if left:
+        raise AssertionError(f"phase 10 (e) {flavor}: agents left: {left}")
+    return dict(s=time.perf_counter() - t0, up_s=up_s,
+                converge_s=converge_s)
+
+
+def example_part(work) -> dict:
+    """(e): the toyregistry example: the in-process ``demo``, then
+    :func:`example_pair` over UDP + TCP, over ``--tls`` and over
+    ``--udpstream``."""
+    import asyncio
+    import contextlib
+    import io
+    from types import SimpleNamespace
+
+    from serf_tpu_torch.examples import toyregistry
+    from serf_tpu_torch.host import net
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        asyncio.run(asyncio.wait_for(toyregistry.demo(), 60))
+    text = buf.getvalue()
+    if "5-agent cluster up" not in text or \
+            "after deregister: {'api': '10.0.0.1:8080'}" not in text:
+        raise AssertionError(f"phase 10 (e): demo printed {text!r}")
+    out = {"demo_s": time.perf_counter() - t0}
+    engine_tls_contexts(SimpleNamespace(net=net), work / "cert")
+    for flavor, extra in (
+            ("udp+tcp", ()),
+            ("tls", ("--tls", str(work / "cert" / "cert.pem"),
+                     str(work / "cert" / "key.pem"))),
+            ("udpstream", ("--udpstream",))):
+        out[flavor] = example_pair(work, flavor, extra)
+    return out
+
+
+def tools_host_full(rk) -> dict:
+    """Phase 10: serflint, obsexport, blackbox, obstop and the
+    toyregistry example on the card's machine (parts (a)-(e) above),
+    each part logged as it ends.  No kernel may launch; it logs each
+    part's seconds beside the card line."""
+    import pathlib
+    import shutil
+    work = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke" \
+        / "phase10"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    card = card_line()
+    t0 = time.perf_counter()
+    out = {"serflint": serflint_part()}
+    a = out["serflint"]
+    log(f"phase 10 (a) serflint over serf_tpu_torch/: exit {a['rc']}, 0 new "
+        f"findings, {a['baselined']} baselined, {a['suppressed']} "
+        f"suppressed ({a['rules']} rules) in {a['s']:.2f} s on the host CPU "
+        f"of the machine with {card}; the four pins equal the fingerprints "
+        f"recomputed from the port's sources {json.dumps(a['pins'])}; "
+        f"metrics_lint exit 0 in {a['lint_s']:.2f} s")
+    b = out["obsexport"] = obsexport_part(rk, work)
+    leg = b["leg"]
+    log(f"phase 10 (b) obsexport --plan {OBSEXPORT_PLAN} --plane both --n "
+        f"{OBSEXPORT_N}: exit 0 in {b['s']:.2f} s, --validate exit 0; "
+        f"bundle {b['bytes']} B, {b['events']} events, surfaces "
+        f"{b['surfaces']}; device leg on {leg['device']} ({card}): "
+        f"{leg['rounds']} rounds in {leg['s']:.2f} s, rounds_per_s "
+        f"{leg['rounds'] / leg['s']:.2f}, host_syncs_per_round "
+        f"{leg['syncs'] / leg['rounds']:.2f}; launches "
+        f"{json.dumps(b['launches'])}")
+    c = out["blackbox"] = blackbox_part(work)
+    log(f"phase 10 (c) blackbox self-check exit 0; render, ls, diff (exit "
+        f"1: the two dumps differ) and timeline (validates) on "
+        f"{c['bundles']} bundles ({c['bytes']} B) written here, "
+        f"{c['s']:.2f} s on the host CPU of the machine with {card}")
+    d = out["obstop"] = obstop_part()
+    log(f"phase 10 (d) obstop --json: 3 of 3 nodes answered, health "
+        f"{json.dumps(d['health'])}, {d['s']:.2f} s; obstop --watch 0.5 "
+        f"--iterations 3: exit 0, {d['watch_lines']} lines, "
+        f"{d['watch_s']:.2f} s on the host CPU of the machine with {card}")
+    e = out["example"] = example_part(work)
+    log(f"phase 10 (e) toyregistry demo {e['demo_s']:.2f} s; agent pairs "
+        f"(python -m {EXAMPLE_MODULE} agent, torch blocked) driven by the "
+        f"client verb: " + "; ".join(
+            f"{f} up {e[f]['up_s']:.2f} s, registered and converged in "
+            f"{e[f]['converge_s']:.2f} s" for f in
+            ("udp+tcp", "tls", "udpstream"))
+        + f"; no agent pid among nvidia-smi's compute apps, none left; "
+        f"host CPU of the machine with {card}")
+    out["s"] = time.perf_counter() - t0
+    check_launches(rk, "tools", "phase 10", want=())
+    if out["s"] > PHASE10_LIMIT_S:
+        raise AssertionError(f"phase 10 took {out['s']:.1f} s, over its "
+                             f"{PHASE10_LIMIT_S} s")
+    log(f"phase 10 (f) no kernel launched; phase 10 {out['s']:.2f} s on "
+        f"the machine with {card}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3983,6 +4374,8 @@ def main() -> int:
     mark("phase 8 agents and cluster plane")
     host_chaos_full(rk)
     mark("phase 9 host chaos plane")
+    tools_host_full(rk)
+    mark("phase 10 serflint, command lines and example")
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
         log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "

@@ -12,15 +12,23 @@ symmetric encode/decode.
 A C++ fast path (``native/codec.cpp``, built by :mod:`._native` into
 ``build/serf_tpu_torch/``) is loaded via ctypes at first use; the
 pure-Python path is always available and is the semantic definition
-(``SERF_TPU_NO_NATIVE=1`` forces it).  The reference's
-``WIRE_SCHEMA_VERSION`` pin reads its serflint schema, which waits with
-the port of ``analysis/``.
+(``SERF_TPU_NO_NATIVE=1`` forces it).  ``WIRE_SCHEMA_VERSION`` is the
+wire version pinned in the port's ``analysis/pins/schema_pins.json``.
 """
 
 from __future__ import annotations
 
 import struct
 from typing import Iterator, Tuple
+
+
+def __getattr__(name: str):
+    # lazy so codec (imported everywhere, early) never depends on the
+    # analysis package's import order
+    if name == "WIRE_SCHEMA_VERSION":
+        from serf_tpu_torch.analysis.schema import wire_schema_version
+        return wire_schema_version()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 # Wire types (protobuf-compatible numbering).
 WT_VARINT = 0

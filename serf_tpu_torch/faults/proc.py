@@ -171,9 +171,9 @@ class ProcCluster:
         #: persisted by rotation ops — and resumes from it
         self.initial_keyring = initial_keyring
         self.rng = random.Random(seed ^ 0x9C0C)
-        # phase ops run strictly sequentially in the executor's single
-        # task; the sampler/load tasks only read live() snapshots
-        # between awaits
+        # serflint: ignore[async-shared-mut] -- phase ops run strictly
+        # sequentially in the executor's single task; the sampler/load
+        # tasks only read live() snapshots between awaits
         self.agents: Dict[int, ProcAgent] = {}
         self.all_procs: List[subprocess.Popen] = []
         self.addr_of = None             # set once every agent is ready

@@ -27,10 +27,19 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-#: the reference's pinned pytree schema version (its
-#: ``serf_tpu/analysis/pins/schema_pins.json``); the port's leaf spec
-#: is the same, and a test holds the two numbers equal
-PYTREE_SCHEMA_VERSION = 3
+
+def __getattr__(name: str):
+    # ``PYTREE_SCHEMA_VERSION``: the pinned pytree schema version, read
+    # from the port's pins (``analysis/pins/schema_pins.json``) when asked
+    if name == "PYTREE_SCHEMA_VERSION":
+        return _schema_version()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def _schema_version() -> int:
+    from serf_tpu_torch.analysis.schema import pytree_schema_version
+    return pytree_schema_version()
+
 
 #: reserved npz key for the schema stamp (never a leaf path: paths start
 #: with a dot or a bracket)
@@ -91,7 +100,7 @@ def save(path: str, state: Any) -> None:
     """Write the state tree to ``path`` (gathered to the host; atomic
     replace, so a crash never leaves a half-written checkpoint)."""
     arrays = {key: _host(t, u32) for key, t, u32 in _leaves(state)}
-    arrays[_SCHEMA_KEY] = np.asarray(PYTREE_SCHEMA_VERSION, np.int64)
+    arrays[_SCHEMA_KEY] = np.asarray(_schema_version(), np.int64)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
@@ -111,11 +120,11 @@ def restore(path: str, template: Any, mesh=None) -> Any:
         with np.load(path) as data:
             if _SCHEMA_KEY in data:
                 found = int(data[_SCHEMA_KEY])
-                if found != PYTREE_SCHEMA_VERSION:
+                if found != _schema_version():
                     raise ValueError(
                         f"checkpoint {path!r} was written at pytree schema "
                         f"version {found}, this build is at "
-                        f"{PYTREE_SCHEMA_VERSION} — the state's leaf spec "
+                        f"{_schema_version()} — the state's leaf spec "
                         "changed since it was saved; see MIGRATION.md "
                         "('Schema versioning')")
             values = {}

@@ -368,7 +368,26 @@ def run_cluster_sustained(state: ClusterState, cfg: ClusterConfig, key,
 TELEMETRY_FIELDS = ("alive", "facts_valid", "agreement", "coverage",
                     "overflow", "injected", "suspicions", "false_dead")
 
-
+#: the row's merge contract: how each field's partial over one node
+#: shard combines into the global value when the row is computed inside
+#: a sharded round.  ``"sum"``: assembled from integer partial sums
+#: (ratios sum their numerator and denominator counts and divide after
+#: the reduce); ``"max"``/``"min"``: a max/min reduce; ``"replicated"``:
+#: computed alike on every shard from replicated inputs (the fact table,
+#: scalar ledgers), no collective.  A field must be associative under
+#: its op.  The unsharded round reads no entry; serflint's
+#: ``telemetry-field-drift`` holds this table, TELEMETRY_FIELDS and the
+#: README telemetry table to each other, both ways.
+TELEMETRY_MERGE = {
+    "alive": "sum",
+    "facts_valid": "replicated",
+    "agreement": "sum",
+    "coverage": "sum",
+    "overflow": "replicated",
+    "injected": "replicated",
+    "suspicions": "replicated",
+    "false_dead": "sum",
+}
 
 
 def telemetry_counts(g: GossipState, cfg: ClusterConfig, stretch_q=None,

@@ -27,6 +27,24 @@ PROPAGATION_FIELDS = ("slots_sent", "slots_learned", "slots_redundant",
                       "redundancy", "alive", "cov_min", "cov_mean",
                       "cov_max")
 
+#: the row's merge contract, as ``models/swim.TELEMETRY_MERGE``'s:
+#: ``"sum"`` for integer counts over the node axis (``redundancy`` is the
+#: ratio of summed counts, divided after the reduce), ``"replicated"``
+#: for fields folded from already-reduced operands (the ``cov_*`` fields
+#: read the reduced column counts against the replicated fact table).
+#: Held to PROPAGATION_FIELDS and the README propagation table by
+#: serflint's ``propagation-field-drift``.
+PROPAGATION_MERGE = {
+    "slots_sent": "sum",
+    "slots_learned": "sum",
+    "slots_redundant": "sum",
+    "redundancy": "sum",
+    "alive": "sum",
+    "cov_min": "replicated",
+    "cov_mean": "replicated",
+    "cov_max": "replicated",
+}
+
 #: per-round ring-series names for the propagation row (``alive`` rides
 #: the telemetry row's series)
 PROPAGATION_SERIES: Tuple[Tuple[str, str], ...] = (

@@ -43,6 +43,20 @@ INVARIANT_FIELDS = ("overflow_ok", "ltime_ok", "no_false_dead",
                     "coverage_monotone", "stamp_staleness_ok",
                     "viol_mask")
 
+#: the row's merge contract: every field folds from the already-reduced
+#: telemetry and propagation operands plus replicated ledgers, alike on
+#: every shard, with no collective of its own.  Held to INVARIANT_FIELDS
+#: and the README invariant table by serflint's
+#: ``invariant-field-drift``.
+INVARIANT_MERGE = {
+    "overflow_ok": "replicated",
+    "ltime_ok": "replicated",
+    "no_false_dead": "replicated",
+    "coverage_monotone": "replicated",
+    "stamp_staleness_ok": "replicated",
+    "viol_mask": "replicated",
+}
+
 #: INVARIANT_FIELDS -> declared metric names for the boolean fields the
 #: rings carry (viol_mask is a bitmask, not a level: it stays out of the
 #: ring and in the summary)

@@ -251,7 +251,10 @@ def test_new_modules_are_in_the_import_scan():
                 "control/profiles", "replay/digest", "replay/recording",
                 "replay/replayer", "replay/differ", "replay/selfcheck",
                 "obs/timeseries", "obs/propagation", "obs/watchdog",
-                "obs/slo"):
+                "obs/slo", "analysis/core", "analysis/torch_rules",
+                "tools/serflint", "tools/obstop", "tools/obsexport",
+                "tools/blackbox", "tools/metrics_lint",
+                "examples/toyregistry"):
         assert f"serf_tpu_torch/{mod}.py" in scanned, mod
 
 

@@ -8,11 +8,10 @@ The reference's own tests run on both packages through the scenario
 harness of ``test_torch_host_scenarios.py``, with their outcome
 summaries held equal:
 
-- ``tests/test_cluster_obs.py``: its unit and in-process tests; not
-  ``test_metrics_lint_covers_cluster_plane_gauges`` (the reference's
-  lint tool over the reference's tree and README, ``ROADMAP.md`` queue
-  1 item 6) nor ``test_obstop_json_self_check`` (``tools/obstop.py``,
-  item 5);
+- ``tests/test_cluster_obs.py``: its unit and in-process tests; its
+  ``test_metrics_lint_covers_cluster_plane_gauges`` and
+  ``test_obstop_json_self_check`` run the command lines, so
+  ``test_torch_tools_obs.py`` runs them on the port's tools;
 - ``tests/test_watchdog.py``: the two black-box inventory tests (the
   host watchdog's run in ``test_torch_observers.py``);
 - ``tests/test_control.py``: the two host controller tests;
@@ -54,9 +53,10 @@ WAIT = 10.0
 _bounded = bounded(2 * CASE_LIMIT)
 
 CLUSTER_OBS_EXCLUDE = {
-    # the reference's metrics lint over its own tree and README
+    # the command lines' tests, run on the port's metrics_lint and
+    # obstop in test_torch_tools_obs.py (compiled here, both packages
+    # would run the reference's tools)
     "test_metrics_lint_covers_cluster_plane_gauges",
-    # tools/obstop.py, ROADMAP.md queue 1 item 6(d)
     "test_obstop_json_self_check",
 }
 WATCHDOG_ONLY = {

@@ -15,13 +15,12 @@ timed by the wall clock, ``TIMED_TRAFFIC``):
   port's) and ``test_chaos_cli_self_check``, which runs the reference's
   ``tools/chaos.py`` (``test_torch_tools_host.py`` holds the port's
   ``--self-check`` to it);
-- ``tests/test_replay.py``: the host record and replay, and the
-  custom-options refusal.  Left out: the device tests (held in
-  ``test_torch_replay.py``), ``test_chaos_record_on_fail_writes_artifact_
-  only_when_red`` (loads the reference's ``tools/chaos.py``; the port's
-  ``--record-on-fail`` on the host plane is held in
-  ``test_torch_tools_host.py``) and ``test_recording_schema_is_pinned``
-  (``analysis/``, ``ROADMAP.md`` queue 1 item 6).
+- ``tests/test_replay.py``: the host record and replay, the
+  custom-options refusal and the recording format's pin.  Left out: the
+  device tests (held in ``test_torch_replay.py``) and
+  ``test_chaos_record_on_fail_writes_artifact_only_when_red`` (loads
+  the reference's ``tools/chaos.py``; the port's ``--record-on-fail``
+  on the host plane is held in ``test_torch_tools_host.py``).
 
 Then the interchange: a host recording made by either package replays
 in the other to the same digest stream, and ``host_view_digest`` gives
@@ -65,6 +64,7 @@ FAULTS_HOST = {
 REPLAY_HOST = {
     "test_host_record_replay_bit_exact",
     "test_host_replay_refuses_custom_options",
+    "test_recording_schema_is_pinned",
 }
 
 

@@ -54,6 +54,13 @@ HARD_LIMIT_GRACE = 5
 BIND_ATTEMPTS = 5
 
 _modules = {}
+#: test module name -> ``(old, new)`` source rewrites for the port's
+#: compile: a reference test that loads a reference command line from
+#: its file loads the port's counterpart instead
+PORT_REWRITES = {
+    "test_watchdog": (('REPO / "tools" / "blackbox.py"',
+                       'REPO / "serf_tpu_torch" / "tools" / "blackbox.py"'),),
+}
 _summaries = {}
 #: test module name -> the tests of it that run here, for modules that
 #: also hold tests reaching what the port does not have (see
@@ -164,6 +171,11 @@ def scenario_module(name: str, pkg: str):
         path = TESTS / f"{name}.py"
         src = path.read_text()
         if pkg != "serf_tpu":
+            for old, new in PORT_REWRITES.get(name, ()):
+                if old not in src:
+                    raise ValueError(f"{name}: rewrite target {old!r} "
+                                     "not found")
+                src = src.replace(old, new)
             src = re.sub(r"\bserf_tpu\b", pkg, src)
         mod = type(importlib)(f"_scenario_{name}_{pkg}")
         mod.__file__ = str(path)
@@ -172,6 +184,61 @@ def scenario_module(name: str, pkg: str):
         exec(compile(code, str(path), "exec"), mod.__dict__)
         _modules[key] = mod
     return _modules[key]
+
+
+def port_module(name: str, only, rewrites=()):
+    """The reference test module ``tests/<name>.py`` compiled for the port
+    with just the tests in ``only`` (:func:`_partial_tree`), every
+    ``serf_tpu`` name read as ``serf_tpu_torch`` and each ``(old, new)``
+    of ``rewrites`` applied to the source first: the tests that name a
+    reference file (a tool under ``tools/``, the reference's baseline or
+    README heading) name the port's counterpart.  A rewrite that matches
+    nothing raises, so a reference edit cannot leave one silently dead.
+    Cached per process."""
+    key = ("port", name, frozenset(only), tuple(rewrites))
+    if key not in _modules:
+        path = TESTS / f"{name}.py"
+        src = path.read_text()
+        for old, new in rewrites:
+            if old not in src:
+                raise ValueError(f"{name}: rewrite target {old!r} not found")
+            src = src.replace(old, new)
+        src = re.sub(r"\bserf_tpu\b", "serf_tpu_torch", src)
+        mod = type(importlib)(f"_port_{name}")
+        mod.__file__ = str(path)
+        exec(compile(_partial_tree(src, str(path), frozenset(only)),
+                     str(path), "exec"), mod.__dict__)
+        _modules[key] = mod
+    return _modules[key]
+
+
+def reference_tests(name: str, exclude=()) -> list:
+    """The test functions of ``tests/<name>.py`` (by its AST, in file
+    order) less ``exclude`` and those marked slow."""
+    tree = ast.parse((TESTS / f"{name}.py").read_text())
+    out = []
+    for node in tree.body:
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if not node.name.startswith("test_") or node.name in exclude:
+            continue
+        if any("slow" in ast.unparse(d) for d in node.decorator_list):
+            continue
+        out.append(node.name)
+    return out
+
+
+def run_port_test(mod, test: str, request) -> None:
+    """Run one test function of a :func:`port_module`: its arguments are
+    pytest's fixtures, a coroutine under ``asyncio.run`` bounded by
+    :data:`SCENARIO_LIMIT`."""
+    fn = getattr(mod, test)
+    args = {a: request.getfixturevalue(a)
+            for a in inspect.signature(fn).parameters}
+    if inspect.iscoroutinefunction(fn):
+        asyncio.run(asyncio.wait_for(fn(**args), SCENARIO_LIMIT))
+    else:
+        fn(**args)
 
 
 def _param_sets(fn):

@@ -65,7 +65,9 @@ def test_host_imports_without_jax():
 
 def test_agent_imports_without_torch():
     """An agent process is host plane only: it starts without loading
-    torch (import time on the card's machine: ``PERF.md``)."""
+    torch (import time on the card's machine: ``PERF.md``); so do the
+    example's agents, serflint and the host command lines (obsexport
+    imports torch only for its device leg)."""
     code = ("import sys\n"
             "sys.modules['torch'] = None\n"
             "sys.modules['jax'] = None\n"
@@ -73,7 +75,12 @@ def test_agent_imports_without_torch():
             "import serf_tpu_torch.obs.cluster, serf_tpu_torch.obs.timeline\n"
             "import serf_tpu_torch.faults.host, serf_tpu_torch.faults.proc\n"
             "import serf_tpu_torch.faults.invariants\n"
-            "import serf_tpu_torch.obs.watchdog, serf_tpu_torch.obs.slo\n")
+            "import serf_tpu_torch.obs.watchdog, serf_tpu_torch.obs.slo\n"
+            "import serf_tpu_torch.examples.toyregistry\n"
+            "import serf_tpu_torch.tools.obstop, serf_tpu_torch.tools.blackbox\n"
+            "import serf_tpu_torch.tools.obsexport\n"
+            "import serf_tpu_torch.tools.serflint\n"
+            "import serf_tpu_torch.tools.metrics_lint\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

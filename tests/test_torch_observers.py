@@ -13,22 +13,19 @@ summaries held equal:
   read stacked rows.  Left out: the tests that drive the reference's
   jitted scan through ``jax`` (``make_jaxpr``, ``jax.device_get``,
   ``vmesh8``; the port's invariant rows are held to the reference's in
-  ``test_torch_telemetry.py`` and ``test_torch_slo.py``),
-  ``test_merge_contract_is_replicated_everywhere`` (``INVARIANT_MERGE``,
-  the sharded round's contract, which waits for a four-card cell) and
-  the two cluster black-box tests that ``test_torch_cluster_plane.py``
+  ``test_torch_telemetry.py`` and ``test_torch_slo.py``) and the two
+  cluster black-box tests that ``test_torch_cluster_plane.py``
   runs;
 - ``tests/test_slo.py``: the judge, burn, anomaly, host-judge and
   bench-gate tests.  Left out: the device telemetry tests (the
-  reference's jitted scan; ``test_torch_slo.py`` holds the port's),
-  ``test_slo_table_matches_registry_declaration`` (``analysis/``,
-  ``ROADMAP.md`` queue 1 item 6) and the two obswatch tests, which load
+  reference's jitted scan; ``test_torch_slo.py`` holds the port's)
+  and the two obswatch tests, which load
   the reference's ``tools/obswatch.py`` from its file
   (``test_torch_tools.py`` holds the port's obswatch to it).
 
 The host plan of ``test_host_plan_live_breach_dumps_every_node`` renders
-the port's bundles with the reference's ``tools/blackbox.py`` (the port's
-command line waits for queue 1 item 5).  Then the same inputs through
+the port's bundles with the port's ``serf_tpu_torch/tools/blackbox.py``
+(``test_torch_host_scenarios.PORT_REWRITES``).  Then the same inputs through
 both packages' sampler, watchdog and judges give the same outputs.
 """
 
@@ -63,6 +60,7 @@ WATCHDOG_HOST = {
     "test_shed_ratio_burn_breaches_only_when_sustained",
     "test_task_failure_hook_is_a_breach",
     "test_host_plan_live_breach_dumps_every_node",
+    "test_merge_contract_is_replicated_everywhere",
 }
 SLO_HOST = {
     "test_burn_rates_lower_better",
@@ -79,6 +77,7 @@ SLO_HOST = {
     "test_score_bench_missing_metric_is_reported_not_violated",
     "test_score_bench_no_bands_is_rebaseline_round",
     "test_committed_baseline_bands_parse",
+    "test_slo_table_matches_registry_declaration",
 }
 
 
