@@ -229,7 +229,37 @@ agent``, torch blocked in them) on real UDP and TCP, driven by the
 agent pid among ``nvidia-smi``'s compute apps, none left after the
 kill.  No kernel may launch; the phase must end inside 180 s.
 
-The line before the last is ``{"kernels": [...]}``; the last is
+Phase 11 runs the node-sharded flagship round on virtual shards of the
+card (``serf_tpu_torch.parallel``: a mesh of P row blocks of the one
+device, the exchange under the ring or all-gather schedule, each kernel
+launched once per shard on its N/P rows, the telemetry rows assembled by
+in-collective legs), K = 64 with the kernels on, at N = 1,000,000 (a
+shard's 500,000, 250,000 or 125,000 rows: the kernels take any row
+count).  (a) the seeded flagship (phase 4's seeding, 2 events a round)
+unsharded and on 1, 2, 4 and 8 shards for 30 rounds, both schedules on
+the per-round path and the ring on the deferred path (unit 4): every
+leaf of the state equal to the unsharded run's (Vivaldi too), each
+kernel's launches P times the unsharded run's (``merge_incoming``
+never), the host syncs equal; (b) rounds/s of the per-round path on 8
+shards per schedule beside the unsharded path (20 warm-up, 100 timed
+rounds, host clock ending in a synchronize), and each kernel's µs a
+launch at N/8 = 125,000 rows against its byte bound; (c) ``partition-heal-loss`` on 8 shards at 1M,
+recorded with every row: its in-collective telemetry, propagation and
+invariant rows equal the unsharded run's gathered rows at every round
+(the float-summed coverage within ``COVERAGE_RTOL``), its digests,
+report, ledger and decisions the reference's fixture, its replay (on
+a mesh made from the recording) diffs clean, and both launch 8 times
+the unsharded run's kernels; (d) a checkpoint
+taken at round 15 of an 8-shard run, restored onto 4 shards and
+resumed, equals the unbroken run, and a restore onto 7 shards raises;
+(e) ``roundprof --mesh 8 --schedule ring`` at 1M (``attributed_device_frac``
+in [0.9, 1.1]), ``chaos --devices 8`` at 1M (exit 0, its digests the
+fixture's), ``multichip_ab --devices 8`` (its JSON under a temporary
+directory) and ``entry.dryrun_multichip(8)``.  The phase must end
+inside 180 s; each part is logged beside the card line.
+
+The line before the last is ``{"kernels": [...]}`` (with each kernel's
+launches on phase 11's runs and its µs at N/8 rows); the last is
 ``{"ok": true, "device": {...}}``.  Needs no network and imports no
 JAX.
 """
@@ -1963,7 +1993,8 @@ def json_differ(a, b, path: str = "") -> list:
     return [] if a == b else [f"{path}: {a!r} vs {b!r}"]
 
 
-def run_tool(rk, what: str, main, argv, **kw) -> dict:
+def run_tool(rk, what: str, main, argv, phase: str = "phase 5",
+             **kw) -> dict:
     """One command line's ``main(argv)`` in-process on the card, its
     stdout captured: the exit code, the output, the wall time (ending in
     a synchronize), the host syncs, and the launches, which must be none
@@ -1983,7 +2014,7 @@ def run_tool(rk, what: str, main, argv, **kw) -> dict:
         rc = main(list(argv), **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = check_launches(rk, "tools", f"phase 5 {what}", want=())
+    launches = check_launches(rk, "tools", f"{phase} {what}", want=())
     return dict(rc=rc, out=out.getvalue(), s=secs,
                 syncs=host_syncs() - s0, launches=launches)
 
@@ -4277,6 +4308,437 @@ def tools_host_full(rk) -> dict:
     return out
 
 
+# -- phase 11: the sharded round on virtual shards of the card -----------------
+
+#: shard counts of 11(a), each against the unsharded run
+SHARD_COUNTS = (1, 2, 4, 8)
+SHARD_ROUNDS = 30
+#: the (path, schedule) runs of 11(a): both schedules on the per-round
+#: path, the ring on the deferred one
+SHARD_RUNS = (("per-round", "ring"), ("per-round", "allgather"),
+              ("deferred", "ring"))
+#: 11(b): the timed shard count, its warm-up and timed rounds
+SHARD_TIMED_P, SHARD_WARM, SHARD_TIMED = 8, 20, 100
+#: 11(d): the round the checkpoint is taken at, the mesh it resumes on,
+#: and a mesh that does not divide N
+SHARD_CKPT_ROUND, SHARD_RESUME_P, SHARD_BAD_P = 15, 4, 7
+PHASE11_LIMIT_S = 180.0
+
+
+def tensor_leaves(tree, prefix: str = ""):
+    """``(path, tensor)`` for every tensor leaf of a state tree."""
+    import torch
+    for name in tree._fields:
+        v = getattr(tree, name)
+        if hasattr(v, "_fields"):
+            yield from tensor_leaves(v, f"{prefix}{name}.")
+        elif isinstance(v, torch.Tensor):
+            yield prefix + name, v
+
+
+def leaves_differ(a, b) -> list:
+    """The leaves of two states on the card that are not bit-equal (the
+    floats too: a sharded round runs the same global Vivaldi ops)."""
+    import torch
+    bad = []
+    for (path, x), (_, y) in zip(tensor_leaves(a), tensor_leaves(b)):
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                not torch.equal(x, y):
+            bad.append(path)
+    return bad
+
+
+def sharded_run(rk, st, cfg, key, rounds: int, mesh, warm_rounds: int = 0):
+    """``run_cluster_sustained`` on ``mesh`` (or none) from ``st``: the
+    final state, the launch counts (reset just before), the host syncs
+    and the wall seconds of the ``rounds`` after ``warm_rounds``
+    (host clock, ending in a synchronize)."""
+    import torch
+
+    from serf_tpu_torch import host_syncs, prng
+    from serf_tpu_torch.models.swim import run_cluster_sustained
+    k_warm, k_run = prng.split(key)
+    reset_counts(rk)
+    if warm_rounds:
+        st = run_cluster_sustained(st, cfg, k_warm, warm_rounds,
+                                   events_per_round=EVENTS_PER_ROUND,
+                                   mesh=mesh)
+        torch.cuda.synchronize()
+    s0 = host_syncs()
+    t0 = time.perf_counter()
+    st = run_cluster_sustained(st, cfg, k_run, rounds,
+                               events_per_round=EVENTS_PER_ROUND, mesh=mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    syncs = host_syncs() - s0
+    launches = dict(rk.LAUNCHES)
+    check_dispatch(rk, "phase 11")
+    return st, dict(launches=launches, syncs=syncs, s=secs)
+
+
+def sharded_exact(rk, n: int) -> dict:
+    """11(a): the seeded flagship at N = ``n`` unsharded and on 1, 2, 4
+    and 8 shards, 30 rounds, per (path, schedule) of
+    :data:`SHARD_RUNS`: every leaf equal to the unsharded run's, the
+    host syncs equal, and each kernel's launches ``P`` times the
+    unsharded run's (``merge_incoming`` never)."""
+    import dataclasses as dc
+
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.parallel.mesh import make_mesh
+    out, bad = {}, []
+    base = {}
+    for path, schedule in SHARD_RUNS:
+        cfg = dc.replace(kernel_config(n, **PATHS[path]["gossip"]),
+                         exchange_schedule=schedule)
+        if path not in base:
+            st0, _ = seeded_state(cfg, "cuda")
+            ref, run = sharded_run(rk, st0, cfg, prng.key(11),
+                                   SHARD_ROUNDS, None)
+            want = set(PATHS[path]["kernels"]) - {"merge_incoming"}
+            if {k for k, v in run["launches"].items() if v} - want:
+                bad.append(f"{path}: unsharded launches {run['launches']}")
+            base[path] = (st0, ref, run)
+            out[f"n={n} {path} unsharded"] = run
+        st0, ref, run0 = base[path]
+        for d in SHARD_COUNTS:
+            st, run = sharded_run(rk, st0, cfg, prng.key(11), SHARD_ROUNDS,
+                                  make_mesh(d, device="cuda"))
+            what = f"n={n} {path} {schedule} P={d}"
+            diff = leaves_differ(ref, st)
+            if diff:
+                bad.append(f"{what}: leaves differ from the unsharded run: "
+                           f"{diff}")
+            want = {k: d * v for k, v in run0["launches"].items()}
+            if run["launches"] != want or run["launches"]["merge_incoming"]:
+                bad.append(f"{what}: launches {run['launches']}, want "
+                           f"{want}")
+            if run["syncs"] != run0["syncs"]:
+                bad.append(f"{what}: {run['syncs']} host syncs, unsharded "
+                           f"{run0['syncs']}")
+            out[what] = run
+            log(f"phase 11 (a) {what} k={K_MAIN}, {SHARD_ROUNDS} rounds: "
+                f"every leaf equal to the unsharded run's, the fused "
+                f"kernels once per shard on {n // d} rows, "
+                f"launches {json.dumps(run['launches'])} (unsharded "
+                f"{json.dumps(run0['launches'])}), host_syncs_per_round "
+                f"{run['syncs'] / SHARD_ROUNDS:.2f} (unsharded "
+                f"{run0['syncs'] / SHARD_ROUNDS:.2f}), "
+                f"{run['s']:.2f} s")
+    if bad:
+        raise AssertionError("phase 11 (a): " + "; ".join(bad))
+    return out
+
+
+def sharded_timing(rk, card: str) -> dict:
+    """11(b): rounds/s of the per-round path on 8 shards per schedule
+    beside the unsharded per-round path at N = :data:`N_MAIN`, 20
+    warm-up and 100 timed rounds each, in this run; then ``fused_select_cached`` and
+    ``fused_merge`` (all five logged) at N/8 rows against the byte
+    bound."""
+    import dataclasses as dc
+
+    import torch
+
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.parallel.mesh import make_mesh
+    out = {}
+    for schedule in (None, "ring", "allgather"):
+        cfg = kernel_config(N_MAIN)
+        if schedule:
+            cfg = dc.replace(cfg, exchange_schedule=schedule)
+        st0, _ = seeded_state(cfg, "cuda")
+        mesh = (make_mesh(SHARD_TIMED_P, device="cuda") if schedule
+                else None)
+        _, run = sharded_run(rk, st0, cfg, prng.key(13), SHARD_TIMED, mesh,
+                             warm_rounds=SHARD_WARM)
+        what = (f"P={SHARD_TIMED_P} {schedule}" if schedule
+                else "unsharded")
+        out[what] = dict(rps=SHARD_TIMED / run["s"],
+                         syncs_per_round=run["syncs"] / SHARD_TIMED,
+                         launches=run["launches"])
+        log(f"phase 11 (b) per-round n={N_MAIN} {what}: rounds_per_s "
+            f"{SHARD_TIMED / run['s']:.2f} ({SHARD_TIMED} rounds after "
+            f"{SHARD_WARM}), host_syncs_per_round "
+            f"{run['syncs'] / SHARD_TIMED:.2f}, launches "
+            f"{json.dumps(run['launches'])} ({card})")
+        del st0
+        torch.cuda.empty_cache()
+    nl = N_MAIN // SHARD_TIMED_P
+    per_shard = measure_kernels(rk, torch.device("cuda"), nl, K_MAIN)
+    for name, t in per_shard.items():
+        log(f"phase 11 (b) kernel {name} at n={nl} (one shard of "
+            f"{SHARD_TIMED_P}) k={K_MAIN}: {t['ms'] * 1e3:.2f} us a launch "
+            f"(plain version {t['plain_ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, "
+            f"{t['ms'] and t['bound_ms'] / t['ms']:.1%} of it; "
+            f"{t['bytes']} B) ({card})")
+    out["per_shard_kernels"] = per_shard
+    return out
+
+
+def rows_differ(a, b) -> list:
+    """Two chaos runs' collected rows: the telemetry series and final row
+    (the float-summed coverage within ``COVERAGE_RTOL``, every other
+    field exact), the propagation rows and sentinel coverage, the
+    invariant rows."""
+    import numpy as np
+    bad = []
+    names = a.telemetry.names()
+    if names != b.telemetry.names():
+        return ["telemetry series names"]
+    for name in names:
+        x = np.asarray(a.telemetry.get(name).points(), dtype=np.float64)
+        y = np.asarray(b.telemetry.get(name).points(), dtype=np.float64)
+        if x.shape != y.shape:
+            bad.append(f"telemetry {name}: {x.shape} vs {y.shape}")
+        elif name == "coverage":
+            if not np.allclose(x, y, rtol=COVERAGE_RTOL, atol=0):
+                bad.append("telemetry coverage")
+        elif not np.array_equal(x, y):
+            bad.append(f"telemetry {name}")
+    for k, v in a.telemetry_final.items():
+        w = b.telemetry_final[k]
+        if not (np.isclose(v, w, rtol=COVERAGE_RTOL, atol=0)
+                if k == "coverage" else v == w):
+            bad.append(f"final row {k}")
+    for what, x, y in (
+            ("propagation rows", a.propagation["rows"],
+             b.propagation["rows"]),
+            ("sentinel coverage", a.propagation["coverage"],
+             b.propagation["coverage"]),
+            ("invariant rows", a.watchdog["rows"], b.watchdog["rows"])):
+        if x.shape != y.shape or not np.array_equal(x, y):
+            bad.append(what)
+    return bad
+
+
+def sharded_chaos(rk, card: str) -> dict:
+    """11(c): ``partition-heal-loss`` at N = 1M on 8 shards, recorded
+    with every row collected: the in-collective rows equal the gathered
+    rows of the unsharded run at every round; the digests, report,
+    ledger and decisions equal the reference's fixture; the recording
+    replays (on a mesh made from it) with a clean diff; the sharded run
+    and its replay launch 8 times the unsharded run's kernels."""
+    import torch
+
+    from serf_tpu_torch import host_syncs
+    from serf_tpu_torch.parallel.mesh import make_mesh
+    from serf_tpu_torch.replay.differ import diff_recordings
+    from serf_tpu_torch.replay.replayer import replay_device
+    spec = CHAOS_PATHS["chaos-heal"]
+    plan = spec["plan"]
+    cfg = chaos_config(plan, N_MAIN, spec["k"], False)
+    mesh = make_mesh(SHARD_TIMED_P, device="cuda")
+
+    def timed(fn):
+        reset_counts(rk)
+        s0 = host_syncs()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        return value, dict(s=time.perf_counter() - t0,
+                           syncs=host_syncs() - s0,
+                           launches=check_launches(rk, "chaos-heal",
+                                                   "phase 11 (c)"))
+
+    (res, rec), run = timed(lambda: chaos_run(plan, cfg, "cuda", record=True,
+                                              mesh=mesh, **EVIDENCE))
+    (gathered, _), run_g = timed(lambda: chaos_run(plan, cfg, "cuda",
+                                                   **EVIDENCE))
+    replayed, rep = timed(lambda: replay_device(rec).to_recording())
+    bad = [f"rows: {b}" for b in rows_differ(res, gathered)]
+    bad += fixture_differ(f"{plan} on {SHARD_TIMED_P} shards", res, rec,
+                          load_chaos_fixture()[plan])
+    d = diff_recordings(rec, replayed)
+    if not d.ok:
+        bad.append(f"record -> replay diverged: {d.to_dict()}")
+    want = {k: SHARD_TIMED_P * v for k, v in run_g["launches"].items()}
+    if run["launches"] != want or rep["launches"] != want:
+        bad.append(f"launches {run['launches']}, replay "
+                   f"{rep['launches']}, want {want}")
+    init = next(iter(rec.steps()))["args"]
+    if init.get("mesh_devices") != SHARD_TIMED_P:
+        bad.append(f"recorded mesh_devices {init.get('mesh_devices')}")
+    if bad:
+        raise AssertionError("phase 11 (c): " + "; ".join(bad))
+    rounds = res.rounds_run
+    log(f"phase 11 (c) {plan} n={N_MAIN} on {SHARD_TIMED_P} shards, "
+        f"recorded: {rounds} rounds at {rounds / run['s']:.2f} rounds/s "
+        f"(gathered rows, unsharded: {rounds / run_g['s']:.2f}; replay on "
+        f"a mesh of {init['mesh_devices']}: {rounds / rep['s']:.2f}), "
+        f"host_syncs_per_round {run['syncs'] / rounds:.2f} (unsharded "
+        f"{run_g['syncs'] / rounds:.2f}); launches "
+        f"{json.dumps(run['launches'])} ({SHARD_TIMED_P} x the unsharded "
+        f"run's, the replay's the same); the in-collective telemetry, "
+        f"propagation and invariant rows equal the gathered rows at every "
+        f"round; digests, report, ledger and decisions equal the "
+        f"reference's; record -> replay diffs clean over "
+        f"{d.compared_views} rounds ({card})")
+    return dict(rounds=rounds, rps=rounds / run["s"],
+                gathered_rps=rounds / run_g["s"], replay_rps=rounds / rep["s"],
+                syncs_per_round=run["syncs"] / rounds,
+                gathered_syncs_per_round=run_g["syncs"] / rounds,
+                launches=run["launches"], replay_launches=rep["launches"])
+
+
+def sharded_checkpoint(rk) -> dict:
+    """11(d): at N = :data:`N_MAIN`, a checkpoint at round 15 of an
+    8-shard run, restored onto a 4-shard mesh and resumed, equals the
+    unbroken 8-shard run; a restore onto a 7-shard mesh raises."""
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.models import checkpoint
+    from serf_tpu_torch.models.swim import make_cluster
+    from serf_tpu_torch.parallel.mesh import make_mesh
+    cfg = kernel_config(N_MAIN)
+    st0, _ = seeded_state(cfg, "cuda")
+    k1, k2 = prng.split(prng.key(17))
+    mesh8 = make_mesh(SHARD_TIMED_P, device="cuda")
+    mid, _ = sharded_run(rk, st0, cfg, k1, SHARD_CKPT_ROUND, mesh8)
+    path = checkpoint_path("sharded.npz")
+    t0 = time.perf_counter()
+    checkpoint.save(path, mid)
+    save_s = time.perf_counter() - t0
+    unbroken, _ = sharded_run(rk, mid, cfg, k2, SHARD_CKPT_ROUND, mesh8)
+    template = make_cluster(cfg, prng.key(0), device="cuda")
+    mesh4 = make_mesh(SHARD_RESUME_P, device="cuda")
+    back = checkpoint.restore(path, template, mesh=mesh4)
+    resumed, _ = sharded_run(rk, back, cfg, k2, SHARD_CKPT_ROUND, mesh4)
+    bad = leaves_differ(unbroken, resumed)
+    if bad:
+        raise AssertionError(f"phase 11 (d): the resume on "
+                             f"{SHARD_RESUME_P} shards differs from the "
+                             f"unbroken run: {bad}")
+    try:
+        checkpoint.restore(path, template,
+                           mesh=make_mesh(SHARD_BAD_P, device="cuda"))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"phase 11 (d): a restore onto "
+                             f"{SHARD_BAD_P} shards did not raise")
+    import os
+    mb = os.path.getsize(path) / 1e6
+    os.remove(path)
+    log(f"phase 11 (d) n={N_MAIN}: checkpoint at round "
+        f"{SHARD_CKPT_ROUND} of a {SHARD_TIMED_P}-shard run ({mb:.1f} MB, "
+        f"saved in {save_s:.2f} s), "
+        f"restored onto {SHARD_RESUME_P} shards and resumed "
+        f"{SHARD_CKPT_ROUND} rounds: every leaf equal to the unbroken run; "
+        f"onto {SHARD_BAD_P} shards: ValueError ({refused[:80]}...)")
+    return dict(mb=mb, save_s=save_s)
+
+
+def sharded_tools(rk, card: str) -> dict:
+    """11(e): the command lines on the mesh, as a user types them:
+    ``roundprof --mesh 8 --schedule ring`` at 1M (attribution in the
+    band), ``chaos --devices 8`` at 1M (exit 0, the mesh size, the
+    digests the fixture's), ``multichip_ab --devices 8`` (JSON under a
+    temporary directory) and ``entry.dryrun_multichip(8)``."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from serf_tpu_torch.entry import dryrun_multichip
+    from serf_tpu_torch.tools import chaos, multichip_ab, roundprof
+    out, bad = {}, []
+    run = run_tool(rk, "roundprof --mesh 8", roundprof.main, [
+        "--n", str(N_MAIN), "--mesh", str(SHARD_TIMED_P), "--schedule",
+        "ring", "--json"], phase="phase 11 (e)")
+    prof = json.loads(run["out"])
+    frac = prof["attributed_device_frac"]
+    lo, hi = ATTRIBUTION_BAND
+    if run["rc"] != 0 or frac is None or not lo <= frac <= hi or \
+            prof["devices"] != SHARD_TIMED_P or prof["schedule"] != "ring":
+        bad.append(f"roundprof --mesh: exit {run['rc']}, devices "
+                   f"{prof['devices']}, attributed_device_frac {frac} "
+                   f"outside [{lo}, {hi}]")
+    w = prof["whole_round"]
+    log(f"phase 11 (e) roundprof --n {N_MAIN} --mesh {SHARD_TIMED_P} "
+        f"--schedule ring: exit {run['rc']} in {run['s']:.2f} s, "
+        f"attributed_device_frac {frac}, whole round {w['wall_ms']:.3f} ms "
+        f"wall / {w['device_busy_ms']:.3f} ms device busy ({card})")
+    log(f"phase 11 (e) roundprof --mesh JSON: {json.dumps(prof)}")
+    out["roundprof"] = dict(s=run["s"], frac=frac, wall_ms=w["wall_ms"],
+                            busy_ms=w["device_busy_ms"])
+
+    keep = {}
+    record_dir = checkpoint_path("phase11")
+    run = run_tool(rk, "chaos --devices 8", chaos.main, [
+        "--plan", "partition-heal-loss", "--plane", "device", "--n",
+        str(N_MAIN), "--k-facts", str(K_MAIN), "--devices",
+        str(SHARD_TIMED_P), "--json", "--record-on-fail", "--record-dir",
+        record_dir], phase="phase 11 (e)", keep=keep)
+    doc = json.loads(run["out"])
+    res, rec = keep["result"], keep["recorder"].to_recording()
+    if run["rc"] != 0 or doc.get("device_mesh_devices") != SHARD_TIMED_P:
+        bad.append(f"chaos --devices: exit {run['rc']}, "
+                   f"device_mesh_devices {doc.get('device_mesh_devices')}")
+    bad += fixture_differ("chaos --devices 8", res, rec,
+                          load_chaos_fixture()["partition-heal-loss"])
+    log(f"phase 11 (e) chaos --plan partition-heal-loss --n {N_MAIN} "
+        f"--devices {SHARD_TIMED_P}: exit {run['rc']}, device_mesh_devices "
+        f"{doc.get('device_mesh_devices')}, digests equal the fixture's, "
+        f"{res.rounds_run} rounds in {run['s']:.2f} s "
+        f"({res.rounds_run / run['s']:.2f} rounds/s, host_syncs_per_round "
+        f"{run['syncs'] / res.rounds_run:.2f}) ({card})")
+    out["chaos"] = dict(s=run["s"], rounds=res.rounds_run)
+
+    with tempfile.TemporaryDirectory(prefix="multichip-ab-") as td:
+        path = f"{td}/multichip_ab.json"
+        run = run_tool(rk, "multichip_ab", multichip_ab.main, [
+            "--devices", str(SHARD_TIMED_P), "--out", path],
+            phase="phase 11 (e)")
+        ab = json.loads(open(path).read())
+    if run["rc"] != 0 or ab["devices"] != SHARD_TIMED_P:
+        bad.append(f"multichip_ab: exit {run['rc']}")
+    log(f"phase 11 (e) multichip_ab --devices {SHARD_TIMED_P}: exit "
+        f"{run['rc']} in {run['s']:.2f} s; rows "
+        + json.dumps([{k: r[k] for k in ("n", "allgather_rps", "ring_rps",
+                                         "model_schedule_recommended")}
+                      for r in ab["results"]])
+        + f"; hop latency {ab['hop_latency_s'] * 1e6:.1f} us (measured); "
+        f"link {ab['link_bytes_per_s'] / 1e9:.0f} GB/s ({ab['link_source']})"
+        f" ({card})")
+    out["multichip_ab"] = ab
+
+    reset_counts(rk)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        dry = dryrun_multichip(SHARD_TIMED_P)
+    torch.cuda.synchronize()
+    check_launches(rk, "tools", "phase 11 (e) dryrun_multichip", want=())
+    log(f"phase 11 (e) entry.dryrun_multichip({SHARD_TIMED_P}) on "
+        f"{dry['device']}: {buf.getvalue().strip()} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out["dryrun"] = dry
+    if bad:
+        raise AssertionError("phase 11 (e): " + "; ".join(bad))
+    return out
+
+
+def sharded_full(rk) -> dict:
+    """Phase 11: the sharded flagship round at full width on virtual
+    shards of the card, parts (a)-(e), each logged beside the card line;
+    the whole phase inside :data:`PHASE11_LIMIT_S`."""
+    card = card_line()
+    t0 = time.perf_counter()
+    out = {"exact": sharded_exact(rk, N_MAIN)}
+    out["timing"] = sharded_timing(rk, card)
+    out["chaos"] = sharded_chaos(rk, card)
+    out["checkpoint"] = sharded_checkpoint(rk)
+    out["tools"] = sharded_tools(rk, card)
+    out["s"] = time.perf_counter() - t0
+    if out["s"] > PHASE11_LIMIT_S:
+        raise AssertionError(f"phase 11 took {out['s']:.1f} s, over its "
+                             f"{PHASE11_LIMIT_S} s")
+    log(f"phase 11 (f) phase 11 {out['s']:.2f} s on the machine with {card}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4376,6 +4838,8 @@ def main() -> int:
     mark("phase 9 host chaos plane")
     tools_host_full(rk)
     mark("phase 10 serflint, command lines and example")
+    sharded = sharded_full(rk)
+    mark("phase 11 sharded round")
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
         log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "
@@ -4452,6 +4916,10 @@ def main() -> int:
                 f"host_syncs_per_round {t['syncs'] / t['rounds']:.2f}"
                 if "rounds" in t else "")
         log(f"tools {name}: wall_s {t['s']:.2f}{rate}")
+    timing = sharded["timing"]
+    log(f"phase 11 rounds_per_s (per-round path, N = {N_MAIN}): "
+        + ", ".join(f"{what} {timing[what]['rps']:.2f}" for what in timing
+                    if what != "per_shard_kernels"))
     for r in host_plane["vivaldi"]:
         log(f"host plane vivaldi n={r['n']}: worst_tol_ratio "
             f"{r['worst_tol_ratio']:.4f} ({r['worst_field']}) s {r['s']:.2f}")
@@ -4462,13 +4930,21 @@ def main() -> int:
                       "chaos-shed-static": shed["static"]["launches"],
                       "chaos-shed-controlled":
                           shed["controlled"]["launches"]}
+    shard_times = sharded["timing"]["per_shard_kernels"]
+    shard_launches = {f"phase 11 {what}": r["launches"]
+                      for what, r in sharded["exact"].items()}
+    shard_launches["phase 11 chaos-heal on 8 shards"] = \
+        sharded["chaos"]["launches"]
+    shard_launches["phase 11 chaos-heal replay on 8 shards"] = \
+        sharded["chaos"]["replay_launches"]
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], path=KERNEL_PATH[name],
                     launches=runs[KERNEL_PATH[name]]["launches"][name],
                     launches_by_path=dict(
                         {p: r["launches"][name] for p, r in runs.items()},
                         **{"churn-query": cq["launches"][name]},
-                        **{p: c[name] for p, c in chaos_launches.items()}),
+                        **{p: c[name] for p, c in chaos_launches.items()},
+                        **{p: c[name] for p, c in shard_launches.items()}),
                     max_abs_err=errs[name],
                     dispatch_us=dispatch_us(runs, rk.DISPATCH_OPS[name]),
                     ms=t["ms"], plain_ms=t["plain_ms"],
@@ -4479,7 +4955,10 @@ def main() -> int:
                     bound_ms_k256=times_cq[name]["bound_ms"],
                     ms_k32=times_shed[name]["ms"],
                     plain_ms_k32=times_shed[name]["plain_ms"],
-                    bound_ms_k32=times_shed[name]["bound_ms"])
+                    bound_ms_k32=times_shed[name]["bound_ms"],
+                    ms_shard=shard_times[name]["ms"],
+                    plain_ms_shard=shard_times[name]["plain_ms"],
+                    bound_ms_shard=shard_times[name]["bound_ms"])
                for name, t in times.items()]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -69,3 +69,13 @@ def u32_ge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def u32_gt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Unsigned ``a > b`` of int32-held u32 values."""
     return as_u64(a) > as_u64(b)
+
+
+def node_sum(x: torch.Tensor, shards: int = 0) -> torch.Tensor:
+    """Sum over the node axis (axis 0); with ``shards`` > 0, the partial
+    sums of its ``shards`` contiguous row blocks, ``(shards, ...)`` (a
+    sharded leg's per-shard partials, which its ``psum`` reduces)."""
+    if not shards:
+        return torch.sum(x, dim=0)
+    return torch.sum(x.reshape(shards, x.shape[0] // shards, *x.shape[1:]),
+                     dim=1)

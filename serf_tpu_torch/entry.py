@@ -11,8 +11,14 @@ entry does), a fresh cluster from key 0 with one user event injected
     fn, args = entry()            # on the card
     state = fn(*args)
 
-``entry(device="cpu")`` builds it on the CPU.  The reference's
-``dryrun_multichip`` waits with the sharded round.
+``entry(device="cpu")`` builds it on the CPU.
+
+``dryrun_multichip(n_devices)`` is the counterpart of the reference's:
+churn, the sharded ``cluster_round`` and the query gather composed over
+50 rounds on a mesh of ``n_devices`` virtual shards of the device, the
+ring and all-gather steps, the sustained round on the mesh, and the
+reference's protocol assertions (the three seeded crashes detected, the
+seeded fact everywhere, every alive node's response, the query closed).
 """
 
 from __future__ import annotations
@@ -43,3 +49,137 @@ def entry(n: int = ENTRY_N, device=None):
         return cluster_round(st, cfg, key)
 
     return fn, (state, prng.key(1))
+
+
+#: composed rounds of the multi-shard dry run (the reference's)
+DRYRUN_ROUNDS = 50
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
+    """The sharded dry run on ``n_devices`` virtual shards of ``device``
+    (default the card), at ``128 * n_devices`` nodes.  Raises
+    ``AssertionError`` when a protocol outcome fails; returns the
+    outcomes and the two schedules' rounds/s at this scale."""
+    import time
+
+    import torch
+
+    from serf_tpu_torch import host_int, prng, resolve_device
+    from serf_tpu_torch.models.churn import (
+        ChurnConfig,
+        composed_step,
+        linger_init,
+    )
+    from serf_tpu_torch.models.dissemination import (
+        K_USER_EVENT,
+        GossipConfig,
+        coverage,
+        inject_fact,
+    )
+    from serf_tpu_torch.models.failure import (
+        FailureConfig,
+        detection_complete,
+    )
+    from serf_tpu_torch.models.query import (
+        QueryConfig,
+        launch_query,
+        make_queries,
+        no_filter_mask,
+        num_responses,
+    )
+    from serf_tpu_torch.models.swim import (
+        ClusterConfig,
+        make_cluster,
+        run_cluster_sustained,
+    )
+    from serf_tpu_torch.parallel.mesh import make_mesh, shard_state
+    from serf_tpu_torch.parallel.ring import sharded_round_step
+
+    dev = resolve_device(device)
+    n = 128 * n_devices
+    cfg = ClusterConfig(
+        # k_facts=64: the sustained round's fact-lifetime check needs
+        # k_facts / events_per_round > the transmit window
+        gossip=GossipConfig(n=n, k_facts=64, peer_sampling="rotation"),
+        failure=FailureConfig(suspicion_rounds=8,
+                              probe_schedule="round_robin"),
+        push_pull_every=8)
+    # churn stays in the composed step with zero rates, so the outcomes
+    # are deterministic: the only dead nodes are the three seeded kills
+    ccfg = ChurnConfig(fail_rate=0.0, leave_rate=0.0, rejoin_rate=0.0,
+                       max_events=4)
+    qcfg = QueryConfig(q_slots=2, relay_factor=2)
+    state = make_cluster(cfg, prng.key(0), device=dev)
+    g = inject_fact(state.gossip, cfg.gossip, subject=1, kind=K_USER_EVENT,
+                    incarnation=0, ltime=5, origin=0)
+    dead = (3, 70, n - 2)
+    alive = g.alive.clone()
+    alive[list(dead)] = False
+    g = g._replace(alive=alive)
+    # a deadline inside the run, so the query's closure is asserted
+    g, qstate, _ = launch_query(g, make_queries(cfg.gossip, qcfg, dev),
+                                cfg.gossip, qcfg, origin=0,
+                                eligible=no_filter_mask(n, dev),
+                                timeout_rounds=30)
+    state = state._replace(gossip=g)
+
+    mesh = make_mesh(n_devices, device=dev)
+    out, q_out = shard_state(state, mesh), shard_state(qstate, mesh)
+    cd = linger_init(n, dev)
+    for k in prng.split(prng.key(1), DRYRUN_ROUNDS):
+        out, q_out, cd = composed_step(out, q_out, cd, cfg, ccfg, qcfg, k,
+                                       mesh=mesh)
+
+    ring_out = sharded_round_step(out.gossip, cfg.gossip, prng.key(2), mesh,
+                                  schedule="ring")
+    assert host_int(ring_out.round) == host_int(out.gossip.round) + 1
+
+    def rps(schedule, g0, reps=30):
+        g1 = sharded_round_step(g0, cfg.gossip, prng.key(3), mesh,
+                                schedule=schedule)          # warm
+        host_int(g1.round)
+        t0 = time.perf_counter()
+        gg = g0
+        for i in range(reps):
+            gg = sharded_round_step(gg, cfg.gossip, prng.key(4 + i), mesh,
+                                    schedule=schedule)
+        host_int(gg.round)                                  # the barrier
+        return reps / (time.perf_counter() - t0)
+
+    allgather_rps = rps("allgather", out.gossip)
+    ring_rps = rps("ring", out.gossip)
+
+    # the sustained load on the mesh: injection every round, the quiet
+    # gate held open
+    sus = run_cluster_sustained(shard_state(state, mesh), cfg, prng.key(5),
+                                20, events_per_round=2, mesh=mesh)
+    g_s = sus.gossip
+    assert (host_int(g_s.next_slot)
+            - host_int(state.gossip.next_slot)) >= 40, \
+        "sustained injection did not run every round on the mesh"
+    assert host_int(g_s.round - g_s.last_learn) \
+        < cfg.gossip.transmit_limit, \
+        "quiescent gate closed under sustained load on the mesh"
+
+    assert host_int(out.gossip.round) == DRYRUN_ROUNDS
+    cov = float(coverage(out.gossip, cfg.gossip)[0])
+    assert cov == 1.0, f"seeded fact not fully disseminated: {cov}"
+    det = bool(detection_complete(out.gossip, cfg.gossip, cfg.failure))
+    assert det, "seeded crashes not detected cluster-wide within the run"
+    resp = host_int(num_responses(q_out)[0])
+    n_alive = n - len(dead)
+    assert resp == n_alive, \
+        f"query gathered {resp} responses, want every alive node {n_alive}"
+    assert bool(torch.all(out.gossip.round > q_out.deadline)), \
+        "query should have closed (deadline passed) within the run"
+    result = dict(devices=n_devices, n=n, rounds=DRYRUN_ROUNDS,
+                  coverage=cov, detection_complete=det,
+                  query_responses=resp, alive=n_alive,
+                  allgather_rps=allgather_rps, ring_rps=ring_rps,
+                  device=str(dev))
+    print(f"dryrun_multichip({n_devices}): ok — mesh={mesh.shape}, n={n}, "
+          f"rounds={DRYRUN_ROUNDS}, coverage[0]={cov:.4f}, "
+          f"detection_complete={det}, query_responses={resp}/{n_alive}, "
+          f"allgather_rps={allgather_rps:.1f}, ring_rps={ring_rps:.1f} "
+          f"on {dev}")
+    return result

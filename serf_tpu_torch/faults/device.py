@@ -57,7 +57,6 @@ from serf_tpu_torch.models.swim import (
     TELEMETRY_FIELDS,
     ClusterConfig,
     ClusterState,
-    _check_slice,
     cluster_round,
     control_tick,
     invariant_row,
@@ -171,8 +170,9 @@ def run_phase(state: ClusterState, cfg: ClusterConfig, key,
               collect_propagation: bool = False,
               sentinels=None,
               collect_invariants: bool = False,
-              inv_cov0=None):
-    """Run ``num_rounds`` chaos rounds with one phase's masks applied:
+              inv_cov0=None, mesh=None):
+    """Run ``num_rounds`` chaos rounds with one phase's masks applied
+    (on ``mesh``, the sharded round and the in-collective rows):
     liveness is ``init_alive & ~down`` (``init_alive`` is the state
     after ``make_cluster``, not the previous phase's) and the partition
     ``group``; ``drop`` (an f32 device scalar, 0.0 when there is no
@@ -201,15 +201,15 @@ def run_phase(state: ClusterState, cfg: ClusterConfig, key,
     for subkey in prng.split(key, num_rounds):
         if collect_propagation:
             st, pair = cluster_round(st, cfg, subkey, drop_rate=drop,
-                                     collect_propagation=True)
-            row, colcnt, alive_cnt = round_telemetry(st, cfg,
+                                     mesh=mesh, collect_propagation=True)
+            row, colcnt, alive_cnt = round_telemetry(st, cfg, mesh=mesh,
                                                      with_cols=True)
         else:
-            st = cluster_round(st, cfg, subkey, drop_rate=drop)
-            row = (round_telemetry(st, cfg)
+            st = cluster_round(st, cfg, subkey, drop_rate=drop, mesh=mesh)
+            row = (round_telemetry(st, cfg, mesh=mesh)
                    if (collect_telemetry or collect_invariants
                        or cfg.control.enabled) else None)
-        st, row = control_tick(st, cfg, row)
+        st, row = control_tick(st, cfg, row, mesh=mesh)
         if collect_digests:
             overall, node = state_digest(st.gossip, cfg.gossip)
             digs.append(overall)
@@ -339,15 +339,21 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
     every phase (and of the settle window), plus the phase's lowered
     load, in chunks of at most ring capacity.
 
-    The cluster is built on ``device`` (default ``"cuda"``) unless
-    ``state`` is given.  ``recorder`` (a
+    The cluster is built on ``device`` (default: the mesh's device with
+    a ``mesh``, else ``"cuda"``) unless ``state`` is given.  ``mesh``
+    runs the whole plan on the sharded flagship round: the state is
+    placed on the mesh (``parallel.mesh.shard_state``), every phase
+    exchanges under the config's schedule, and the rows are the
+    in-collective ones; the read-outs after the run are the same
+    reductions.  ``recorder`` (a
     ``replay.recording.RunRecorder``) makes the run a recording: every
     injection batch and every scan's key is a step, and the scans emit
     the per-round membership-view digests (one device-to-host copy per
     scan).  The other rows are stacked on the device and read once,
     after the whole plan ran."""
-    _check_slice(mesh)
     plan.validate()
+    if device is None and mesh is not None:
+        device = mesh.device
     dev = (state.gossip.known.device if state is not None
            else resolve_device(device))
     sched = lower_plan(plan, cfg.n, dev)
@@ -365,7 +371,11 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
         if recorder is not None:
             recorder.step("init", key=key_to_hex(k0),
                           events_per_phase=events_per_phase,
-                          mesh_devices=1)
+                          mesh_devices=(mesh.size if mesh is not None
+                                        else 1))
+    if mesh is not None:
+        from serf_tpu_torch.parallel.mesh import shard_state
+        state = shard_state(state, mesh)
     init_alive = state.gossip.alive
     want_ctl = cfg.control.enabled
     ctl_base = control_base_row(cfg) if want_ctl else None
@@ -446,7 +456,7 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
                         collect_propagation=collect_propagation,
                         sentinels=sentinels,
                         collect_invariants=collect_invariants,
-                        inv_cov0=inv_cov[0])
+                        inv_cov0=inv_cov[0], mesh=mesh)
         scan_walls.append((base_round, num_rounds, t0, time.time()))
         if not any(flags):
             return out

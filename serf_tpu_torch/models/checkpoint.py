@@ -17,6 +17,8 @@ leaf, or a shape or dtype that differs from the template's.  Files
 written before the cache and tombstone leaves existed restore them at
 their lossless (cache) or recoverable (tombstone) defaults, as the
 reference does.  The restored tree lands on the template's devices.
+A state saved on a mesh gives the same mesh-agnostic file, and
+``restore(..., mesh=)`` checks that the mesh divides every node axis.
 """
 
 from __future__ import annotations
@@ -107,15 +109,38 @@ def save(path: str, state: Any) -> None:
     os.replace(tmp, path)
 
 
+def _validate_mesh(state: Any, mesh) -> Any:
+    """Fail-closed re-shard: every axis the node sharding would split
+    must be divisible by the mesh size (a 1M-node checkpoint restored
+    onto a 7-shard mesh must raise).  On the mesh's one device the
+    restored tree is its shards' row blocks as it is."""
+    from serf_tpu_torch.parallel.mesh import (
+        _flat_with_names,
+        _spec_for,
+        node_axis,
+        shard_state,
+    )
+
+    d = int(mesh.size)
+    for path, names, leaf in _flat_with_names(state):
+        axis = node_axis(_spec_for(names, leaf))
+        if axis is not None and leaf.shape[axis] % d != 0:
+            raise ValueError(
+                f"checkpoint re-shard device-count mismatch: array "
+                f"{path!r} axis {axis} of size {leaf.shape[axis]} is not "
+                f"divisible by the {d}-device mesh — restore with a "
+                f"device count that divides the node axis")
+    return shard_state(state, mesh)
+
+
 def restore(path: str, template: Any, mesh=None) -> Any:
     """Load ``path`` into the structure, shapes and devices of
-    ``template`` (the ``make_*`` result for the same config)."""
+    ``template`` (the ``make_*`` result for the same config).  ``mesh``
+    re-shards the restored tree onto a mesh (``parallel.mesh``), failing
+    closed with ``ValueError`` when the mesh does not divide a node
+    axis."""
     import zipfile
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "not yet ported: re-sharding a restored state belongs to the "
-            "sharded round, a later slice")
     try:
         with np.load(path) as data:
             if _SCHEMA_KEY in data:
@@ -156,7 +181,10 @@ def restore(path: str, template: Any, mesh=None) -> Any:
                     arr = arr.view(np.int32)
                 values[key] = torch.from_numpy(
                     np.array(arr, order="C")).to(leaf.device)
-            return _rebuild(template, values)
+            state = _rebuild(template, values)
+            if mesh is not None:
+                state = _validate_mesh(state, mesh)
+            return state
     except FileNotFoundError:
         raise
     except (zipfile.BadZipFile, KeyError, OSError, EOFError) as e:

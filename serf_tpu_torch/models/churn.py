@@ -157,14 +157,15 @@ def run_cluster_churn(state: ClusterState, cfg: ClusterConfig,
 
 def composed_step(state: ClusterState, qstate, countdown: torch.Tensor,
                   cfg: ClusterConfig, ccfg: ChurnConfig, qcfg, key,
-                  response_value=None):
+                  response_value=None, mesh=None):
     """The composed churn + protocol + query step (the graft entry's
-    ``full_step``, unsharded): split the key in three, churn, the
-    cluster round, the query gather, the leave countdown, then the
-    expired leavers go dark.  Returns ``(state, qstate, countdown)``."""
+    ``full_step``; on ``mesh`` the cluster round is the sharded one):
+    split the key in three, churn, the cluster round, the query gather,
+    the leave countdown, then the expired leavers go dark.  Returns
+    ``(state, qstate, countdown)``."""
     k_churn, k_round, k_query = prng.split(key, 3)
     g, new_leavers = churn_round(state.gossip, cfg.gossip, ccfg, k_churn)
-    state = cluster_round(state._replace(gossip=g), cfg, k_round)
+    state = cluster_round(state._replace(gossip=g), cfg, k_round, mesh=mesh)
     qstate = query_round(state.gossip, qstate, cfg.gossip, qcfg, k_query,
                          response_value=response_value)
     countdown, go_down = linger_step(countdown, new_leavers,

@@ -658,12 +658,16 @@ def pick_bounded(candidates: torch.Tensor, max_events: int, key):
 
 # -- the gossip round ----------------------------------------------------------
 
-def pallas_dispatch_mode(cfg: GossipConfig) -> Tuple[str, str]:
-    """The reference's dispatch decision (unsharded): ``("fused", "")``
-    for the cache-maintaining fused family, ``("kernels", "")`` for the
-    standalone family, ``("", reason)`` for the plain path.  A deferred
-    config with ``fused_kernels=False`` takes the plain path — the
-    reference's semantics, since the standalone family predates the
+def pallas_dispatch_mode(cfg: GossipConfig,
+                         n_devices: int = 0) -> Tuple[str, str]:
+    """The reference's dispatch decision: ``("fused", "")`` for the
+    cache-maintaining fused family, ``("kernels", "")`` for the
+    standalone family, ``("", reason)`` for the plain path.
+    ``n_devices=0`` means unsharded; ``>= 1`` a mesh of that many shards
+    (a one-shard mesh is still the sharded path), where only the fused
+    family runs, per shard, judged on the shard's ``n // d`` rows.  A
+    deferred config with ``fused_kernels=False`` takes the plain path —
+    the reference's semantics, since the standalone family predates the
     overlay plane."""
     if not cfg.use_pallas:
         return "", "use_pallas off"
@@ -672,25 +676,59 @@ def pallas_dispatch_mode(cfg: GossipConfig) -> Tuple[str, str]:
         if cfg.stamp_deferred:
             return "", ("standalone kernels do not maintain the "
                         "deferred-stamp overlay; use fused_kernels")
-        if round_kernels.pallas_ok(cfg.n, cfg.k_facts):
+        if n_devices == 0 and round_kernels.pallas_ok(cfg.n, cfg.k_facts):
             return "kernels", ""
-        return "", "pallas_ok rejected shape"
-    ok, reason = round_kernels.fused_ok(cfg.n, cfg.k_facts, cfg.stamp_cols,
+        return "", ("standalone kernels are single-device; use "
+                    "fused_kernels for the sharded path"
+                    if n_devices else "pallas_ok rejected shape")
+    d = max(1, n_devices)
+    if cfg.n % d != 0:
+        return "", f"n % devices != 0 (n={cfg.n}, devices={d})"
+    ok, reason = round_kernels.fused_ok(cfg.n // d, cfg.k_facts,
+                                        cfg.stamp_cols,
                                         deferred=cfg.stamp_deferred)
     return ("fused", "") if ok else ("", reason)
 
 
-def select_phase(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
+def launch_mode(cfg: GossipConfig, n_devices: int = 0) -> str:
+    """The family a round launches (``"fused"``, ``"kernels"`` or ``""``
+    for the plain path): :func:`pallas_dispatch_mode`'s, except that on
+    a mesh the fused family is held to the CUDA kernels' own shape rule
+    (``round_kernels.shape_ok``, any row count) on the shard's
+    ``n // d`` rows.  The reference's 32-row node block is its TPU
+    grid's; kept, it would send the million-node round on 4 or 8 shards
+    (250,000 and 125,000 rows) down the plain path on the card.  The
+    fused and plain paths are bit-identical, so only the launches part
+    from the reference's label."""
+    mode = pallas_dispatch_mode(cfg, n_devices)[0]
+    if mode or n_devices < 1 or not (cfg.use_pallas and cfg.fused_kernels) \
+            or cfg.n % n_devices:
+        return mode
+    from serf_tpu_torch.ops import round_kernels
+    ok, _ = round_kernels.shape_ok(cfg.n // n_devices, cfg.k_facts,
+                                   cfg.stamp_cols)
+    return "fused" if ok else ""
+
+
+def _dispatch(cfg: GossipConfig, mesh) -> str:
+    """:func:`launch_mode` for a round on ``mesh`` (or none)."""
+    from serf_tpu_torch.parallel.mesh import shards
+    return launch_mode(cfg, 0 if mesh is None else shards(mesh))
+
+
+def select_phase(state: GossipState, cfg: GossipConfig,
+                 mesh=None) -> torch.Tensor:
     """Phase 1 — packet selection: int32[N, W] of sending bits, off the
     sendable cache when it is valid for this round, else recomputed
     from the stamp plane.  The standalone family never trusts the cache
     (its merge does not keep it) and always runs ``select_packets``; on
     the deferred flavor the stale-cache recompute is the plain
     ``select_words``, which reads through the overlay (the stamp-only
-    kernel cannot — the reference's design)."""
-    mode, _ = pallas_dispatch_mode(cfg)
+    kernel cannot — the reference's design).  ``mesh`` launches the
+    kernels once per shard."""
+    mode = _dispatch(cfg, mesh)
     if mode == "kernels":
-        return _select_packets(state, cfg)
+        return _select_packets(state, cfg, mesh)
     cached = (cfg.use_sendable_cache
               and host_bool(state.sendable_round == state.round))
     if cached:
@@ -698,18 +736,19 @@ def select_phase(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
             from serf_tpu_torch.ops import round_kernels
             return round_kernels.fused_select_cached(
                 state.sendable, state.known, state.alive,
-                k_facts=cfg.k_facts, stamp_cols=cfg.stamp_cols)
+                k_facts=cfg.k_facts, stamp_cols=cfg.stamp_cols, mesh=mesh)
         return (state.sendable & state.known) & _alive_words(state.alive)
     if mode and not cfg.stamp_deferred:
-        return _select_packets(state, cfg)
+        return _select_packets(state, cfg, mesh)
     return select_words(state, cfg)
 
 
-def _select_packets(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
+def _select_packets(state: GossipState, cfg: GossipConfig,
+                    mesh=None) -> torch.Tensor:
     from serf_tpu_torch.ops import round_kernels
     return round_kernels.select_packets(
         state.stamp, state.known, state.alive, cfg.transmit_limit_q,
-        state.round, packed=cfg.pack_stamp, k_facts=cfg.k_facts)
+        state.round, packed=cfg.pack_stamp, k_facts=cfg.k_facts, mesh=mesh)
 
 
 def exchange_phase(packets: torch.Tensor, cfg: GossipConfig, key,
@@ -829,7 +868,8 @@ def _learn_words(state: GossipState, incoming: torch.Tensor) -> torch.Tensor:
 
 
 def merge_phase(state: GossipState, incoming: torch.Tensor,
-                cfg: GossipConfig, stamp_unit=None) -> GossipState:
+                cfg: GossipConfig, mesh=None,
+                stamp_unit=None) -> GossipState:
     """Phases 4+5 — Lamport merge + the stamp learn pass.  Fused and
     plain: gated on ``learned_any`` (one host read) — with nothing
     learned the stamp/cache outputs are discarded and ``last_clamp``
@@ -837,10 +877,13 @@ def merge_phase(state: GossipState, incoming: torch.Tensor,
     on every active round, cache invalidated, ``learned_any`` kept on the
     device (no host read).  Deferred flavor: :func:`_merge_phase_deferred`
     (``stamp_unit``, an int32 device scalar, is the controller's live
-    cohort size).  Does not increment ``round``."""
-    mode, _ = pallas_dispatch_mode(cfg)
+    cohort size).  ``mesh`` launches the kernels once per shard; the
+    shards' learn flags concatenate, so ``learned_any`` is still one
+    host read.  Does not increment ``round``."""
+    mode = _dispatch(cfg, mesh)
     if cfg.stamp_deferred:
-        return _merge_phase_deferred(state, incoming, cfg, mode, stamp_unit)
+        return _merge_phase_deferred(state, incoming, cfg, mode, mesh,
+                                     stamp_unit)
     r1 = state.round + 1
     if mode == "kernels":
         from serf_tpu_torch.ops import round_kernels
@@ -858,7 +901,8 @@ def merge_phase(state: GossipState, incoming: torch.Tensor,
         known, stamp2, sendable2, flags = round_kernels.fused_merge(
             state.known, incoming, state.alive, state.stamp, r1,
             limit_q=cfg.transmit_limit_q, packed=cfg.pack_stamp,
-            k_facts=cfg.k_facts, with_cache=cfg.use_sendable_cache)
+            k_facts=cfg.k_facts, with_cache=cfg.use_sendable_cache,
+            mesh=mesh)
         learned_any = host_bool(torch.any(flags != 0))
         if learned_any:
             stamp, last_clamp = stamp2, r1
@@ -885,7 +929,7 @@ def merge_phase(state: GossipState, incoming: torch.Tensor,
 
 
 def _merge_phase_deferred(state: GossipState, incoming: torch.Tensor,
-                          cfg: GossipConfig, mode: str,
+                          cfg: GossipConfig, mode: str, mesh,
                           stamp_unit) -> GossipState:
     """:func:`merge_phase`, deferred flavor.  The word-plane merge runs
     every active round; the stamp plane is written only by the
@@ -909,7 +953,8 @@ def _merge_phase_deferred(state: GossipState, incoming: torch.Tensor,
             stamp, sendable = round_kernels.fused_flush(
                 known, new_words, state.overlay, state.stamp, nxt,
                 limit_q=cfg.transmit_limit_q, packed=cfg.pack_stamp,
-                k_facts=cfg.k_facts, with_cache=cfg.use_sendable_cache)
+                k_facts=cfg.k_facts, with_cache=cfg.use_sendable_cache,
+                mesh=mesh)
             if cfg.use_sendable_cache:
                 sendable_round = nxt
             else:
@@ -945,7 +990,8 @@ def popcount(words: torch.Tensor) -> torch.Tensor:
 
 def round_step(state: GossipState, cfg: GossipConfig, key, group=None,
                drop_rate=None, eff_fanout=None,
-               collect_propagation: bool = False, stamp_unit=None):
+               collect_propagation: bool = False, stamp_unit=None,
+               exchange=None, mesh=None):
     """One gossip round: select, pull-exchange, merge — skipped as a
     bit-exact identity once ``round - last_learn`` reaches the transmit
     window (nothing is sendable; on the deferred flavor nothing is
@@ -954,17 +1000,27 @@ def round_step(state: GossipState, cfg: GossipConfig, key, group=None,
     live knobs (int32 device scalars).  With ``collect_propagation``
     also returns ``(slots_sent, slots_learned)``: ``eff_fanout x
     popcount(packets)`` and ``popcount(incoming & ~known & alive)``,
-    int32 device scalars."""
+    int32 device scalars.
+
+    ``exchange`` swaps the exchange leg for a drop-in with
+    :func:`exchange_phase`'s contract (the sharded round's
+    ``parallel.ring.exchange_sharded``); ``eff_fanout`` reaches it only
+    when live.  ``mesh`` launches the select and merge kernels once per
+    shard.  One copy of everything around the leg is what keeps the
+    sharded round bit-exact with this one."""
     st = state
     if collect_propagation:
         zero = torch.zeros((), dtype=torch.int32, device=state.round.device)
         prop = (zero, zero)
     if host_bool(state.round - state.last_learn
                  < cfg.transmit_window_rounds):
-        packets = select_phase(state, cfg)
-        incoming = exchange_phase(packets, cfg, key, group=group,
-                                  drop_rate=drop_rate, eff_fanout=eff_fanout)
-        st = merge_phase(state, incoming, cfg, stamp_unit=stamp_unit)
+        packets = select_phase(state, cfg, mesh=mesh)
+        ex = exchange_phase if exchange is None else exchange
+        kw = {} if eff_fanout is None else {"eff_fanout": eff_fanout}
+        incoming = ex(packets, cfg, key, group=group, drop_rate=drop_rate,
+                      **kw)
+        st = merge_phase(state, incoming, cfg, mesh=mesh,
+                         stamp_unit=stamp_unit)
         if collect_propagation:
             eff = cfg.fanout if eff_fanout is None else eff_fanout
             prop = ((eff * torch.sum(popcount(packets))).to(torch.int32),

@@ -21,6 +21,7 @@ from serf_tpu_torch.bits import (
     MASK32,
     alive_words,
     as_u64,
+    node_sum,
     pack_bits,
     u32_ge,
     u32_gt,
@@ -331,11 +332,13 @@ def run_swim(state: GossipState, cfg: GossipConfig, fcfg: FailureConfig,
 
 def believer_counts(state: GossipState, cfg: GossipConfig,
                     fcfg: FailureConfig, stretch_q=None, subj_inc=None,
-                    known=None, evidence_facts=None) -> torch.Tensor:
+                    known=None, evidence_facts=None,
+                    shards: int = 0) -> torch.Tensor:
     """int64[K]: per-fact count of alive believers (stage 1 of the
     believed-dead judgment).  ``subj_inc``, ``known`` (the unpacked
     known plane) and ``evidence_facts`` (``(dead_fact, aged_suspect)``)
-    let a caller that already computed them pass them in."""
+    let a caller that already computed them pass them in.  ``shards``
+    > 0 returns each row block's partial counts, int64[shards, K]."""
     k = cfg.k_facts
     if known is None:
         known = unpack_bits(state.known, k)
@@ -355,7 +358,7 @@ def believer_counts(state: GossipState, cfg: GossipConfig,
         knower_refutes = knower_refutes | (
             (state.known[:, w][:, None] & packed[None, :, w]) != 0)
     active = evidence & ~knower_refutes
-    return torch.sum(active & state.alive[:, None], dim=0)
+    return node_sum(active & state.alive[:, None], shards)
 
 
 def believed_subjects(state: GossipState, n: int, believer_cnt,

@@ -8,10 +8,15 @@ Python call that launches its work on the state's device.
 
 Entry points (:func:`make_cluster`, :func:`run_cluster`,
 :func:`run_cluster_sustained`) run on ``"cuda"`` unless the caller asks
-for another device, and raise without a card.  This package runs the
-round unsharded (``mesh`` raises ``NotImplementedError``), with the
-adaptive controller (``control.enabled``) and the per-round telemetry,
-propagation and invariant rows (the ``collect_*`` flags).
+for another device, and raise without a card.  A ``mesh``
+(``parallel.mesh.make_mesh``: virtual shards of one device) makes the
+round the sharded flagship round (``parallel.ring.sharded_round_step``:
+the exchange leg under the config's schedule, the kernels per shard) and
+the telemetry row the in-collective one
+(``parallel.ring.round_telemetry_sharded``), bit-exact with the
+unsharded round.  The adaptive controller (``control.enabled``) and the
+per-round telemetry, propagation and invariant rows (the ``collect_*``
+flags) run on both.
 
 Host syncs per round: the reference's round-cadence conds (probe tick,
 push/pull tick) both derive from one read of ``round`` at the top of
@@ -30,7 +35,7 @@ import torch
 
 from serf_tpu_torch import (emit_gauges, host_bool, host_int, prng,
                             resolve_device)
-from serf_tpu_torch.bits import as_u64, unpack_bits
+from serf_tpu_torch.bits import as_u64, node_sum, unpack_bits
 from serf_tpu_torch.control.device import (
     KNOB_FANOUT,
     KNOB_PROBE_MULT,
@@ -83,10 +88,6 @@ from serf_tpu_torch.obs.propagation import PROPAGATION_FIELDS  # noqa: F401
 # holds; ``viol_mask`` ORs bit i for each failed predicate i
 from serf_tpu_torch.obs.watchdog import INVARIANT_FIELDS  # noqa: F401
 
-#: ICI schedules of the reference's sharded exchange leg (validated for
-#: config parity; the port's sharded path is a later slice)
-EXCHANGE_SCHEDULES = ("ring", "allgather")
-
 
 @dataclasses.dataclass(frozen=True)
 class ClusterConfig:
@@ -105,6 +106,7 @@ class ClusterConfig:
             raise ValueError(
                 f"probe_every must be >= 1, got {self.probe_every} "
                 f"(use with_failure=False to disable probing)")
+        from serf_tpu_torch.parallel.ring import EXCHANGE_SCHEDULES
         if self.exchange_schedule not in EXCHANGE_SCHEDULES:
             raise ValueError(
                 f"unknown exchange_schedule {self.exchange_schedule!r} "
@@ -150,22 +152,19 @@ def make_cluster(cfg: ClusterConfig, key, device=None) -> ClusterState:
     )
 
 
-def _check_slice(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "not yet ported: the sharded round is a later slice")
-
-
 def cluster_round(state: ClusterState, cfg: ClusterConfig, key,
                   drop_rate=None, mesh=None,
                   collect_propagation: bool = False):
     """One full protocol round for every simulated node.  Under control
     the round reads its dynamic config from ``state.control``: the
     effective fan-out, the suspicion stretch, the probe cadence
-    multiplier and (deferred configs only) the cohort size.  With
+    multiplier and (deferred configs only) the cohort size.  ``mesh``
+    makes it the sharded flagship round: ``round_step`` with the exchange
+    leg swapped for ``parallel.ring.exchange_sharded`` under
+    ``cfg.exchange_schedule`` and the kernels launched per shard; every
+    other phase runs on the global tensors, as GSPMD runs it.  With
     ``collect_propagation`` returns ``(state, (slots_sent,
     slots_learned))``."""
-    _check_slice(mesh)
     k_gossip, k_probe, k_refute, k_declare, k_pp, k_viv, k_peer = \
         prng.split(key, 7)
     g = state.gossip
@@ -183,10 +182,18 @@ def cluster_round(state: ClusterState, cfg: ClusterConfig, key,
         probe_every *= host_int(knobs[KNOB_PROBE_MULT])
     probe_tick = r0 % probe_every == 0
     chaos_group = state.group if drop_rate is not None else None
-    g = round_step(g, cfg.gossip, k_gossip, group=state.group,
-                   drop_rate=drop_rate, eff_fanout=eff_fanout,
-                   collect_propagation=collect_propagation,
-                   stamp_unit=stamp_unit)
+    if mesh is not None:
+        from serf_tpu_torch.parallel.ring import sharded_round_step
+        g = sharded_round_step(g, cfg.gossip, k_gossip, mesh,
+                               schedule=cfg.exchange_schedule,
+                               group=state.group, drop_rate=drop_rate,
+                               eff_fanout=eff_fanout, stamp_unit=stamp_unit,
+                               collect_propagation=collect_propagation)
+    else:
+        g = round_step(g, cfg.gossip, k_gossip, group=state.group,
+                       drop_rate=drop_rate, eff_fanout=eff_fanout,
+                       collect_propagation=collect_propagation,
+                       stamp_unit=stamp_unit)
     if collect_propagation:
         g, prop = g
     if cfg.with_failure:
@@ -231,15 +238,17 @@ def vivaldi_phase(state: ClusterState, cfg: ClusterConfig, k_peer,
                           active=reachable)
 
 
-def control_tick(state: ClusterState, cfg: ClusterConfig, row=None):
+def control_tick(state: ClusterState, cfg: ClusterConfig, row=None,
+                 mesh=None):
     """Apply the control law after a round: read the signals off the
     post-round telemetry ``row`` (computed here when the caller did not
-    collect one) and advance ``state.control``.  Returns ``(state,
-    row)``; a pass-through when the controller is disabled."""
+    collect one, in-collective on ``mesh``) and advance
+    ``state.control``.  Returns ``(state, row)``; a pass-through when the
+    controller is disabled."""
     if not cfg.control.enabled:
         return state, row
     if row is None:
-        row = round_telemetry(state, cfg)
+        row = round_telemetry(state, cfg, mesh=mesh)
     sig = ControlSignals(
         agreement=row[TELEMETRY_FIELDS.index("agreement")],
         false_dead=row[TELEMETRY_FIELDS.index("false_dead")],
@@ -252,9 +261,9 @@ def control_tick(state: ClusterState, cfg: ClusterConfig, row=None):
 
 def run_cluster(state: ClusterState, cfg: ClusterConfig, key,
                 num_rounds: int, mesh=None) -> ClusterState:
-    _check_slice(mesh)
     for k in prng.split(key, num_rounds):
-        state, _ = control_tick(cluster_round(state, cfg, k), cfg)
+        state, _ = control_tick(cluster_round(state, cfg, k, mesh=mesh),
+                                cfg, mesh=mesh)
     return state
 
 
@@ -264,8 +273,7 @@ def sustained_round(state: ClusterState, cfg: ClusterConfig, key,
     """``cluster_round`` under continuous load: inject
     ``events_per_round`` fresh user events at uniform random origins
     (under control, as many as the admission budget lets through), then
-    run the round."""
-    _check_slice(mesh)
+    run the round (on ``mesh``, the sharded round)."""
     m = events_per_round
     window = cfg.gossip.transmit_window_rounds
     if m and cfg.gossip.k_facts / m <= window:
@@ -290,7 +298,7 @@ def sustained_round(state: ClusterState, cfg: ClusterConfig, key,
         g, cfg.gossip, eids, K_USER_EVENT,
         incarnations=torch.zeros((m,), dtype=torch.int32, device=dev),
         ltimes=eids, origins=origins, active=active)
-    return cluster_round(state._replace(gossip=g), cfg, k_rnd,
+    return cluster_round(state._replace(gossip=g), cfg, k_rnd, mesh=mesh,
                          collect_propagation=collect_propagation)
 
 
@@ -308,8 +316,8 @@ def run_cluster_sustained(state: ClusterState, cfg: ClusterConfig, key,
     transfer.  With both the propagation and invariant rows, the
     invariant entry is ``(irows, (cov_max f32[M], alive f32))``, the
     carry of the coverage-monotonicity predicate, which ``inv_cov0``
-    seeds for a chunked caller."""
-    _check_slice(mesh)
+    seeds for a chunked caller.  ``mesh`` runs the sharded round and the
+    in-collective telemetry row."""
     if collect_propagation and events_per_round <= 0:
         raise ValueError(
             "collect_propagation traces the first injected batch as "
@@ -329,16 +337,16 @@ def run_cluster_sustained(state: ClusterState, cfg: ClusterConfig, key,
     rows, props, covs, irows = [], [], [], []
     for k in prng.split(key, num_rounds):
         if collect_propagation:
-            state, pair = sustained_round(state, cfg, k, m,
+            state, pair = sustained_round(state, cfg, k, m, mesh=mesh,
                                           collect_propagation=True)
-            row, colcnt, alive_cnt = round_telemetry(state, cfg,
+            row, colcnt, alive_cnt = round_telemetry(state, cfg, mesh=mesh,
                                                      with_cols=True)
         else:
-            state = sustained_round(state, cfg, k, m)
-            row = (round_telemetry(state, cfg)
+            state = sustained_round(state, cfg, k, m, mesh=mesh)
+            row = (round_telemetry(state, cfg, mesh=mesh)
                    if (collect_telemetry or collect_invariants
                        or cfg.control.enabled) else None)
-        state, row = control_tick(state, cfg, row)
+        state, row = control_tick(state, cfg, row, mesh=mesh)
         if collect_telemetry:
             rows.append(row)
         if collect_propagation:
@@ -391,15 +399,18 @@ TELEMETRY_MERGE = {
 
 
 def telemetry_counts(g: GossipState, cfg: ClusterConfig, stretch_q=None,
-                     subj_inc=None):
+                     subj_inc=None, shards: int = 0):
     """Stage 1 of the telemetry row: ``(alive_cnt, colcnt int64[K],
-    believers int64[K])``, integer sums over the node axis.  The
-    believed-dead evidence pass is skip-gated (one host read): with no
+    believers int64[K])``, integer sums over the node axis (``shards`` >
+    0: each row block's partial sums, with a leading ``shards`` axis,
+    which the in-collective leg's ``psum`` reduces).  The believed-dead
+    evidence pass is skip-gated (one host read, the same for every
+    shard: it reads the replicated fact table): with no
     current-incarnation dead or suspect fact in the ring its result is
     the zero vector, as in the reference."""
     known = unpack_bits(g.known, cfg.gossip.k_facts)
-    alive_cnt = torch.sum(g.alive)
-    colcnt = torch.sum(known & g.alive[:, None], dim=0)
+    alive_cnt = node_sum(g.alive, shards)
+    colcnt = node_sum(known & g.alive[:, None], shards)
     if subj_inc is None:
         subj_inc = subject_incarnations(g)
     dead_fact = _facts_about(g, (K_DEAD,), inc_current=True,
@@ -410,7 +421,7 @@ def telemetry_counts(g: GossipState, cfg: ClusterConfig, stretch_q=None,
         believers = believer_counts(
             g, cfg.gossip, cfg.failure, stretch_q=stretch_q,
             subj_inc=subj_inc, known=known,
-            evidence_facts=(dead_fact, aged_suspect))
+            evidence_facts=(dead_fact, aged_suspect), shards=shards)
     else:
         believers = torch.zeros_like(colcnt)
     return alive_cnt, colcnt, believers
@@ -448,12 +459,18 @@ def telemetry_stretch(state: ClusterState, cfg: ClusterConfig):
 
 
 def round_telemetry(state: ClusterState, cfg: ClusterConfig,
-                    with_cols: bool = False):
+                    mesh=None, with_cols: bool = False):
     """One f32[len(TELEMETRY_FIELDS)] counters row off the current state:
     alive count, valid facts, knowledge agreement, mean coverage, the
     overflow/injection ledger, live suspicions and false-DEAD count.
     ``with_cols`` also returns the stage-1 ``colcnt`` and ``alive_cnt``
-    the row was folded from (the propagation row reuses them)."""
+    the row was folded from (the propagation row reuses them).  ``mesh``
+    computes the same row in-collective
+    (``parallel.ring.round_telemetry_sharded``), the extras then the
+    post-``psum`` counts."""
+    if mesh is not None:
+        from serf_tpu_torch.parallel.ring import round_telemetry_sharded
+        return round_telemetry_sharded(state, cfg, mesh, with_cols=with_cols)
     g = state.gossip
     subj_inc = subject_incarnations(g)
     alive_cnt, colcnt, believers = telemetry_counts(

@@ -79,19 +79,21 @@ LOST_WINDOW_TRIES = 3
 _FENCE_KERNEL = "spin_kernel"
 
 
-def _kernel_path(cfg) -> str:
+def _kernel_path(cfg, mesh_devices: int = 0) -> str:
     """The dispatch path (accounting.KERNEL_PATHS) the config runs: the
-    round's own decision (``dissemination.pallas_dispatch_mode``)."""
-    from serf_tpu_torch.models.dissemination import pallas_dispatch_mode
+    round's own decision (``dissemination.launch_mode``);
+    ``mesh_devices=0`` = unsharded."""
+    from serf_tpu_torch.models.dissemination import launch_mode
 
-    return pallas_dispatch_mode(cfg.gossip)[0] or "xla"
+    return launch_mode(cfg.gossip, mesh_devices) or "xla"
 
 
 def _seeded_cluster(cfg, key, events_per_round: int, warm_rounds: int,
-                    device):
+                    device, mesh=None):
     """A populated steady state: 8 seeded facts and ``min(8, n // 100)``
     deaths, then ``warm_rounds`` sustained rounds (and, on a deferred
-    config, up to a cohort's last round)."""
+    config, up to a cohort's last round); ``mesh`` places the state and
+    warms on the sharded round."""
     from serf_tpu_torch import prng
     from serf_tpu_torch.models.dissemination import (K_USER_EVENT,
                                                      inject_fact)
@@ -114,17 +116,25 @@ def _seeded_cluster(cfg, key, events_per_round: int, warm_rounds: int,
         alive[ids.to(alive.device)] = False
         g = g._replace(alive=alive)
     state = state._replace(gossip=g)
+    if mesh is not None:
+        from serf_tpu_torch.parallel.mesh import shard_state
+        state = shard_state(state, mesh)
     unit = cfg.gossip.stamp_flush_unit
     rounds = warm_rounds + (-(warm_rounds + 1)) % unit
     return run_cluster_sustained(state, cfg, prng.key(7), rounds,
-                                 events_per_round=events_per_round)
+                                 events_per_round=events_per_round,
+                                 mesh=mesh)
 
 
-def _phase_callables(state, cfg, events_per_round: int):
+def _phase_callables(state, cfg, events_per_round: int, mesh=None,
+                     schedule: str = "ring"):
     """``(name, fn, args)`` per phase: ``fn(*args, key=)`` runs exactly
     the round's phase function on the warmed state.  The selection's
     packets and the exchange's incoming words are made once, so each
-    phase is timed alone."""
+    phase is timed alone.  With ``mesh`` the select and merge kernels
+    launch per shard and the exchange is ``parallel.ring``'s leg under
+    ``schedule``."""
+    import functools
     from serf_tpu_torch import prng
     from serf_tpu_torch.models import antientropy, dissemination, failure
     from serf_tpu_torch.models.swim import vivaldi_phase
@@ -145,17 +155,23 @@ def _phase_callables(state, cfg, events_per_round: int):
             ltimes=eids, origins=origins,
             active=torch.ones((m,), dtype=torch.bool, device=dev))
 
-    packets = dissemination.select_phase(g, gcfg)
-    incoming = dissemination.exchange_phase(packets, gcfg, key)
+    if mesh is not None:
+        from serf_tpu_torch.parallel.ring import exchange_sharded
+        exchange = functools.partial(exchange_sharded, mesh=mesh,
+                                     schedule=schedule)
+    else:
+        exchange = dissemination.exchange_phase
+    packets = dissemination.select_phase(g, gcfg, mesh=mesh)
+    incoming = exchange(packets, gcfg, key)
     return [
         ("inject", inject, (g,)),
         ("selection",
-         lambda g, key: dissemination.select_phase(g, gcfg), (g,)),
-        ("exchange",
-         lambda p, key: dissemination.exchange_phase(p, gcfg, key),
-         (packets,)),
+         lambda g, key: dissemination.select_phase(g, gcfg, mesh=mesh),
+         (g,)),
+        ("exchange", lambda p, key: exchange(p, gcfg, key), (packets,)),
         ("merge",
-         lambda g, key: dissemination.merge_phase(g, incoming, gcfg),
+         lambda g, key: dissemination.merge_phase(g, incoming, gcfg,
+                                                  mesh=mesh),
          (g,)),
         ("probe",
          lambda g, key: failure.probe_round(g, gcfg, fcfg, key), (g,)),
@@ -352,11 +368,17 @@ def _measure(calls, device, cpu_ops: bool = True) -> Dict[str, Any]:
 def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
                   warm_rounds: int = 24,
                   hbm_bytes_per_s: Optional[float] = None,
-                  mesh=None, device=None,
+                  mesh=None, schedule: str = "ring", device=None,
                   whole_rounds: int = WHOLE_ROUNDS) -> Dict[str, Any]:
     """Profile one sustained flagship round phase by phase on ``device``
-    (the card unless the caller passes ``device="cpu"``; raises without a
-    card; ``mesh`` raises until the sharded round is ported).
+    (the card unless the caller passes ``device="cpu"``, or the mesh's
+    device; raises without a card).  With ``mesh`` the profile runs the
+    sharded flagship path: the state on the mesh, the kernels per shard,
+    the exchange phase ``parallel.ring``'s leg under ``schedule`` (the
+    whole round the config's ``exchange_schedule``); the model byte
+    columns are per shard, as the reference's are per chip (``devices``
+    and ``schedule`` in the output say which flavor ran), and the
+    achieved rates divide the whole device's bytes by its time.
     ``whole_rounds`` is the depth of the whole-round measurement
     the attribution check divides by (keep the cadences' common period
     for the check to mean anything).  Returns the JSON-ready dict of the
@@ -367,18 +389,30 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
         H100_HBM_BYTES_PER_S,
         round_traffic,
     )
-    from serf_tpu_torch.models.swim import _check_slice, sustained_round
+    from serf_tpu_torch.models.swim import sustained_round
     from serf_tpu_torch.obs.device import dispatch_timer
 
-    _check_slice(mesh)
+    n_devices = 1
+    if mesh is not None:
+        from serf_tpu_torch.parallel.mesh import shards
+        n_devices = shards(mesh)
+        if cfg.n % n_devices != 0:
+            # the per-shard byte columns assume exactly N/P per shard and
+            # the authored schedule; an indivisible N would profile the
+            # unsharded fallback under those labels
+            raise ValueError(
+                f"sharded profile needs n divisible by the mesh: "
+                f"n={cfg.n}, devices={n_devices}")
+        if device is None:
+            device = mesh.device
     dev = resolve_device(device)
     if hbm_bytes_per_s is None:
         hbm_bytes_per_s = H100_HBM_BYTES_PER_S
     t0 = time.perf_counter()
     state = _seeded_cluster(cfg, prng.key(0), events_per_round,
-                            warm_rounds, dev)
+                            warm_rounds, dev, mesh=mesh)
     t1 = time.perf_counter()
-    kernel_path = _kernel_path(cfg)
+    kernel_path = _kernel_path(cfg, 0 if mesh is None else n_devices)
     report = round_traffic(cfg, regime="sustained",
                            sustained_rate=events_per_round,
                            path=kernel_path)
@@ -392,7 +426,8 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
 
     key = prng.key(5)
     rows: List[Dict[str, Any]] = []
-    for name, fn, args in _phase_callables(state, cfg, events_per_round):
+    for name, fn, args in _phase_callables(state, cfg, events_per_round,
+                                           mesh=mesh, schedule=schedule):
         with dispatch_timer(f"profile.{name}", signature=cfg.n):
             fn(*args, key=key)                          # warm dispatch
         m = _measure([lambda: fn(*args, key=key)] * timed_calls, dev)
@@ -422,7 +457,8 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
 
     def step(k):
         def run():
-            box[0] = sustained_round(box[0], cfg, k, events_per_round)
+            box[0] = sustained_round(box[0], cfg, k, events_per_round,
+                                     mesh=mesh)
         return run
 
     t2 = time.perf_counter()
@@ -446,6 +482,13 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
             anomaly = r
     attributed = sum(r["device_busy_ms"] * r["cadence"] for r in rows)
     whole_busy = whole["device_busy_ms"]
+    # per-phase model bytes on a mesh are per shard (the planes are
+    # node-sharded), as the reference's are per chip
+    if n_devices > 1:
+        for r in rows:
+            r["model_bytes"] = round(r["model_bytes"] / n_devices, 1)
+            r["model_amortized_bytes"] = round(
+                r["model_amortized_bytes"] / n_devices, 1)
     return {
         "n": cfg.n,
         "k": cfg.gossip.k_facts,
@@ -458,8 +501,8 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
         "full_plane_passes": {p: round(v, 3)
                               for p, v in report.passes_by_plane().items()},
         "hbm_bytes_per_s": hbm_bytes_per_s,
-        "devices": 1,
-        "schedule": None,
+        "devices": n_devices,
+        "schedule": schedule if n_devices > 1 else None,
         "phases": rows,
         "whole_round": {
             "rounds": whole_rounds,
@@ -469,7 +512,8 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
             "h2d_pageable": whole["h2d_pageable"],
             "stream_syncs": whole["stream_syncs"],
             "launches": whole["launches"],
-            "model_amortized_bytes": round(report.total_bytes, 1),
+            "model_amortized_bytes": round(
+                report.total_bytes / n_devices, 1),
             "roofline_frac": round(
                 report.total_bytes / max(whole_busy, 1e-9) * 1e3
                 / hbm_bytes_per_s, 6),

@@ -24,8 +24,21 @@ PyTorch's current stream when they lie on a CUDA device — it never falls
 back from a CUDA tensor to the plain version.  Outputs are fresh buffers
 from ``torch.empty``; a kernel never allocates and never synchronises.
 Every launch adds one to ``LAUNCHES[name]`` and nothing else does.
-Every wrapper call, on the CPU as on the card, runs under
-``obs.device.dispatch_timer`` with the reference's op name
+
+With a ``mesh`` (``parallel.mesh``: virtual shards of one device) the
+four kernels of the sharded round take the reference's per-shard rule
+(``_maybe_shard``): the wrapper launches the kernel once per shard, on
+that shard's row block ``[s*N/P, (s+1)*N/P)`` with the scalar operands
+replicated, and each launch writes its row block of the global outputs;
+the per-block learn flags of ``fused_merge`` concatenate over the shards.
+Each per-shard launch counts one and runs under its own dispatch timer
+(its signature's N the shard's rows), so calls == launches holds on the
+sharded path too.  ``merge_incoming`` takes no mesh: on a mesh the
+standalone family takes the plain path by the reference's dispatch
+rule.
+
+Every kernel call (one a shard on a mesh), on the CPU as on the card,
+runs under ``obs.device.dispatch_timer`` with the reference's op name
 (:data:`DISPATCH_OPS`) and signature, so on the card
 ``dispatch_summary()[op]["calls"]`` equals ``LAUNCHES[name]`` when both
 were reset together.  The timer reads the host clock only; it never
@@ -95,7 +108,7 @@ def _block_for(n: int) -> int:
     return 0
 
 
-def _shape_ok(n: int, k_facts: int, stamp_cols: int) -> Tuple[bool, str]:
+def shape_ok(n: int, k_facts: int, stamp_cols: int) -> Tuple[bool, str]:
     """Shapes the CUDA kernels run: whole 32-fact words (which also makes
     every stamp row a whole number of 16-byte chunks) and a stamp plane
     of either flavor.  Any N > 0 — a thread owns one word, so there is no
@@ -130,7 +143,7 @@ def fused_ok(n: int, k_facts: int, stamp_cols: int,
     word and its 16-32 stamp bytes in registers and nothing is staged in
     shared memory, so there is no working set to budget and ``deferred``
     changes nothing here (it stays for the reference's signature)."""
-    ok, reason = _shape_ok(n, k_facts, stamp_cols)
+    ok, reason = shape_ok(n, k_facts, stamp_cols)
     if ok and _block_for(n) == 0:
         return False, f"no supported node block divides n={n}"
     return ok, reason
@@ -149,12 +162,13 @@ def _on_cuda(*tensors) -> bool:
 
 
 def _require_shape(kernel: str, n: int, k_facts: int, cols: int) -> None:
-    ok, reason = _shape_ok(n, k_facts, cols)
+    ok, reason = shape_ok(n, k_facts, cols)
     if not ok:
         raise ValueError(f"{kernel}: {reason}")
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+def _check(t: torch.Tensor, name: str, dtype, shape,
+           align: int = 16) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -162,8 +176,8 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: not 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: not {align}-byte aligned")
 
 
 def _check_alive(alive: torch.Tensor, n: int) -> None:
@@ -181,6 +195,51 @@ def _round_scalar(round_, device) -> torch.Tensor:
     if r.dim() != 0:
         raise ValueError(f"round must be a scalar, got {tuple(r.shape)}")
     return r.contiguous()
+
+
+def _shard_rows(mesh, n: int):
+    """The per-shard row blocks of the launch rule: ``P`` contiguous
+    slices of ``n // P`` rows (the dispatch rule sends a mesh that does
+    not divide ``n`` down the plain path, so this never sees one)."""
+    from serf_tpu_torch.parallel.mesh import shards
+    d = shards(mesh)
+    if n % d:
+        raise ValueError(f"{d}-shard mesh does not divide n={n}")
+    nl = n // d
+    return [slice(s * nl, (s + 1) * nl) for s in range(d)]
+
+
+def _per_shard(fn, mesh, planes, scalars, outs, **kw):
+    """The reference's ``_maybe_shard`` on the virtual shards of one
+    device: ``fn`` once per shard on that shard's row block of every
+    node-axis plane in ``planes``, the ``scalars`` replicated, writing
+    into block ``s`` of ``P`` equal leading blocks of each output in
+    ``outs`` (a tensor or a tuple, ``None`` entries passed through): a
+    plane's row block, or a shard's learn flags of the concatenated
+    flags.  Returns ``outs``."""
+    blocks = _shard_rows(mesh, planes[0].shape[0])
+    d = len(blocks)
+    single = isinstance(outs, torch.Tensor)
+    for s, rows in enumerate(blocks):
+        out = tuple(None if o is None else
+                    o[s * (o.shape[0] // d):(s + 1) * (o.shape[0] // d)]
+                    for o in ((outs,) if single else outs))
+        fn(*(p[rows] for p in planes), *scalars,
+           out=out[0] if single else out, **kw)
+    return outs
+
+
+def _into(out, res):
+    """Write a plain version's results into the caller's output blocks
+    (``None`` entries pass through); returns ``out``."""
+    if out is None:
+        return res
+    if isinstance(out, torch.Tensor):
+        return out.copy_(res)
+    for o, r in zip(out, res):
+        if o is not None:
+            o.copy_(r)
+    return out
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -256,15 +315,28 @@ def fused_flush_plain(known2, new_words, overlay, stamp, next_round, *,
 
 # -- wrappers ------------------------------------------------------------------
 
-@_timed("select_packets", "k_facts", "packed")
 def select_packets(stamp: torch.Tensor, known: torch.Tensor,
                    alive: torch.Tensor, limit_q: int, round_, *,
-                   packed: bool, k_facts: int) -> torch.Tensor:
+                   packed: bool, k_facts: int, mesh=None) -> torch.Tensor:
     """packets int32[N, W] from one read-only pass over the stamp plane
-    and the known words (replaces the TPU's ``select_packets``)."""
+    and the known words (replaces the TPU's ``select_packets``); with
+    ``mesh``, one launch per shard."""
+    if mesh is None:
+        return _select_packets(stamp, known, alive, limit_q, round_,
+                               packed=packed, k_facts=k_facts)
+    return _per_shard(_select_packets, mesh, (stamp, known, alive),
+                      (limit_q, const(round_, torch.int32, known.device)),
+                      torch.empty_like(known), packed=packed,
+                      k_facts=k_facts)
+
+
+@_timed("select_packets", "k_facts", "packed")
+def _select_packets(stamp, known, alive, limit_q, round_, *, packed: bool,
+                    k_facts: int, out=None) -> torch.Tensor:
     if not _on_cuda(stamp, known, alive):
-        return select_packets_plain(stamp, known, alive, limit_q, round_,
-                                    packed=packed, k_facts=k_facts)
+        return _into(out, select_packets_plain(
+            stamp, known, alive, limit_q, round_, packed=packed,
+            k_facts=k_facts))
     n, w = known.shape[0], k_facts // 32
     cols = k_facts // 2 if packed else k_facts
     _require_shape("select_packets", n, k_facts, cols)
@@ -272,7 +344,8 @@ def select_packets(stamp: torch.Tensor, known: torch.Tensor,
     _check(known, "known", torch.int32, (n, w))
     _check_alive(alive, n)
     rnd = _round_scalar(round_, known.device)
-    out = torch.empty_like(known)
+    out = torch.empty_like(known) if out is None else out
+    _check(out, "out", torch.int32, (n, w))
     _launch("select_packets", _lib().serf_select_packets,
             stamp.data_ptr(), known.data_ptr(), alive.data_ptr(),
             rnd.data_ptr(), out.data_ptr(), n, w, cols, int(limit_q),
@@ -309,41 +382,74 @@ def merge_incoming(known: torch.Tensor, incoming: torch.Tensor,
     return known2, stamp2
 
 
-@_timed("fused_select_cached", "k_facts")
 def fused_select_cached(sendable: torch.Tensor, known: torch.Tensor,
                         alive: torch.Tensor, *, k_facts: int,
-                        stamp_cols: int) -> torch.Tensor:
+                        stamp_cols: int, mesh=None) -> torch.Tensor:
     """Selection off the valid sendable cache: a word-plane-only pass
     (replaces the TPU's ``fused_select_cached``).  Callers guard on
-    ``sendable_round == round``."""
+    ``sendable_round == round``.  With ``mesh``, one launch per shard."""
+    if mesh is None:
+        return _fused_select_cached(sendable, known, alive, k_facts=k_facts,
+                                    stamp_cols=stamp_cols)
+    return _per_shard(_fused_select_cached, mesh, (sendable, known, alive),
+                      (), torch.empty_like(known), k_facts=k_facts,
+                      stamp_cols=stamp_cols)
+
+
+@_timed("fused_select_cached", "k_facts")
+def _fused_select_cached(sendable, known, alive, *, k_facts: int,
+                         stamp_cols: int, out=None) -> torch.Tensor:
     if not _on_cuda(sendable, known, alive):
-        return fused_select_cached_plain(sendable, known, alive)
+        return _into(out, fused_select_cached_plain(sendable, known, alive))
     n, w = known.shape[0], k_facts // 32
     _require_shape("fused_select_cached", n, k_facts, stamp_cols)
     _check(sendable, "sendable", torch.int32, (n, w))
     _check(known, "known", torch.int32, (n, w))
     _check_alive(alive, n)
-    out = torch.empty_like(known)
+    out = torch.empty_like(known) if out is None else out
+    _check(out, "out", torch.int32, (n, w))
     _launch("fused_select_cached", _lib().serf_fused_select_cached,
             sendable.data_ptr(), known.data_ptr(), alive.data_ptr(),
             out.data_ptr(), n, w)
     return out
 
 
-@_timed("fused_merge", "k_facts", "packed", "with_cache")
 def fused_merge(known: torch.Tensor, incoming: torch.Tensor,
                 alive: torch.Tensor, stamp: torch.Tensor, next_round, *,
                 limit_q: int, packed: bool, k_facts: int,
-                with_cache: bool):
+                with_cache: bool, mesh=None):
     """``(known', stamp', sendable'|None, flags)`` in one streaming pass
     (replaces the TPU's ``fused_merge``).  ``flags`` holds learn counts;
     ``any(flags != 0)`` is the round's ``learned_any`` — its shape
     differs between the kernel (one count per CUDA block) and the plain
-    version (one total), and only that predicate is contract."""
+    version (one total), and only that predicate is contract.  With
+    ``mesh``, one launch per shard and the shards' flags in shard
+    order."""
+    kw = dict(limit_q=limit_q, packed=packed, k_facts=k_facts,
+              with_cache=with_cache)
+    if mesh is None:
+        return _fused_merge(known, incoming, alive, stamp, next_round, **kw)
+    from serf_tpu_torch.parallel.mesh import shards
+    n, d = known.shape[0], shards(mesh)
+    # a launch writes one count per CUDA block, a plain version one total
+    nb = (-(-(n // d * (k_facts // 32)) // THREADS)
+          if _on_cuda(known, incoming, alive, stamp) else 1)
+    return _per_shard(
+        _fused_merge, mesh, (known, incoming, alive, stamp),
+        (const(next_round, torch.int32, known.device),),
+        (torch.empty_like(known), torch.empty_like(stamp),
+         torch.empty_like(known) if with_cache else None,
+         torch.empty((d * nb,), dtype=torch.int32, device=known.device)),
+        **kw)
+
+
+@_timed("fused_merge", "k_facts", "packed", "with_cache")
+def _fused_merge(known, incoming, alive, stamp, next_round, *, limit_q: int,
+                 packed: bool, k_facts: int, with_cache: bool, out=None):
     if not _on_cuda(known, incoming, alive, stamp):
-        return fused_merge_plain(known, incoming, alive, stamp, next_round,
-                                 limit_q=limit_q, packed=packed,
-                                 k_facts=k_facts, with_cache=with_cache)
+        return _into(out, fused_merge_plain(
+            known, incoming, alive, stamp, next_round, limit_q=limit_q,
+            packed=packed, k_facts=k_facts, with_cache=with_cache))
     n, w = known.shape[0], k_facts // 32
     cols = k_facts // 2 if packed else k_facts
     _require_shape("fused_merge", n, k_facts, cols)
@@ -352,12 +458,20 @@ def fused_merge(known: torch.Tensor, incoming: torch.Tensor,
     _check(stamp, "stamp", torch.uint8, (n, cols))
     _check_alive(alive, n)
     rnd = _round_scalar(next_round, known.device)
-    known2 = torch.empty_like(known)
-    stamp2 = torch.empty_like(stamp)
-    send = torch.empty_like(known) if with_cache else None
     # the kernel writes every block's count
-    flags = torch.empty((-(-(n * w) // THREADS),), dtype=torch.int32,
-                        device=known.device)
+    nb = -(-(n * w) // THREADS)
+    if out is None:
+        out = (torch.empty_like(known), torch.empty_like(stamp),
+               torch.empty_like(known) if with_cache else None,
+               torch.empty((nb,), dtype=torch.int32, device=known.device))
+    known2, stamp2, send, flags = out
+    _check(known2, "known2", torch.int32, (n, w))
+    _check(stamp2, "stamp2", torch.uint8, (n, cols))
+    if with_cache:
+        _check(send, "sendable2", torch.int32, (n, w))
+    # one int32 store a block: a shard's block of the global flags needs
+    # only the element's alignment
+    _check(flags, "flags", torch.int32, (nb,), align=4)
     _launch("fused_merge", _lib().serf_fused_merge,
             known.data_ptr(), incoming.data_ptr(), alive.data_ptr(),
             stamp.data_ptr(), rnd.data_ptr(), known2.data_ptr(),
@@ -367,21 +481,36 @@ def fused_merge(known: torch.Tensor, incoming: torch.Tensor,
     return known2, stamp2, send, flags
 
 
-@_timed("fused_flush", "k_facts", "packed", "with_cache")
 def fused_flush(known2: torch.Tensor, new_words: torch.Tensor,
                 overlay: torch.Tensor, stamp: torch.Tensor, next_round, *,
                 limit_q: int, packed: bool, k_facts: int,
-                with_cache: bool):
+                with_cache: bool, mesh=None):
     """``(stamp', sendable'|None)``: the deferred flavor's cohort flush in
     one streaming pass (replaces the TPU's ``fused_flush``).  ``known2``
     is the post-merge known plane (read only for the cache); the caller
     owns the word-plane merge, clears the overlay and moves
     ``last_flush``.  The cohort quarter ``round_q(next_round - 1)`` is
-    derived on the device."""
+    derived on the device.  With ``mesh``, one launch per shard."""
+    kw = dict(limit_q=limit_q, packed=packed, k_facts=k_facts,
+              with_cache=with_cache)
+    if mesh is None:
+        return _fused_flush(known2, new_words, overlay, stamp, next_round,
+                            **kw)
+    return _per_shard(
+        _fused_flush, mesh, (known2, new_words, overlay, stamp),
+        (const(next_round, torch.int32, stamp.device),),
+        (torch.empty_like(stamp),
+         torch.empty_like(known2) if with_cache else None), **kw)
+
+
+@_timed("fused_flush", "k_facts", "packed", "with_cache")
+def _fused_flush(known2, new_words, overlay, stamp, next_round, *,
+                 limit_q: int, packed: bool, k_facts: int, with_cache: bool,
+                 out=None):
     if not _on_cuda(known2, new_words, overlay, stamp):
-        return fused_flush_plain(known2, new_words, overlay, stamp,
-                                 next_round, limit_q=limit_q, packed=packed,
-                                 k_facts=k_facts, with_cache=with_cache)
+        return _into(out, fused_flush_plain(
+            known2, new_words, overlay, stamp, next_round, limit_q=limit_q,
+            packed=packed, k_facts=k_facts, with_cache=with_cache))
     n, w = stamp.shape[0], k_facts // 32
     cols = k_facts // 2 if packed else k_facts
     _require_shape("fused_flush", n, k_facts, cols)
@@ -390,8 +519,13 @@ def fused_flush(known2: torch.Tensor, new_words: torch.Tensor,
     _check(overlay, "overlay", torch.int32, (n, w))
     _check(stamp, "stamp", torch.uint8, (n, cols))
     rnd = _round_scalar(next_round, stamp.device)
-    stamp2 = torch.empty_like(stamp)
-    send = torch.empty_like(known2) if with_cache else None
+    if out is None:
+        out = (torch.empty_like(stamp),
+               torch.empty_like(known2) if with_cache else None)
+    stamp2, send = out
+    _check(stamp2, "stamp2", torch.uint8, (n, cols))
+    if with_cache:
+        _check(send, "sendable2", torch.int32, (n, w))
     _launch("fused_flush", _lib().serf_fused_flush,
             known2.data_ptr(), new_words.data_ptr(), overlay.data_ptr(),
             stamp.data_ptr(), rnd.data_ptr(), stamp2.data_ptr(),

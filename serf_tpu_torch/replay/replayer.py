@@ -34,7 +34,7 @@ from serf_tpu_torch.faults.device import (
     lower_plan,
     run_phase,
 )
-from serf_tpu_torch.models.swim import _check_slice, make_cluster
+from serf_tpu_torch.models.swim import make_cluster
 from serf_tpu_torch.replay.recording import (
     NODE_DIGEST_CAP,
     Recording,
@@ -49,13 +49,17 @@ from serf_tpu_torch.replay.recording import (
 
 
 def replay_device(rec: Recording, mesh=None, device=None) -> RunRecorder:
-    """Re-execute a device recording on ``device`` (default ``"cuda"``);
-    returns the replay's recorder (diff its ``to_recording()`` against
-    the source with ``differ.diff_recordings``)."""
-    _check_slice(mesh)
+    """Re-execute a device recording on ``device`` (default: the mesh's
+    device with a ``mesh``, else ``"cuda"``); returns the replay's
+    recorder (diff its ``to_recording()`` against the source with
+    ``differ.diff_recordings``).  A recording made on a mesh
+    (``mesh_devices > 1``) replays on a mesh of as many shards on the
+    replay's device unless ``mesh`` is given."""
     if rec.plane != "device":
         raise RecordingError(
             f"replay_device on a {rec.plane!r}-plane recording")
+    if device is None and mesh is not None:
+        device = mesh.device
     dev = resolve_device(device)
     plan = plan_from_dict(rec.header["plan"])
     cfg = device_config_from_dict(rec.header["config"])
@@ -76,10 +80,13 @@ def replay_device(rec: Recording, mesh=None, device=None) -> RunRecorder:
     for s in rec.steps():
         op, a = s["op"], s["args"]
         if op == "init":
-            if int(a.get("mesh_devices", 1)) > 1:
-                raise NotImplementedError(
-                    "not yet ported: replaying a sharded recording")
+            if mesh is None and int(a.get("mesh_devices", 1)) > 1:
+                from serf_tpu_torch.parallel.mesh import make_mesh
+                mesh = make_mesh(int(a["mesh_devices"]), device=dev)
             state = make_cluster(cfg, key_from_hex(a["key"]), device=dev)
+            if mesh is not None:
+                from serf_tpu_torch.parallel.mesh import shard_state
+                state = shard_state(state, mesh)
             init_alive = state.gossip.alive
             out.step("init", **a)
         elif op == "inject":
@@ -107,7 +114,7 @@ def replay_device(rec: Recording, mesh=None, device=None) -> RunRecorder:
                 sched.drop[pi] if pi >= 0 else no_drop,
                 init_alive, sched.down[pi] if pi >= 0 else no_down,
                 collect_digests=True, include_nodes=include_nodes,
-                collect_control=want_ctl)
+                collect_control=want_ctl, mesh=mesh)
             if want_ctl:
                 (dg, dn), crows = aux
             else:

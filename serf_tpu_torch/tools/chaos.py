@@ -27,9 +27,13 @@ the card.  Exit 0 iff every invariant on every requested plane is green
 ``--controller ab`` iff every controlled leg is green on invariants and
 SLOs (the static legs may breach).  The degradation counter block is the
 ``serf.faults.*`` / ``serf.degraded.*`` / ``serf.overload.*`` /
-``serf.proc.*`` totals accumulated during the run.  ``--devices`` takes
-0 or 1 (the unsharded round); more raises, as the sharded round is not
-ported.
+``serf.proc.*`` totals accumulated during the run.  ``--devices``
+sizes the device plane's mesh for the sharded flagship round: 0 = auto,
+1 = unsharded, d > 1 = exactly d virtual shards of the device (which
+must divide ``--n``).  The port has no counterpart of XLA's forced host
+device count, so auto is ``best_device_count(n, torch.cuda.device_count())``
+(one on the CPU): on a one-card host it runs unsharded, as the
+reference's auto does on a one-chip host.
 """
 
 from __future__ import annotations
@@ -56,19 +60,35 @@ def run_host(plan, recorder=None, controlled: bool = False):
 
 def run_device(plan, n: int, k_facts: int, devices: int = 0,
                recorder=None, controlled: bool = False, device=None):
-    """One device leg: ``(DeviceChaosResult, mesh size)``."""
+    """One device leg: ``(DeviceChaosResult, mesh size)``.  ``devices``:
+    0 = auto (the largest visible card count dividing ``n``), 1 =
+    unsharded, d > 1 = exactly d virtual shards (fail loud rather than
+    truncate: the report never claims a mesh size that did not run)."""
+    import torch
+
+    from serf_tpu_torch import resolve_device
     from serf_tpu_torch.control.profiles import device_ab_config
     from serf_tpu_torch.faults.device import run_device_plan
+    from serf_tpu_torch.parallel.mesh import best_device_count, make_mesh
 
-    if devices > 1:
-        raise SystemExit(f"--devices {devices}: the sharded round is not "
-                         f"ported to serf_tpu_torch yet (0 or 1 run the "
-                         f"unsharded round)")
     cfg = device_ab_config(plan.name, n, k_facts, controlled)
-    return (run_device_plan(plan, cfg, recorder=recorder,
+    dev = resolve_device(device)
+    mesh = None
+    d = devices
+    if d == 0:
+        visible = torch.cuda.device_count() if dev.type == "cuda" else 1
+        d = best_device_count(n, visible)
+    elif d > 1 and n % d != 0:
+        raise SystemExit(
+            f"--devices {d} does not divide --n {n}; pick a dividing "
+            f"count")
+    if d > 1:
+        mesh = make_mesh(d, device=dev)
+    return (run_device_plan(plan, cfg, mesh=mesh, recorder=recorder,
                             collect_telemetry=True,
                             collect_propagation=True,
-                            collect_invariants=True, device=device), 1)
+                            collect_invariants=True, device=dev),
+            d if mesh is not None else 1)
 
 
 def run_proc(plan, record_dir: str = ".", record_on_fail: bool = False):
@@ -166,8 +186,11 @@ def main(argv=None, keep=None) -> int:
                     help="device-plane simulated node count")
     ap.add_argument("--k-facts", type=int, default=32)
     ap.add_argument("--devices", type=int, default=0,
-                    help="0 or 1: the unsharded round (the sharded round "
-                         "is not ported)")
+                    help="device-plane mesh size for the sharded flagship "
+                         "round (0 = auto: the largest visible card count "
+                         "dividing --n, so one card runs unsharded; 1 = "
+                         "unsharded; d > 1 = exactly d virtual shards of "
+                         "the device, d dividing --n)")
     ap.add_argument("--json", action="store_true")
     ap.add_argument("--self-check", action="store_true",
                     help="run the tiny self-check plan on both planes")

@@ -11,6 +11,7 @@ Usage (the card unless ``--device cpu``)::
 
     python -m serf_tpu_torch.tools.roundprof [--n 65536] [--k 64] \\
         [--calls 3] [--warm 24] [--events 2] [--json]
+    python -m serf_tpu_torch.tools.roundprof --mesh 8 --schedule ring
     python -m serf_tpu_torch.tools.roundprof --fused [--json]
     python -m serf_tpu_torch.tools.roundprof --stamp-unit 4 [--fused]
 
@@ -29,8 +30,12 @@ always goes to stderr.
 kernels (phased) and prints the removed stamp-plane pass; with
 ``--stamp-unit U`` it compares the per-round stamps against cohort
 flushes of unit U, on the plain path or, with ``--fused``, on the
-kernels (where ``fused_flush`` runs).  ``--mesh``/``--schedule`` are
-refused: the sharded round is not ported.
+kernels (where ``fused_flush`` runs).  ``--mesh P`` profiles the
+sharded flagship path on P virtual shards of the device (P must divide
+``--n``; the exchange phase runs ``--schedule``'s leg, and the byte
+columns are per shard); the port has no counterpart of XLA's forced host
+device count, so P is not limited by the visible cards.  ``--fused`` and
+``--stamp-unit`` are single-device A/Bs and refuse ``--mesh``.
 """
 
 from __future__ import annotations
@@ -52,10 +57,12 @@ def main(argv=None) -> int:
     ap.add_argument("--warm", type=int, default=24,
                     help="sustained warm-up rounds before profiling")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="refused: the sharded round is not ported")
+                    help="profile the sharded flagship path on this many "
+                         "virtual shards of the device (0 = unsharded; "
+                         "the count must divide --n)")
     ap.add_argument("--schedule", choices=("ring", "allgather"),
-                    default=None,
-                    help="refused: the sharded round is not ported")
+                    default="ring",
+                    help="schedule of the sharded exchange leg")
     ap.add_argument("--fused", action="store_true",
                     help="the fused kernels against the standalone kernels "
                          "(with --stamp-unit: the kernels on both sides)")
@@ -68,9 +75,16 @@ def main(argv=None) -> int:
                     help="print the JSON contract on stdout")
     args = ap.parse_args(argv)
 
-    if args.mesh or args.schedule:
-        sys.stderr.write("--mesh/--schedule: the sharded round is not "
-                         "ported to this package yet\n")
+    if args.mesh and (args.fused or args.stamp_unit):
+        # the standalone kernels of the --fused A/B cannot shard, and
+        # --stamp-unit is an unsharded A/B: profiling either unsharded
+        # under a --mesh flag would mislabel the answer
+        sys.stderr.write("--fused and --stamp-unit are single-device "
+                         "A/Bs; drop --mesh\n")
+        return 2
+    if args.mesh and args.n % args.mesh != 0:
+        sys.stderr.write(f"--mesh {args.mesh} does not divide --n "
+                         f"{args.n}\n")
         return 2
     if args.stamp_unit:
         return _stamp_ab(args)
@@ -88,10 +102,15 @@ def main(argv=None) -> int:
 
 
 def _profile(cfg, args):
+    from serf_tpu_torch import resolve_device
     from serf_tpu_torch.obs.profile import profile_round
+    from serf_tpu_torch.parallel.mesh import make_mesh
+
+    device = resolve_device(args.device)
+    mesh = make_mesh(args.mesh, device=device) if args.mesh else None
     return profile_round(cfg, events_per_round=args.events,
                          timed_calls=args.calls, warm_rounds=args.warm,
-                         device=args.device)
+                         mesh=mesh, schedule=args.schedule, device=device)
 
 
 def _with_gossip(cfg, **gossip):

@@ -236,10 +236,15 @@ def test_entry_points_default_to_cuda():
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError):
+    """A mesh over distinct devices (the four-card leg) is refused; the
+    sharded plan itself runs (``tests/test_torch_sharded_round.py``)."""
+    from serf_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(NotImplementedError, match="four-card leg"):
         tdev.run_device_plan(tplan.named_plan("self-check"),
                              t_ab("self-check", 16, 32, False),
-                             device="cpu", mesh=object())
+                             device="cpu",
+                             mesh=make_mesh(devices=["cpu", "meta"]))
 
 
 def test_new_modules_are_in_the_import_scan():

@@ -168,8 +168,13 @@ def test_restore_fails_closed_on_bad_files(tmp_path):
     trunc.write_bytes(trunc.read_bytes()[:2000])
     with pytest.raises(ValueError):
         tck.restore(str(trunc), _template(tcfg))
-    with pytest.raises(NotImplementedError):
-        tck.restore(str(junk), _template(tcfg), mesh=object())
+    # a mesh that does not divide the node axis fails closed too
+    from serf_tpu_torch.parallel.mesh import make_mesh
+    good = tmp_path / "good.npz"
+    tck.save(str(good), _template(tcfg))
+    with pytest.raises(ValueError, match="device-count mismatch"):
+        tck.restore(str(good), _template(tcfg),
+                    mesh=make_mesh(6, device="cpu"))
 
 
 def test_back_compat_defaults(ran, tmp_path):

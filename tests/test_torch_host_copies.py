@@ -8,9 +8,13 @@ such constants in on the device (``serf_tpu_torch.const``).  This guard
 counts every such call (data that is not a tensor, an explicit
 ``device=``) while the paths ``chip_smoke.py`` drives run at N = 4096 on
 the CPU: the three flagships (100 sustained rounds after the seeding),
-churn-query's churned window and both chaos plans, and requires none."""
+churn-query's churned window and both chaos plans, and requires none;
+and the same on the sharded round (``parallel/``: eight virtual shards,
+both schedules, the kernels per shard and the in-collective rows),
+which ``chip_smoke.py`` phase 11 drives."""
 
 import collections
+import dataclasses
 import traceback
 
 import pytest
@@ -19,6 +23,7 @@ import torch
 import chip_smoke as cs
 from serf_tpu_torch import prng
 from serf_tpu_torch.models.swim import run_cluster_sustained
+from serf_tpu_torch.parallel.mesh import make_mesh
 
 # one ATen thread per test process: tier-1 runs six xdist workers on
 # the machine's cores, and a full-width intra-op pool in each of them
@@ -81,5 +86,35 @@ def test_chaos_plans_make_no_host_constants(name, controlled, made_on_host):
     spec = cs.CHAOS_PATHS[name]
     cfg = cs.chaos_config(spec["plan"], N, cs.CHAOS_SMALL_K, controlled)
     res, _ = cs.chaos_run(spec["plan"], cfg, "cpu", record=True)
+    assert res.rounds_run > 0
+    assert dict(made_on_host) == {}
+
+
+@pytest.mark.parametrize("schedule", ["ring", "allgather"])
+@pytest.mark.parametrize("path", sorted(cs.PATHS))
+def test_sharded_rounds_make_no_host_constants(path, schedule,
+                                               made_on_host):
+    """Each flagship on eight shards under each schedule, with every row
+    collected (the in-collective legs)."""
+    cfg = dataclasses.replace(cs.kernel_config(N, **cs.PATHS[path]["gossip"]),
+                              exchange_schedule=schedule)
+    st, _ = cs.seeded_state(cfg, "cpu")
+    mesh = make_mesh(8, device="cpu")
+    made_on_host.clear()
+    st, *_ = run_cluster_sustained(st, cfg, prng.key(3), 30,
+                                   events_per_round=2, mesh=mesh,
+                                   collect_telemetry=True,
+                                   collect_propagation=True,
+                                   collect_invariants=True)
+    assert int(st.gossip.round) == 30
+    assert dict(made_on_host) == {}
+
+
+def test_sharded_chaos_plan_makes_no_host_constants(made_on_host):
+    """``partition-heal-loss`` recorded on eight shards (phase 11(c))."""
+    spec = cs.CHAOS_PATHS["chaos-heal"]
+    cfg = cs.chaos_config(spec["plan"], N, cs.CHAOS_SMALL_K, False)
+    res, _ = cs.chaos_run(spec["plan"], cfg, "cpu", record=True,
+                          mesh=make_mesh(8, device="cpu"))
     assert res.rounds_run > 0
     assert dict(made_on_host) == {}

@@ -171,8 +171,12 @@ def test_deferred_warmup_ends_on_a_flush_round():
 
 def test_profile_entry_rules():
     _, tcfg = _configs("per-round")
-    with pytest.raises(NotImplementedError):
-        tprof.profile_round(tcfg, device="cpu", mesh=object())
+    from serf_tpu_torch.parallel.mesh import make_mesh
+    # a mesh that does not divide n would profile the unsharded fallback
+    # under the sharded labels: refused, as the reference refuses it
+    with pytest.raises(ValueError, match="divisible"):
+        tprof.profile_round(tcfg, device="cpu",
+                            mesh=make_mesh(7, device="cpu"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tprof.profile_round(tcfg)

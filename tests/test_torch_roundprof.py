@@ -35,7 +35,8 @@ def test_roundprof_cli_json_contract(capsys):
     assert "per-phase round profile" not in out.out
 
 
-@pytest.mark.parametrize("bad", [["--mesh", "4"], ["--schedule", "ring"],
+@pytest.mark.parametrize("bad", [["--mesh", "7"],
+                                 ["--mesh", "4", "--fused"],
                                  ["--stamp-unit", "3"]])
 def test_roundprof_cli_refuses(bad, capsys):
     assert roundprof.main(ARGS + bad) == 2

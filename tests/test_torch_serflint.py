@@ -154,11 +154,6 @@ def test_rule_registry_is_exactly_the_shipped_set():
 BASELINED = {
     ("reg-metric-unused", "serf.analysis.findings"): "benchmark",
     ("reg-metric-unused", "serf.analysis.baselined"): "benchmark",
-    ("reg-metric-unused", "serf.shard.devices"): "sharded round",
-    ("reg-metric-unused", "serf.shard.exchange-bytes-per-chip"):
-        "sharded round",
-    ("reg-metric-unused", "serf.shard.rps"): "sharded round",
-    ("reg-flight-unused", "shard-fallback"): "sharded round",
     ("reg-metric-unused", "serf.pallas.fused_fallback"): "no fallback",
     ("reg-flight-unused", "pallas-fallback"): "no fallback",
     ("async-shared-mut", "Memberlist._ack_futures"):
@@ -212,7 +207,8 @@ def test_cli_exit_codes_and_json_keys_match_the_reference(capsys):
     ref_out = json.loads(capsys.readouterr().out)
     assert set(port_out) == set(ref_out)
     assert port_out["schema_pins"] == ref_out["schema_pins"]
-    assert port_out["findings"] == [] and port_out["baselined"] == 9
+    assert port_out["findings"] == [] and \
+        port_out["baselined"] == len(BASELINED)
     # a file-scope drill-down over one device file
     assert port_cli.main(["--rule", "torch-python-branch",
                           "serf_tpu_torch/models/swim.py"]) == 0
@@ -249,8 +245,8 @@ def test_runtime_versions_read_the_pins():
 def test_registry_equals_the_reference(name):
     """The same declared names.  The differences are only in what the
     port emits: :data:`BASELINED`'s registry entries, each baselined
-    with its reason (the sharded round's, the benchmark's, and the
-    fallback the port has not by rule)."""
+    with its reason (the benchmark's, and the fallback the port has not
+    by rule)."""
     assert getattr(registry, name) == getattr(ref_registry, name)
 
 
@@ -259,9 +255,8 @@ def test_registry_equals_the_reference(name):
     ("obs.propagation", "PROPAGATION_MERGE"),
     ("obs.watchdog", "INVARIANT_MERGE")])
 def test_merge_tables_equal_the_reference(module, table):
-    """The merge tables are data the drift rules read; the port's
-    unsharded round reads none of them (its sharded round, a later
-    slice, will)."""
+    """The merge tables are data the drift rules read, and the contract
+    the port's in-collective rows keep (``parallel.ring``)."""
     import importlib
     port = importlib.import_module(f"serf_tpu_torch.{module}")
     # read the reference's table from its source: importing its module

@@ -194,8 +194,10 @@ def test_chaos_record_on_fail_writes_the_reference_artifacts(
 
 
 def test_chaos_refuses_a_mesh(capsys):
-    with pytest.raises(SystemExit, match="sharded round"):
-        tchaos.main(["--devices", "2", "--device", "cpu", "--n", "48",
+    """A mesh that does not divide ``--n`` is refused, as the reference
+    tool refuses it (the sharded legs: ``test_torch_sharded_round``)."""
+    with pytest.raises(SystemExit, match="does not divide"):
+        tchaos.main(["--devices", "5", "--device", "cpu", "--n", "48",
                      "--plane", "device"])
 
 
