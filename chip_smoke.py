@@ -18,10 +18,13 @@ Phases (any failure exits non-zero and prints no result line):
    every phase of a quarter (the cohort quarter wrapping from 0 to 15
    included), and flush inputs with all-overlay, all-fresh and
    both-at-once words besides random overlay that overlaps the fresh
-   learns; then each kernel's time at the flagship, churn-query and
-   chaos-shed shapes beside its plain version's and its byte bound,
-   with its SASS instruction count's issue times as a diagnostic of
-   the design;
+   learns; ``fused_select_cached`` and ``fused_merge`` also in their
+   one launch over 8 shards at N = 1000 and N = 1,000,000 (K = 64), the
+   merge's learn counts per shard against the per-shard rule's; then
+   each kernel's time at the flagship, churn-query and chaos-shed
+   shapes beside its plain version's and its byte bound, with the share
+   of the bound reached and its SASS instruction count a word (and that
+   count's issue times) as a diagnostic of the design;
 3. the slice on the card against the slice on the CPU, N = 4096, 40
    sustained rounds from one key, every integer leaf equal and the float
    leaves within tolerance (the CPU run is the one the tests hold against
@@ -231,35 +234,42 @@ kill.  No kernel may launch; the phase must end inside 180 s.
 
 Phase 11 runs the node-sharded flagship round on virtual shards of the
 card (``serf_tpu_torch.parallel``: a mesh of P row blocks of the one
-device, the exchange under the ring or all-gather schedule, each kernel
-launched once per shard on its N/P rows, the telemetry rows assembled by
-in-collective legs), K = 64 with the kernels on, at N = 1,000,000 (a
-shard's 500,000, 250,000 or 125,000 rows: the kernels take any row
-count).  (a) the seeded flagship (phase 4's seeding, 2 events a round)
-unsharded and on 1, 2, 4 and 8 shards for 30 rounds, both schedules on
-the per-round path and the ring on the deferred path (unit 4): every
-leaf of the state equal to the unsharded run's (Vivaldi too), each
-kernel's launches P times the unsharded run's (``merge_incoming``
-never), the host syncs equal; (b) rounds/s of the per-round path on 8
-shards per schedule beside the unsharded path (20 warm-up, 100 timed
-rounds, host clock ending in a synchronize), and each kernel's µs a
-launch at N/8 = 125,000 rows against its byte bound; (c) ``partition-heal-loss`` on 8 shards at 1M,
-recorded with every row: its in-collective telemetry, propagation and
-invariant rows equal the unsharded run's gathered rows at every round
-(the float-summed coverage within ``COVERAGE_RTOL``), its digests,
-report, ledger and decisions the reference's fixture, its replay (on
-a mesh made from the recording) diffs clean, and both launch 8 times
-the unsharded run's kernels; (d) a checkpoint
-taken at round 15 of an 8-shard run, restored onto 4 shards and
-resumed, equals the unbroken run, and a restore onto 7 shards raises;
-(e) ``roundprof --mesh 8 --schedule ring`` at 1M (``attributed_device_frac``
-in [0.9, 1.1]), ``chaos --devices 8`` at 1M (exit 0, its digests the
-fixture's), ``multichip_ab --devices 8`` (its JSON under a temporary
-directory) and ``entry.dryrun_multichip(8)``.  The phase must end
-inside 180 s; each part is logged beside the card line.
+device, the exchange under the ring or all-gather schedule,
+``select_packets`` and ``fused_flush`` launched once per shard on its
+N/P rows, ``fused_select_cached`` and ``fused_merge`` once a call over
+all P row blocks, the telemetry rows assembled by in-collective
+legs), K = 64 with the kernels on, at N = 1,000,000 (a shard's 500,000,
+250,000 or 125,000 rows: the kernels take any row count). (a) the seeded
+flagship (phase 4's seeding, 2 events a round) unsharded and on 1, 2, 4
+and 8 shards for 30 rounds, both schedules on the per-round path and the
+ring on the deferred path (unit 4): every leaf of the state equal to the
+unsharded run's (Vivaldi too), the launches of ``select_packets`` and
+``fused_flush`` P times the unsharded run's, those of the cached select
+and the merge equal to it (``merge_incoming`` never), the host syncs
+equal; (b) rounds/s of the per-round path on 8 shards per schedule
+beside the unsharded path (20 warm-up, 100 timed rounds, host clock
+ending in a synchronize), each kernel's µs a launch at N/8 = 125,000
+rows against its byte bound, and the one launch of the cached select and
+the merge over 8 shards at 1M against the whole plane's; (c)
+``partition-heal-loss`` on 8 shards at 1M, recorded with every row: its
+in-collective telemetry, propagation and invariant rows equal the
+unsharded run's gathered rows at every round (the float-summed coverage
+within ``COVERAGE_RTOL``), its digests, report, ledger and decisions the
+reference's fixture, its replay (on a mesh made from the recording)
+diffs clean, and both launch the unsharded run's kernels under the same
+rules as (a); (d) a checkpoint taken at round 15 of an 8-shard run,
+restored onto 4 shards and resumed, equals the unbroken run, and a
+restore onto 7 shards raises; (e) ``roundprof --mesh 8 --schedule ring``
+at 1M (``attributed_device_frac`` in [0.9, 1.1]), ``chaos --devices 8``
+at 1M (exit 0, its digests the fixture's), ``multichip_ab --devices 8``
+(its JSON under a temporary directory) and
+``entry.dryrun_multichip(8)``. The phase must end inside 180 s; each
+part is logged beside the card line.
 
 The line before the last is ``{"kernels": [...]}`` (with each kernel's
-launches on phase 11's runs and its µs at N/8 rows); the last is
+launches on phase 11's runs, its µs at N/8 rows and, for the two
+kernels of one mesh launch, that launch's µs at 1M over 8 shards); the
+last is
 ``{"ok": true, "device": {...}}``.  Needs no network and imports no
 JAX.
 """
@@ -388,6 +398,13 @@ def sass_counts(lib_path) -> dict:
         log(f"  sass: no instruction counts ({tool} listed no kernel)")
     return counts
 
+
+#: the kernels that launch once a call on a mesh (``ops.round_kernels``'
+#: mesh launch rules); the others launch once a shard
+ONE_LAUNCH = ("fused_select_cached", "fused_merge")
+#: words a thread of each kernel owns (one where not listed): a static
+#: SASS count over this is the count a word
+WORDS_PER_THREAD = {"fused_select_cached": 4}
 
 #: the mangled-name piece of each kernel's timed instance (packed, the
 #: cache on where the kernel keeps it) in ``sass_counts``
@@ -529,7 +546,67 @@ def check_kernels(rk, dev) -> dict:
             f"(packed/unpacked, cache on/off, limits {CHECK_LIMITS}, "
             f"{len(CHECK_ROUNDS)} next rounds over all 16 quarters, "
             f"all-overlay/all-fresh words)")
+    check_mesh_kernels(rk, dev, same)
     return errs
+
+
+#: phase 2's mesh forms: (N, K, P) of the one launch over P shards
+MESH_CHECKS = ((1000, K_MAIN, 8), (N_MAIN, K_MAIN, 8))
+
+
+def check_mesh_kernels(rk, dev, same) -> None:
+    """The one mesh launch of ``fused_select_cached`` and ``fused_merge``
+    == their plain versions on the whole plane, and the merge's learn
+    counts summed per shard == the per-shard rule's (the plain version's
+    count of each shard's rows), at every :data:`MESH_CHECKS` shape, both
+    stamp flavors, the cache on and off, every :data:`CHECK_ROUNDS` round
+    and :data:`CHECK_LIMITS` limit."""
+    import torch
+
+    from serf_tpu_torch.parallel.mesh import make_mesh
+    for n, k, d in MESH_CHECKS:
+        mesh = make_mesh(d, device="cuda")
+        for packed in (True, False):
+            p = random_planes(n, k, packed, 5 + n + k + d + packed, dev)
+            tag = f"mesh n={n} k={k} P={d} packed={packed}"
+            got = rk.fused_select_cached(p["sendable"], p["known"],
+                                         p["alive"], k_facts=k,
+                                         stamp_cols=p["stamp"].shape[1],
+                                         mesh=mesh)
+            torch.cuda.synchronize()
+            same("fused_select_cached", got,
+                 rk.fused_select_cached_plain(p["sendable"], p["known"],
+                                              p["alive"]),
+                 f"fused_select_cached {tag}")
+            margs = (p["known"], p["incoming"], p["alive"], p["stamp"])
+            for rnd in CHECK_ROUNDS:
+                r = torch.tensor(rnd, dtype=torch.int32, device=dev)
+                for limit_q in CHECK_LIMITS:
+                    for cache in (True, False):
+                        ckw = dict(packed=packed, k_facts=k, limit_q=limit_q,
+                                   with_cache=cache)
+                        what = f"{tag} r={rnd} limit_q={limit_q} " \
+                               f"cache={cache}"
+                        out = rk.fused_merge(*margs, r, mesh=mesh, **ckw)
+                        torch.cuda.synchronize()
+                        ref = rk.fused_merge_plain(*margs, r, shards=d,
+                                                   **ckw)
+                        for i in range(3):
+                            same("fused_merge", out[i], ref[i],
+                                 f"fused_merge[{i}] {what}")
+                        per = out[3].reshape(d, -1).sum(1)
+                        if not torch.equal(per, ref[3]) or not torch.equal(
+                                out[3].reshape(d, -1).ne(0).any(1),
+                                ref[3].ne(0)):
+                            raise AssertionError(
+                                f"fused_merge flags {what}: per shard "
+                                f"{per.tolist()}, the per-shard rule's "
+                                f"{ref[3].tolist()}")
+        log(f"phase 2: fused_select_cached and fused_merge, one launch "
+            f"over {d} shards at n={n} k={k}, == plain versions (packed/"
+            f"unpacked, cache on/off, limits {CHECK_LIMITS}, "
+            f"{len(CHECK_ROUNDS)} next rounds), the merge's learn counts "
+            f"per shard == the per-shard rule's")
 
 
 #: the H100's L2 cache; timed inputs rotate through enough copies to
@@ -583,14 +660,20 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def measure_kernels(rk, dev, n: int = N_MAIN, k: int = K_MAIN) -> dict:
+def measure_kernels(rk, dev, n: int = N_MAIN, k: int = K_MAIN, mesh=None,
+                    only=None) -> dict:
     """Times and bounds at a path's shape (packed, the cache on where the
     kernel keeps it, the path's transmit limit).  The bound is the
-    bytes' time: each input read once, each output written once."""
+    bytes' time: each input read once, each output written once.  With
+    ``mesh``, the kernels of :data:`ONE_LAUNCH` are timed in their one
+    launch over the mesh (the others as given: call them with ``only``
+    naming the kernels to time)."""
     import torch
 
     from serf_tpu_torch.models.dissemination import GossipConfig
-    w, c = k // 32, k // 2
+    from serf_tpu_torch.parallel.mesh import shards
+    w, c, d = k // 32, k // 2, shards(mesh)
+    on_mesh = {} if mesh is None else dict(mesh=mesh)
     lq = GossipConfig(n=n, k_facts=k).transmit_limit_q
     r = torch.tensor(61, dtype=torch.int32, device=dev)
     base = random_planes(n, k, True, 99, dev)
@@ -610,9 +693,9 @@ def measure_kernels(rk, dev, n: int = N_MAIN, k: int = K_MAIN) -> dict:
         return lambda: fn(p["known"], p["incoming"], p["alive"], p["stamp"],
                           r, **kw)
 
-    def merge(p, fn):
+    def merge(p, fn, **mkw):
         return lambda: fn(p["known"], p["incoming"], p["alive"], p["stamp"],
-                          r, limit_q=lq, with_cache=True, **kw)
+                          r, limit_q=lq, with_cache=True, **kw, **mkw)
 
     def flush(p, fn):
         return lambda: fn(p["known2"], p["new"], p["overlay"], p["stamp"],
@@ -633,17 +716,19 @@ def measure_kernels(rk, dev, n: int = N_MAIN, k: int = K_MAIN) -> dict:
                          r) + nbytes(*merge_in(p, rk.merge_incoming_plain)())),
         "fused_select_cached": dict(
             run=[cached(q, rk.fused_select_cached, k_facts=k,
-                        stamp_cols=c) for q in copies],
+                        stamp_cols=c, **on_mesh) for q in copies],
             plain=[cached(q, rk.fused_select_cached_plain) for q in copies],
             bytes=nbytes(p["sendable"], p["known"], p["alive"])
             + nbytes(p["known"])),
         "fused_merge": dict(
-            run=[merge(q, rk.fused_merge) for q in copies],
-            plain=[merge(q, rk.fused_merge_plain) for q in copies],
-            # the learn flags (one int32 per 256 words) are written too
+            run=[merge(q, rk.fused_merge, **on_mesh) for q in copies],
+            plain=[merge(q, rk.fused_merge_plain, shards=d)
+                   for q in copies],
+            # the learn flags (one int32 per 256 words of a shard) are
+            # written too
             bytes=nbytes(p["known"], p["incoming"], p["alive"], p["stamp"],
                          r) + nbytes(*merge_out)
-            + 4 * -(-(n * w) // rk.THREADS)),
+            + 4 * d * -(-(n // d * w) // rk.THREADS)),
         "fused_flush": dict(
             run=[flush(q, rk.fused_flush) for q in copies],
             plain=[flush(q, rk.fused_flush_plain) for q in copies],
@@ -652,11 +737,43 @@ def measure_kernels(rk, dev, n: int = N_MAIN, k: int = K_MAIN) -> dict:
     }
     out = {}
     for name, spec in work.items():
+        if only is not None and name not in only:
+            continue
         out[name] = dict(
             ms=time_kernel(spec["run"]), plain_ms=time_calls(spec["plain"]),
             bound_ms=spec["bytes"] / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes", bytes=spec["bytes"], words=n * w)
     return out
+
+
+def sass_per_word(sass: dict, name: str):
+    """The static SASS count of a kernel's timed instance over the words
+    a thread owns (its tail loop included), or None without counts."""
+    count = next((c for fn, c in sass.items()
+                  if TIMED_INSTANCE[name] in fn), None)
+    return None if count is None else count / WORDS_PER_THREAD.get(name, 1)
+
+
+def log_kernel_times(times: dict, what: str, card: str, sass=None,
+                     rates=None) -> None:
+    """One line a kernel: its time, its plain version's, its byte bound
+    and the share of it reached, and (with ``sass`` and the integer and
+    issue ``rates``) its SASS count a word turned into issue times — a
+    diagnostic of the design, not a bound."""
+    for name, t in times.items():
+        line = (f"kernel {name} {what}: {t['ms'] * 1e3:.2f} us (plain "
+                f"version {t['plain_ms'] * 1e3:.2f} us, bound "
+                f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, "
+                f"{t['ms'] and t['bound_ms'] / t['ms']:.1%} of it, "
+                f"{t['bytes']} B")
+        per = sass_per_word(sass or {}, name)
+        if per is not None and rates:
+            insns = per * t["words"]
+            line += (f"; {per:.1f} SASS instructions a word, "
+                     f"{insns / rates[0] * 1e6:.2f} us all on the integer "
+                     f"pipe, {insns / rates[1] * 1e6:.2f} us at the warp "
+                     f"issue limit")
+        log(f"{line}) ({card})")
 
 
 # -- phases 3 and 4: the slice -----------------------------------------------
@@ -4376,12 +4493,20 @@ def sharded_run(rk, st, cfg, key, rounds: int, mesh, warm_rounds: int = 0):
     return st, dict(launches=launches, syncs=syncs, s=secs)
 
 
+def mesh_launches(unsharded: dict, d: int) -> dict:
+    """The launches a run on ``d`` shards must make, from the unsharded
+    run's: the kernels of :data:`ONE_LAUNCH` as many, the others ``d``
+    times as many."""
+    return {k: v if k in ONE_LAUNCH else d * v
+            for k, v in unsharded.items()}
+
+
 def sharded_exact(rk, n: int) -> dict:
     """11(a): the seeded flagship at N = ``n`` unsharded and on 1, 2, 4
     and 8 shards, 30 rounds, per (path, schedule) of
     :data:`SHARD_RUNS`: every leaf equal to the unsharded run's, the
-    host syncs equal, and each kernel's launches ``P`` times the
-    unsharded run's (``merge_incoming`` never)."""
+    host syncs equal, and the launches those of :func:`mesh_launches`
+    (``merge_incoming`` never)."""
     import dataclasses as dc
 
     from serf_tpu_torch import prng
@@ -4409,7 +4534,7 @@ def sharded_exact(rk, n: int) -> dict:
             if diff:
                 bad.append(f"{what}: leaves differ from the unsharded run: "
                            f"{diff}")
-            want = {k: d * v for k, v in run0["launches"].items()}
+            want = mesh_launches(run0["launches"], d)
             if run["launches"] != want or run["launches"]["merge_incoming"]:
                 bad.append(f"{what}: launches {run['launches']}, want "
                            f"{want}")
@@ -4418,8 +4543,10 @@ def sharded_exact(rk, n: int) -> dict:
                            f"{run0['syncs']}")
             out[what] = run
             log(f"phase 11 (a) {what} k={K_MAIN}, {SHARD_ROUNDS} rounds: "
-                f"every leaf equal to the unsharded run's, the fused "
-                f"kernels once per shard on {n // d} rows, "
+                f"every leaf equal to the unsharded run's, "
+                f"select_packets and fused_flush once per shard on "
+                f"{n // d} rows, the cached select and the merge once a "
+                f"call, "
                 f"launches {json.dumps(run['launches'])} (unsharded "
                 f"{json.dumps(run0['launches'])}), host_syncs_per_round "
                 f"{run['syncs'] / SHARD_ROUNDS:.2f} (unsharded "
@@ -4433,9 +4560,10 @@ def sharded_exact(rk, n: int) -> dict:
 def sharded_timing(rk, card: str) -> dict:
     """11(b): rounds/s of the per-round path on 8 shards per schedule
     beside the unsharded per-round path at N = :data:`N_MAIN`, 20
-    warm-up and 100 timed rounds each, in this run; then ``fused_select_cached`` and
-    ``fused_merge`` (all five logged) at N/8 rows against the byte
-    bound."""
+    warm-up and 100 timed rounds each, in this run; then each kernel at
+    N/8 rows against the byte bound, and the one launch of
+    ``fused_select_cached`` and ``fused_merge`` over 8 shards at N
+    against the whole plane's."""
     import dataclasses as dc
 
     import torch
@@ -4474,6 +4602,12 @@ def sharded_timing(rk, card: str) -> dict:
             f"{t['ms'] and t['bound_ms'] / t['ms']:.1%} of it; "
             f"{t['bytes']} B) ({card})")
     out["per_shard_kernels"] = per_shard
+    mesh_times = measure_kernels(
+        rk, torch.device("cuda"), N_MAIN, K_MAIN,
+        mesh=make_mesh(SHARD_TIMED_P, device="cuda"), only=ONE_LAUNCH)
+    log_kernel_times(mesh_times, f"at n={N_MAIN} k={K_MAIN}, one launch "
+                     f"over {SHARD_TIMED_P} shards (phase 11 (b))", card)
+    out["mesh_kernels"] = mesh_times
     return out
 
 
@@ -4519,7 +4653,8 @@ def sharded_chaos(rk, card: str) -> dict:
     rows of the unsharded run at every round; the digests, report,
     ledger and decisions equal the reference's fixture; the recording
     replays (on a mesh made from it) with a clean diff; the sharded run
-    and its replay launch 8 times the unsharded run's kernels."""
+    and its replay launch the unsharded run's kernels by
+    :func:`mesh_launches`."""
     import torch
 
     from serf_tpu_torch import host_syncs
@@ -4553,7 +4688,7 @@ def sharded_chaos(rk, card: str) -> dict:
     d = diff_recordings(rec, replayed)
     if not d.ok:
         bad.append(f"record -> replay diverged: {d.to_dict()}")
-    want = {k: SHARD_TIMED_P * v for k, v in run_g["launches"].items()}
+    want = mesh_launches(run_g["launches"], SHARD_TIMED_P)
     if run["launches"] != want or rep["launches"] != want:
         bad.append(f"launches {run['launches']}, replay "
                    f"{rep['launches']}, want {want}")
@@ -4569,8 +4704,8 @@ def sharded_chaos(rk, card: str) -> dict:
         f"a mesh of {init['mesh_devices']}: {rounds / rep['s']:.2f}), "
         f"host_syncs_per_round {run['syncs'] / rounds:.2f} (unsharded "
         f"{run_g['syncs'] / rounds:.2f}); launches "
-        f"{json.dumps(run['launches'])} ({SHARD_TIMED_P} x the unsharded "
-        f"run's, the replay's the same); the in-collective telemetry, "
+        f"{json.dumps(run['launches'])} (the unsharded run's under the "
+        f"mesh launch rules, the replay's the same); the in-collective telemetry, "
         f"propagation and invariant rows equal the gathered rows at every "
         f"round; digests, report, ledger and decisions equal the "
         f"reference's; record -> replay diffs clean over "
@@ -4789,29 +4924,10 @@ def main() -> int:
     times = measure_kernels(rk, dev)
     times_cq = measure_kernels(rk, dev, CQ_N, CQ_K)
     times_shed = measure_kernels(rk, dev, N_MAIN, K_SHED)
-    for (n, k), ts in (((CQ_N, CQ_K), times_cq),
+    rates = (int_rate, issue_rate)
+    for (n, k), ts in (((N_MAIN, K_MAIN), times), ((CQ_N, CQ_K), times_cq),
                        ((N_MAIN, K_SHED), times_shed)):
-        for name, t in ts.items():
-            log(f"kernel {name} at n={n} k={k}: {t['ms'] * 1e3:.2f} us "
-                f"(plain version {t['plain_ms'] * 1e3:.2f} us, bound "
-                f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, "
-                f"{t['bytes']} B)")
-    for name, t in times.items():
-        line = (f"kernel {name}: {t['ms'] * 1e3:.2f} us (plain version "
-                f"{t['plain_ms'] * 1e3:.2f} us, bound "
-                f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, "
-                f"{t['bytes']} B")
-        # a diagnostic of the design, not a bound: the timed instance's
-        # static SASS count (one word a thread) over the two issue rates
-        count = next((c for fn, c in sass.items()
-                      if TIMED_INSTANCE[name] in fn), None)
-        if count is not None:
-            insns = count * t["words"]
-            line += (f"; ops_ms: {count} SASS instructions a word, "
-                     f"{insns / int_rate * 1e6:.2f} us all on the integer "
-                     f"pipe, {insns / issue_rate * 1e6:.2f} us at the warp "
-                     f"issue limit")
-        log(line + ")")
+        log_kernel_times(ts, f"at n={n} k={k}", card, sass, rates)
     mark("phase 2")
     slice_vs_cpu(rk)
     churn_query_vs_cpu(rk)
@@ -4919,7 +5035,7 @@ def main() -> int:
     timing = sharded["timing"]
     log(f"phase 11 rounds_per_s (per-round path, N = {N_MAIN}): "
         + ", ".join(f"{what} {timing[what]['rps']:.2f}" for what in timing
-                    if what != "per_shard_kernels"))
+                    if "rps" in timing[what]))
     for r in host_plane["vivaldi"]:
         log(f"host plane vivaldi n={r['n']}: worst_tol_ratio "
             f"{r['worst_tol_ratio']:.4f} ({r['worst_field']}) s {r['s']:.2f}")
@@ -4931,6 +5047,7 @@ def main() -> int:
                       "chaos-shed-controlled":
                           shed["controlled"]["launches"]}
     shard_times = sharded["timing"]["per_shard_kernels"]
+    mesh_times = sharded["timing"]["mesh_kernels"]
     shard_launches = {f"phase 11 {what}": r["launches"]
                       for what, r in sharded["exact"].items()}
     shard_launches["phase 11 chaos-heal on 8 shards"] = \
@@ -4958,7 +5075,10 @@ def main() -> int:
                     bound_ms_k32=times_shed[name]["bound_ms"],
                     ms_shard=shard_times[name]["ms"],
                     plain_ms_shard=shard_times[name]["plain_ms"],
-                    bound_ms_shard=shard_times[name]["bound_ms"])
+                    bound_ms_shard=shard_times[name]["bound_ms"],
+                    **{f"{key}_mesh": mesh_times[name][key]
+                       if name in mesh_times else None
+                       for key in ("ms", "plain_ms", "bound_ms")})
                for name, t in times.items()]
     log(json.dumps({"kernels": kernels}))
     log(card)

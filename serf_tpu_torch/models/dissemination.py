@@ -724,8 +724,9 @@ def select_phase(state: GossipState, cfg: GossipConfig,
     (its merge does not keep it) and always runs ``select_packets``; on
     the deferred flavor the stale-cache recompute is the plain
     ``select_words``, which reads through the overlay (the stamp-only
-    kernel cannot — the reference's design).  ``mesh`` launches the
-    kernels once per shard."""
+    kernel cannot — the reference's design).  On a ``mesh``
+    ``select_packets`` launches once per shard and the cached select
+    once over the whole plane (``ops.round_kernels``' launch rules)."""
     mode = _dispatch(cfg, mesh)
     if mode == "kernels":
         return _select_packets(state, cfg, mesh)
@@ -877,9 +878,10 @@ def merge_phase(state: GossipState, incoming: torch.Tensor,
     on every active round, cache invalidated, ``learned_any`` kept on the
     device (no host read).  Deferred flavor: :func:`_merge_phase_deferred`
     (``stamp_unit``, an int32 device scalar, is the controller's live
-    cohort size).  ``mesh`` launches the kernels once per shard; the
-    shards' learn flags concatenate, so ``learned_any`` is still one
-    host read.  Does not increment ``round``."""
+    cohort size).  On a ``mesh`` ``fused_merge`` launches once, the
+    shard in its grid, with the shards' learn flags in shard order, and
+    ``fused_flush`` once per shard; ``learned_any`` is still one host
+    read.  Does not increment ``round``."""
     mode = _dispatch(cfg, mesh)
     if cfg.stamp_deferred:
         return _merge_phase_deferred(state, incoming, cfg, mode, mesh,
@@ -1005,8 +1007,8 @@ def round_step(state: GossipState, cfg: GossipConfig, key, group=None,
     ``exchange`` swaps the exchange leg for a drop-in with
     :func:`exchange_phase`'s contract (the sharded round's
     ``parallel.ring.exchange_sharded``); ``eff_fanout`` reaches it only
-    when live.  ``mesh`` launches the select and merge kernels once per
-    shard.  One copy of everything around the leg is what keeps the
+    when live.  ``mesh`` runs the kernels under ``ops.round_kernels``'
+    mesh launch rules.  One copy of everything around the leg is what keeps the
     sharded round bit-exact with this one."""
     st = state
     if collect_propagation:

@@ -11,8 +11,9 @@ Entry points (:func:`make_cluster`, :func:`run_cluster`,
 for another device, and raise without a card.  A ``mesh``
 (``parallel.mesh.make_mesh``: virtual shards of one device) makes the
 round the sharded flagship round (``parallel.ring.sharded_round_step``:
-the exchange leg under the config's schedule, the kernels per shard) and
-the telemetry row the in-collective one
+the exchange leg under the config's schedule, the kernels under
+``ops.round_kernels``' mesh launch rules) and the telemetry row the
+in-collective one
 (``parallel.ring.round_telemetry_sharded``), bit-exact with the
 unsharded round.  The adaptive controller (``control.enabled``) and the
 per-round telemetry, propagation and invariant rows (the ``collect_*``
@@ -161,7 +162,8 @@ def cluster_round(state: ClusterState, cfg: ClusterConfig, key,
     multiplier and (deferred configs only) the cohort size.  ``mesh``
     makes it the sharded flagship round: ``round_step`` with the exchange
     leg swapped for ``parallel.ring.exchange_sharded`` under
-    ``cfg.exchange_schedule`` and the kernels launched per shard; every
+    ``cfg.exchange_schedule`` and the kernels under their mesh launch
+    rules; every
     other phase runs on the global tensors, as GSPMD runs it.  With
     ``collect_propagation`` returns ``(state, (slots_sent,
     slots_learned))``."""

@@ -132,8 +132,8 @@ def _phase_callables(state, cfg, events_per_round: int, mesh=None,
     the round's phase function on the warmed state.  The selection's
     packets and the exchange's incoming words are made once, so each
     phase is timed alone.  With ``mesh`` the select and merge kernels
-    launch per shard and the exchange is ``parallel.ring``'s leg under
-    ``schedule``."""
+    take their mesh launch rules and the exchange is ``parallel.ring``'s
+    leg under ``schedule``."""
     import functools
     from serf_tpu_torch import prng
     from serf_tpu_torch.models import antientropy, dissemination, failure
@@ -373,7 +373,7 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
     """Profile one sustained flagship round phase by phase on ``device``
     (the card unless the caller passes ``device="cpu"``, or the mesh's
     device; raises without a card).  With ``mesh`` the profile runs the
-    sharded flagship path: the state on the mesh, the kernels per shard,
+    sharded flagship path: the state on the mesh, the kernels on it,
     the exchange phase ``parallel.ring``'s leg under ``schedule`` (the
     whole round the config's ``exchange_schedule``); the model byte
     columns are per shard, as the reference's are per chip (``devices``

@@ -32,7 +32,7 @@ _SIGNATURES = {
                             _P),
     "serf_fused_select_cached": (_P, _P, _P, _P, _I64, _I, _P),
     "serf_fused_merge": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
-                         _I, _I, _I, _P),
+                         _I, _I, _I, _I, _P),
     "serf_fused_flush": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                          _I, _P),
 }

@@ -28,23 +28,33 @@
 // word for two ANDs, but the four stamp-plane kernels handle 32 four-bit
 // stamps per word.
 //
-// Two designs.  merge_incoming and fused_merge take one fact at a time
-// (restamp_word): extract the nibble, subtract, mask, compare, select,
-// shift it back — a few hundred instructions per word, which holds them
-// at 58-72% of their byte bound.  select_packets and fused_flush were
-// built the same way and sat at 48-49%, held back by instruction issue:
-// with the same bytes and fewer instructions they now reach about 80%
-// and 85% on an H100.  They work on nibble lanes (the section of that
-// name below): four byte lanes per 32-bit operation, ~16 operations per
-// 8 facts for the select and ~45 for the flush where the per-fact loops
-// took ~60 and ~110.  The bound they aim at is their bytes, 14.63 us and
-// 28.66 us at N = 1M, K = 64 packed; what holds the last 15-20% is not
-// measured (PERF.md).  A lane kernel's thread owns one word and indexes
-// with 32 bits: word t's stamp chunk is chunk t, so only the select
-// divides (32 bits, by the runtime W) to find the row's alive byte.
-// With 2048 threads resident an SM has 40-60 KB of loads in flight
-// (packed), more than its ~16 KB share of the ~2 MB that HBM's rate
-// times its latency asks for.
+// Two designs.  merge_incoming takes one fact at a time (restamp_word):
+// extract the nibble, subtract, mask, compare, select, shift it back — a
+// few hundred instructions per word, which holds it at 58-72% of its
+// byte bound.  The other stamp-plane kernels were built the same way
+// and sat lower, held back by instruction issue: select_packets and
+// fused_flush at 48-49%, fused_merge (691 SASS instructions a word) at
+// 57-58%.  They now work on nibble lanes (the section of that name
+// below): four byte lanes per 32-bit operation, ~16 operations per 8
+// facts for the select and ~45 for the flush, where the per-fact loops
+// took ~60 and ~110; the merge runs the flush's lanes without the
+// overlay pass (merge_packed / merge_unpacked).  The bound they aim at
+// is their bytes: 14.63 us, 28.66 us and 28.96 us at N = 1M, K = 64
+// packed (PERF.md).  A lane kernel's thread owns one word and indexes
+// with 32 bits: word t's stamp chunk is chunk t, so only the select and
+// the merge divide (32 bits, by the runtime W) to find the row's alive
+// byte.  With 2048 threads resident an SM has 40-60 KB of loads in
+// flight (packed), more than its ~16 KB share of the ~2 MB that HBM's
+// rate times its latency asks for.  The cached select reads no stamp: a
+// thread owns four words (16-byte loads and a 16-byte store, 32-bit
+// indexing, a row's alive byte read once) where it owned one.
+//
+// Sharded meshes.  On a mesh of P virtual shards of one device the
+// shards are contiguous row blocks of each plane.  fused_merge then runs
+// one launch on a two-dimensional grid, the shard in blockIdx.y, so
+// that no block spans two shards and the learn counts stay one per
+// block of a shard, in shard order; the cached select has no per-shard
+// output and covers the whole plane with one launch.
 //
 // The TPU kernels' per-grid-step learn flag becomes one count per CUDA
 // block (blocks run in no order; the caller only asks whether any count
@@ -71,12 +81,7 @@ __device__ __forceinline__ int quarter(int32_t round) {
   return (round >> kStampShift) & 0xF;
 }
 
-// -- one fact at a time (the merges) -----------------------------------------
-
-// derived q-age below the transmit window (wrapping 4-bit subtraction)
-__device__ __forceinline__ uint32_t young(int rq, int nib, int limit_q) {
-  return ((rq - nib) & 0xF) < limit_q ? 1u : 0u;
-}
+// -- one fact at a time (merge_incoming) -------------------------------------
 
 // re-pin a wrap-stale stamp at q-age kAgePinQ (dissemination.clamp_nibbles)
 __device__ __forceinline__ int clamped(int rq, int nib) {
@@ -92,15 +97,12 @@ __device__ __forceinline__ int byte_of(const uint32_t* q, int j) {
   return (q[j >> 2] >> (8 * (j & 3))) & 0xFF;
 }
 
-// The merges' stamp pass of one word: read the word's stamp bytes at
-// `in`, restamp every fact (restamped), write the bytes to `out`, and
-// return (kWithCache) the age bits of the final nibbles — the sendable
-// cache's predicate — while they are still in registers.
-template <bool kPacked, bool kWithCache>
-__device__ __forceinline__ uint32_t restamp_word(const uint8_t* in,
-                                                 uint8_t* out, uint32_t fresh,
-                                                 int rq, int limit_q) {
-  uint32_t ok = 0u;
+// The standalone merge's stamp pass of one word: read the word's stamp
+// bytes at `in`, restamp every fact (restamped) and write the bytes to
+// `out`.
+template <bool kPacked>
+__device__ __forceinline__ void restamp_word(const uint8_t* in, uint8_t* out,
+                                             uint32_t fresh, int rq) {
   if (kPacked) {
     const uint4 v = *reinterpret_cast<const uint4*>(in);
     const uint32_t q[4] = {v.x, v.y, v.z, v.w};
@@ -111,10 +113,6 @@ __device__ __forceinline__ uint32_t restamp_word(const uint8_t* in,
       const int lo = restamped(fresh >> (2 * j), rq, b & 0xF);
       const int hi = restamped(fresh >> (2 * j + 1), rq, b >> 4);
       o[j >> 2] |= uint32_t(lo | (hi << 4)) << (8 * (j & 3));
-      if (kWithCache) {
-        ok |= young(rq, lo, limit_q) << (2 * j);
-        ok |= young(rq, hi, limit_q) << (2 * j + 1);
-      }
     }
     *reinterpret_cast<uint4*>(out) = make_uint4(o[0], o[1], o[2], o[3]);
   } else {
@@ -126,13 +124,11 @@ __device__ __forceinline__ uint32_t restamp_word(const uint8_t* in,
     for (int j = 0; j < 32; ++j) {
       const int nib = restamped(fresh >> j, rq, byte_of(q, j));
       o[j >> 2] |= uint32_t(nib & 0xFF) << (8 * (j & 3));
-      if (kWithCache) ok |= young(rq, nib, limit_q) << j;
     }
     uint4* d = reinterpret_cast<uint4*>(out);
     d[0] = make_uint4(o[0], o[1], o[2], o[3]);
     d[1] = make_uint4(o[4], o[5], o[6], o[7]);
   }
-  return ok;
 }
 
 // byte offset of word w's stamp chunk in row `row`
@@ -284,10 +280,11 @@ __device__ __forceinline__ FlushLanes flush_lanes(int32_t next_round,
 }
 
 // The cohort flush of one word's 16 packed stamp bytes: clamp, pending
-// overlay cells -> rq_prev, fresh learns -> rq (written last, so a fresh
-// learn wins); stores the new bytes at *out and returns (kWithCache) the
-// age bits of the final nibbles while they are still in registers.
-template <bool kWithCache>
+// overlay cells -> rq_prev (kOverlay), fresh learns -> rq (written last,
+// so a fresh learn wins); stores the new bytes at *out and returns
+// (kWithCache) the age bits of the final nibbles while they are still in
+// registers.
+template <bool kWithCache, bool kOverlay = true>
 __device__ __forceinline__ uint32_t flush_packed(uint4 v, uint32_t fresh,
                                                  uint32_t overlay,
                                                  const FlushLanes& l,
@@ -299,9 +296,11 @@ __device__ __forceinline__ uint32_t flush_packed(uint4 v, uint32_t fresh,
     uint32_t lo = q[i] & kLow, hi = (q[i] >> 4) & kLow, m_lo, m_hi;
     lo = clamp_lanes(lo, lo, l.rq16, l.pin);
     hi = clamp_lanes(hi, hi, l.rq16, l.pin);
-    pair_masks(overlay, i, m_lo, m_hi);
-    lo = pick(m_lo, l.rq_prev, lo);
-    hi = pick(m_hi, l.rq_prev, hi);
+    if (kOverlay) {
+      pair_masks(overlay, i, m_lo, m_hi);
+      lo = pick(m_lo, l.rq_prev, lo);
+      hi = pick(m_hi, l.rq_prev, hi);
+    }
     pair_masks(fresh, i, m_lo, m_hi);
     lo = pick(m_lo, l.rq, lo);
     hi = pick(m_hi, l.rq, hi);
@@ -317,7 +316,7 @@ __device__ __forceinline__ uint32_t flush_packed(uint4 v, uint32_t fresh,
 
 // flush_packed for one word's 32 unpacked stamp bytes (a clamp keeps a
 // young byte whole, as dissemination.clamp_nibbles does)
-template <bool kWithCache>
+template <bool kWithCache, bool kOverlay = true>
 __device__ __forceinline__ uint32_t flush_unpacked(uint4 a, uint4 b,
                                                    uint32_t fresh,
                                                    uint32_t overlay,
@@ -328,7 +327,7 @@ __device__ __forceinline__ uint32_t flush_unpacked(uint4 a, uint4 b,
 #pragma unroll
   for (int g = 0; g < 8; ++g) {
     uint32_t s = clamp_lanes(q[g], q[g] & kLow, l.rq16, l.pin);
-    s = pick(quad_masks(overlay, g), l.rq_prev, s);
+    if (kOverlay) s = pick(quad_masks(overlay, g), l.rq_prev, s);
     s = pick(quad_masks(fresh, g), l.rq, s);
     o[g] = s;
     if (kWithCache) y[g] = young_lanes(s & kLow, l.rq16, l.lim);
@@ -340,6 +339,26 @@ __device__ __forceinline__ uint32_t flush_unpacked(uint4 a, uint4 b,
                                 weave_quads(y[4], y[5]),
                                 weave_quads(y[6], y[7]))
                     : 0u;
+}
+
+// The merge's stamp pass of one word's 16 packed stamp bytes: the
+// flush's lanes without the overlay, so each fact becomes
+// restamped(fresh, rq, nib) — a fresh learn takes rq, every other stamp
+// is clamped at rq — with the cache's age bits of the result
+template <bool kWithCache>
+__device__ __forceinline__ uint32_t merge_packed(uint4 v, uint32_t fresh,
+                                                 const FlushLanes& l,
+                                                 uint4* out) {
+  return flush_packed<kWithCache, false>(v, fresh, 0u, l, out);
+}
+
+// merge_packed for one word's 32 unpacked stamp bytes
+template <bool kWithCache>
+__device__ __forceinline__ uint32_t merge_unpacked(uint4 a, uint4 b,
+                                                   uint32_t fresh,
+                                                   const FlushLanes& l,
+                                                   uint4* out) {
+  return flush_unpacked<kWithCache, false>(a, b, fresh, 0u, l, out);
 }
 
 // -- kernels -----------------------------------------------------------------
@@ -368,16 +387,48 @@ select_packets_kernel(const uint4* __restrict__ stamp,
   packets[t] = alive[t / words] ? known[t] & age_ok : 0u;
 }
 
-// packets = sendable & known & alive — the word plane only, no stamp read
+// packets = sendable & known & alive — the word plane only, no stamp
+// read.  A thread owns four consecutive words: one 16-byte load of each
+// plane and one 16-byte store, the row of its first word from a 32-bit
+// divide and each later row by counting (so a row's alive byte is read
+// once per thread that touches it); the last thread takes total % 4
+// words one at a time.  12 bytes a word; the one-word form it replaces
+// (4-byte loads, a 64-bit index and divide per word) read 64-66% of that
+// bound at N = 1M, K = 64 and 36-37% on a shard's 125,000 rows
+// (PERF.md).
 __global__ void __launch_bounds__(kThreads)
-fused_select_kernel(const uint32_t* __restrict__ sendable,
-                    const uint32_t* __restrict__ known,
+fused_select_kernel(const uint4* __restrict__ sendable,
+                    const uint4* __restrict__ known,
                     const uint8_t* __restrict__ alive,
-                    uint32_t* __restrict__ packets, int64_t total,
-                    int words) {
-  const int64_t t = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+                    uint4* __restrict__ packets, uint32_t total,
+                    uint32_t words) {
+  const uint32_t quad = blockIdx.x * kThreads + threadIdx.x;
+  const uint32_t t = 4u * quad;
   if (t >= total) return;
-  packets[t] = alive[t / words] ? (sendable[t] & known[t]) : 0u;
+  if (t + 4u > total) {
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(sendable);
+    const uint32_t* k = reinterpret_cast<const uint32_t*>(known);
+    uint32_t* p = reinterpret_cast<uint32_t*>(packets);
+    for (uint32_t u = t; u < total; ++u) {
+      p[u] = alive[u / words] ? (s[u] & k[u]) : 0u;
+    }
+    return;
+  }
+  const uint4 s = sendable[quad], k = known[quad];
+  const uint32_t sv[4] = {s.x, s.y, s.z, s.w};
+  const uint32_t kv[4] = {k.x, k.y, k.z, k.w};
+  uint32_t row = t / words, col = t - row * words;
+  uint32_t live = alive[row] ? 0xFFFFFFFFu : 0u;
+  uint32_t o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j > 0 && ++col == words) {
+      col = 0u;
+      live = alive[++row] ? 0xFFFFFFFFu : 0u;
+    }
+    o[j] = sv[j] & kv[j] & live;
+  }
+  packets[quad] = make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 // the standalone merge: learn, clamp and stamp the learned nibbles with
@@ -402,42 +453,50 @@ merge_incoming_kernel(const uint32_t* __restrict__ known,
   known_out[t] = k0 | fresh;
   const int rq = quarter(*next_round);
   const int64_t off = chunk_of<kPacked>(row, w, cols);
-  restamp_word<kPacked, false>(stamp + off, stamp_out + off, fresh, rq, 0);
+  restamp_word<kPacked>(stamp + off, stamp_out + off, fresh, rq);
 }
 
 // learn, clamp, stamp the learned nibbles with the next round's quarter,
 // and (kWithCache) recompute sendable' = known' & (q-age' < limit_q) from
-// the new nibbles while they are still in registers
+// the new nibbles while they are still in registers.  Nibble lanes
+// (merge_packed / merge_unpacked): the flush's lane sequence without its
+// overlay pass, where the per-fact loop it replaces took 691 SASS
+// instructions a word and read 57-58% of its 97 MB byte bound (28.96 us
+// at N = 1M, K = 64).  The grid is (blocks of a shard) x (shards): block
+// (x, y) covers words y * shard_total + [256x, 256x + 256) of shard y,
+// and writes its learn count at flags[y * gridDim.x + x], so the counts
+// of a shard's blocks stay in one run, in shard order (one shard: the
+// unsharded launch).
 template <bool kPacked, bool kWithCache>
 __global__ void __launch_bounds__(kThreads)
 fused_merge_kernel(const uint32_t* __restrict__ known,
                    const uint32_t* __restrict__ incoming,
                    const uint8_t* __restrict__ alive,
-                   const uint8_t* __restrict__ stamp,
+                   const uint4* __restrict__ stamp,
                    const int32_t* __restrict__ next_round,
                    uint32_t* __restrict__ known_out,
-                   uint8_t* __restrict__ stamp_out,
+                   uint4* __restrict__ stamp_out,
                    uint32_t* __restrict__ sendable_out,
-                   int32_t* __restrict__ flags, int64_t total, int words,
-                   int cols, int limit_q) {
-  const int64_t t = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+                   int32_t* __restrict__ flags, uint32_t shard_total,
+                   uint32_t words, uint32_t lim) {
+  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
+  const uint32_t t = blockIdx.y * shard_total + i;
   uint32_t fresh = 0u;
-  if (t < total) {
-    const int64_t row = t / words;
-    const int w = int(t - row * words);
+  if (i < shard_total) {
     const uint32_t k0 = known[t];
-    fresh = incoming[t] & ~k0 & (alive[row] ? 0xFFFFFFFFu : 0u);
+    fresh = incoming[t] & ~k0 & (alive[t / words] ? 0xFFFFFFFFu : 0u);
     const uint32_t k1 = k0 | fresh;
     known_out[t] = k1;
-    const int rq = quarter(*next_round);
-    const int64_t off = chunk_of<kPacked>(row, w, cols);
-    const uint32_t ok = restamp_word<kPacked, kWithCache>(
-        stamp + off, stamp_out + off, fresh, rq, limit_q);
+    const FlushLanes l = flush_lanes(*next_round, lim);
+    const uint32_t ok =
+        kPacked ? merge_packed<kWithCache>(stamp[t], fresh, l, stamp_out + t)
+                : merge_unpacked<kWithCache>(stamp[2 * t], stamp[2 * t + 1],
+                                             fresh, l, stamp_out + 2 * t);
     if (kWithCache) sendable_out[t] = k1 & ok;
   }
   // every thread of the block reaches this barrier (no early return)
   const int learned = __syncthreads_count(fresh != 0u);
-  if (threadIdx.x == 0) flags[blockIdx.x] = learned;
+  if (threadIdx.x == 0) flags[blockIdx.y * gridDim.x + blockIdx.x] = learned;
 }
 
 // The deferred flavor's cohort flush (replaces _make_fused_flush_kernel):
@@ -551,10 +610,11 @@ int serf_fused_select_cached(const void* sendable, const void* known,
                              int words, void* stream) {
   const int64_t total = n * words;
   if (total == 0) return 0;
-  fused_select_kernel<<<blocks_for(total), kThreads, 0,
+  if (total > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  fused_select_kernel<<<blocks_for((total + 3) / 4), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      in<uint32_t>(sendable), in<uint32_t>(known), in<uint8_t>(alive),
-      out<uint32_t>(packets), total, words);
+      in<uint4>(sendable), in<uint4>(known), in<uint8_t>(alive),
+      out<uint4>(packets), uint32_t(total), uint32_t(words));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -577,23 +637,32 @@ int serf_merge_incoming(const void* known, const void* incoming,
   return static_cast<int>(cudaGetLastError());
 }
 
+// shards > 1: one launch over a mesh's `shards` contiguous row blocks of
+// n / shards rows each (the caller checks that they divide n); flags
+// holds shards x blocks_for(n / shards * words) counts
 int serf_fused_merge(const void* known, const void* incoming,
                      const void* alive, const void* stamp,
                      const void* next_round, void* known_out,
                      void* stamp_out, void* sendable_out, void* flags,
                      int64_t n, int words, int cols, int limit_q, int packed,
-                     int with_cache, void* stream) {
+                     int with_cache, int shards, void* stream) {
   const int64_t total = n * words;
   if (total == 0) return 0;
+  if (!lane_shape_ok(total, words, cols, packed) || shards < 1 ||
+      shards > 65535 || n % shards != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t shard_total = total / shards;
+  const dim3 grid(blocks_for(shard_total), unsigned(shards));
   auto s = static_cast<cudaStream_t>(stream);
   dispatch(packed, with_cache, [&](auto p, auto c) {
     fused_merge_kernel<decltype(p)::value, decltype(c)::value>
-        <<<blocks_for(total), kThreads, 0, s>>>(
+        <<<grid, kThreads, 0, s>>>(
             in<uint32_t>(known), in<uint32_t>(incoming), in<uint8_t>(alive),
-            in<uint8_t>(stamp), in<int32_t>(next_round),
-            out<uint32_t>(known_out), out<uint8_t>(stamp_out),
-            out<uint32_t>(sendable_out), out<int32_t>(flags), total, words,
-            cols, limit_q);
+            in<uint4>(stamp), in<int32_t>(next_round),
+            out<uint32_t>(known_out), out<uint4>(stamp_out),
+            out<uint32_t>(sendable_out), out<int32_t>(flags),
+            uint32_t(shard_total), uint32_t(words), limit_lanes(limit_q));
   });
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,20 +25,29 @@ back from a CUDA tensor to the plain version.  Outputs are fresh buffers
 from ``torch.empty``; a kernel never allocates and never synchronises.
 Every launch adds one to ``LAUNCHES[name]`` and nothing else does.
 
-With a ``mesh`` (``parallel.mesh``: virtual shards of one device) the
-four kernels of the sharded round take the reference's per-shard rule
-(``_maybe_shard``): the wrapper launches the kernel once per shard, on
-that shard's row block ``[s*N/P, (s+1)*N/P)`` with the scalar operands
-replicated, and each launch writes its row block of the global outputs;
-the per-block learn flags of ``fused_merge`` concatenate over the shards.
-Each per-shard launch counts one and runs under its own dispatch timer
-(its signature's N the shard's rows), so calls == launches holds on the
+With a ``mesh`` (``parallel.mesh``: virtual shards of one device,
+contiguous row blocks ``[s*N/P, (s+1)*N/P)`` of every node-axis plane)
+the kernels of the sharded round take one of two launch rules:
+
+- ``fused_select_cached`` and ``fused_merge`` launch once a call over
+  the whole plane.  The cached select has no per-shard output; the
+  merge runs on a grid whose second axis is the shard, so no CUDA block
+  spans two shards and its learn flags are the per-shard rule's: the
+  shards' per-block counts in shard order (on the CPU, one total a
+  shard).
+- ``select_packets`` and ``fused_flush`` keep the reference's per-shard
+  rule (``_maybe_shard``): the wrapper launches the kernel once per
+  shard, on that shard's row block with the scalar operands replicated,
+  and each launch writes its row block of the global outputs.
+
+Each launch counts one and runs under its own dispatch timer (its
+signature's N the rows it covers), so calls == launches holds on the
 sharded path too.  ``merge_incoming`` takes no mesh: on a mesh the
 standalone family takes the plain path by the reference's dispatch
 rule.
 
-Every kernel call (one a shard on a mesh), on the CPU as on the card,
-runs under ``obs.device.dispatch_timer`` with the reference's op name
+Every kernel call, on the CPU as on the card, runs under
+``obs.device.dispatch_timer`` with the reference's op name
 (:data:`DISPATCH_OPS`) and signature, so on the card
 ``dispatch_summary()[op]["calls"]`` equals ``LAUNCHES[name]`` when both
 were reset together.  The timer reads the host clock only; it never
@@ -111,9 +120,10 @@ def _block_for(n: int) -> int:
 def shape_ok(n: int, k_facts: int, stamp_cols: int) -> Tuple[bool, str]:
     """Shapes the CUDA kernels run: whole 32-fact words (which also makes
     every stamp row a whole number of 16-byte chunks) and a stamp plane
-    of either flavor.  Any N > 0 — a thread owns one word, so there is no
-    block to divide N.  The tensor-level requirements (a CUDA device,
-    contiguity, 16-byte alignment) are checked by each wrapper."""
+    of either flavor.  Any N > 0 — a thread owns one word (the cached
+    select four, with a scalar tail), so there is no block to divide N.
+    The tensor-level requirements (a CUDA device, contiguity, 16-byte
+    alignment) are checked by each wrapper."""
     if k_facts % 32 != 0:
         return False, f"k_facts {k_facts} not a multiple of 32"
     if n <= 0:
@@ -167,8 +177,7 @@ def _require_shape(kernel: str, n: int, k_facts: int, cols: int) -> None:
         raise ValueError(f"{kernel}: {reason}")
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape,
-           align: int = 16) -> None:
+def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -176,8 +185,8 @@ def _check(t: torch.Tensor, name: str, dtype, shape,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
-    if t.data_ptr() % align:
-        raise ValueError(f"{name}: not {align}-byte aligned")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: not 16-byte aligned")
 
 
 def _check_alive(alive: torch.Tensor, n: int) -> None:
@@ -197,14 +206,21 @@ def _round_scalar(round_, device) -> torch.Tensor:
     return r.contiguous()
 
 
-def _shard_rows(mesh, n: int):
-    """The per-shard row blocks of the launch rule: ``P`` contiguous
-    slices of ``n // P`` rows (the dispatch rule sends a mesh that does
-    not divide ``n`` down the plain path, so this never sees one)."""
+def _mesh_shards(mesh, n: int) -> int:
+    """The mesh's shard count ``P`` (1 without one), which must divide
+    ``n`` (the dispatch rule sends a mesh that does not divide ``n``
+    down the plain path, so this never sees one)."""
     from serf_tpu_torch.parallel.mesh import shards
     d = shards(mesh)
     if n % d:
         raise ValueError(f"{d}-shard mesh does not divide n={n}")
+    return d
+
+
+def _shard_rows(mesh, n: int):
+    """The per-shard row blocks of the per-shard rule: ``P`` contiguous
+    slices of ``n // P`` rows."""
+    d = _mesh_shards(mesh, n)
     nl = n // d
     return [slice(s * nl, (s + 1) * nl) for s in range(d)]
 
@@ -213,10 +229,8 @@ def _per_shard(fn, mesh, planes, scalars, outs, **kw):
     """The reference's ``_maybe_shard`` on the virtual shards of one
     device: ``fn`` once per shard on that shard's row block of every
     node-axis plane in ``planes``, the ``scalars`` replicated, writing
-    into block ``s`` of ``P`` equal leading blocks of each output in
-    ``outs`` (a tensor or a tuple, ``None`` entries passed through): a
-    plane's row block, or a shard's learn flags of the concatenated
-    flags.  Returns ``outs``."""
+    into row block ``s`` of each output in ``outs`` (a tensor or a
+    tuple, ``None`` entries passed through).  Returns ``outs``."""
     blocks = _shard_rows(mesh, planes[0].shape[0])
     d = len(blocks)
     single = isinstance(outs, torch.Tensor)
@@ -283,7 +297,9 @@ def merge_incoming_plain(known, incoming, alive, stamp, next_round, *,
 
 def fused_merge_plain(known, incoming, alive, stamp, next_round, *,
                       limit_q: int, packed: bool, k_facts: int,
-                      with_cache: bool):
+                      with_cache: bool, shards: int = 1):
+    """The fused merge's outputs; ``flags`` holds the learn count of each
+    of ``shards`` contiguous row blocks (one total without a mesh)."""
     new = incoming & ~known & alive_words(alive.reshape(-1).to(torch.bool))
     known2 = known | new
     lo = hi = None
@@ -294,7 +310,7 @@ def fused_merge_plain(known, incoming, alive, stamp, next_round, *,
         stamp2 = dis.clamp_learn_nibbles(stamp, new, next_round, k_facts)
     send = (dis.cache_words(known2, stamp2, lo, hi, next_round, limit_q,
                             packed) if with_cache else None)
-    flags = (new != 0).sum().to(torch.int32).reshape(1)
+    flags = (new != 0).reshape(shards, -1).sum(1, dtype=torch.int32)
     return known2, stamp2, send, flags
 
 
@@ -387,26 +403,26 @@ def fused_select_cached(sendable: torch.Tensor, known: torch.Tensor,
                         stamp_cols: int, mesh=None) -> torch.Tensor:
     """Selection off the valid sendable cache: a word-plane-only pass
     (replaces the TPU's ``fused_select_cached``).  Callers guard on
-    ``sendable_round == round``.  With ``mesh``, one launch per shard."""
-    if mesh is None:
-        return _fused_select_cached(sendable, known, alive, k_facts=k_facts,
-                                    stamp_cols=stamp_cols)
-    return _per_shard(_fused_select_cached, mesh, (sendable, known, alive),
-                      (), torch.empty_like(known), k_facts=k_facts,
-                      stamp_cols=stamp_cols)
+    ``sendable_round == round``.  With ``mesh``, still one launch over
+    the whole plane: the shards are its row blocks and the select has no
+    per-shard output."""
+    _mesh_shards(mesh, known.shape[0])
+    return _fused_select_cached(sendable, known, alive, k_facts=k_facts,
+                                stamp_cols=stamp_cols)
 
 
 @_timed("fused_select_cached", "k_facts")
 def _fused_select_cached(sendable, known, alive, *, k_facts: int,
-                         stamp_cols: int, out=None) -> torch.Tensor:
+                         stamp_cols: int) -> torch.Tensor:
     if not _on_cuda(sendable, known, alive):
-        return _into(out, fused_select_cached_plain(sendable, known, alive))
+        return fused_select_cached_plain(sendable, known, alive)
     n, w = known.shape[0], k_facts // 32
     _require_shape("fused_select_cached", n, k_facts, stamp_cols)
+    # a thread's 16-byte loads and store need the planes' alignment
     _check(sendable, "sendable", torch.int32, (n, w))
     _check(known, "known", torch.int32, (n, w))
     _check_alive(alive, n)
-    out = torch.empty_like(known) if out is None else out
+    out = torch.empty_like(known)
     _check(out, "out", torch.int32, (n, w))
     _launch("fused_select_cached", _lib().serf_fused_select_cached,
             sendable.data_ptr(), known.data_ptr(), alive.data_ptr(),
@@ -422,34 +438,24 @@ def fused_merge(known: torch.Tensor, incoming: torch.Tensor,
     (replaces the TPU's ``fused_merge``).  ``flags`` holds learn counts;
     ``any(flags != 0)`` is the round's ``learned_any`` — its shape
     differs between the kernel (one count per CUDA block) and the plain
-    version (one total), and only that predicate is contract.  With
-    ``mesh``, one launch per shard and the shards' flags in shard
-    order."""
-    kw = dict(limit_q=limit_q, packed=packed, k_facts=k_facts,
-              with_cache=with_cache)
-    if mesh is None:
-        return _fused_merge(known, incoming, alive, stamp, next_round, **kw)
-    from serf_tpu_torch.parallel.mesh import shards
-    n, d = known.shape[0], shards(mesh)
-    # a launch writes one count per CUDA block, a plain version one total
-    nb = (-(-(n // d * (k_facts // 32)) // THREADS)
-          if _on_cuda(known, incoming, alive, stamp) else 1)
-    return _per_shard(
-        _fused_merge, mesh, (known, incoming, alive, stamp),
-        (const(next_round, torch.int32, known.device),),
-        (torch.empty_like(known), torch.empty_like(stamp),
-         torch.empty_like(known) if with_cache else None,
-         torch.empty((d * nb,), dtype=torch.int32, device=known.device)),
-        **kw)
+    version (one total a shard), and only that predicate is contract.  With
+    ``mesh``, still one launch: its grid's second axis is the shard, and
+    ``flags`` holds the shards' counts in shard order (``P`` equal runs,
+    one per shard)."""
+    return _fused_merge(known, incoming, alive, stamp, next_round,
+                        limit_q=limit_q, packed=packed, k_facts=k_facts,
+                        with_cache=with_cache,
+                        shards=_mesh_shards(mesh, known.shape[0]))
 
 
 @_timed("fused_merge", "k_facts", "packed", "with_cache")
 def _fused_merge(known, incoming, alive, stamp, next_round, *, limit_q: int,
-                 packed: bool, k_facts: int, with_cache: bool, out=None):
+                 packed: bool, k_facts: int, with_cache: bool, shards: int):
     if not _on_cuda(known, incoming, alive, stamp):
-        return _into(out, fused_merge_plain(
+        return fused_merge_plain(
             known, incoming, alive, stamp, next_round, limit_q=limit_q,
-            packed=packed, k_facts=k_facts, with_cache=with_cache))
+            packed=packed, k_facts=k_facts, with_cache=with_cache,
+            shards=shards)
     n, w = known.shape[0], k_facts // 32
     cols = k_facts // 2 if packed else k_facts
     _require_shape("fused_merge", n, k_facts, cols)
@@ -458,26 +464,17 @@ def _fused_merge(known, incoming, alive, stamp, next_round, *, limit_q: int,
     _check(stamp, "stamp", torch.uint8, (n, cols))
     _check_alive(alive, n)
     rnd = _round_scalar(next_round, known.device)
-    # the kernel writes every block's count
-    nb = -(-(n * w) // THREADS)
-    if out is None:
-        out = (torch.empty_like(known), torch.empty_like(stamp),
-               torch.empty_like(known) if with_cache else None,
-               torch.empty((nb,), dtype=torch.int32, device=known.device))
-    known2, stamp2, send, flags = out
-    _check(known2, "known2", torch.int32, (n, w))
-    _check(stamp2, "stamp2", torch.uint8, (n, cols))
-    if with_cache:
-        _check(send, "sendable2", torch.int32, (n, w))
-    # one int32 store a block: a shard's block of the global flags needs
-    # only the element's alignment
-    _check(flags, "flags", torch.int32, (nb,), align=4)
+    known2, stamp2 = torch.empty_like(known), torch.empty_like(stamp)
+    send = torch.empty_like(known) if with_cache else None
+    # the kernel writes every block's count, a shard's blocks in one run
+    flags = torch.empty((shards * -(-(n // shards * w) // THREADS),),
+                        dtype=torch.int32, device=known.device)
     _launch("fused_merge", _lib().serf_fused_merge,
             known.data_ptr(), incoming.data_ptr(), alive.data_ptr(),
             stamp.data_ptr(), rnd.data_ptr(), known2.data_ptr(),
             stamp2.data_ptr(), send.data_ptr() if with_cache else None,
             flags.data_ptr(), n, w, cols, int(limit_q), int(packed),
-            int(with_cache))
+            int(with_cache), shards)
     return known2, stamp2, send, flags
 
 

@@ -1,7 +1,7 @@
 """The deferred-stamp flavor of the port (``stamp_flush_unit`` 2 and 4)
-against the reference, leaf for leaf: ``round_step`` in lockstep from a
-mid-cohort state with a pending overlay, across unit x stamp flavor x
-sendable cache x kernels; push/pull's backdating of ``last_flush`` below
+against the reference, leaf for leaf (``round_step`` in lockstep from a
+mid-cohort state, :func:`_mid_cohort`, is in
+``test_torch_deferred_lockstep.py``): push/pull's backdating of ``last_flush`` below
 a flush made in the same round; the deferred declare scan; the deferred
 flagship over 48 sustained rounds; and the port's mirrors of the
 reference's own deferred-stamp tests (the quarter wrap, the flush pass's
@@ -31,8 +31,7 @@ from serf_tpu_torch.models import swim as tswim
 from serf_tpu_torch.ops import round_kernels as trk
 from test_torch_cluster import (ATOL, EVENTS, ROUNDS, RTOL, _flagship,
                                 _leaves, _paths, _seeded, _tcfg)
-from test_torch_dissemination import (_assert_same, _inject_both, _port,
-                                      _rand_state)
+from test_torch_dissemination import _assert_same, _port, _rand_state
 
 # one ATen thread per test process: tier-1 runs six xdist workers on
 # the machine's cores, and a full-width intra-op pool in each of them
@@ -59,33 +58,6 @@ def _mid_cohort(jcfg, seed, round_=7):
         sendable_round=jnp.asarray(round_, jnp.int32),
         last_learn=jnp.asarray(round_, jnp.int32),
         last_flush=jnp.asarray(round_ - round_ % unit, jnp.int32))
-
-
-@pytest.mark.parametrize("use_pallas", [True, False])
-@pytest.mark.parametrize("use_sendable_cache", [True, False])
-@pytest.mark.parametrize("pack_stamp", [True, False])
-@pytest.mark.parametrize("unit", [2, 4])
-def test_deferred_round_step_lockstep(unit, pack_stamp, use_sendable_cache,
-                                      use_pallas):
-    jcfg = jdis.GossipConfig(n=N, k_facts=K, pack_stamp=pack_stamp,
-                             use_sendable_cache=use_sendable_cache,
-                             use_pallas=use_pallas, peer_sampling="rotation",
-                             stamp_flush_unit=unit)
-    tcfg = tdis.GossipConfig(**dataclasses.asdict(jcfg))
-    assert tdis.pallas_dispatch_mode(tcfg)[0] == (
-        "fused" if use_pallas else "")
-    a = _mid_cohort(jcfg, 31 + unit)
-    b = _port(a)
-    step = jax.jit(functools.partial(jdis.round_step, cfg=jcfg))
-    flushes = 0
-    for r in range(6):
-        a = step(a, key=jax.random.key(500 + r))
-        b = tdis.round_step(b, tcfg, prng.key(500 + r))
-        _assert_same(a, b, f"after round {r}")
-        flushes += int(b.last_flush) == int(b.round)
-        a, b = _inject_both(a, b, jcfg, tcfg, r, N)
-        _assert_same(a, b, f"after injection {r}")
-    assert flushes >= 6 // unit
 
 
 def test_push_pull_backdates_a_same_round_flush():

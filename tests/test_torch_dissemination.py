@@ -1,9 +1,9 @@
 """The port's gossip plane (``serf_tpu_torch.models.dissemination``)
 against the reference, leaf for leaf: ``round_step`` in lockstep over
-several rounds with injections between them, across stamp flavor x
-sendable cache x kernels x peer sampling (the reference's own
-``tests/test_fused_round.py:_drive_pair`` sweep), the chaos masks, the
-quiet gate and the no-learn merge, the injection ledger and tombstone
+several rounds with injections between them (:func:`_drive`; its sweep
+over stamp flavor x sendable cache x kernels x peer sampling is in
+``test_torch_dissemination_lockstep.py``), the chaos masks, the quiet
+gate and the no-learn merge, the injection ledger and tombstone
 fold, and ``pick_bounded`` on both of its paths.  Same inputs on both
 sides (numpy from a seed); the reference's Pallas kernels run in
 interpret mode."""
@@ -113,19 +113,6 @@ def _drive(jcfg, n_rounds=4, seed=1, group=None, drop_rate=None):
     cov_a = np.asarray(jdis.coverage(a, jcfg))
     assert np.array_equal(cov_a, tdis.coverage(b, tcfg).numpy())
     return a, b
-
-
-@pytest.mark.parametrize("peer_sampling", ["rotation", "iid"])
-@pytest.mark.parametrize("use_pallas", [True, False])
-@pytest.mark.parametrize("use_sendable_cache", [True, False])
-@pytest.mark.parametrize("pack_stamp", [True, False])
-def test_round_step_lockstep(pack_stamp, use_sendable_cache, use_pallas,
-                             peer_sampling):
-    cfg = jdis.GossipConfig(n=N, k_facts=K, pack_stamp=pack_stamp,
-                            use_sendable_cache=use_sendable_cache,
-                            use_pallas=use_pallas,
-                            peer_sampling=peer_sampling)
-    _drive(cfg)
 
 
 @pytest.mark.parametrize("peer_sampling", ["rotation", "iid"])

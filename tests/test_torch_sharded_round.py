@@ -6,18 +6,16 @@ virtual shards) against the reference, on the CPU:
   against the reference's unsharded run (the reference's own sharded
   twin of the all-gather cases is ``slow``), and ``tests/
   test_rotation.py``'s 30-round rotation case;
-- the fused kernels' plain versions per shard (P = 8, per-round and
-  deferred) against the reference's unsharded fused path (its Pallas
-  kernels in interpret mode), with one dispatch per shard;
-- the same at 4 and 8 shards whose rows have no 32-row node block, where
-  the reference takes the plain path and the port's launch rule the
-  kernels;
+- the mesh launch rules of one call of each kernel: outputs equal to
+  the unsharded call's and the reference kernel's, the merge's flags one
+  count a shard, and the launches counted through a stand-in library;
 - ``pallas_dispatch_mode(cfg, d)`` against the reference's over a grid;
 - the sharded checkpoint round trip and the indivisible restore;
 - host syncs per round, sharded and unsharded.
 
-The sharded chaos plan, its replay and the command lines are in
-``test_torch_sharded_tools.py``, the in-collective rows, the placement
+The sharded round with the kernels on is in
+``test_torch_sharded_kernels.py``, the sharded chaos plan, its replay
+and the command lines in ``test_torch_sharded_tools.py``, the in-collective rows, the placement
 rule and the multi-process mesh in ``test_torch_parallel.py``.
 
 Float tolerance: Vivaldi rtol 1e-4, atol 1e-5 (as ``test_torch_cluster``).
@@ -36,12 +34,14 @@ from serf_tpu.models import checkpoint as jck
 from serf_tpu.models import dissemination as jdis
 from serf_tpu.models import failure as jfail
 from serf_tpu.models import swim as jswim
+from serf_tpu.ops import round_kernels as jrk
 from serf_tpu_torch import convert, host_syncs, prng
 from serf_tpu_torch.models import checkpoint as tck
 from serf_tpu_torch.models import dissemination as tdis
 from serf_tpu_torch.models import failure as tfail
 from serf_tpu_torch.models import swim as tswim
 from serf_tpu_torch.obs import device as tobs_dev
+from serf_tpu_torch.ops import round_kernels as trk
 from serf_tpu_torch.parallel.mesh import make_mesh
 from test_torch_cluster import _leaves, _mismatches, _tcfg
 
@@ -136,73 +136,159 @@ def test_rotation_sharded_parity_8_devices():
     assert _mismatches(_leaves(j1), convert.to_numpy(t8)) == []
 
 
-KERNEL_PATHS = {"per-round": {}, "deferred": {"stamp_flush_unit": 4}}
+def _kernel_planes(n, k, packed, seed):
+    rng = np.random.default_rng(seed)
+    w, cols = k // 32, (k // 2 if packed else k)
+
+    def words():
+        return rng.integers(0, 2**32, (n, w), dtype=np.uint64).astype(
+            np.uint32).view(np.int32)
+
+    stamp = rng.integers(0, 256, (n, cols), dtype=np.uint8)
+    if not packed:
+        stamp &= 0xF
+    p = dict(known=words(), incoming=words(), sendable=words(),
+             overlay=words(), stamp=stamp, alive=rng.random(n) < 0.9)
+    p["new"] = p["incoming"] & ~p["known"]
+    p["known2"] = p["known"] | p["new"]
+    return p
 
 
-@pytest.mark.parametrize("path", sorted(KERNEL_PATHS))
-def test_fused_kernels_per_shard_match_reference(path):
-    """``use_pallas`` on eight shards: each fused kernel's plain version
-    runs once per shard on its row block, and the run equals the
-    reference's unsharded fused path (its kernels in interpret mode);
-    each kernel dispatches eight times as often as unsharded."""
-    jcfg = _cfg(n=512, use_pallas=True, **KERNEL_PATHS[path])
-    jcfg = dataclasses.replace(jcfg, gossip=dataclasses.replace(
-        jcfg.gossip, k_facts=64))
-    tcfg = _tcfg(jcfg)
-    assert tdis.pallas_dispatch_mode(tcfg.gossip, 8) == ("fused", "")
-    run = jax.jit(functools.partial(jswim.run_cluster_sustained, cfg=jcfg,
-                                    events_per_round=2),
-                  static_argnames=("num_rounds",))
-    js = _seeded(jcfg)
-    jf = run(js, key=jax.random.key(4), num_rounds=12)
-    calls = {}
-    finals = {}
-    for d in (None, 8):
-        tobs_dev.reset_dispatch_calls()
-        finals[d] = tswim.run_cluster_sustained(
-            _port(js), tcfg, prng.key(4), 12, events_per_round=2,
-            mesh=None if d is None else make_mesh(d, device="cpu"))
-        calls[d] = {op: v["calls"]
-                    for op, v in tobs_dev.dispatch_summary().items()
-                    if op.startswith("ops.")}
-    assert _mismatches(_leaves(jf), convert.to_numpy(finals[8])) == []
-    assert calls[None] and set(calls[8]) == set(calls[None])
-    for op, c in calls[None].items():
-        assert calls[8][op] == 8 * c, op
+def _kernel_calls(p, mesh, k, packed, rnd=61, limit_q=7):
+    """One call of each mesh-taking kernel on the planes ``p``."""
+    t = {name: torch.from_numpy(v) for name, v in p.items()}
+    kw = dict(packed=packed, k_facts=k)
+    cols = t["stamp"].shape[1]
+    return dict(
+        select_packets=trk.select_packets(
+            t["stamp"], t["known"], t["alive"], limit_q, rnd, mesh=mesh,
+            **kw),
+        fused_select_cached=trk.fused_select_cached(
+            t["sendable"], t["known"], t["alive"], k_facts=k,
+            stamp_cols=cols, mesh=mesh),
+        fused_merge=trk.fused_merge(
+            t["known"], t["incoming"], t["alive"], t["stamp"], rnd,
+            limit_q=limit_q, with_cache=True, mesh=mesh, **kw),
+        fused_flush=trk.fused_flush(
+            t["known2"], t["new"], t["overlay"], t["stamp"], rnd,
+            limit_q=limit_q, with_cache=True, mesh=mesh, **kw))
 
 
-@pytest.mark.parametrize("path", sorted(KERNEL_PATHS))
-def test_fused_kernels_per_shard_without_node_block(path):
-    """N = 1000 on 4 and 8 shards: 250 and 125 rows a shard, as the
-    million-node flagship's 250,000 and 125,000, have no 32-row node
-    block.  The reference's rule takes the plain path there; the port's
-    launch rule (the CUDA kernels take any row count) runs the fused
-    kernels once per shard, and the run still equals the reference's."""
-    jcfg = _cfg(n=1000, use_pallas=True, **KERNEL_PATHS[path])
-    jcfg = dataclasses.replace(jcfg, gossip=dataclasses.replace(
-        jcfg.gossip, k_facts=64))
-    tcfg = _tcfg(jcfg)
-    run = jax.jit(functools.partial(jswim.run_cluster_sustained, cfg=jcfg,
-                                    events_per_round=2),
-                  static_argnames=("num_rounds",))
-    js = _seeded(jcfg)
-    jf = run(js, key=jax.random.key(4), num_rounds=12)
-    kernel = "ops.fused_flush" if jcfg.gossip.stamp_deferred else \
-        "ops.fused_merge"
-    for d in (4, 8):
-        assert jdis.pallas_dispatch_mode(jcfg.gossip, d)[0] == ""
-        assert tdis.launch_mode(tcfg.gossip, d) == "fused"
-        tobs_dev.reset_dispatch_calls()
-        ts = tswim.run_cluster_sustained(
-            _port(js), tcfg, prng.key(4), 12, events_per_round=2,
-            mesh=make_mesh(d, device="cpu"))
-        calls = {op: v["calls"]
-                 for op, v in tobs_dev.dispatch_summary().items()
-                 if op.startswith("ops.") and v["calls"]}
-        assert _mismatches(_leaves(jf), convert.to_numpy(ts)) == [], d
-        assert calls.get(kernel, 0) > 0, (d, calls)
-        assert "ops.merge_incoming" not in calls
-        assert all(c % d == 0 for c in calls.values()), (d, calls)
+@pytest.mark.parametrize("packed", [True, False])
+def test_mesh_launch_rules_match_unsharded_and_reference(packed):
+    """One call of each kernel on ``make_mesh(8, device="cpu")``: every
+    output equals the unsharded call's and the reference kernel's
+    (interpret mode) on the same numpy-seeded planes; the merge's flags
+    hold one learn count a shard, the per-shard rule's; the cached
+    select and the merge dispatch once, ``select_packets`` and
+    ``fused_flush`` eight times."""
+    n, k, d, rnd = 512, 64, 8, 61
+    p = _kernel_planes(n, k, packed, 23 + packed)
+    tobs_dev.reset_dispatch_calls()
+    got = _kernel_calls(p, make_mesh(d, device="cpu"), k, packed, rnd)
+    calls = {op: v["calls"] for op, v in tobs_dev.dispatch_summary().items()
+             if op.startswith("ops.")}
+    assert calls == {"ops.select_packets": d, "ops.fused_select": 1,
+                     "ops.fused_merge": 1, "ops.fused_flush": d}
+    one = _kernel_calls(p, None, k, packed, rnd)
+    assert torch.equal(got["select_packets"], one["select_packets"])
+    assert torch.equal(got["fused_select_cached"],
+                       one["fused_select_cached"])
+    for i in range(3):
+        assert torch.equal(got["fused_merge"][i], one["fused_merge"][i])
+    for i in range(2):
+        assert torch.equal(got["fused_flush"][i], one["fused_flush"][i])
+    flags = got["fused_merge"][3]
+    nl = n // d
+    new = torch.from_numpy(p["incoming"] & ~p["known"]) & \
+        torch.from_numpy(p["alive"])[:, None].to(torch.int32).neg()
+    assert flags.tolist() == [int((new[s * nl:(s + 1) * nl] != 0).sum())
+                              for s in range(d)]
+    assert int(flags.sum()) == int(one["fused_merge"][3].sum())
+
+    jalive = jnp.asarray(p["alive"][:, None].astype(np.uint8))
+    u32 = {name: np.asarray(v).view(np.uint32) if np.asarray(v).dtype ==
+           np.int32 else np.asarray(v) for name, v in p.items()}
+    ju = {name: jnp.asarray(v) for name, v in u32.items()}
+    want = dict(
+        select_packets=(jrk.select_packets(ju["stamp"], ju["known"], jalive,
+                                           7, rnd, packed=packed,
+                                           k_facts=k),),
+        fused_select_cached=(jrk.fused_select_cached(
+            ju["sendable"], ju["known"], jalive, k_facts=k,
+            stamp_cols=p["stamp"].shape[1]),),
+        fused_merge=jrk.fused_merge(
+            ju["known"], ju["incoming"], jalive, ju["stamp"], rnd,
+            limit_q=7, packed=packed, k_facts=k, with_cache=True)[:3],
+        fused_flush=jrk.fused_flush(
+            ju["known2"], ju["new"], ju["overlay"], ju["stamp"], rnd,
+            limit_q=7, packed=packed, k_facts=k, with_cache=True))
+    for name, outs in want.items():
+        mine = got[name]
+        mine = (mine,) if isinstance(mine, torch.Tensor) else mine
+        for i, w in enumerate(outs):
+            a = mine[i].numpy()
+            a = a.view(np.uint32) if a.dtype == np.int32 else a
+            assert np.array_equal(a, np.asarray(w)), (name, i)
+    assert bool(jnp.any(jrk.fused_merge(
+        ju["known"], ju["incoming"], jalive, ju["stamp"], rnd, limit_q=7,
+        packed=packed, k_facts=k, with_cache=True)[3] != 0)) == \
+        bool(torch.any(flags != 0))
+
+
+class _StandInLibrary:
+    """The kernels' C entry points, recording each call's arguments
+    instead of launching: what lets the launch rule's counting run on
+    the CPU."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("serf_"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+def test_mesh_launch_counts_through_the_wrappers(monkeypatch):
+    """With the CUDA path taken against a stand-in library, one call of
+    each kernel on eight shards adds 1 to ``LAUNCHES`` for the cached
+    select and the merge (the merge's one launch given N and P = 8) and
+    8 for ``select_packets`` and ``fused_flush`` (each given N/8 rows);
+    calls == launches for every kernel."""
+    lib = _StandInLibrary()
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(trk, "_on_cuda", lambda *ts: True)
+    monkeypatch.setattr(trk, "_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: _Stream())
+    n, k, d = 512, 64, 8
+    p = _kernel_planes(n, k, True, 5)
+    trk.reset_launches()
+    tobs_dev.reset_dispatch_calls()
+    _kernel_calls(p, make_mesh(d, device="cpu"), k, True)
+    assert trk.LAUNCHES == {"select_packets": d, "merge_incoming": 0,
+                            "fused_select_cached": 1, "fused_merge": 1,
+                            "fused_flush": d}
+    summary = tobs_dev.dispatch_summary()
+    for name, op in trk.DISPATCH_OPS.items():
+        assert summary.get(op, {"calls": 0})["calls"] == \
+            trk.LAUNCHES[name], name
+    rows = {}
+    for name, args in lib.calls:
+        rows.setdefault(name, []).append(args)
+    merge, = rows["serf_fused_merge"]
+    assert merge[9] == n and merge[-2] == d        # N rows, P shards
+    select, = rows["serf_fused_select_cached"]
+    assert select[4] == n
+    assert [a[5] for a in rows["serf_select_packets"]] == [n // d] * d
+    assert [a[7] for a in rows["serf_fused_flush"]] == [n // d] * d
 
 
 @pytest.mark.parametrize("deferred", [1, 4])

@@ -1,5 +1,5 @@
-"""The nibble-lane arithmetic of the ``select_packets`` and ``fused_flush``
-CUDA kernels, checked exhaustively on the CPU.
+"""The nibble-lane arithmetic of the ``select_packets``, ``fused_flush``
+and ``fused_merge`` CUDA kernels, checked exhaustively on the CPU.
 
 The kernels (``serf_tpu_torch/ops/csrc/round_kernels.cu``, section
 "nibble lanes") cannot run here.  Below is a line-for-line transliteration
@@ -9,12 +9,16 @@ result masked to 32 bits where the device word would wrap).  It is held
 against the per-fact definitions of ``serf_tpu_torch.models.
 dissemination`` (``nibble_age_pred_words``, ``clamp_nibbles``,
 ``learn_pairs_words``, ``flush_learn_bytes``, ``flush_learn_nibbles``,
-``cache_words``), which the other tests hold against the reference, over
+``clamp_learn_bytes``, ``clamp_learn_nibbles``, ``cache_words``), which
+the other tests hold against the reference, over
 every stamp byte 0..255 at every byte position, every stamp quarter and
 cohort wrap (next rounds 0..63), every transmit limit 0..16 and some
 outside that range, and every overlay/fresh bit pair, for both stamp
-flavors.  A test also pins that every helper of the section has its
-twin here, so the two cannot drift apart unnoticed.
+flavors.  The merge's whole word (learn, stamps, cache) and the cached
+select's four-word thread, transliterated from their kernels, are held
+against the plain versions of ``ops.round_kernels`` on random planes.
+A test also pins that every helper of the section has its twin here, so
+the two cannot drift apart unnoticed.
 """
 
 import re
@@ -26,6 +30,7 @@ import torch
 
 from serf_tpu_torch.bits import unpack_bits
 from serf_tpu_torch.models import dissemination as dis
+from serf_tpu_torch.ops import round_kernels as rk
 
 # one ATen thread per test process: tier-1 runs six xdist workers on
 # the machine's cores, and a full-width intra-op pool in each of them
@@ -136,15 +141,17 @@ def flush_lanes(next_round: int, lim: int) -> dict:
                 pin=((rq - K_AGE_PIN_Q) & 0xF) * K_ONES, lim=lim)
 
 
-def flush_packed(q, fresh, overlay, l, with_cache: bool):
+def flush_packed(q, fresh, overlay, l, with_cache: bool,
+                 with_overlay: bool = True):
     o, p = [], []
     for i in range(4):
         lo, hi = q[i] & K_LOW, (q[i] >> 4) & K_LOW
         lo = clamp_lanes(lo, lo, l["rq16"], l["pin"])
         hi = clamp_lanes(hi, hi, l["rq16"], l["pin"])
-        m_lo, m_hi = pair_masks(overlay, i)
-        lo = pick(m_lo, l["rq_prev"], lo)
-        hi = pick(m_hi, l["rq_prev"], hi)
+        if with_overlay:
+            m_lo, m_hi = pair_masks(overlay, i)
+            lo = pick(m_lo, l["rq_prev"], lo)
+            hi = pick(m_hi, l["rq_prev"], hi)
         m_lo, m_hi = pair_masks(fresh, i)
         lo = pick(m_lo, l["rq"], lo)
         hi = pick(m_hi, l["rq"], hi)
@@ -155,11 +162,13 @@ def flush_packed(q, fresh, overlay, l, with_cache: bool):
     return o, (top_bytes(*p) if with_cache else 0)
 
 
-def flush_unpacked(q, fresh, overlay, l, with_cache: bool):
+def flush_unpacked(q, fresh, overlay, l, with_cache: bool,
+                   with_overlay: bool = True):
     o, y = [], []
     for g in range(8):
         s = clamp_lanes(q[g], q[g] & K_LOW, l["rq16"], l["pin"])
-        s = pick(quad_masks(overlay, g), l["rq_prev"], s)
+        if with_overlay:
+            s = pick(quad_masks(overlay, g), l["rq_prev"], s)
         s = pick(quad_masks(fresh, g), l["rq"], s)
         o.append(s)
         if with_cache:
@@ -168,6 +177,14 @@ def flush_unpacked(q, fresh, overlay, l, with_cache: bool):
                     weave_quads(y[4], y[5]), weave_quads(y[6], y[7]))
           if with_cache else 0)
     return o, ok
+
+
+def merge_packed(q, fresh, l, with_cache: bool):
+    return flush_packed(q, fresh, 0, l, with_cache, False)
+
+
+def merge_unpacked(q, fresh, l, with_cache: bool):
+    return flush_unpacked(q, fresh, 0, l, with_cache, False)
 
 
 def limit_lanes(limit_q: int) -> int:
@@ -349,6 +366,146 @@ def test_flush_cache_matches_cache_words(packed):
             assert torch.equal(got[i], _u32(want)), (rnd, limit_q)
 
 
+@pytest.mark.parametrize("packed", [True, False])
+def test_merge_lanes_match_clamp_learn(packed):
+    """merge_packed / merge_unpacked (fused_merge) write the stamps of
+    clamp_learn_bytes / clamp_learn_nibbles, and each fact's is the
+    per-fact rule ``fresh ? rq : clamp_nibbles(nib)``: every byte at
+    every position, all 16 quarters, both fresh bits of every fact."""
+    stamp, _, fr = _planes(packed)
+    q = _groups(stamp)
+    merge = merge_packed if packed else merge_unpacked
+    bits = (dis.learn_pairs_words(fr, K) if packed
+            else (unpack_bits(fr, K),))
+    for rnd in ROUNDS:
+        got = _bytes(merge(q, _u32(fr), flush_lanes(rnd, 0), False)[0])
+        if packed:
+            want = dis.clamp_learn_bytes(stamp, fr, rnd, K)[0]
+            halves = (got & 0xF, got >> 4)
+            nibs = (stamp & 0xF, stamp >> 4)
+        else:
+            want = dis.clamp_learn_nibbles(stamp, fr, rnd, K)
+            halves, nibs = (got,), (stamp,)
+        assert torch.equal(got, want), rnd
+        rq = dis.round_q(rnd)
+        for h, nib, fresh in zip(halves, nibs, bits):
+            per_fact = torch.where(fresh, rq, dis.clamp_nibbles(nib, rnd))
+            assert torch.equal(h, per_fact.to(torch.uint8)), rnd
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_merge_cache_matches_cache_words(packed):
+    """The merge's cache bits, taken from the final lanes in registers,
+    == cache_words on the reference's merged stamps, every limit."""
+    stamp, _, fr = _planes(packed)
+    q = _groups(stamp)
+    ones = torch.full_like(fr, -1)
+    merge = merge_packed if packed else merge_unpacked
+    for rnd in ROUNDS:
+        if packed:
+            ref, lo, hi = dis.clamp_learn_bytes(stamp, fr, rnd, K)
+        else:
+            ref = dis.clamp_learn_nibbles(stamp, fr, rnd, K)
+            lo = hi = None
+        _, got = merge(q, _u32(fr), flush_lanes(rnd, LIMIT_LANES), True)
+        for i, limit_q in enumerate(LIMITS):
+            want = dis.cache_words(ones, ref, lo, hi, rnd, limit_q, packed)
+            assert torch.equal(got[i], _u32(want)), (rnd, limit_q)
+
+
+def fused_merge_word(known, incoming, alive, stamp, next_round, limit_q,
+                     packed: bool, with_cache: bool):
+    """fused_merge_kernel's body for every word of a plane at once: the
+    learn, the merge lanes on the word's stamp chunk, the cache."""
+    n, w = known.shape
+    k0, inc = _u32(known), _u32(incoming)
+    live = torch.where(alive.reshape(-1).repeat_interleave(w), M32, 0)
+    fresh = inc & ~k0 & M32 & live
+    k1 = k0 | fresh
+    chunk = stamp.reshape(n * w, -1)
+    merge = merge_packed if packed else merge_unpacked
+    o, ok = merge(_groups(chunk), fresh,
+                  flush_lanes(next_round, limit_lanes(limit_q)), with_cache)
+    send = (k1 & ok) if with_cache else None
+    return k1, _bytes(o).reshape(stamp.shape), send, int((fresh != 0).sum())
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("with_cache", [True, False])
+@pytest.mark.parametrize("k", [32, 96])
+def test_merge_word_matches_fused_merge_plain(packed, with_cache, k):
+    """The composed word of the merge kernel == fused_merge_plain on
+    random planes (one and three words a row), every quarter's phase."""
+    g = np.random.default_rng(11 + k + packed + 2 * with_cache)
+    n, w = 97, k // 32
+    cols = k // 2 if packed else k
+    known, incoming = (torch.from_numpy(g.integers(
+        0, 2**32, (n, w), dtype=np.uint64).astype(np.uint32).view(np.int32))
+        for _ in range(2))
+    stamp = torch.from_numpy(g.integers(0, 256, (n, cols), dtype=np.uint8))
+    if not packed:
+        stamp &= 0xF
+    alive = torch.from_numpy(g.random(n) < 0.9)
+    for rnd in (5, 63, 64, 250, 1001):
+        for limit_q in (1, 7, 8):
+            got = fused_merge_word(known, incoming, alive, stamp, rnd,
+                                   limit_q, packed, with_cache)
+            want = rk.fused_merge_plain(
+                known, incoming, alive, stamp, rnd, limit_q=limit_q,
+                packed=packed, k_facts=k, with_cache=with_cache)
+            assert torch.equal(got[0], _u32(want[0])), (rnd, limit_q)
+            assert torch.equal(got[1], want[1]), (rnd, limit_q)
+            assert (got[2] is None) == (want[2] is None)
+            if with_cache:
+                assert torch.equal(got[2], _u32(want[2])), (rnd, limit_q)
+            assert got[3] == int(want[3].sum())
+
+
+def fused_select_words(sendable, known, alive):
+    """fused_select_kernel's threads: four words each (a row's alive
+    byte read when the row changes), the last thread's total % 4 words
+    one at a time."""
+    n, w = known.shape
+    s, k = _u32(sendable).tolist(), _u32(known).tolist()
+    a = alive.reshape(-1).tolist()
+    total = n * w
+    out = [None] * total
+    for t in range(0, total, 4):
+        if t + 4 > total:
+            for u in range(t, total):
+                out[u] = (s[u] & k[u]) if a[u // w] else 0
+            continue
+        row = t // w
+        col = t - row * w
+        live = M32 if a[row] else 0
+        for j in range(4):
+            if j > 0:
+                col += 1
+                if col == w:
+                    col = 0
+                    row += 1
+                    live = M32 if a[row] else 0
+            out[t + j] = s[t + j] & k[t + j] & live
+    return torch.tensor(out, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("n,k", [(1001, 32), (333, 64), (101, 96),
+                                 (61, 160), (29, 256)])
+def test_cached_select_quads_match_plain(n, k):
+    """The cached select's four-word threads == its plain version, with
+    rows of 1, 2, 3, 5 and 8 words (a thread spanning up to four rows)
+    and word counts that leave a tail of 1-3 words or none."""
+    g = np.random.default_rng(n + k)
+    w = k // 32
+    sendable, known = (torch.from_numpy(g.integers(
+        0, 2**32, (n, w), dtype=np.uint64).astype(np.uint32).view(np.int32))
+        for _ in range(2))
+    alive = torch.from_numpy(g.random(n) < 0.7)
+    got = fused_select_words(sendable, known, alive)
+    want = rk.fused_select_cached_plain(sendable, known, alive)
+    assert torch.equal(got, _u32(want))
+
+
 def test_limit_lanes_clamps_to_the_age_range():
     """limit_lanes: 0x80 - limit in every lane, a limit outside 0..16
     clamped (an age is 0..15, so it selects what its clamp selects)."""
@@ -369,7 +526,8 @@ def test_every_lane_helper_has_its_twin_here():
                            r"(\w+)\(", section))
     names.discard("make_uint4")
     assert names >= {"prmt", "young_lanes", "clamp_lanes", "pair_masks",
-                     "quad_masks", "flush_packed", "flush_unpacked"}
+                     "quad_masks", "flush_packed", "flush_unpacked",
+                     "merge_packed", "merge_unpacked"}
     missing = sorted(n for n in names | {"limit_lanes"}
                      if not callable(globals().get(n)))
     assert not missing, missing
