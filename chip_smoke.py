@@ -18,9 +18,9 @@ Phases (any failure exits non-zero and prints no result line):
    every phase of a quarter (the cohort quarter wrapping from 0 to 15
    included), and flush inputs with all-overlay, all-fresh and
    both-at-once words besides random overlay that overlaps the fresh
-   learns; ``fused_select_cached`` and ``fused_merge`` also in their
-   one launch over 8 shards at N = 1000 and N = 1,000,000 (K = 64), the
-   merge's learn counts per shard against the per-shard rule's; then
+   learns; the four kernels that take a mesh also in their one launch
+   over 8 shards at N = 1000 and N = 1,000,000 (K = 64), the merge's
+   learn counts per shard against the per-shard rule's; then
    each kernel's time at the flagship, churn-query and chaos-shed
    shapes beside its plain version's and its byte bound, with the share
    of the bound reached and its SASS instruction count a word (and that
@@ -234,23 +234,20 @@ kill.  No kernel may launch; the phase must end inside 180 s.
 
 Phase 11 runs the node-sharded flagship round on virtual shards of the
 card (``serf_tpu_torch.parallel``: a mesh of P row blocks of the one
-device, the exchange under the ring or all-gather schedule,
-``select_packets`` and ``fused_flush`` launched once per shard on its
-N/P rows, ``fused_select_cached`` and ``fused_merge`` once a call over
-all P row blocks, the telemetry rows assembled by in-collective
-legs), K = 64 with the kernels on, at N = 1,000,000 (a shard's 500,000,
-250,000 or 125,000 rows: the kernels take any row count). (a) the seeded
+device, the exchange under the ring or all-gather schedule, every
+kernel launched once a call over all P row blocks, the telemetry rows
+assembled by in-collective legs), K = 64 with the kernels on, at N =
+1,000,000 (a shard's 500,000, 250,000 or 125,000 rows: the launch rule
+takes any row count). (a) the seeded
 flagship (phase 4's seeding, 2 events a round) unsharded and on 1, 2, 4
 and 8 shards for 30 rounds, both schedules on the per-round path and the
 ring on the deferred path (unit 4): every leaf of the state equal to the
-unsharded run's (Vivaldi too), the launches of ``select_packets`` and
-``fused_flush`` P times the unsharded run's, those of the cached select
-and the merge equal to it (``merge_incoming`` never), the host syncs
-equal; (b) rounds/s of the per-round path on 8 shards per schedule
-beside the unsharded path (20 warm-up, 100 timed rounds, host clock
-ending in a synchronize), each kernel's µs a launch at N/8 = 125,000
-rows against its byte bound, and the one launch of the cached select and
-the merge over 8 shards at 1M against the whole plane's; (c)
+unsharded run's (Vivaldi too), every kernel's launches equal to the
+unsharded run's (``merge_incoming`` never), the host syncs equal; (b)
+rounds/s of the per-round path on 8 shards per schedule beside the
+unsharded path (20 warm-up, 100 timed rounds, host clock ending in a
+synchronize), and the one launch of each of the four mesh kernels over
+8 shards at 1M against the whole plane's byte bound; (c)
 ``partition-heal-loss`` on 8 shards at 1M, recorded with every row: its
 in-collective telemetry, propagation and invariant rows equal the
 unsharded run's gathered rows at every round (the float-summed coverage
@@ -267,9 +264,8 @@ at 1M (exit 0, its digests the fixture's), ``multichip_ab --devices 8``
 part is logged beside the card line.
 
 The line before the last is ``{"kernels": [...]}`` (with each kernel's
-launches on phase 11's runs, its µs at N/8 rows and, for the two
-kernels of one mesh launch, that launch's µs at 1M over 8 shards); the
-last is
+launches on phase 11's runs and, for the four kernels that take a mesh,
+their one launch's µs at 1M over 8 shards); the last is
 ``{"ok": true, "device": {...}}``.  Needs no network and imports no
 JAX.
 """
@@ -399,9 +395,11 @@ def sass_counts(lib_path) -> dict:
     return counts
 
 
-#: the kernels that launch once a call on a mesh (``ops.round_kernels``'
-#: mesh launch rules); the others launch once a shard
-ONE_LAUNCH = ("fused_select_cached", "fused_merge")
+#: the kernels that take a mesh, each launched once a call over all its
+#: shards (``ops.round_kernels``' mesh launch rule); ``merge_incoming``
+#: never runs on a mesh
+ONE_LAUNCH = ("select_packets", "fused_select_cached", "fused_merge",
+              "fused_flush")
 #: words a thread of each kernel owns (one where not listed): a static
 #: SASS count over this is the count a word
 WORDS_PER_THREAD = {"fused_select_cached": 4}
@@ -555,12 +553,13 @@ MESH_CHECKS = ((1000, K_MAIN, 8), (N_MAIN, K_MAIN, 8))
 
 
 def check_mesh_kernels(rk, dev, same) -> None:
-    """The one mesh launch of ``fused_select_cached`` and ``fused_merge``
-    == their plain versions on the whole plane, and the merge's learn
-    counts summed per shard == the per-shard rule's (the plain version's
-    count of each shard's rows), at every :data:`MESH_CHECKS` shape, both
-    stamp flavors, the cache on and off, every :data:`CHECK_ROUNDS` round
-    and :data:`CHECK_LIMITS` limit."""
+    """The one mesh launch of each kernel that takes a mesh == its plain
+    version on the whole plane (their outputs are row-local, so that is
+    the per-shard rule's too), and the merge's learn counts summed per
+    shard == the per-shard rule's (the plain version's count of each
+    shard's rows), at every :data:`MESH_CHECKS` shape, both stamp
+    flavors, the cache on and off, every :data:`CHECK_ROUNDS` round and
+    :data:`CHECK_LIMITS` limit."""
     import torch
 
     from serf_tpu_torch.parallel.mesh import make_mesh
@@ -579,12 +578,19 @@ def check_mesh_kernels(rk, dev, same) -> None:
                                               p["alive"]),
                  f"fused_select_cached {tag}")
             margs = (p["known"], p["incoming"], p["alive"], p["stamp"])
+            fargs = (p["known2"], p["new"], p["overlay"], p["stamp"])
             for rnd in CHECK_ROUNDS:
                 r = torch.tensor(rnd, dtype=torch.int32, device=dev)
                 for limit_q in CHECK_LIMITS:
+                    kw = dict(packed=packed, k_facts=k)
+                    sargs = (p["stamp"], p["known"], p["alive"], limit_q, r)
+                    got = rk.select_packets(*sargs, mesh=mesh, **kw)
+                    torch.cuda.synchronize()
+                    same("select_packets", got,
+                         rk.select_packets_plain(*sargs, **kw),
+                         f"select_packets {tag} r={rnd} limit_q={limit_q}")
                     for cache in (True, False):
-                        ckw = dict(packed=packed, k_facts=k, limit_q=limit_q,
-                                   with_cache=cache)
+                        ckw = dict(kw, limit_q=limit_q, with_cache=cache)
                         what = f"{tag} r={rnd} limit_q={limit_q} " \
                                f"cache={cache}"
                         out = rk.fused_merge(*margs, r, mesh=mesh, **ckw)
@@ -602,8 +608,14 @@ def check_mesh_kernels(rk, dev, same) -> None:
                                 f"fused_merge flags {what}: per shard "
                                 f"{per.tolist()}, the per-shard rule's "
                                 f"{ref[3].tolist()}")
-        log(f"phase 2: fused_select_cached and fused_merge, one launch "
-            f"over {d} shards at n={n} k={k}, == plain versions (packed/"
+                        out = rk.fused_flush(*fargs, r, mesh=mesh, **ckw)
+                        torch.cuda.synchronize()
+                        ref = rk.fused_flush_plain(*fargs, r, **ckw)
+                        for i in range(2):
+                            same("fused_flush", out[i], ref[i],
+                                 f"fused_flush[{i}] {what}")
+        log(f"phase 2: {', '.join(ONE_LAUNCH)}, one launch each over "
+            f"{d} shards at n={n} k={k}, == plain versions (packed/"
             f"unpacked, cache on/off, limits {CHECK_LIMITS}, "
             f"{len(CHECK_ROUNDS)} next rounds), the merge's learn counts "
             f"per shard == the per-shard rule's")
@@ -666,8 +678,8 @@ def measure_kernels(rk, dev, n: int = N_MAIN, k: int = K_MAIN, mesh=None,
     kernel keeps it, the path's transmit limit).  The bound is the
     bytes' time: each input read once, each output written once.  With
     ``mesh``, the kernels of :data:`ONE_LAUNCH` are timed in their one
-    launch over the mesh (the others as given: call them with ``only``
-    naming the kernels to time)."""
+    launch over the mesh (``merge_incoming`` takes none: call them with
+    ``only`` naming the kernels to time)."""
     import torch
 
     from serf_tpu_torch.models.dissemination import GossipConfig
@@ -683,8 +695,9 @@ def measure_kernels(rk, dev, n: int = N_MAIN, k: int = K_MAIN, mesh=None,
                        for _ in range(-(-2 * L2_BYTES // least))]
     kw = dict(packed=True, k_facts=k)
 
-    def select(p, fn):
-        return lambda: fn(p["stamp"], p["known"], p["alive"], lq, r, **kw)
+    def select(p, fn, **skw):
+        return lambda: fn(p["stamp"], p["known"], p["alive"], lq, r, **kw,
+                          **skw)
 
     def cached(p, fn, **ckw):
         return lambda: fn(p["sendable"], p["known"], p["alive"], **ckw)
@@ -697,15 +710,15 @@ def measure_kernels(rk, dev, n: int = N_MAIN, k: int = K_MAIN, mesh=None,
         return lambda: fn(p["known"], p["incoming"], p["alive"], p["stamp"],
                           r, limit_q=lq, with_cache=True, **kw, **mkw)
 
-    def flush(p, fn):
+    def flush(p, fn, **fkw):
         return lambda: fn(p["known2"], p["new"], p["overlay"], p["stamp"],
-                          r, limit_q=lq, with_cache=True, **kw)
+                          r, limit_q=lq, with_cache=True, **kw, **fkw)
 
     p = base
     merge_out = merge(p, rk.fused_merge_plain)()[:3]
     work = {
         "select_packets": dict(
-            run=[select(q, rk.select_packets) for q in copies],
+            run=[select(q, rk.select_packets, **on_mesh) for q in copies],
             plain=[select(q, rk.select_packets_plain) for q in copies],
             bytes=nbytes(p["stamp"], p["known"], p["alive"], r)
             + nbytes(p["known"])),
@@ -730,7 +743,7 @@ def measure_kernels(rk, dev, n: int = N_MAIN, k: int = K_MAIN, mesh=None,
                          r) + nbytes(*merge_out)
             + 4 * d * -(-(n // d * w) // rk.THREADS)),
         "fused_flush": dict(
-            run=[flush(q, rk.fused_flush) for q in copies],
+            run=[flush(q, rk.fused_flush, **on_mesh) for q in copies],
             plain=[flush(q, rk.fused_flush_plain) for q in copies],
             bytes=nbytes(p["known2"], p["new"], p["overlay"], p["stamp"], r)
             + nbytes(*flush(p, rk.fused_flush_plain)())),
@@ -4493,20 +4506,13 @@ def sharded_run(rk, st, cfg, key, rounds: int, mesh, warm_rounds: int = 0):
     return st, dict(launches=launches, syncs=syncs, s=secs)
 
 
-def mesh_launches(unsharded: dict, d: int) -> dict:
-    """The launches a run on ``d`` shards must make, from the unsharded
-    run's: the kernels of :data:`ONE_LAUNCH` as many, the others ``d``
-    times as many."""
-    return {k: v if k in ONE_LAUNCH else d * v
-            for k, v in unsharded.items()}
-
-
 def sharded_exact(rk, n: int) -> dict:
     """11(a): the seeded flagship at N = ``n`` unsharded and on 1, 2, 4
     and 8 shards, 30 rounds, per (path, schedule) of
     :data:`SHARD_RUNS`: every leaf equal to the unsharded run's, the
-    host syncs equal, and the launches those of :func:`mesh_launches`
-    (``merge_incoming`` never)."""
+    host syncs equal, and every kernel's launches the unsharded run's
+    (the mesh launch rule: once a call on any shard count;
+    ``merge_incoming`` never)."""
     import dataclasses as dc
 
     from serf_tpu_torch import prng
@@ -4534,7 +4540,7 @@ def sharded_exact(rk, n: int) -> dict:
             if diff:
                 bad.append(f"{what}: leaves differ from the unsharded run: "
                            f"{diff}")
-            want = mesh_launches(run0["launches"], d)
+            want = run0["launches"]
             if run["launches"] != want or run["launches"]["merge_incoming"]:
                 bad.append(f"{what}: launches {run['launches']}, want "
                            f"{want}")
@@ -4543,10 +4549,8 @@ def sharded_exact(rk, n: int) -> dict:
                            f"{run0['syncs']}")
             out[what] = run
             log(f"phase 11 (a) {what} k={K_MAIN}, {SHARD_ROUNDS} rounds: "
-                f"every leaf equal to the unsharded run's, "
-                f"select_packets and fused_flush once per shard on "
-                f"{n // d} rows, the cached select and the merge once a "
-                f"call, "
+                f"every leaf equal to the unsharded run's, every "
+                f"kernel once a call over {d} shards of {n // d} rows, "
                 f"launches {json.dumps(run['launches'])} (unsharded "
                 f"{json.dumps(run0['launches'])}), host_syncs_per_round "
                 f"{run['syncs'] / SHARD_ROUNDS:.2f} (unsharded "
@@ -4560,10 +4564,9 @@ def sharded_exact(rk, n: int) -> dict:
 def sharded_timing(rk, card: str) -> dict:
     """11(b): rounds/s of the per-round path on 8 shards per schedule
     beside the unsharded per-round path at N = :data:`N_MAIN`, 20
-    warm-up and 100 timed rounds each, in this run; then each kernel at
-    N/8 rows against the byte bound, and the one launch of
-    ``fused_select_cached`` and ``fused_merge`` over 8 shards at N
-    against the whole plane's."""
+    warm-up and 100 timed rounds each, in this run; then the one launch
+    of each kernel of :data:`ONE_LAUNCH` over 8 shards at N against the
+    whole plane's byte bound."""
     import dataclasses as dc
 
     import torch
@@ -4592,16 +4595,6 @@ def sharded_timing(rk, card: str) -> dict:
             f"{json.dumps(run['launches'])} ({card})")
         del st0
         torch.cuda.empty_cache()
-    nl = N_MAIN // SHARD_TIMED_P
-    per_shard = measure_kernels(rk, torch.device("cuda"), nl, K_MAIN)
-    for name, t in per_shard.items():
-        log(f"phase 11 (b) kernel {name} at n={nl} (one shard of "
-            f"{SHARD_TIMED_P}) k={K_MAIN}: {t['ms'] * 1e3:.2f} us a launch "
-            f"(plain version {t['plain_ms'] * 1e3:.2f} us, bound "
-            f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}, "
-            f"{t['ms'] and t['bound_ms'] / t['ms']:.1%} of it; "
-            f"{t['bytes']} B) ({card})")
-    out["per_shard_kernels"] = per_shard
     mesh_times = measure_kernels(
         rk, torch.device("cuda"), N_MAIN, K_MAIN,
         mesh=make_mesh(SHARD_TIMED_P, device="cuda"), only=ONE_LAUNCH)
@@ -4653,8 +4646,7 @@ def sharded_chaos(rk, card: str) -> dict:
     rows of the unsharded run at every round; the digests, report,
     ledger and decisions equal the reference's fixture; the recording
     replays (on a mesh made from it) with a clean diff; the sharded run
-    and its replay launch the unsharded run's kernels by
-    :func:`mesh_launches`."""
+    and its replay launch the unsharded run's kernels as often as it."""
     import torch
 
     from serf_tpu_torch import host_syncs
@@ -4688,7 +4680,7 @@ def sharded_chaos(rk, card: str) -> dict:
     d = diff_recordings(rec, replayed)
     if not d.ok:
         bad.append(f"record -> replay diverged: {d.to_dict()}")
-    want = mesh_launches(run_g["launches"], SHARD_TIMED_P)
+    want = run_g["launches"]
     if run["launches"] != want or rep["launches"] != want:
         bad.append(f"launches {run['launches']}, replay "
                    f"{rep['launches']}, want {want}")
@@ -4705,10 +4697,10 @@ def sharded_chaos(rk, card: str) -> dict:
         f"host_syncs_per_round {run['syncs'] / rounds:.2f} (unsharded "
         f"{run_g['syncs'] / rounds:.2f}); launches "
         f"{json.dumps(run['launches'])} (the unsharded run's under the "
-        f"mesh launch rules, the replay's the same); the in-collective telemetry, "
-        f"propagation and invariant rows equal the gathered rows at every "
-        f"round; digests, report, ledger and decisions equal the "
-        f"reference's; record -> replay diffs clean over "
+        f"mesh launch rule, the replay's the same); the in-collective "
+        f"telemetry, propagation and invariant rows equal the gathered "
+        f"rows at every round; digests, report, ledger and decisions "
+        f"equal the reference's; record -> replay diffs clean over "
         f"{d.compared_views} rounds ({card})")
     return dict(rounds=rounds, rps=rounds / run["s"],
                 gathered_rps=rounds / run_g["s"], replay_rps=rounds / rep["s"],
@@ -5046,7 +5038,6 @@ def main() -> int:
                       "chaos-shed-static": shed["static"]["launches"],
                       "chaos-shed-controlled":
                           shed["controlled"]["launches"]}
-    shard_times = sharded["timing"]["per_shard_kernels"]
     mesh_times = sharded["timing"]["mesh_kernels"]
     shard_launches = {f"phase 11 {what}": r["launches"]
                       for what, r in sharded["exact"].items()}
@@ -5073,9 +5064,6 @@ def main() -> int:
                     ms_k32=times_shed[name]["ms"],
                     plain_ms_k32=times_shed[name]["plain_ms"],
                     bound_ms_k32=times_shed[name]["bound_ms"],
-                    ms_shard=shard_times[name]["ms"],
-                    plain_ms_shard=shard_times[name]["plain_ms"],
-                    bound_ms_shard=shard_times[name]["bound_ms"],
                     **{f"{key}_mesh": mesh_times[name][key]
                        if name in mesh_times else None
                        for key in ("ms", "plain_ms", "bound_ms")})

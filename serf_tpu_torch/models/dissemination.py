@@ -724,9 +724,9 @@ def select_phase(state: GossipState, cfg: GossipConfig,
     (its merge does not keep it) and always runs ``select_packets``; on
     the deferred flavor the stale-cache recompute is the plain
     ``select_words``, which reads through the overlay (the stamp-only
-    kernel cannot — the reference's design).  On a ``mesh``
-    ``select_packets`` launches once per shard and the cached select
-    once over the whole plane (``ops.round_kernels``' launch rules)."""
+    kernel cannot — the reference's design).  On a ``mesh`` either
+    select launches once over the whole plane (``ops.round_kernels``'
+    launch rule)."""
     mode = _dispatch(cfg, mesh)
     if mode == "kernels":
         return _select_packets(state, cfg, mesh)
@@ -880,8 +880,8 @@ def merge_phase(state: GossipState, incoming: torch.Tensor,
     (``stamp_unit``, an int32 device scalar, is the controller's live
     cohort size).  On a ``mesh`` ``fused_merge`` launches once, the
     shard in its grid, with the shards' learn flags in shard order, and
-    ``fused_flush`` once per shard; ``learned_any`` is still one host
-    read.  Does not increment ``round``."""
+    ``fused_flush`` once over the whole plane; ``learned_any`` is still
+    one host read.  Does not increment ``round``."""
     mode = _dispatch(cfg, mesh)
     if cfg.stamp_deferred:
         return _merge_phase_deferred(state, incoming, cfg, mode, mesh,
@@ -1089,6 +1089,11 @@ def push_round_step(state: GossipState, cfg: GossipConfig,
 
 # -- Lamport-time wrap window ------------------------------------------------
 
+#: the span of live u32 ltimes that windowed two's-complement comparison
+#: can order: ``a`` supersedes ``b`` iff ``int32(a - b) > 0``, exact
+#: while every live ltime lies within ``LTIME_WINDOW`` of the others
+LTIME_WINDOW = 1 << 31
+
 
 def ltime_newer(a, b) -> torch.Tensor:
     """Wrap-safe ``a`` strictly supersedes ``b`` for u32 Lamport times."""
@@ -1112,7 +1117,7 @@ def ltime_window_violation(facts: FactTable) -> torch.Tensor:
     pts = as_u64(torch.where(valid, facts.ltime, pivot))
     s = torch.sort(pts).values
     max_gap = torch.amax((torch.roll(s, -1) - s) & 0xFFFFFFFF)
-    return torch.any(valid) & (max_gap != 0) & (max_gap <= (1 << 31))
+    return torch.any(valid) & (max_gap != 0) & (max_gap <= LTIME_WINDOW)
 
 
 # -- metrics -----------------------------------------------------------------

@@ -53,8 +53,10 @@
 // shards are contiguous row blocks of each plane.  fused_merge then runs
 // one launch on a two-dimensional grid, the shard in blockIdx.y, so
 // that no block spans two shards and the learn counts stay one per
-// block of a shard, in shard order; the cached select has no per-shard
-// output and covers the whole plane with one launch.
+// block of a shard, in shard order.  The other kernels that take a mesh
+// (select_packets, the cached select, fused_flush) have row-local
+// outputs and no per-shard output, so one launch covers the whole plane
+// as unsharded.
 //
 // The TPU kernels' per-grid-step learn flag becomes one count per CUDA
 // block (blocks run in no order; the caller only asks whether any count

@@ -27,22 +27,21 @@ Every launch adds one to ``LAUNCHES[name]`` and nothing else does.
 
 With a ``mesh`` (``parallel.mesh``: virtual shards of one device,
 contiguous row blocks ``[s*N/P, (s+1)*N/P)`` of every node-axis plane)
-the kernels of the sharded round take one of two launch rules:
+every kernel that takes one launches once a call over the whole plane,
+under one dispatch timer whose signature holds the global N, as the
+reference's ``dispatch_timer`` around its ``shard_map``:
 
-- ``fused_select_cached`` and ``fused_merge`` launch once a call over
-  the whole plane.  The cached select has no per-shard output; the
-  merge runs on a grid whose second axis is the shard, so no CUDA block
-  spans two shards and its learn flags are the per-shard rule's: the
-  shards' per-block counts in shard order (on the CPU, one total a
-  shard).
-- ``select_packets`` and ``fused_flush`` keep the reference's per-shard
-  rule (``_maybe_shard``): the wrapper launches the kernel once per
-  shard, on that shard's row block with the scalar operands replicated,
-  and each launch writes its row block of the global outputs.
+- ``fused_merge`` runs on a grid whose second axis is the shard, so no
+  CUDA block spans two shards and its learn flags are the per-shard
+  rule's: the shards' per-block counts in shard order (on the CPU, one
+  total a shard).
+- ``select_packets``, ``fused_select_cached`` and ``fused_flush`` run as
+  the unsharded launch.  Their outputs are row-local, they have no
+  per-shard output and their scalars are replicated, so one launch over
+  all N rows gives the per-shard rule's (``_maybe_shard``) bits.
 
-Each launch counts one and runs under its own dispatch timer (its
-signature's N the rows it covers), so calls == launches holds on the
-sharded path too.  ``merge_incoming`` takes no mesh: on a mesh the
+So calls == launches holds on the sharded path too, and each equals
+the unsharded run's.  ``merge_incoming`` takes no mesh: on a mesh the
 standalone family takes the plain path by the reference's dispatch
 rule.
 
@@ -217,45 +216,6 @@ def _mesh_shards(mesh, n: int) -> int:
     return d
 
 
-def _shard_rows(mesh, n: int):
-    """The per-shard row blocks of the per-shard rule: ``P`` contiguous
-    slices of ``n // P`` rows."""
-    d = _mesh_shards(mesh, n)
-    nl = n // d
-    return [slice(s * nl, (s + 1) * nl) for s in range(d)]
-
-
-def _per_shard(fn, mesh, planes, scalars, outs, **kw):
-    """The reference's ``_maybe_shard`` on the virtual shards of one
-    device: ``fn`` once per shard on that shard's row block of every
-    node-axis plane in ``planes``, the ``scalars`` replicated, writing
-    into row block ``s`` of each output in ``outs`` (a tensor or a
-    tuple, ``None`` entries passed through).  Returns ``outs``."""
-    blocks = _shard_rows(mesh, planes[0].shape[0])
-    d = len(blocks)
-    single = isinstance(outs, torch.Tensor)
-    for s, rows in enumerate(blocks):
-        out = tuple(None if o is None else
-                    o[s * (o.shape[0] // d):(s + 1) * (o.shape[0] // d)]
-                    for o in ((outs,) if single else outs))
-        fn(*(p[rows] for p in planes), *scalars,
-           out=out[0] if single else out, **kw)
-    return outs
-
-
-def _into(out, res):
-    """Write a plain version's results into the caller's output blocks
-    (``None`` entries pass through); returns ``out``."""
-    if out is None:
-        return res
-    if isinstance(out, torch.Tensor):
-        return out.copy_(res)
-    for o, r in zip(out, res):
-        if o is not None:
-            o.copy_(r)
-    return out
-
-
 def _launch(name: str, fn, *args) -> None:
     from serf_tpu_torch.ops import build
     stream = torch.cuda.current_stream().cuda_stream
@@ -331,28 +291,18 @@ def fused_flush_plain(known2, new_words, overlay, stamp, next_round, *,
 
 # -- wrappers ------------------------------------------------------------------
 
+@_timed("select_packets", "k_facts", "packed")
 def select_packets(stamp: torch.Tensor, known: torch.Tensor,
                    alive: torch.Tensor, limit_q: int, round_, *,
                    packed: bool, k_facts: int, mesh=None) -> torch.Tensor:
     """packets int32[N, W] from one read-only pass over the stamp plane
-    and the known words (replaces the TPU's ``select_packets``); with
-    ``mesh``, one launch per shard."""
-    if mesh is None:
-        return _select_packets(stamp, known, alive, limit_q, round_,
-                               packed=packed, k_facts=k_facts)
-    return _per_shard(_select_packets, mesh, (stamp, known, alive),
-                      (limit_q, const(round_, torch.int32, known.device)),
-                      torch.empty_like(known), packed=packed,
-                      k_facts=k_facts)
-
-
-@_timed("select_packets", "k_facts", "packed")
-def _select_packets(stamp, known, alive, limit_q, round_, *, packed: bool,
-                    k_facts: int, out=None) -> torch.Tensor:
+    and the known words (replaces the TPU's ``select_packets``).  With
+    ``mesh``, still one launch over the whole plane: the packets are
+    row-local, so the shards are its row blocks."""
+    _mesh_shards(mesh, known.shape[0])
     if not _on_cuda(stamp, known, alive):
-        return _into(out, select_packets_plain(
-            stamp, known, alive, limit_q, round_, packed=packed,
-            k_facts=k_facts))
+        return select_packets_plain(stamp, known, alive, limit_q, round_,
+                                    packed=packed, k_facts=k_facts)
     n, w = known.shape[0], k_facts // 32
     cols = k_facts // 2 if packed else k_facts
     _require_shape("select_packets", n, k_facts, cols)
@@ -360,8 +310,7 @@ def _select_packets(stamp, known, alive, limit_q, round_, *, packed: bool,
     _check(known, "known", torch.int32, (n, w))
     _check_alive(alive, n)
     rnd = _round_scalar(round_, known.device)
-    out = torch.empty_like(known) if out is None else out
-    _check(out, "out", torch.int32, (n, w))
+    out = torch.empty_like(known)
     _launch("select_packets", _lib().serf_select_packets,
             stamp.data_ptr(), known.data_ptr(), alive.data_ptr(),
             rnd.data_ptr(), out.data_ptr(), n, w, cols, int(limit_q),
@@ -398,6 +347,7 @@ def merge_incoming(known: torch.Tensor, incoming: torch.Tensor,
     return known2, stamp2
 
 
+@_timed("fused_select_cached", "k_facts")
 def fused_select_cached(sendable: torch.Tensor, known: torch.Tensor,
                         alive: torch.Tensor, *, k_facts: int,
                         stamp_cols: int, mesh=None) -> torch.Tensor:
@@ -407,13 +357,6 @@ def fused_select_cached(sendable: torch.Tensor, known: torch.Tensor,
     the whole plane: the shards are its row blocks and the select has no
     per-shard output."""
     _mesh_shards(mesh, known.shape[0])
-    return _fused_select_cached(sendable, known, alive, k_facts=k_facts,
-                                stamp_cols=stamp_cols)
-
-
-@_timed("fused_select_cached", "k_facts")
-def _fused_select_cached(sendable, known, alive, *, k_facts: int,
-                         stamp_cols: int) -> torch.Tensor:
     if not _on_cuda(sendable, known, alive):
         return fused_select_cached_plain(sendable, known, alive)
     n, w = known.shape[0], k_facts // 32
@@ -430,6 +373,7 @@ def _fused_select_cached(sendable, known, alive, *, k_facts: int,
     return out
 
 
+@_timed("fused_merge", "k_facts", "packed", "with_cache")
 def fused_merge(known: torch.Tensor, incoming: torch.Tensor,
                 alive: torch.Tensor, stamp: torch.Tensor, next_round, *,
                 limit_q: int, packed: bool, k_facts: int,
@@ -442,15 +386,7 @@ def fused_merge(known: torch.Tensor, incoming: torch.Tensor,
     ``mesh``, still one launch: its grid's second axis is the shard, and
     ``flags`` holds the shards' counts in shard order (``P`` equal runs,
     one per shard)."""
-    return _fused_merge(known, incoming, alive, stamp, next_round,
-                        limit_q=limit_q, packed=packed, k_facts=k_facts,
-                        with_cache=with_cache,
-                        shards=_mesh_shards(mesh, known.shape[0]))
-
-
-@_timed("fused_merge", "k_facts", "packed", "with_cache")
-def _fused_merge(known, incoming, alive, stamp, next_round, *, limit_q: int,
-                 packed: bool, k_facts: int, with_cache: bool, shards: int):
+    shards = _mesh_shards(mesh, known.shape[0])
     if not _on_cuda(known, incoming, alive, stamp):
         return fused_merge_plain(
             known, incoming, alive, stamp, next_round, limit_q=limit_q,
@@ -478,6 +414,7 @@ def _fused_merge(known, incoming, alive, stamp, next_round, *, limit_q: int,
     return known2, stamp2, send, flags
 
 
+@_timed("fused_flush", "k_facts", "packed", "with_cache")
 def fused_flush(known2: torch.Tensor, new_words: torch.Tensor,
                 overlay: torch.Tensor, stamp: torch.Tensor, next_round, *,
                 limit_q: int, packed: bool, k_facts: int,
@@ -487,27 +424,13 @@ def fused_flush(known2: torch.Tensor, new_words: torch.Tensor,
     is the post-merge known plane (read only for the cache); the caller
     owns the word-plane merge, clears the overlay and moves
     ``last_flush``.  The cohort quarter ``round_q(next_round - 1)`` is
-    derived on the device.  With ``mesh``, one launch per shard."""
-    kw = dict(limit_q=limit_q, packed=packed, k_facts=k_facts,
-              with_cache=with_cache)
-    if mesh is None:
-        return _fused_flush(known2, new_words, overlay, stamp, next_round,
-                            **kw)
-    return _per_shard(
-        _fused_flush, mesh, (known2, new_words, overlay, stamp),
-        (const(next_round, torch.int32, stamp.device),),
-        (torch.empty_like(stamp),
-         torch.empty_like(known2) if with_cache else None), **kw)
-
-
-@_timed("fused_flush", "k_facts", "packed", "with_cache")
-def _fused_flush(known2, new_words, overlay, stamp, next_round, *,
-                 limit_q: int, packed: bool, k_facts: int, with_cache: bool,
-                 out=None):
+    derived on the device.  With ``mesh``, still one launch over the
+    whole plane: both outputs are row-local."""
+    _mesh_shards(mesh, stamp.shape[0])
     if not _on_cuda(known2, new_words, overlay, stamp):
-        return _into(out, fused_flush_plain(
+        return fused_flush_plain(
             known2, new_words, overlay, stamp, next_round, limit_q=limit_q,
-            packed=packed, k_facts=k_facts, with_cache=with_cache))
+            packed=packed, k_facts=k_facts, with_cache=with_cache)
     n, w = stamp.shape[0], k_facts // 32
     cols = k_facts // 2 if packed else k_facts
     _require_shape("fused_flush", n, k_facts, cols)
@@ -516,13 +439,8 @@ def _fused_flush(known2, new_words, overlay, stamp, next_round, *,
     _check(overlay, "overlay", torch.int32, (n, w))
     _check(stamp, "stamp", torch.uint8, (n, cols))
     rnd = _round_scalar(next_round, stamp.device)
-    if out is None:
-        out = (torch.empty_like(stamp),
-               torch.empty_like(known2) if with_cache else None)
-    stamp2, send = out
-    _check(stamp2, "stamp2", torch.uint8, (n, cols))
-    if with_cache:
-        _check(send, "sendable2", torch.int32, (n, w))
+    stamp2 = torch.empty_like(stamp)
+    send = torch.empty_like(known2) if with_cache else None
     _launch("fused_flush", _lib().serf_fused_flush,
             known2.data_ptr(), new_words.data_ptr(), overlay.data_ptr(),
             stamp.data_ptr(), rnd.data_ptr(), stamp2.data_ptr(),

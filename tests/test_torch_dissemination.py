@@ -222,3 +222,69 @@ def test_ltime_window():
                           np.asarray(jdis.ltime_newer(a, b)))
     assert np.array_equal(tdis.ltime_rel(ta, tb).numpy(),
                           np.asarray(jdis.ltime_rel(a, b)))
+
+
+def test_ltime_window_constant():
+    assert tdis.LTIME_WINDOW == jdis.LTIME_WINDOW == 1 << 31
+
+
+_U32 = 1 << 32
+_W = jdis.LTIME_WINDOW
+
+
+def _intent_both(join_lt, leave_lt, subject=3, n=16):
+    """The reference's and the port's states where ``subject`` knows a
+    join and/or leave intent about itself at the given u32 ltimes."""
+    from serf_tpu_torch.models import membership as tmem
+    jcfg = jdis.GossipConfig(n=n, k_facts=32)
+    tcfg = _tcfg(jcfg)
+    a, b = jdis.make_state(jcfg), tdis.make_state(tcfg, "cpu")
+    for kind, lt in ((jdis.K_JOIN, join_lt), (jdis.K_LEAVE, leave_lt)):
+        if lt is not None:
+            a = jdis.inject_fact(a, jcfg, subject=subject, kind=kind,
+                                 incarnation=0, ltime=lt, origin=subject)
+            b = tdis.inject_fact(b, tcfg, subject, kind, 0,
+                                 np.uint32(lt).view(np.int32).item(),
+                                 subject)
+    _assert_same(a, b, f"after intents {join_lt}, {leave_lt}")
+    return a, b, jcfg, tcfg, tmem
+
+
+@pytest.mark.parametrize("case,a,b,want", [
+    # ltime_newer strictly inside the window
+    ("newer", 10 + _W - 1, 10, True),
+    ("newer", 10, 10 + _W - 1, False),
+    # supersession up to 2^31 - 1 apart; ties prefer LEAVE
+    ("views", 10, 10 + _W - 1, "leaving"),
+    ("views", 10 + _W - 1, 10, "alive"),
+    ("views", 1000, 1000, "leaving"),
+    ("views", None, None, "none"),
+    # the guard flags exactly 2^31 apart, nothing strictly inside, and
+    # not a tight cluster straddling the 2^32 wrap; empty never violates
+    ("guard", 10, 10 + _W, True),
+    ("guard", 10, 10 + _W - 1, False),
+    ("guard", _U32 - 5, 3, False),
+    ("guard", None, None, False),
+])
+def test_ltime_window_edge(case, a, b, want):
+    """The reference's window-edge cases (``tests/test_ltime_wrap.py``)
+    on both packages: ``a``/``b`` are the join/leave ltimes (the two
+    operands of ``ltime_newer``)."""
+    if case == "newer":
+        ta, tb = (torch.tensor(np.uint32(v).view(np.int32).item())
+                  for v in (a, b))
+        got = bool(tdis.ltime_newer(ta, tb))
+        assert got == bool(jdis.ltime_newer(a, b)) == want
+        return
+    js, ts, jcfg, tcfg, tmem = _intent_both(a, b)
+    if case == "views":
+        from serf_tpu.models import membership as jmem
+        jv = np.asarray(jmem.intent_views(js, jcfg, jnp.asarray([3])))
+        tv = tmem.intent_views(ts, tcfg, torch.tensor([3])).numpy()
+        assert np.array_equal(tv, jv)
+        code = {"leaving": jmem.V_LEAVING, "alive": jmem.V_ALIVE,
+                "none": jmem.V_NONE}[want]
+        assert int(tv[3, 0]) == code
+        return
+    got = bool(tdis.ltime_window_violation(ts.facts))
+    assert got == bool(jdis.ltime_window_violation(js.facts)) == want

@@ -10,7 +10,7 @@ counts every such call (data that is not a tensor, an explicit
 the CPU: the three flagships (100 sustained rounds after the seeding),
 churn-query's churned window and both chaos plans, and requires none;
 and the same on the sharded round (``parallel/``: eight virtual shards,
-both schedules, the kernels per shard and the in-collective rows),
+both schedules, the kernels on the mesh and the in-collective rows),
 which ``chip_smoke.py`` phase 11 drives."""
 
 import collections

@@ -6,9 +6,11 @@ virtual shards) against the reference, on the CPU:
   against the reference's unsharded run (the reference's own sharded
   twin of the all-gather cases is ``slow``), and ``tests/
   test_rotation.py``'s 30-round rotation case;
-- the mesh launch rules of one call of each kernel: outputs equal to
-  the unsharded call's and the reference kernel's, the merge's flags one
-  count a shard, and the launches counted through a stand-in library;
+- the mesh launch rule of one call of each kernel: outputs equal to
+  the unsharded call's, the reference kernel's and the plain version's
+  applied shard by shard, the merge's flags one count a shard, one
+  dispatch a call with the global N in its signature, and the launches
+  counted through a stand-in library;
 - ``pallas_dispatch_mode(cfg, d)`` against the reference's over a grid;
 - the sharded checkpoint round trip and the indivisible restore;
 - host syncs per round, sharded and unsharded.
@@ -179,17 +181,16 @@ def test_mesh_launch_rules_match_unsharded_and_reference(packed):
     """One call of each kernel on ``make_mesh(8, device="cpu")``: every
     output equals the unsharded call's and the reference kernel's
     (interpret mode) on the same numpy-seeded planes; the merge's flags
-    hold one learn count a shard, the per-shard rule's; the cached
-    select and the merge dispatch once, ``select_packets`` and
-    ``fused_flush`` eight times."""
+    hold one learn count a shard, the per-shard rule's; every kernel
+    dispatches once."""
     n, k, d, rnd = 512, 64, 8, 61
     p = _kernel_planes(n, k, packed, 23 + packed)
     tobs_dev.reset_dispatch_calls()
     got = _kernel_calls(p, make_mesh(d, device="cpu"), k, packed, rnd)
     calls = {op: v["calls"] for op, v in tobs_dev.dispatch_summary().items()
              if op.startswith("ops.")}
-    assert calls == {"ops.select_packets": d, "ops.fused_select": 1,
-                     "ops.fused_merge": 1, "ops.fused_flush": d}
+    assert calls == {"ops.select_packets": 1, "ops.fused_select": 1,
+                     "ops.fused_merge": 1, "ops.fused_flush": 1}
     one = _kernel_calls(p, None, k, packed, rnd)
     assert torch.equal(got["select_packets"], one["select_packets"])
     assert torch.equal(got["fused_select_cached"],
@@ -256,10 +257,9 @@ class _StandInLibrary:
 
 def test_mesh_launch_counts_through_the_wrappers(monkeypatch):
     """With the CUDA path taken against a stand-in library, one call of
-    each kernel on eight shards adds 1 to ``LAUNCHES`` for the cached
-    select and the merge (the merge's one launch given N and P = 8) and
-    8 for ``select_packets`` and ``fused_flush`` (each given N/8 rows);
-    calls == launches for every kernel."""
+    each kernel on eight shards adds 1 to ``LAUNCHES`` for every kernel,
+    each launch given all N rows (the merge's also P = 8); calls ==
+    launches for every kernel."""
     lib = _StandInLibrary()
 
     class _Stream:
@@ -273,9 +273,9 @@ def test_mesh_launch_counts_through_the_wrappers(monkeypatch):
     trk.reset_launches()
     tobs_dev.reset_dispatch_calls()
     _kernel_calls(p, make_mesh(d, device="cpu"), k, True)
-    assert trk.LAUNCHES == {"select_packets": d, "merge_incoming": 0,
+    assert trk.LAUNCHES == {"select_packets": 1, "merge_incoming": 0,
                             "fused_select_cached": 1, "fused_merge": 1,
-                            "fused_flush": d}
+                            "fused_flush": 1}
     summary = tobs_dev.dispatch_summary()
     for name, op in trk.DISPATCH_OPS.items():
         assert summary.get(op, {"calls": 0})["calls"] == \
@@ -287,8 +287,83 @@ def test_mesh_launch_counts_through_the_wrappers(monkeypatch):
     assert merge[9] == n and merge[-2] == d        # N rows, P shards
     select, = rows["serf_fused_select_cached"]
     assert select[4] == n
-    assert [a[5] for a in rows["serf_select_packets"]] == [n // d] * d
-    assert [a[7] for a in rows["serf_fused_flush"]] == [n // d] * d
+    assert [a[5] for a in rows["serf_select_packets"]] == [n]
+    assert [a[7] for a in rows["serf_fused_flush"]] == [n]
+
+
+def test_mesh_dispatch_one_call_global_signature(monkeypatch):
+    """One call of each mesh-taking kernel on eight shards makes one
+    dispatch-timer call, its signature holding the global N, equal to
+    the signature the reference's ``dispatch_timer`` gives the same
+    call (its mesh call times the whole ``shard_map`` once, with the
+    unsharded call's signature)."""
+    import contextlib
+
+    def recorder(seen):
+        @contextlib.contextmanager
+        def timer(op, signature=None, labels=None):
+            seen.append((op, signature))
+            yield
+        return timer
+
+    n, k, d, rnd = 512, 64, 8, 61
+    p = _kernel_planes(n, k, True, 9)
+    mine, ref = [], []
+    monkeypatch.setattr(trk, "dispatch_timer", recorder(mine))
+    _kernel_calls(p, make_mesh(d, device="cpu"), k, True, rnd)
+    monkeypatch.setattr(jrk, "dispatch_timer", recorder(ref))
+    u = {name: jnp.asarray(np.asarray(v).view(np.uint32)
+                           if np.asarray(v).dtype == np.int32 else v)
+         for name, v in p.items()}
+    jalive = jnp.asarray(p["alive"][:, None].astype(np.uint8))
+    jrk.select_packets(u["stamp"], u["known"], jalive, 7, rnd, packed=True,
+                       k_facts=k)
+    jrk.fused_select_cached(u["sendable"], u["known"], jalive, k_facts=k,
+                            stamp_cols=p["stamp"].shape[1])
+    jrk.fused_merge(u["known"], u["incoming"], jalive, u["stamp"], rnd,
+                    limit_q=7, packed=True, k_facts=k, with_cache=True)
+    jrk.fused_flush(u["known2"], u["new"], u["overlay"], u["stamp"], rnd,
+                    limit_q=7, packed=True, k_facts=k, with_cache=True)
+    assert [op for op, _ in mine] == ["ops.select_packets",
+                                      "ops.fused_select", "ops.fused_merge",
+                                      "ops.fused_flush"]
+    assert all(sig[0] == n for _, sig in mine)
+    assert mine == ref
+
+
+@pytest.mark.parametrize("with_cache", [True, False])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("d", [4, 8])
+def test_mesh_select_and_flush_equal_plain_shard_by_shard(d, packed,
+                                                          with_cache):
+    """``select_packets`` and ``fused_flush`` with ``mesh=`` at N = 1000
+    on 4 and 8 shards (250 and 125 rows, with no 32-row node block)
+    equal their plain versions applied shard by shard with the scalars
+    replicated, the reference's per-shard rule (``_maybe_shard``)."""
+    n, k, rnd, limit_q = 1000, 64, 61, 7
+    p = _kernel_planes(n, k, packed, 40 + d + 2 * packed + with_cache)
+    t = {name: torch.from_numpy(v) for name, v in p.items()}
+    kw = dict(packed=packed, k_facts=k)
+    mesh = make_mesh(d, device="cpu")
+    sel = trk.select_packets(t["stamp"], t["known"], t["alive"], limit_q,
+                             rnd, mesh=mesh, **kw)
+    flush = trk.fused_flush(t["known2"], t["new"], t["overlay"], t["stamp"],
+                            rnd, limit_q=limit_q, with_cache=with_cache,
+                            mesh=mesh, **kw)
+    nl = n // d
+    blocks = [slice(s * nl, (s + 1) * nl) for s in range(d)]
+    want_sel = torch.cat([trk.select_packets_plain(
+        t["stamp"][b], t["known"][b], t["alive"][b], limit_q, rnd, **kw)
+        for b in blocks])
+    parts = [trk.fused_flush_plain(
+        t["known2"][b], t["new"][b], t["overlay"][b], t["stamp"][b], rnd,
+        limit_q=limit_q, with_cache=with_cache, **kw) for b in blocks]
+    assert torch.equal(sel, want_sel)
+    assert torch.equal(flush[0], torch.cat([s for s, _ in parts]))
+    if with_cache:
+        assert torch.equal(flush[1], torch.cat([c for _, c in parts]))
+    else:
+        assert flush[1] is None and all(c is None for _, c in parts)
 
 
 @pytest.mark.parametrize("deferred", [1, 4])
