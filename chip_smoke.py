@@ -263,11 +263,37 @@ at 1M (exit 0, its digests the fixture's), ``multichip_ab --devices 8``
 ``entry.dryrun_multichip(8)``. The phase must end inside 180 s; each
 part is logged beside the card line.
 
+Phase 12 runs the per-round flagship on a placed mesh
+(``serf_tpu_torch.parallel.placed``: each shard's rows are tensors of
+their own on their own device, every kernel launched once per shard
+over its rows, the exchange's ring hops and all-gather block copies
+between shards, the gates reduced on shard 0's device), K = 64 with the
+kernels on. (a) The seeded flagship (phase 4's seeding, 2 events a
+round) at N = 1,000,000 on 4 placed shards, both schedules, 30 rounds,
+and at N = 1000 on 2 shards (500 rows a shard): every integer leaf and
+telemetry row equal to the unsharded run's and the virtual mesh's,
+Vivaldi within ``FLOAT_RTOL``/``FLOAT_ATOL`` (whether bit-equal is
+logged), every replicated leaf equal on every shard, each kernel's
+launches P times the virtual mesh's (its one launch a call, at N =
+1,000,000 the unsharded run's; at N = 1000 the unsharded run takes the
+plain path by the reference's node-block rule), dispatch calls equal to
+launches, the host syncs equal (the rows collected: one read a round
+more than phase 11's, the believed-dead evidence gate); (b) each of the three kernels on one shard's rows
+(250,000 and 500) on each device the shards use, launched with
+``cuda:0`` current, equal to its plain version, and its launch at
+250,000 rows timed against its byte bound; (c) rounds/s of each
+schedule on 4 placed shards beside the unsharded run (20 warm-up, 100
+timed rounds); (d) the devices: with one card all 4 shards share
+``cuda:0``; with two or more, (a) and (c) run again with the shards
+spread over ``min(count, 4)`` cards, and peer access is logged.  The
+phase must end inside 60 s.
+
 The line before the last is ``{"kernels": [...]}`` (with each kernel's
-launches on phase 11's runs and, for the four kernels that take a mesh,
-their one launch's µs at 1M over 8 shards); the last is
-``{"ok": true, "device": {...}}``.  Needs no network and imports no
-JAX.
+launches on phase 11's and 12's runs and, for the four kernels that
+take a mesh, their one launch's µs at 1M over 8 shards, and for the
+three of the placed path their launch's µs on one shard's 250,000
+rows); the last is ``{"ok": true, "device": {...}}``.  Needs no network
+and imports no JAX.
 """
 
 from __future__ import annotations
@@ -673,20 +699,21 @@ def nbytes(*ts) -> int:
 
 
 def measure_kernels(rk, dev, n: int = N_MAIN, k: int = K_MAIN, mesh=None,
-                    only=None) -> dict:
+                    only=None, limit_n=None) -> dict:
     """Times and bounds at a path's shape (packed, the cache on where the
-    kernel keeps it, the path's transmit limit).  The bound is the
-    bytes' time: each input read once, each output written once.  With
-    ``mesh``, the kernels of :data:`ONE_LAUNCH` are timed in their one
-    launch over the mesh (``merge_incoming`` takes none: call them with
-    ``only`` naming the kernels to time)."""
+    kernel keeps it, the path's transmit limit: that of a cluster of
+    ``limit_n`` nodes, ``n`` by default).  The bound is the bytes' time:
+    each input read once, each output written once.  With ``mesh``, the
+    kernels of :data:`ONE_LAUNCH` are timed in their one launch over the
+    mesh (``merge_incoming`` takes none: call them with ``only`` naming
+    the kernels to time)."""
     import torch
 
     from serf_tpu_torch.models.dissemination import GossipConfig
     from serf_tpu_torch.parallel.mesh import shards
     w, c, d = k // 32, k // 2, shards(mesh)
     on_mesh = {} if mesh is None else dict(mesh=mesh)
-    lq = GossipConfig(n=n, k_facts=k).transmit_limit_q
+    lq = GossipConfig(n=limit_n or n, k_facts=k).transmit_limit_q
     r = torch.tensor(61, dtype=torch.int32, device=dev)
     base = random_planes(n, k, True, 99, dev)
     # sized for the kernel that reads least (the cached select)
@@ -4866,6 +4893,311 @@ def sharded_full(rk) -> dict:
     return out
 
 
+# -- phase 12: the placed mesh ------------------------------------------------
+
+#: 12(a): the placed shard count at N_MAIN, and the ragged check's (N, P)
+PLACED_P = 4
+PLACED_RAGGED = (1000, 2)
+PLACED_ROUNDS = 30
+#: 12(b): one shard's rows at N_MAIN on PLACED_P shards
+PLACED_ROWS = N_MAIN // PLACED_P
+#: the placed path's kernels: the per-round flagship's, once per shard
+PLACED_KERNELS = PATHS["per-round"]["kernels"]
+#: 12(c): warm-up and timed rounds of each timed run
+PLACED_WARM, PLACED_TIMED = 20, 100
+PHASE12_LIMIT_S = 60.0
+
+
+def placed_devices(distinct: bool) -> list:
+    """The placed shards' devices: all on ``cuda:0``, or spread in turn
+    over ``min(count, PLACED_P)`` distinct cards."""
+    import torch
+    cards = min(torch.cuda.device_count(), PLACED_P) if distinct else 1
+    return [f"cuda:{s % cards}" for s in range(PLACED_P)]
+
+
+def sync_all() -> None:
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def placed_run(rk, st, cfg, key, rounds: int, mesh, warm_rounds: int = 0,
+               telemetry: bool = True):
+    """``run_cluster_sustained`` from ``st`` (placed first with
+    ``shard_state`` on a placed ``mesh``), with the telemetry rows unless
+    ``telemetry`` is off: the final state (gathered onto ``cuda:0``), its
+    rows (or None), and the launch counts
+    (reset just before), the host syncs, the replicated leaves that
+    differ between shards, and the wall seconds of the ``rounds`` after
+    ``warm_rounds`` (host clock, ending in a synchronize of every
+    card)."""
+    from serf_tpu_torch import host_syncs, prng
+    from serf_tpu_torch.models.swim import run_cluster_sustained
+    from serf_tpu_torch.parallel.mesh import (gather_state, replicas_differ,
+                                              shard_state)
+    placed = mesh is not None and mesh.placed
+    if placed:
+        st = shard_state(st, mesh)
+    k_warm, k_run = prng.split(key)
+    reset_counts(rk)
+    if warm_rounds:
+        st = run_cluster_sustained(st, cfg, k_warm, warm_rounds,
+                                   events_per_round=EVENTS_PER_ROUND,
+                                   mesh=mesh)
+        sync_all()
+    s0 = host_syncs()
+    t0 = time.perf_counter()
+    out = run_cluster_sustained(st, cfg, k_run, rounds,
+                                events_per_round=EVENTS_PER_ROUND,
+                                mesh=mesh, collect_telemetry=telemetry)
+    st, rows = out if telemetry else (out, None)
+    sync_all()
+    secs = time.perf_counter() - t0
+    run = dict(launches=dict(rk.LAUNCHES), syncs=host_syncs() - s0, s=secs,
+               replicas=replicas_differ(st) if placed else [])
+    check_dispatch(rk, "phase 12")
+    if placed:
+        st = gather_state(st, "cuda:0")
+    return st, rows, run
+
+
+def placed_differ(ref, ref_rows, st, rows) -> list:
+    """A placed run against another on the card: every integer leaf
+    equal, Vivaldi within ``FLOAT_RTOL``/``FLOAT_ATOL``, the telemetry
+    rows equal (the float-summed coverage within ``COVERAGE_RTOL``)."""
+    import torch
+
+    from serf_tpu_torch.models.swim import TELEMETRY_FIELDS
+    bad = []
+    for (path, x), (_, y) in zip(tensor_leaves(ref), tensor_leaves(st)):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            bad.append(f"{path}: {x.dtype}{tuple(x.shape)} vs "
+                       f"{y.dtype}{tuple(y.shape)}")
+        elif x.dtype.is_floating_point:
+            if not torch.allclose(x, y, rtol=FLOAT_RTOL, atol=FLOAT_ATOL):
+                bad.append(f"{path}: max |diff| "
+                           f"{float(torch.max(torch.abs(x - y)))}")
+        elif not torch.equal(x, y):
+            bad.append(f"{path}: {int(torch.sum(x != y))} cells differ")
+    cov = TELEMETRY_FIELDS.index("coverage")
+    keep = [i for i in range(len(TELEMETRY_FIELDS)) if i != cov]
+    if not torch.equal(rows[:, keep], ref_rows[:, keep]) or not \
+            torch.allclose(rows[:, cov], ref_rows[:, cov],
+                           rtol=COVERAGE_RTOL, atol=0):
+        bad.append("telemetry rows")
+    return bad
+
+
+def float_leaves_equal(a, b) -> bool:
+    import torch
+    return all(torch.equal(x, y) for (_, x), (_, y)
+               in zip(tensor_leaves(a), tensor_leaves(b))
+               if x.dtype.is_floating_point)
+
+
+def placed_exact(rk, n: int, p: int, devices, what: str) -> dict:
+    """12(a): the seeded per-round flagship at N = ``n`` on a placed
+    mesh of ``p`` shards on ``devices``, both schedules, 30 rounds,
+    against the unsharded run and the virtual mesh of ``p`` shards on
+    the card: leaves and rows (:func:`placed_differ`), every replicated
+    leaf equal on every shard, each kernel's launches ``p`` times the
+    virtual mesh's (its one launch a call; at N_MAIN the unsharded
+    run's, and no other kernel), the host syncs equal."""
+    import dataclasses as dc
+
+    import torch
+
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.parallel.mesh import make_mesh
+    base = kernel_config(n)
+    st0, _ = seeded_state(base, "cuda")
+    ref, ref_rows, run0 = placed_run(rk, st0, base, prng.key(11),
+                                     PLACED_ROUNDS, None)
+    out, bad = {"unsharded": run0}, []
+    for schedule in ("ring", "allgather"):
+        cfg = dc.replace(base, exchange_schedule=schedule)
+        virt, virt_rows, vrun = placed_run(rk, st0, cfg, prng.key(11),
+                                           PLACED_ROUNDS,
+                                           make_mesh(p, device="cuda"))
+        want = {k: p * v for k, v in vrun["launches"].items()}
+        if {k for k, v in want.items() if v} != set(PLACED_KERNELS) or (
+                n == N_MAIN and vrun["launches"] != run0["launches"]):
+            bad.append(f"n={n} {schedule}: virtual launches "
+                       f"{vrun['launches']}, unsharded {run0['launches']}")
+        mesh = make_mesh(devices=devices, placed=True)
+        st, rows, run = placed_run(rk, st0, cfg, prng.key(11),
+                                   PLACED_ROUNDS, mesh)
+        tag = f"{what} n={n} P={p} {schedule}"
+        for other, other_rows, name in ((ref, ref_rows, "unsharded"),
+                                        (virt, virt_rows, "virtual")):
+            diff = placed_differ(other, other_rows, st, rows)
+            if diff:
+                bad.append(f"{tag}: differs from the {name} run: {diff}")
+        if run["replicas"]:
+            bad.append(f"{tag}: replicas differ {run['replicas']}")
+        if run["launches"] != want:
+            bad.append(f"{tag}: launches {run['launches']}, want {want}")
+        if run["syncs"] != run0["syncs"]:
+            bad.append(f"{tag}: {run['syncs']} host syncs, unsharded "
+                       f"{run0['syncs']}")
+        run["floats_bit_equal"] = float_leaves_equal(ref, st)
+        out[schedule] = run
+        log(f"phase 12 (a) {tag} k={K_MAIN}, {PLACED_ROUNDS} rounds, "
+            f"shards on {[str(d) for d in mesh.devices]}: every integer "
+            f"leaf and telemetry row equal to the unsharded and virtual "
+            f"runs', Vivaldi "
+            f"{'bit-equal' if run['floats_bit_equal'] else 'within tolerance'}"
+            f", replicated leaves equal on every shard; launches "
+            f"{json.dumps(run['launches'])} ({p} x the virtual mesh's "
+            f"{json.dumps(vrun['launches'])}; unsharded "
+            f"{json.dumps(run0['launches'])}), dispatch calls == launches, "
+            f"host_syncs_per_round {run['syncs'] / PLACED_ROUNDS:.2f} "
+            f"(unsharded {run0['syncs'] / PLACED_ROUNDS:.2f}), "
+            f"{run['s']:.2f} s")
+        del virt, st
+    del st0, ref
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("phase 12 (a): " + "; ".join(bad))
+    return out
+
+
+def check_shard_kernels(rk, devices) -> dict:
+    """Each kernel of the placed path on one shard's rows (N/P at the
+    flagship width, and the ragged check's), on each device the shards
+    use, launched while ``cuda:0`` is current: == its plain version.
+    Returns the largest |kernel - plain| per kernel."""
+    import torch
+    errs = {name: 0 for name in PLACED_KERNELS}
+    rows = (PLACED_ROWS, PLACED_RAGGED[0] // PLACED_RAGGED[1])
+    for dev in sorted({torch.device(d) for d in devices}, key=str):
+        for n in rows:
+            p = random_planes(n, K_MAIN, True, 12 + n, dev)
+            r = torch.tensor(61, dtype=torch.int32, device=dev)
+            kw = dict(packed=True, k_facts=K_MAIN)
+            with torch.cuda.device(0):
+                got = dict(
+                    select_packets=rk.select_packets(
+                        p["stamp"], p["known"], p["alive"], 7, r, **kw),
+                    fused_select_cached=rk.fused_select_cached(
+                        p["sendable"], p["known"], p["alive"],
+                        k_facts=K_MAIN, stamp_cols=K_MAIN // 2),
+                    fused_merge=rk.fused_merge(
+                        p["known"], p["incoming"], p["alive"], p["stamp"],
+                        r, limit_q=7, with_cache=True, **kw))
+            sync_all()
+            want = dict(
+                select_packets=rk.select_packets_plain(
+                    p["stamp"], p["known"], p["alive"], 7, r, **kw),
+                fused_select_cached=rk.fused_select_cached_plain(
+                    p["sendable"], p["known"], p["alive"]),
+                fused_merge=rk.fused_merge_plain(
+                    p["known"], p["incoming"], p["alive"], p["stamp"], r,
+                    limit_q=7, with_cache=True, **kw))
+            for name in PLACED_KERNELS:
+                g, w = got[name], want[name]
+                if name == "fused_merge":
+                    if bool(torch.any(g[3] != 0)) != bool(
+                            torch.any(w[3] != 0)):
+                        raise AssertionError("phase 12: fused_merge learn "
+                                             f"flag on {dev}, n={n}")
+                    g, w = torch.cat([g[0].flatten(), g[1].flatten().to(
+                        torch.int32), g[2].flatten()]), torch.cat(
+                        [w[0].flatten(), w[1].flatten().to(torch.int32),
+                         w[2].flatten()])
+                if g.device != dev:
+                    raise AssertionError(f"phase 12: {name} wrote on "
+                                         f"{g.device}, its shard on {dev}")
+                errs[name] = max(errs[name], max_abs_err(g, w))
+                if errs[name]:
+                    raise AssertionError(f"phase 12: {name} on {dev}, "
+                                         f"n={n}: kernel != plain version")
+    log(f"phase 12 (b) select_packets, fused_select_cached, fused_merge == "
+        f"plain versions on one shard's rows ({rows[0]} and {rows[1]}, "
+        f"k={K_MAIN}) on {sorted({str(d) for d in devices})}, launched "
+        f"with cuda:0 current")
+    return errs
+
+
+def placed_timing(rk, card: str, devices, what: str) -> dict:
+    """12(c): rounds/s of the placed per-round flagship at N_MAIN on
+    ``devices`` per schedule beside the unsharded run, 20 warm-up and
+    100 timed rounds each, in this run."""
+    import dataclasses as dc
+
+    import torch
+
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.parallel.mesh import make_mesh
+    out = {}
+    base = kernel_config(N_MAIN)
+    st0, _ = seeded_state(base, "cuda")
+    for schedule in (None, "ring", "allgather"):
+        cfg = dc.replace(base, exchange_schedule=schedule or "ring")
+        mesh = (make_mesh(devices=devices, placed=True) if schedule
+                else None)
+        _, _, run = placed_run(rk, st0, cfg, prng.key(13), PLACED_TIMED,
+                               mesh, warm_rounds=PLACED_WARM,
+                               telemetry=False)
+        name = f"{what} P={PLACED_P} {schedule}" if schedule else "unsharded"
+        out[name] = dict(rps=PLACED_TIMED / run["s"],
+                         syncs_per_round=run["syncs"] / PLACED_TIMED)
+        ratio = (f" ({out[name]['rps'] / out['unsharded']['rps']:.2f} of "
+                 f"unsharded)" if schedule else "")
+        log(f"phase 12 (c) per-round n={N_MAIN} {name}: rounds_per_s "
+            f"{out[name]['rps']:.2f}{ratio} ({PLACED_TIMED} rounds after "
+            f"{PLACED_WARM}), host_syncs_per_round "
+            f"{out[name]['syncs_per_round']:.2f} ({card})")
+    del st0
+    torch.cuda.empty_cache()
+    return out
+
+
+def placed_full(rk) -> dict:
+    """Phase 12: the per-round flagship on a placed mesh, parts (a)-(d),
+    each logged beside the card line; the whole phase inside
+    :data:`PHASE12_LIMIT_S`."""
+    import torch
+    card = card_line()
+    t0 = time.perf_counter()
+    one = placed_devices(False)
+    count = torch.cuda.device_count()
+    out = {"exact": placed_exact(rk, N_MAIN, PLACED_P, one, "one card")}
+    n, p = PLACED_RAGGED
+    out["ragged"] = placed_exact(rk, n, p, ["cuda:0"] * p, "one card")
+    out["errs"] = check_shard_kernels(rk, one)
+    out["times"] = measure_kernels(rk, torch.device("cuda:0"), PLACED_ROWS,
+                                   K_MAIN, only=PLACED_KERNELS,
+                                   limit_n=N_MAIN)
+    log_kernel_times(out["times"], f"at n={PLACED_ROWS} k={K_MAIN}, one "
+                     f"shard's launch of {PLACED_P} at n={N_MAIN} "
+                     f"(phase 12 (b))", card)
+    out["timing"] = placed_timing(rk, card, one, "one card")
+    if count >= 2:
+        spread = placed_devices(True)
+        cards = sorted(set(spread))
+        peers = {f"cuda:0->{c}": torch.cuda.can_device_access_peer(
+            0, torch.device(c).index) for c in cards[1:]}
+        log(f"phase 12 (d) {count} cards: shards on {spread}, peer access "
+            f"{json.dumps(peers)}")
+        out["distinct"] = placed_exact(rk, N_MAIN, PLACED_P, spread,
+                                       f"{len(cards)} cards")
+        errs = check_shard_kernels(rk, spread)
+        out["errs"] = {k: max(v, errs[k]) for k, v in out["errs"].items()}
+        out["timing"].update(placed_timing(rk, card, spread,
+                                           f"{len(cards)} cards"))
+    else:
+        log(f"phase 12 (d) one card: all {PLACED_P} shards shared cuda:0 "
+            f"(separate tensors, their own launches and block copies)")
+    out["s"] = time.perf_counter() - t0
+    if out["s"] > PHASE12_LIMIT_S:
+        raise AssertionError(f"phase 12 took {out['s']:.1f} s, over its "
+                             f"{PHASE12_LIMIT_S} s")
+    log(f"phase 12 (e) phase 12 {out['s']:.2f} s on the machine with {card}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4948,6 +5280,8 @@ def main() -> int:
     mark("phase 10 serflint, command lines and example")
     sharded = sharded_full(rk)
     mark("phase 11 sharded round")
+    placed = placed_full(rk)
+    mark("phase 12 placed mesh")
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
         log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "
@@ -5028,6 +5362,9 @@ def main() -> int:
     log(f"phase 11 rounds_per_s (per-round path, N = {N_MAIN}): "
         + ", ".join(f"{what} {timing[what]['rps']:.2f}" for what in timing
                     if "rps" in timing[what]))
+    ptiming = placed["timing"]
+    log(f"phase 12 rounds_per_s (per-round path, N = {N_MAIN}): "
+        + ", ".join(f"{what} {r['rps']:.2f}" for what, r in ptiming.items()))
     for r in host_plane["vivaldi"]:
         log(f"host plane vivaldi n={r['n']}: worst_tol_ratio "
             f"{r['worst_tol_ratio']:.4f} ({r['worst_field']}) s {r['s']:.2f}")
@@ -5045,6 +5382,12 @@ def main() -> int:
         sharded["chaos"]["launches"]
     shard_launches["phase 11 chaos-heal replay on 8 shards"] = \
         sharded["chaos"]["replay_launches"]
+    for part in ("exact", "ragged", "distinct"):
+        for schedule, r in placed.get(part, {}).items():
+            if schedule != "unsharded":
+                shard_launches[f"phase 12 {part} placed {schedule}"] = \
+                    r["launches"]
+    shard_times = placed["times"]
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], path=KERNEL_PATH[name],
                     launches=runs[KERNEL_PATH[name]]["launches"][name],
@@ -5053,7 +5396,8 @@ def main() -> int:
                         **{"churn-query": cq["launches"][name]},
                         **{p: c[name] for p, c in chaos_launches.items()},
                         **{p: c[name] for p, c in shard_launches.items()}),
-                    max_abs_err=errs[name],
+                    max_abs_err=max(errs[name],
+                                    placed["errs"].get(name, 0)),
                     dispatch_us=dispatch_us(runs, rk.DISPATCH_OPS[name]),
                     ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
@@ -5066,6 +5410,9 @@ def main() -> int:
                     bound_ms_k32=times_shed[name]["bound_ms"],
                     **{f"{key}_mesh": mesh_times[name][key]
                        if name in mesh_times else None
+                       for key in ("ms", "plain_ms", "bound_ms")},
+                    **{f"{key}_placed_shard": shard_times[name][key]
+                       if name in shard_times else None
                        for key in ("ms", "plain_ms", "bound_ms")})
                for name, t in times.items()]
     log(json.dumps({"kernels": kernels}))

@@ -9,7 +9,10 @@ bits), every other dtype maps one to one.  This package never sees a
 JAX array — whoever holds one turns it into numpy first.
 
 ``models.checkpoint`` walks any tree of these states with the same
-per-type u32 rule (:func:`u32_field`).
+per-type u32 rule (:func:`u32_field`).  A placed mesh's state
+(``parallel.mesh.PlacedState``) crosses with :func:`to_placed` and
+:func:`from_placed`: the same flat leaves, split into the shards' rows
+on their devices and gathered back.
 """
 
 from __future__ import annotations
@@ -103,3 +106,22 @@ def from_numpy(leaves: Dict[str, np.ndarray], device,
         return cls(**kw)
 
     return build(root, "")
+
+
+def to_placed(leaves: Dict[str, np.ndarray], mesh, root=ClusterState):
+    """Flat reference leaves (a state gathered from the reference's
+    shards, or never sharded) as a ``PlacedState`` on the placed
+    ``mesh``: built on the host, then each shard's rows copied onto its
+    device (``parallel.mesh.shard_state``)."""
+    from serf_tpu_torch.parallel.mesh import shard_state
+    if not mesh.placed:
+        raise ValueError(f"to_placed needs a placed mesh, got {mesh}")
+    return shard_state(from_numpy(leaves, "cpu", root), mesh)
+
+
+def from_placed(placed) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`to_placed`: a ``PlacedState`` as flat numpy
+    leaves of the global state (node-axis leaves in shard order,
+    replicated leaves from shard 0)."""
+    from serf_tpu_torch.parallel.mesh import gather_state
+    return to_numpy(gather_state(placed, "cpu"))

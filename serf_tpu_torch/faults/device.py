@@ -352,6 +352,8 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
     scan).  The other rows are stacked on the device and read once,
     after the whole plan ran."""
     plan.validate()
+    from serf_tpu_torch.parallel.mesh import refuse_placed
+    refuse_placed(mesh, "a chaos plan (run_device_plan)", "chaos")
     if device is None and mesh is not None:
         device = mesh.device
     dev = (state.gossip.known.device if state is not None

@@ -30,7 +30,7 @@ def push_pull_round(state: GossipState, cfg: GossipConfig, key,
     rotation, or iid partners).  Deferred flavor: the sync's learns ride
     the overlay until the next cohort flush — no stamp pass, no
     ``last_clamp`` move, and no host read."""
-    n, k = cfg.n, cfg.k_facts
+    n = cfg.n
     dev = state.known.device
     if cfg.peer_sampling == "rotation":
         off = sample_offsets(key, 1, n, dev)[0]
@@ -46,11 +46,23 @@ def push_pull_round(state: GossipState, cfg: GossipConfig, key,
             ok = ok & (group == group[partners])
     incoming = torch.where(ok[:, None], partner_known,
                            torch.zeros((), dtype=torch.int32, device=dev))
+    return push_pull_merge(state, cfg, incoming)
+
+
+def push_pull_merge(state: GossipState, cfg: GossipConfig,
+                    incoming: torch.Tensor,
+                    learned_any=None) -> GossipState:
+    """The sync's merge of the partners' words ``incoming`` (zero where
+    no partner answered): learn, stamp pass, cache, ledgers.  The
+    per-round flavor's ``learned_any`` is one host read unless the
+    caller passes it (a placed round reads it once for all shards)."""
+    k = cfg.k_facts
     new_words = incoming & ~state.known
     known = state.known | new_words
     if cfg.stamp_deferred:
         return _push_pull_deferred(state, cfg, known, new_words)
-    learned_any = host_bool(torch.any(new_words != 0))
+    if learned_any is None:
+        learned_any = host_bool(torch.any(new_words != 0))
 
     stamp, last_clamp = state.stamp, state.last_clamp
     if learned_any:

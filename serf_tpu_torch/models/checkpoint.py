@@ -138,9 +138,12 @@ def restore(path: str, template: Any, mesh=None) -> Any:
     ``template`` (the ``make_*`` result for the same config).  ``mesh``
     re-shards the restored tree onto a mesh (``parallel.mesh``), failing
     closed with ``ValueError`` when the mesh does not divide a node
-    axis."""
+    axis.  A placed mesh raises ``NotImplementedError`` (a later
+    slice)."""
     import zipfile
 
+    from serf_tpu_torch.parallel.mesh import refuse_placed
+    refuse_placed(mesh, "a checkpoint restore", "chaos")
     try:
         with np.load(path) as data:
             if _SCHEMA_KEY in data:

@@ -419,11 +419,15 @@ def bump_last_learn(learned_any, learn_round, prev) -> torch.Tensor:
     return lr if learned_any else prev
 
 
-def clamp_stamps(stamp: torch.Tensor, round_, last_clamp, cfg: GossipConfig):
+def clamp_stamps(stamp: torch.Tensor, round_, last_clamp, cfg: GossipConfig,
+                 due=None):
     """Standalone wrap-guard pass, run only when no stamp-streaming pass
-    has clamped for ``CLAMP_EVERY`` rounds.  Returns
-    ``(stamp, last_clamp)``."""
-    if not host_bool(round_ - last_clamp >= CLAMP_EVERY):
+    has clamped for ``CLAMP_EVERY`` rounds (``due``, when given, is that
+    gate's answer: a placed round reads it once for all shards).
+    Returns ``(stamp, last_clamp)``."""
+    if due is None:
+        due = host_bool(round_ - last_clamp >= CLAMP_EVERY)
+    if not due:
         return stamp, last_clamp
     if cfg.pack_stamp:
         lo = clamp_nibbles(stamp & 0xF, round_)
@@ -484,14 +488,38 @@ def inject_fact(state: GossipState, cfg: GossipConfig, subject, kind: int,
         one(origin), torch.ones((1,), dtype=torch.bool, device=dev))
 
 
+def owned_rows(idx: torch.Tensor, row0: int, nl: int):
+    """Global row ids ``idx`` on a shard holding rows ``[row0, row0 +
+    nl)``: ``(local row clamped into [0, nl), owned mask)``."""
+    idx = idx.to(torch.int64)
+    own = (idx >= row0) & (idx < row0 + nl)
+    return torch.clamp(idx - row0, 0, nl - 1), own
+
+
+def batch_slots(state: GossipState, k: int, m: int) -> torch.Tensor:
+    """The ring slots a batch of ``m`` facts takes (int64[m])."""
+    return torch.remainder(
+        state.next_slot.to(torch.int64)
+        + torch.arange(m, dtype=torch.int64, device=state.known.device), k)
+
+
 def inject_facts_batch(state: GossipState, cfg: GossipConfig, subjects,
                        kind: int, incarnations, ltimes, origins,
-                       active) -> GossipState:
+                       active, *, row0=None, retired=None) -> GossipState:
     """Inject up to ``M = len(subjects)`` facts in one pass; ``active``
     is a prefix mask.  Equivalent to ``M`` sequential single injections
-    (see the reference for the duplicate-byte and cache-OR rules)."""
+    (see the reference for the duplicate-byte and cache-OR rules).
+
+    ``row0``: ``state`` is a placed shard holding rows ``[row0, row0 +
+    len(state.known))`` of the ``cfg.n``-node cluster
+    (``parallel.placed``): its row writes land on the rows it owns and
+    its replicated leaves take the whole batch, as every shard's do.
+    The caller then owns the retired-DEAD gate, which reads the whole
+    cluster: ``retired`` is the batch's bool[M] flags (``None``: the
+    gate found no DEAD fact to retire)."""
     n, k = cfg.n, cfg.k_facts
     dev = state.known.device
+    nl = state.known.shape[0]
     m = subjects.shape[0]
     if m > k:
         raise ValueError(f"batch of {m} facts exceeds ring capacity {k}")
@@ -500,23 +528,28 @@ def inject_facts_batch(state: GossipState, cfg: GossipConfig, subjects,
     active = active.to(torch.bool)
     facts = state.facts
 
-    slots = torch.remainder(state.next_slot.to(torch.int64)
-                            + torch.arange(m, dtype=torch.int64, device=dev),
-                            k)
+    slots = batch_slots(state, k, m)
     # a gather clamps an out-of-range subject, as the reference's does
     r_subj = torch.clamp(facts.subject[slots].to(torch.int64), 0, n - 1)
-    maybe_dead = facts.valid[slots] & (facts.kind[slots] == K_DEAD) & active
 
     tombstone = state.tombstone
-    if host_bool(maybe_dead.any()):
-        cols = ((state.known[:, slots // 32] >> (slots % 32)[None, :]) & 1
-                ).to(torch.bool)
-        covered = (torch.all(cols | ~state.alive[:, None], dim=0)
-                   & state.alive.any())
-        not_superseded = (as_u64(facts.incarnation[slots])
-                          >= as_u64(state.incarnation[r_subj]))
-        dead_retired = maybe_dead & covered & not_superseded
-        tombstone = scatter_max_bool(tombstone, r_subj, dead_retired)
+    if row0 is None:
+        maybe_dead = (facts.valid[slots] & (facts.kind[slots] == K_DEAD)
+                      & active)
+        if host_bool(maybe_dead.any()):
+            cols = ((state.known[:, slots // 32] >> (slots % 32)[None, :])
+                    & 1).to(torch.bool)
+            covered = (torch.all(cols | ~state.alive[:, None], dim=0)
+                       & state.alive.any())
+            not_superseded = (as_u64(facts.incarnation[slots])
+                              >= as_u64(state.incarnation[r_subj]))
+            retired = maybe_dead & covered & not_superseded
+    if retired is not None:
+        subj_at = r_subj
+        if row0 is not None:
+            local, own = owned_rows(r_subj, row0, nl)
+            subj_at = torch.where(own, local, nl)
+        tombstone = scatter_max_bool(tombstone, subj_at, retired)
 
     window = cfg.transmit_window_rounds
     clobbered = (facts.valid[slots] & active
@@ -527,8 +560,11 @@ def inject_facts_batch(state: GossipState, cfg: GossipConfig, subjects,
     slot_round = _set_drop(state.slot_round, (slots,), state.round, active)
 
     if kind == K_ALIVE:
-        tombstone = _set_drop(tombstone, (torch.clamp(subjects, min=0),),
-                              False, active)
+        subj_rows, subj_keep = torch.clamp(subjects, min=0), active
+        if row0 is not None:
+            subj_rows, own = owned_rows(subj_rows, row0, nl)
+            subj_keep = active & own
+        tombstone = _set_drop(tombstone, (subj_rows,), False, subj_keep)
 
     facts = FactTable(
         subject=_set_drop(facts.subject, (slots,), subjects, active),
@@ -551,7 +587,10 @@ def inject_facts_batch(state: GossipState, cfg: GossipConfig, subjects,
     words = slots // 32
     bitmasks = torch.where(active, bitmask(slots % 32),
                            torch.zeros((), dtype=torch.int32, device=dev))
-    rows = torch.clamp(origins, 0, n - 1)
+    rows, keep = torch.clamp(origins, 0, n - 1), active
+    if row0 is not None:
+        rows, own = owned_rows(rows, row0, nl)
+        keep = active & own
     same_w = ((origins[:, None] == origins[None, :])
               & (words[:, None] == words[None, :])
               & active[:, None] & active[None, :])
@@ -560,7 +599,7 @@ def inject_facts_batch(state: GossipState, cfg: GossipConfig, subjects,
     # identical final value
     orv = wrap_i32(torch.sum(torch.where(same_w, as_u64(bitmasks)[None, :],
                                          0), dim=1))
-    known = _set_drop(known, (rows, words), known[rows, words] | orv, active)
+    known = _set_drop(known, (rows, words), known[rows, words] | orv, keep)
 
     rq = round_q(state.round)
     if cfg.pack_stamp:
@@ -576,16 +615,16 @@ def inject_facts_batch(state: GossipState, cfg: GossipConfig, subjects,
                                     0), dim=1)
         newb = ((gb & ~clear) | val).to(torch.uint8)
         stamp = _set_drop(state.stamp, (rows, torch.clamp(b, 0, cols_n - 1)),
-                          newb, active)
+                          newb, keep)
     else:
         stamp = _set_drop(state.stamp, (rows, slots), rq.to(torch.uint8),
-                          active)
+                          keep)
 
     sendable = state.sendable
     sendable_round = state.sendable_round
     if cfg.use_sendable_cache:
         sendable = _set_drop(sendable, (rows, words),
-                             sendable[rows, words] | orv, active)
+                             sendable[rows, words] | orv, keep)
     else:
         sendable_round = _scalar(-1, dev)
 
@@ -617,41 +656,62 @@ def _topk_padded(scores: torch.Tensor, max_events: int):
     return vals, idx
 
 
+def pick_scores(candidates: torch.Tensor, key, n=None,
+                row0=None) -> torch.Tensor:
+    """:func:`pick_bounded`'s randomized scores (f32), > 0 exactly at
+    the candidates.  ``row0``: ``candidates`` are a placed shard's rows
+    ``[row0, ...)`` of an ``n``-node cluster, and the draw is those
+    rows of the global one."""
+    if row0 is None:
+        n = candidates.shape[0]
+        rows = None
+    else:
+        rows = (row0, row0 + candidates.shape[0])
+    return candidates.to(torch.float32) * (
+        1.0 + prng.uniform(key, (n,), candidates.device, rows))
+
+
+def pick_top(score: torch.Tensor, max_events: int, key):
+    """Choose <= ``max_events`` nodes by their scores (f32[N], > 0 at
+    the candidates): ``(subjects i32[M], active bool[M])`` with the
+    active entries a contiguous prefix.  Small n: one flat top-k; large
+    n: the reference's two-level pick, whose grouping layout (strided or
+    blocks) comes from ``key``."""
+    n = score.shape[0]
+    dev = score.device
+    if n <= _PICK_FLAT_MAX:
+        vals, idx = _topk_padded(score, max_events)
+        return idx.to(torch.int32), vals > 0.0
+    g = _PICK_GROUPS
+    while (n + g - 1) // g > g:
+        g *= 2
+    rows = (n + g - 1) // g
+    padded = score if rows * g == n else torch.cat(
+        [score, score.new_zeros(rows * g - n)])
+    ar = torch.arange(g, dtype=torch.int32, device=dev)
+    if prng.bernoulli(key):
+        s2 = padded.reshape(rows, g)       # column j = indices = j mod g
+        grp_max = torch.amax(s2, dim=0)
+        grp_winner = first_argmax(s2, 0) * g + ar
+    else:
+        s2 = padded.reshape(g, rows)       # row j = a contiguous block
+        grp_max = torch.amax(s2, dim=1)
+        grp_winner = ar * rows + first_argmax(s2, 1)
+    vals, cols = _topk_padded(grp_max, max_events)
+    return grp_winner[cols], vals > 0.0
+
+
 def pick_bounded(candidates: torch.Tensor, max_events: int, key):
     """Choose <= ``max_events`` candidate nodes (bool[N]) by randomized
     scoring.  Returns ``(chosen bool[N], subjects i32[M], active
-    bool[M])`` with the active entries a contiguous prefix.  Small n:
-    one flat top-k; large n: the reference's two-level pick, whose
-    grouping layout (strided or blocks) comes from the key."""
+    bool[M])`` with the active entries a contiguous prefix
+    (:func:`pick_scores`, then :func:`pick_top`)."""
     n = candidates.shape[0]
-    dev = candidates.device
     k_score, k_layout = prng.split(key)
-    score = candidates.to(torch.float32) * (
-        1.0 + prng.uniform(k_score, (n,), dev))
-    if n <= _PICK_FLAT_MAX:
-        vals, idx = _topk_padded(score, max_events)
-        active = vals > 0.0
-        subjects = idx.to(torch.int32)
-    else:
-        g = _PICK_GROUPS
-        while (n + g - 1) // g > g:
-            g *= 2
-        rows = (n + g - 1) // g
-        padded = score if rows * g == n else torch.cat(
-            [score, score.new_zeros(rows * g - n)])
-        ar = torch.arange(g, dtype=torch.int32, device=dev)
-        if prng.bernoulli(k_layout):
-            s2 = padded.reshape(rows, g)       # column j = indices = j mod g
-            grp_max = torch.amax(s2, dim=0)
-            grp_winner = first_argmax(s2, 0) * g + ar
-        else:
-            s2 = padded.reshape(g, rows)       # row j = a contiguous block
-            grp_max = torch.amax(s2, dim=1)
-            grp_winner = ar * rows + first_argmax(s2, 1)
-        vals, cols = _topk_padded(grp_max, max_events)
-        active = vals > 0.0
-        subjects = grp_winner[cols]
-    chosen = _set_drop(torch.zeros((n,), dtype=torch.bool, device=dev),
+    subjects, active = pick_top(pick_scores(candidates, k_score),
+                                max_events, k_layout)
+    chosen = _set_drop(torch.zeros((n,), dtype=torch.bool,
+                                   device=candidates.device),
                        (subjects,), True, active)
     return chosen, subjects, active
 
@@ -717,7 +777,7 @@ def _dispatch(cfg: GossipConfig, mesh) -> str:
 
 
 def select_phase(state: GossipState, cfg: GossipConfig,
-                 mesh=None) -> torch.Tensor:
+                 mesh=None, cached=None, mode=None) -> torch.Tensor:
     """Phase 1 — packet selection: int32[N, W] of sending bits, off the
     sendable cache when it is valid for this round, else recomputed
     from the stamp plane.  The standalone family never trusts the cache
@@ -726,12 +786,16 @@ def select_phase(state: GossipState, cfg: GossipConfig,
     ``select_words``, which reads through the overlay (the stamp-only
     kernel cannot — the reference's design).  On a ``mesh`` either
     select launches once over the whole plane (``ops.round_kernels``'
-    launch rule)."""
-    mode = _dispatch(cfg, mesh)
+    launch rule).  A placed shard (``parallel.placed``) passes the
+    round's ``mode`` and the cache gate's answer ``cached``, each
+    decided once for all shards."""
+    if mode is None:
+        mode = _dispatch(cfg, mesh)
     if mode == "kernels":
         return _select_packets(state, cfg, mesh)
-    cached = (cfg.use_sendable_cache
-              and host_bool(state.sendable_round == state.round))
+    if cached is None:
+        cached = (cfg.use_sendable_cache
+                  and host_bool(state.sendable_round == state.round))
     if cached:
         if mode:
             from serf_tpu_torch.ops import round_kernels
@@ -898,30 +962,49 @@ def merge_phase(state: GossipState, incoming: torch.Tensor,
             last_clamp=r1,
             last_learn=bump_last_learn(torch.any(known != state.known), r1,
                                        state.last_learn))
+    known, pending, learned = merge_learn(state, incoming, cfg, mode, mesh)
+    return merge_apply(state, cfg, mode, known, pending, host_bool(learned))
+
+
+def merge_learn(state: GossipState, incoming: torch.Tensor,
+                cfg: GossipConfig, mode: str, mesh=None):
+    """The per-round merge up to its ``learned_any`` gate: ``(known',
+    pending, learned)``, ``learned`` a device bool.  Fused: one
+    ``fused_merge`` launch, ``pending`` its ``(stamp', sendable')``;
+    plain: ``pending`` the learned words."""
     if mode == "fused":
         from serf_tpu_torch.ops import round_kernels
         known, stamp2, sendable2, flags = round_kernels.fused_merge(
-            state.known, incoming, state.alive, state.stamp, r1,
-            limit_q=cfg.transmit_limit_q, packed=cfg.pack_stamp,
-            k_facts=cfg.k_facts, with_cache=cfg.use_sendable_cache,
-            mesh=mesh)
-        learned_any = host_bool(torch.any(flags != 0))
-        if learned_any:
-            stamp, last_clamp = stamp2, r1
+            state.known, incoming, state.alive, state.stamp,
+            state.round + 1, limit_q=cfg.transmit_limit_q,
+            packed=cfg.pack_stamp, k_facts=cfg.k_facts,
+            with_cache=cfg.use_sendable_cache, mesh=mesh)
+        return known, (stamp2, sendable2), torch.any(flags != 0)
+    new_words = _learn_words(state, incoming)
+    return state.known | new_words, new_words, torch.any(new_words != 0)
+
+
+def merge_apply(state: GossipState, cfg: GossipConfig, mode: str,
+                known: torch.Tensor, pending, learned_any: bool
+                ) -> GossipState:
+    """The per-round merge after its gate (:func:`merge_learn`): with
+    nothing learned the stamp/cache outputs are discarded and
+    ``last_clamp`` does not move; otherwise the fused outputs are kept,
+    or the plain stamp learn pass runs."""
+    r1 = state.round + 1
+    if learned_any:
+        last_clamp = r1
+        if mode == "fused":
+            stamp, sendable2 = pending
             if cfg.use_sendable_cache:
                 sendable, sendable_round = sendable2, r1
             else:
                 sendable, sendable_round = state.sendable, _scalar(
                     -1, r1.device)
-    else:
-        new_words = _learn_words(state, incoming)
-        known = state.known | new_words
-        learned_any = host_bool(torch.any(new_words != 0))
-        if learned_any:
+        else:
             stamp, sendable, sendable_round = learn_stamp_pass(
-                state.stamp, known, new_words, r1, cfg, state.sendable)
-            last_clamp = r1
-    if not learned_any:
+                state.stamp, known, pending, r1, cfg, state.sendable)
+    else:
         stamp, sendable = state.stamp, state.sendable
         sendable_round, last_clamp = state.sendable_round, state.last_clamp
     last_learn = bump_last_learn(learned_any, r1, state.last_learn)

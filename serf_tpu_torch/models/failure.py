@@ -39,6 +39,7 @@ from serf_tpu_torch.models.dissemination import (
     inject_facts_batch,
     mod_age,
     nibble_age_pred_words,
+    owned_rows,
     pick_bounded,
     rolled_rows,
     round_step,
@@ -104,11 +105,17 @@ def _facts_about(state: GossipState, kinds, inc_current: bool = False,
 
 
 def _subject_covered(state: GossipState, cfg: GossipConfig,
-                     kinds) -> torch.Tensor:
-    """bool[N]: the subject already has a current fact of ``kinds``."""
-    active = _facts_about(state, kinds, inc_current=True)
+                     kinds, subj_inc=None, row0=None) -> torch.Tensor:
+    """bool[N]: the subject already has a current fact of ``kinds``
+    (``row0``: on a placed shard, bool over its own rows)."""
+    active = _facts_about(state, kinds, inc_current=True,
+                          subj_inc=subj_inc)
     subj = torch.clamp(state.facts.subject, min=0)
-    covered = torch.zeros((cfg.n,), dtype=torch.bool,
+    nl = state.alive.shape[0]
+    if row0 is not None:
+        local, own = owned_rows(subj, row0, nl)
+        subj = torch.where(own, local, nl)
+    covered = torch.zeros((nl,), dtype=torch.bool,
                           device=state.alive.device)
     return scatter_max_bool(covered, subj, active)
 
@@ -362,11 +369,15 @@ def believer_counts(state: GossipState, cfg: GossipConfig,
 
 
 def believed_subjects(state: GossipState, n: int, believer_cnt,
-                      alive_cnt) -> torch.Tensor:
-    """bool[N]: subjects every alive node believes dead."""
+                      alive_cnt, row0=None) -> torch.Tensor:
+    """bool[N]: subjects every alive node believes dead (``row0``: a
+    placed shard's ``n`` rows from ``row0``)."""
     all_believe = believer_cnt >= torch.clamp(
         torch.as_tensor(alive_cnt), min=1)
     subj = torch.clamp(state.facts.subject, min=0)
+    if row0 is not None:
+        local, own = owned_rows(subj, row0, n)
+        subj = torch.where(own, local, n)
     return scatter_max_bool(
         torch.zeros((n,), dtype=torch.bool, device=state.alive.device),
         subj, all_believe & state.facts.valid)

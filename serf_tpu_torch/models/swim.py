@@ -17,7 +17,10 @@ in-collective one
 (``parallel.ring.round_telemetry_sharded``), bit-exact with the
 unsharded round.  The adaptive controller (``control.enabled``) and the
 per-round telemetry, propagation and invariant rows (the ``collect_*``
-flags) run on both.
+flags) run on both.  A placed mesh (``make_mesh(devices=[...])``, the
+state a ``parallel.mesh.PlacedState`` from ``shard_state``) runs the
+per-round flagship with each shard's rows on its own device
+(``parallel.placed``), the telemetry rows and the controller with it.
 
 Host syncs per round: the reference's round-cadence conds (probe tick,
 push/pull tick) both derive from one read of ``round`` at the top of
@@ -82,6 +85,7 @@ from serf_tpu_torch.models.vivaldi import (
     make_vivaldi,
     vivaldi_update,
 )
+from serf_tpu_torch.parallel.mesh import later_slice
 # the propagation row's field order lives with its readers (as in the
 # reference); re-exported here beside TELEMETRY_FIELDS
 from serf_tpu_torch.obs.propagation import PROPAGATION_FIELDS  # noqa: F401
@@ -167,6 +171,10 @@ def cluster_round(state: ClusterState, cfg: ClusterConfig, key,
     other phase runs on the global tensors, as GSPMD runs it.  With
     ``collect_propagation`` returns ``(state, (slots_sent,
     slots_learned))``."""
+    if mesh is not None and mesh.placed:
+        from serf_tpu_torch.parallel import placed
+        return placed.cluster_round(state, cfg, key, drop_rate=drop_rate,
+                                    collect_propagation=collect_propagation)
     k_gossip, k_probe, k_refute, k_declare, k_pp, k_viv, k_peer = \
         prng.split(key, 7)
     g = state.gossip
@@ -247,6 +255,9 @@ def control_tick(state: ClusterState, cfg: ClusterConfig, row=None,
     collect one, in-collective on ``mesh``) and advance
     ``state.control``.  Returns ``(state, row)``; a pass-through when the
     controller is disabled."""
+    if mesh is not None and mesh.placed:
+        from serf_tpu_torch.parallel import placed
+        return placed.control_tick(state, cfg, row)
     if not cfg.control.enabled:
         return state, row
     if row is None:
@@ -285,6 +296,11 @@ def sustained_round(state: ClusterState, cfg: ClusterConfig, key,
             f"rounds per fact <= the {window}-round transmit window — "
             f"facts retire before they can disseminate (raise k_facts "
             f"or lower events_per_round)")
+    if mesh is not None and mesh.placed:
+        from serf_tpu_torch.parallel import placed
+        if collect_propagation:
+            raise later_slice("the propagation rows", "chaos")
+        return placed.sustained_round(state, cfg, key, m)
     k_org, k_rnd = prng.split(key)
     g = state.gossip
     dev = g.known.device
@@ -319,20 +335,26 @@ def run_cluster_sustained(state: ClusterState, cfg: ClusterConfig, key,
     invariant entry is ``(irows, (cov_max f32[M], alive f32))``, the
     carry of the coverage-monotonicity predicate, which ``inv_cov0``
     seeds for a chunked caller.  ``mesh`` runs the sharded round and the
-    in-collective telemetry row."""
+    in-collective telemetry row; on a placed mesh (the state a
+    ``PlacedState``) the rows are on shard 0's device, and the
+    propagation and invariant rows wait for a later slice."""
     if collect_propagation and events_per_round <= 0:
         raise ValueError(
             "collect_propagation traces the first injected batch as "
             "sentinel facts — it needs events_per_round >= 1")
-    dev = state.gossip.known.device
+    if mesh is not None and mesh.placed and (collect_propagation
+                                             or collect_invariants):
+        raise later_slice("the propagation and invariant rows", "chaos")
     m = events_per_round
     if collect_propagation:
+        dev = state.gossip.known.device
         # the eids sustained_round assigns to the first round's batch
         sentinels = (state.gossip.round * m
                      + torch.arange(m, dtype=torch.int32, device=dev) + 1)
     track_cov = collect_invariants and collect_propagation
     prev_cov = None
     if track_cov:
+        dev = state.gossip.known.device
         prev_cov = inv_cov0 if inv_cov0 is not None else (
             torch.zeros((m,), dtype=torch.float32, device=dev),
             torch.full((), -1.0, dtype=torch.float32, device=dev))
@@ -401,7 +423,7 @@ TELEMETRY_MERGE = {
 
 
 def telemetry_counts(g: GossipState, cfg: ClusterConfig, stretch_q=None,
-                     subj_inc=None, shards: int = 0):
+                     subj_inc=None, shards: int = 0, evidence=None):
     """Stage 1 of the telemetry row: ``(alive_cnt, colcnt int64[K],
     believers int64[K])``, integer sums over the node axis (``shards`` >
     0: each row block's partial sums, with a leading ``shards`` axis,
@@ -409,7 +431,8 @@ def telemetry_counts(g: GossipState, cfg: ClusterConfig, stretch_q=None,
     evidence pass is skip-gated (one host read, the same for every
     shard: it reads the replicated fact table): with no
     current-incarnation dead or suspect fact in the ring its result is
-    the zero vector, as in the reference."""
+    the zero vector, as in the reference.  ``evidence``, when given, is
+    that gate's answer (a placed round reads it once for all shards)."""
     known = unpack_bits(g.known, cfg.gossip.k_facts)
     alive_cnt = node_sum(g.alive, shards)
     colcnt = node_sum(known & g.alive[:, None], shards)
@@ -419,7 +442,9 @@ def telemetry_counts(g: GossipState, cfg: ClusterConfig, stretch_q=None,
                              subj_inc=subj_inc)
     aged_suspect = _facts_about(g, (K_SUSPECT,), inc_current=True,
                                 subj_inc=subj_inc)
-    if host_bool(torch.any(dead_fact | aged_suspect)):
+    if evidence is None:
+        evidence = host_bool(torch.any(dead_fact | aged_suspect))
+    if evidence:
         believers = believer_counts(
             g, cfg.gossip, cfg.failure, stretch_q=stretch_q,
             subj_inc=subj_inc, known=known,
@@ -469,7 +494,11 @@ def round_telemetry(state: ClusterState, cfg: ClusterConfig,
     the row was folded from (the propagation row reuses them).  ``mesh``
     computes the same row in-collective
     (``parallel.ring.round_telemetry_sharded``), the extras then the
-    post-``psum`` counts."""
+    post-``psum`` counts; a placed mesh, the placed row
+    (``parallel.placed.round_telemetry``)."""
+    if mesh is not None and mesh.placed:
+        from serf_tpu_torch.parallel import placed
+        return placed.round_telemetry(state, cfg, with_cols=with_cols)
     if mesh is not None:
         from serf_tpu_torch.parallel.ring import round_telemetry_sharded
         return round_telemetry_sharded(state, cfg, mesh, with_cols=with_cols)

@@ -94,11 +94,17 @@ def estimated_rtt(state: VivaldiState, i, j) -> torch.Tensor:
     return torch.where(adjusted > 0.0, adjusted, dist)
 
 
-def _unit_vectors(diff: torch.Tensor, key):
+def _unit_vectors(diff: torch.Tensor, key, draw_rows=None):
     """Unit vectors along ``diff`` rows; random directions where the
-    points coincide."""
+    points coincide.  ``draw_rows = (row0, n)``: ``diff`` holds rows
+    ``[row0, ...)`` of ``n``, and the directions are those rows of the
+    global ``(n, D)`` draw."""
     mag = _norm(diff)
-    rnd = prng.uniform(key, tuple(diff.shape), diff.device) - 0.5
+    shape, rows = tuple(diff.shape), None
+    if draw_rows is not None:
+        row0, n = draw_rows
+        shape, rows = (n,) + shape[1:], (row0, row0 + diff.shape[0])
+    rnd = prng.uniform(key, shape, diff.device, rows) - 0.5
     rnd_mag = torch.clamp(_norm(rnd), min=ZERO_THRESHOLD)
     coincident = mag <= ZERO_THRESHOLD
     unit = torch.where(coincident[:, None], rnd / rnd_mag[:, None],
@@ -107,10 +113,14 @@ def _unit_vectors(diff: torch.Tensor, key):
 
 
 def vivaldi_update(state: VivaldiState, cfg: VivaldiConfig, peer, rtt, key,
-                   active=None, peer_roll=None) -> VivaldiState:
+                   active=None, peer_roll=None, peer_rows=None,
+                   draw_rows=None) -> VivaldiState:
     """One observation per node: node i measured ``rtt[i]`` against
     ``peer[i]`` (or against ``(i + peer_roll) % n`` with ``peer_roll``,
-    read as a rolled index).  Inactive nodes keep their state."""
+    read as a rolled index).  Inactive nodes keep their state.  A placed
+    shard (``parallel.placed``) passes its peers' ``(vec, height, error,
+    adjustment)`` rows as ``peer_rows``, fetched from the shards that
+    hold them, and ``draw_rows = (row0, n)`` (:func:`_unit_vectors`)."""
     n = state.vec.shape[0]
     dev = state.vec.device
     if active is None:
@@ -132,7 +142,9 @@ def vivaldi_update(state: VivaldiState, cfg: VivaldiConfig, peer, rtt, key,
     else:
         ring, rtt_seen = state.rtt_ring, state.rtt_seen
 
-    if peer_roll is None:
+    if peer_rows is not None:
+        p_vec, p_h, p_err, p_adj = peer_rows
+    elif peer_roll is None:
         peer = peer.to(torch.int64)
         p_vec, p_h = state.vec[peer], state.height[peer]
         p_err, p_adj = state.error[peer], state.adjustment[peer]
@@ -152,7 +164,7 @@ def vivaldi_update(state: VivaldiState, cfg: VivaldiConfig, peer, rtt, key,
         state.error * (1.0 - cfg.ce * weight) + wrongness * cfg.ce * weight,
         max=cfg.error_max)
     force = cfg.cc * weight * (rtt - dist)
-    unit, mag = _unit_vectors(state.vec - p_vec, k_force)
+    unit, mag = _unit_vectors(state.vec - p_vec, k_force, draw_rows)
     vec = state.vec + unit * force[:, None]
     height = torch.where(
         mag > 0.0,
@@ -176,7 +188,7 @@ def vivaldi_update(state: VivaldiState, cfg: VivaldiConfig, peer, rtt, key,
     origin_adj = origin_raw + adjustment
     origin_dist = torch.where(origin_adj > 0.0, origin_adj, origin_raw)
     g_force = -1.0 * (origin_dist / cfg.gravity_rho) ** 2
-    g_unit, g_mag = _unit_vectors(vec, k_grav)
+    g_unit, g_mag = _unit_vectors(vec, k_grav, draw_rows)
     g_vec = vec + g_unit * g_force[:, None]
     g_height = torch.where(
         g_mag > 0.0,
@@ -234,7 +246,15 @@ def ground_truth_rtt(positions: torch.Tensor, i, j,
 def ground_truth_rtt_rolled(positions: torch.Tensor, shift,
                             base: float = 0.005) -> torch.Tensor:
     """``ground_truth_rtt(positions, i, (i+shift)%n)`` for all i."""
-    return base + _norm(positions - rolled_rows(positions, shift))
+    return ground_truth_rtt_rows(positions, rolled_rows(positions, shift),
+                                 base)
+
+
+def ground_truth_rtt_rows(positions: torch.Tensor, peer_positions,
+                          base: float = 0.005) -> torch.Tensor:
+    """``ground_truth_rtt`` of each row of ``positions`` against the same
+    row of ``peer_positions``."""
+    return base + _norm(positions - peer_positions)
 
 
 def mean_relative_error(state: VivaldiState, cfg: VivaldiConfig,

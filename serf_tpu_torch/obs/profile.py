@@ -393,6 +393,8 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
     from serf_tpu_torch.obs.device import dispatch_timer
 
     n_devices = 1
+    from serf_tpu_torch.parallel.mesh import refuse_placed
+    refuse_placed(mesh, "the round profile (roundprof --mesh)", "tools")
     if mesh is not None:
         from serf_tpu_torch.parallel.mesh import shards
         n_devices = shards(mesh)

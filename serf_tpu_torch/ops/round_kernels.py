@@ -45,6 +45,13 @@ the unsharded run's.  ``merge_incoming`` takes no mesh: on a mesh the
 standalone family takes the plain path by the reference's dispatch
 rule.
 
+A placed mesh (``parallel.placed``) calls each wrapper once per shard,
+with no ``mesh``, on that shard's ``N/P`` rows: the reference's
+``_maybe_shard`` launch per chip.  Every launch runs under
+``torch.cuda.device`` of its operands, on that device's current stream,
+so a shard on another card launches there whatever device is current;
+operands on two devices raise.
+
 Every kernel call, on the CPU as on the card, runs under
 ``obs.device.dispatch_timer`` with the reference's op name
 (:data:`DISPATCH_OPS`) and signature, so on the card
@@ -61,6 +68,7 @@ link.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Tuple
 
@@ -216,10 +224,15 @@ def _mesh_shards(mesh, n: int) -> int:
     return d
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, device, fn, *args) -> None:
+    """Launch kernel ``name`` on ``device`` (its operands' card), on that
+    device's current stream."""
     from serf_tpu_torch.ops import build
-    stream = torch.cuda.current_stream().cuda_stream
-    build.check(fn(*args, stream), name)
+    guard = (torch.cuda.device(device) if device.type == "cuda"
+             else contextlib.nullcontext())
+    with guard:
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(fn(*args, stream), name)
     LAUNCHES[name] += 1
 
 
@@ -311,7 +324,7 @@ def select_packets(stamp: torch.Tensor, known: torch.Tensor,
     _check_alive(alive, n)
     rnd = _round_scalar(round_, known.device)
     out = torch.empty_like(known)
-    _launch("select_packets", _lib().serf_select_packets,
+    _launch("select_packets", known.device, _lib().serf_select_packets,
             stamp.data_ptr(), known.data_ptr(), alive.data_ptr(),
             rnd.data_ptr(), out.data_ptr(), n, w, cols, int(limit_q),
             int(packed))
@@ -340,7 +353,7 @@ def merge_incoming(known: torch.Tensor, incoming: torch.Tensor,
     rnd = _round_scalar(next_round, known.device)
     known2 = torch.empty_like(known)
     stamp2 = torch.empty_like(stamp)
-    _launch("merge_incoming", _lib().serf_merge_incoming,
+    _launch("merge_incoming", known.device, _lib().serf_merge_incoming,
             known.data_ptr(), incoming.data_ptr(), alive.data_ptr(),
             stamp.data_ptr(), rnd.data_ptr(), known2.data_ptr(),
             stamp2.data_ptr(), n, w, cols, int(packed))
@@ -367,7 +380,8 @@ def fused_select_cached(sendable: torch.Tensor, known: torch.Tensor,
     _check_alive(alive, n)
     out = torch.empty_like(known)
     _check(out, "out", torch.int32, (n, w))
-    _launch("fused_select_cached", _lib().serf_fused_select_cached,
+    _launch("fused_select_cached", known.device,
+            _lib().serf_fused_select_cached,
             sendable.data_ptr(), known.data_ptr(), alive.data_ptr(),
             out.data_ptr(), n, w)
     return out
@@ -405,7 +419,7 @@ def fused_merge(known: torch.Tensor, incoming: torch.Tensor,
     # the kernel writes every block's count, a shard's blocks in one run
     flags = torch.empty((shards * -(-(n // shards * w) // THREADS),),
                         dtype=torch.int32, device=known.device)
-    _launch("fused_merge", _lib().serf_fused_merge,
+    _launch("fused_merge", known.device, _lib().serf_fused_merge,
             known.data_ptr(), incoming.data_ptr(), alive.data_ptr(),
             stamp.data_ptr(), rnd.data_ptr(), known2.data_ptr(),
             stamp2.data_ptr(), send.data_ptr() if with_cache else None,
@@ -441,7 +455,7 @@ def fused_flush(known2: torch.Tensor, new_words: torch.Tensor,
     rnd = _round_scalar(next_round, stamp.device)
     stamp2 = torch.empty_like(stamp)
     send = torch.empty_like(known2) if with_cache else None
-    _launch("fused_flush", _lib().serf_fused_flush,
+    _launch("fused_flush", stamp.device, _lib().serf_fused_flush,
             known2.data_ptr(), new_words.data_ptr(), overlay.data_ptr(),
             stamp.data_ptr(), rnd.data_ptr(), stamp2.data_ptr(),
             send.data_ptr() if with_cache else None, n, w, cols,

@@ -1,11 +1,14 @@
-"""Node-axis sharding on a mesh of virtual shards (``mesh``), the
-flagship sharded exchange with its two schedules and the in-collective
-telemetry legs (``ring``), and the multi-process hybrid mesh
-(``multihost``).  Counterpart of ``serf_tpu/parallel/``."""
+"""Node-axis sharding on a mesh of virtual or placed shards (``mesh``),
+the flagship sharded exchange with its two schedules and the
+in-collective telemetry legs (``ring``), the per-round flagship with
+each shard's rows on its own device (``placed``), and the multi-process
+hybrid mesh (``multihost``).  Counterpart of ``serf_tpu/parallel/``."""
 
 from serf_tpu_torch.parallel.mesh import (
     NODE_AXIS,
+    PlacedState,
     best_device_count,
+    gather_state,
     make_mesh,
     shard_state,
     state_shardings,
@@ -16,6 +19,6 @@ from serf_tpu_torch.parallel.ring import (
     sharded_round_step,
 )
 
-__all__ = ["NODE_AXIS", "best_device_count", "make_mesh", "shard_state",
-           "state_shardings", "EXCHANGE_SCHEDULES", "exchange_sharded",
-           "sharded_round_step"]
+__all__ = ["NODE_AXIS", "PlacedState", "best_device_count", "gather_state",
+           "make_mesh", "shard_state", "state_shardings",
+           "EXCHANGE_SCHEDULES", "exchange_sharded", "sharded_round_step"]

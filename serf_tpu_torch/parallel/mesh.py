@@ -1,4 +1,4 @@
-"""Node-axis sharding of the cluster state: a mesh of virtual shards.
+"""Node-axis sharding of the cluster state: virtual and placed meshes.
 
 Counterpart of ``serf_tpu/parallel/mesh.py``.  The reference shards
 every per-node array across chips on the node dimension and lets GSPMD
@@ -7,24 +7,32 @@ authored cross-chip leg, the gossip exchange, runs under ``shard_map``
 (``parallel.ring``).  The reference's own evidence for that path runs in
 one process, on eight virtual CPU devices.
 
-This package keeps that shape on one device.  A :class:`Mesh` is ``P``
-virtual shards of one device (``"cuda"`` unless the caller asks for
-another).  The state keeps its global layout: a node-axis leaf ``(N,
-...)`` *is* ``P`` contiguous row blocks ``(P, N/P, ...)`` as a view, so
-the phases GSPMD partitions run unchanged on the global tensors and give
-the global result, as GSPMD does.  The authored legs run per shard: the
-exchange's ring and all-gather schedules (``parallel.ring``), each
-kernel on its ``N/P`` rows (``ops.round_kernels``) and the telemetry
-row's ``pmax``/``psum`` legs.  A mesh whose shards span distinct devices
-(cards, or the ranks of a process group) is the four-card leg, which
-needs every GSPMD phase partitioned by hand; :func:`make_mesh` refuses
-it with ``NotImplementedError``.
+A :class:`Mesh` takes one of two forms:
+
+- **virtual** (the default): ``P`` shards of one device (``"cuda"``
+  unless the caller asks for another).  The state keeps its global
+  layout: a node-axis leaf ``(N, ...)`` *is* ``P`` contiguous row blocks
+  ``(P, N/P, ...)`` as a view, so the phases GSPMD partitions run
+  unchanged on the global tensors, and the authored legs run per shard
+  over the blocks (``parallel.ring``, ``ops.round_kernels``' launch
+  rule).  :func:`shard_state` places nothing: it checks the placement.
+- **placed** (``mesh.placed``): every shard holds its ``N/P`` rows of
+  each node-axis leaf, and a full copy of each replicated leaf, as
+  tensors of its own on its own device.  :func:`make_mesh` builds one
+  from a list of distinct devices (a card each), or with ``placed=True``
+  from a list that repeats one device (the shards then share it, still
+  separate tensors with their own launches and explicit block copies).
+  :func:`shard_state` splits a state into a :class:`PlacedState`,
+  :func:`gather_state` brings one back to one device, and
+  :func:`replicas_differ` checks that the shards agree on every
+  replicated leaf.  The per-round flagship runs on it
+  (``parallel.placed``); every other path that takes a mesh raises
+  ``NotImplementedError`` on a placed one, naming its later slice
+  (:data:`LATER_SLICES`, :func:`refuse_placed`).
 
 The placement rule (:func:`partition_specs`) is the reference's, kept as
 data: a leaf shards on axis 0, on axis 1 (the ``[Q, N]`` query planes,
-the ``[P, N]`` fault masks), or is replicated.  :func:`shard_state`
-places nothing on one device: it checks that every node-axis leaf
-divides the mesh and that the state lies on the mesh's device.
+the ``[P, N]`` fault masks), or is replicated.
 """
 
 from __future__ import annotations
@@ -33,10 +41,32 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 NODE_AXIS = "nodes"
 
-#: what a mesh over more than one device waits for
-FOUR_CARD_LEG = ("a mesh over distinct devices or processes is the "
-                 "four-card leg (every GSPMD phase partitioned by hand), "
-                 "not ported: it waits for a cell with \"chips\": 4")
+#: the slices of the four-card port still to come, in order; a path on a
+#: placed mesh that waits for one raises ``NotImplementedError`` naming it
+LATER_SLICES = {
+    "flavours": "the deferred and phased flavours on a placed mesh (the "
+                "placed launches of fused_flush and merge_incoming)",
+    "chaos": "churn-query, chaos, replay and checkpoint on a placed mesh",
+    "tools": "the tools on a placed mesh (multichip_ab, roundprof --mesh, "
+             "chaos --devices, entry.dryrun_multichip)",
+    "processes": "multi-process meshes over torch.distributed with nccl, "
+                 "one rank a card",
+}
+
+
+def later_slice(what: str, later: str) -> NotImplementedError:
+    """The error of ``what`` on a placed mesh, which waits for
+    ``LATER_SLICES[later]``."""
+    return NotImplementedError(
+        f"{what} on a placed mesh is not ported yet: it waits for the "
+        f"slice of {LATER_SLICES[later]}")
+
+
+def refuse_placed(mesh, what: str, later: str) -> None:
+    """Raise :func:`later_slice`'s error if ``mesh`` is placed: ``what``
+    never falls back to the virtual mesh or to the CPU."""
+    if mesh is not None and mesh.placed:
+        raise later_slice(what, later)
 
 
 class PartitionSpec(tuple):
@@ -62,23 +92,40 @@ class NamedSharding(NamedTuple):
 
 
 class Mesh:
-    """Named axes of virtual shards on one device.  ``shape`` maps each
-    axis name to its size (``mesh.shape[NODE_AXIS]`` reads as in the
-    reference), ``size`` is their product."""
+    """Named axes of shards.  ``shape`` maps each axis name to its size
+    (``mesh.shape[NODE_AXIS]`` reads as in the reference), ``size`` is
+    their product.  Virtual: ``devices`` is ``None`` and every shard is
+    a row block on ``device``.  Placed: ``devices`` names each shard's
+    device, in shard order, and ``device`` is shard 0's (where gathers
+    and the round's host reads land)."""
 
-    def __init__(self, shape: Dict[str, int], device):
+    def __init__(self, shape: Dict[str, int], device, devices=None):
         import torch
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
-        self.device = torch.device(device)
         size = 1
         for v in self.shape.values():
             if int(v) < 1:
                 raise ValueError(f"mesh axis sizes must be >= 1: {shape}")
             size *= int(v)
         self.size = size
+        self.devices = None
+        if devices is not None:
+            self.devices = tuple(torch.device(d) for d in devices)
+            if len(self.devices) != size:
+                raise ValueError(f"{len(self.devices)} devices for a "
+                                 f"{size}-shard mesh")
+            device = self.devices[0]
+        self.device = torch.device(device)
+
+    @property
+    def placed(self) -> bool:
+        return self.devices is not None
 
     def __repr__(self) -> str:
+        if self.placed:
+            return (f"Mesh({self.shape}, placed on "
+                    f"{[str(d) for d in self.devices]})")
         return f"Mesh({self.shape}, device={self.device})"
 
 
@@ -94,31 +141,35 @@ def _normalized(device):
 
 
 def make_mesh(n_devices: Optional[int] = None, devices=None, *,
-              device=None) -> Mesh:
-    """A node-axis mesh of ``n_devices`` virtual shards (1 if ``None``)
-    on ``device`` (default ``"cuda"``; raises without a card unless the
+              device=None, placed: bool = False) -> Mesh:
+    """A node-axis mesh of ``n_devices`` shards (1 if ``None``) on
+    ``device`` (default ``"cuda"``; raises without a card unless the
     caller passes another device).  ``devices``, as in the reference, is
-    the list of the shards' devices: it may name one device any number
-    of times (one shard each), and a list naming more than one distinct
-    device raises ``NotImplementedError`` (the four-card leg)."""
+    the list of the shards' devices, one shard each: a list naming more
+    than one distinct device gives a placed mesh; a list naming one
+    device gives virtual shards of it.  ``placed=True`` asks for a
+    placed mesh whatever the list (or ``n_devices`` placed shards all on
+    ``device``): the one-card form of the placed mesh."""
     from serf_tpu_torch import resolve_device
 
     if devices is not None:
-        devs = [_normalized(d) for d in devices]
+        devs = [_normalized(resolve_device(d)) for d in devices]
         if not devs:
             raise ValueError("make_mesh: an empty device list")
-        if len(set(devs)) > 1:
-            raise NotImplementedError(
-                f"make_mesh over {sorted(str(d) for d in set(devs))}: "
-                + FOUR_CARD_LEG)
-        return Mesh({NODE_AXIS: len(devs)}, resolve_device(devs[0]))
+        if placed or len(set(devs)) > 1:
+            return Mesh({NODE_AXIS: len(devs)}, devs[0], devices=devs)
+        return Mesh({NODE_AXIS: len(devs)}, devs[0])
     n = 1 if n_devices is None else int(n_devices)
-    return Mesh({NODE_AXIS: n}, _normalized(resolve_device(device)))
+    dev = _normalized(resolve_device(device))
+    if placed:
+        return Mesh({NODE_AXIS: n}, dev, devices=[dev] * n)
+    return Mesh({NODE_AXIS: n}, dev)
 
 
 def shards(mesh) -> int:
-    """The node axis's shard count of a mesh (1 without one)."""
-    return 1 if mesh is None else int(mesh.shape[NODE_AXIS])
+    """The node axis's shard count of a mesh (1 without one; the whole
+    size of a hybrid mesh, whose node axis spans both of its axes)."""
+    return 1 if mesh is None else int(mesh.shape.get(NODE_AXIS, mesh.size))
 
 
 def best_device_count(n: int, available: int) -> int:
@@ -243,14 +294,15 @@ def state_shardings(state, mesh: Mesh):
                               for _, names, leaf in flat])
 
 
-def check_placement(state, mesh: Mesh, what: str = "shard_state") -> None:
+def check_placement(state, mesh: Mesh, what: str = "shard_state",
+                    device=None) -> None:
     """Raise ``ValueError`` unless every node-axis leaf of ``state``
     divides the mesh's shard count along its node axis and every tensor
-    leaf lies on the mesh's device."""
+    leaf lies on the mesh's device (or on ``device``)."""
     import torch
 
     d = int(mesh.size)
-    want = _normalized(mesh.device)
+    want = _normalized(mesh.device if device is None else device)
     for path, names, leaf in _flat_with_names(state):
         if not isinstance(leaf, torch.Tensor):
             continue
@@ -266,13 +318,118 @@ def check_placement(state, mesh: Mesh, what: str = "shard_state") -> None:
                 f"mesh")
 
 
+class PlacedState:
+    """A state on a placed mesh: ``shards[s]`` is the state's tree with
+    shard ``s``'s rows of every node-axis leaf and a full copy of every
+    replicated leaf, all on ``mesh.devices[s]``."""
+
+    def __init__(self, shards, mesh: Mesh):
+        self.shards = tuple(shards)
+        self.mesh = mesh
+        if len(self.shards) != mesh.size:
+            raise ValueError(f"{len(self.shards)} shard states for a "
+                             f"{mesh.size}-shard mesh")
+
+    def __repr__(self) -> str:
+        return f"PlacedState({type(self.shards[0]).__name__}, {self.mesh})"
+
+
+def _split_leaf(names, leaf, d: int) -> list:
+    """A leaf's ``d`` shard pieces, each its own contiguous tensor (a
+    replicated leaf: the whole leaf each)."""
+    import torch
+    if not isinstance(leaf, torch.Tensor):
+        return [leaf] * d
+    axis = node_axis(_spec_for(names, leaf))
+    if axis is None:
+        return [leaf] * d
+    return list(torch.chunk(leaf, d, dim=axis))
+
+
 def shard_state(state, mesh: Mesh):
-    """Place ``state`` on ``mesh``: on one device every node-axis leaf is
-    already its shards' row blocks, so this checks the placement
-    (:func:`check_placement`) and returns ``state`` itself; it copies
-    nothing."""
-    check_placement(state, mesh)
-    return state
+    """Place ``state`` on ``mesh``.  Virtual: every node-axis leaf is
+    already its shards' row blocks on the mesh's device, so this checks
+    the placement (:func:`check_placement`) and returns ``state``
+    itself.  Placed: a :class:`PlacedState` whose shard ``s`` holds its
+    ``N/P`` rows (axis 0, or axis 1 for the ``[Q, N]`` and ``[P, N]``
+    planes) and a copy of every replicated leaf, copied onto
+    ``mesh.devices[s]`` from wherever ``state`` lies."""
+    if not mesh.placed:
+        check_placement(state, mesh)
+        return state
+    import torch
+    check_placement(state, mesh, device=_leaf_device(state))
+    d = mesh.size
+    flat = _flat_with_names(state)
+    pieces = [_split_leaf(names, leaf, d) for _, names, leaf in flat]
+    out = []
+    for s, dev in enumerate(mesh.devices):
+        leaves = [p[s].to(dev, copy=True).contiguous()
+                  if isinstance(p[s], torch.Tensor) else p[s]
+                  for p in pieces]
+        out.append(_unflatten(state, leaves))
+    return PlacedState(out, mesh)
+
+
+def _leaf_device(state):
+    """The device of ``state``'s first tensor leaf (``cpu`` if none)."""
+    import torch
+    for _, _, leaf in _flat_with_names(state):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    return torch.device("cpu")
+
+
+def gather_state(placed: PlacedState, device=None):
+    """The global state of a :class:`PlacedState` on one device (default
+    the mesh's shard 0 device): node-axis leaves concatenated in shard
+    order, replicated leaves from shard 0.  Copies only; no host read."""
+    import torch
+    dev = placed.mesh.device if device is None else torch.device(device)
+    flats = [_flat_with_names(st) for st in placed.shards]
+    leaves = []
+    for i, (_, names, leaf) in enumerate(flats[0]):
+        if not isinstance(leaf, torch.Tensor):
+            leaves.append(leaf)
+            continue
+        axis = node_axis(_spec_for(names, leaf))
+        if axis is None:
+            leaves.append(leaf.to(dev))
+        else:
+            leaves.append(torch.cat([f[i][2].to(dev) for f in flats],
+                                    dim=axis))
+    return _unflatten(placed.shards[0], leaves)
+
+
+def replicas_differ(placed: PlacedState) -> List[str]:
+    """The replicated leaves on which some shard differs from shard 0
+    (``[]`` when every shard holds the same copy), compared on shard 0's
+    device."""
+    import torch
+    flats = [_flat_with_names(st) for st in placed.shards]
+    bad = []
+    for i, (path, names, leaf) in enumerate(flats[0]):
+        if not isinstance(leaf, torch.Tensor) or \
+                node_axis(_spec_for(names, leaf)) is not None:
+            continue
+        for s, f in enumerate(flats[1:], start=1):
+            other = f[i][2].to(leaf.device)
+            if other.shape != leaf.shape or not torch.equal(other, leaf):
+                bad.append(f"{path} (shard {s})")
+    return bad
+
+
+def check_shards(placed: PlacedState, what: str = "placed round") -> None:
+    """Raise ``ValueError`` unless shard ``s``'s every tensor leaf lies on
+    ``mesh.devices[s]`` (tensor metadata only; no copy, no read)."""
+    import torch
+    for s, (st, dev) in enumerate(zip(placed.shards, placed.mesh.devices)):
+        want = _normalized(dev)
+        for path, _, leaf in _flat_with_names(st):
+            if isinstance(leaf, torch.Tensor) and \
+                    _normalized(leaf.device) != want:
+                raise ValueError(f"{what}: shard {s}'s leaf {path!r} lies "
+                                 f"on {leaf.device}, the shard on {dev}")
 
 
 def emit_shard_metrics(n_devices: int, schedule: str,

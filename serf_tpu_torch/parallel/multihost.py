@@ -5,12 +5,13 @@ hosts with ``jax.distributed``, lays its devices out as a 2-D ``(dcn,
 ici)`` mesh and shards the node dimension over both axes.  Here the
 processes join a ``torch.distributed`` process group
 (:func:`initialize_multihost`: ``gloo`` on the CPU, ``nccl`` on cards),
-and :func:`make_hybrid_mesh` is ``(world size, local shards)`` — with
-one process it degenerates to ``(1, P)``, virtual shards of this
-process's device, on which :func:`shard_cluster_hybrid` checks the
-placement as ``parallel.mesh.shard_state`` does.  A state sharded over
-more than one process is the four-card leg (every GSPMD phase
-partitioned by hand) and raises ``NotImplementedError``.
+and :func:`make_hybrid_mesh` is ``(world size, local shards)``.  With
+one process it degenerates to ``(1, P)``: virtual shards of this
+process's device, or, given the local ``devices``, a placed mesh with a
+shard on each (``parallel.mesh``); :func:`shard_cluster_hybrid` places
+the state on either as ``parallel.mesh.shard_state`` does.  A state
+sharded over more than one process raises ``NotImplementedError``,
+naming the multi-process slice (``nccl``, one rank a card).
 """
 
 from __future__ import annotations
@@ -18,11 +19,11 @@ from __future__ import annotations
 from typing import Optional
 
 from serf_tpu_torch.parallel.mesh import (
-    FOUR_CARD_LEG,
+    LATER_SLICES,
     Mesh,
     NamedSharding,
     P,
-    check_placement,
+    shard_state,
 )
 
 DCN_AXIS = "dcn"
@@ -67,13 +68,21 @@ def process_count() -> int:
     return 1
 
 
-def make_hybrid_mesh(local_shards: int = 1, *, device=None) -> Mesh:
+def make_hybrid_mesh(local_shards: int = 1, *, device=None,
+                     devices=None) -> Mesh:
     """``(dcn, ici)`` mesh: processes on the outer axis, this process's
-    ``local_shards`` virtual shards (on ``device``, default ``"cuda"``)
-    inner.  With one process this degenerates to ``(1, local_shards)``."""
+    shards inner — ``local_shards`` virtual shards (on ``device``,
+    default ``"cuda"``), or with ``devices`` a placed shard on each of
+    this process's listed devices.  With one process this degenerates to
+    ``(1, local_shards)`` or ``(1, len(devices))``."""
     from serf_tpu_torch import resolve_device
     from serf_tpu_torch.parallel.mesh import _normalized
 
+    if devices is not None:
+        devs = [_normalized(resolve_device(d)) for d in devices]
+        return Mesh({DCN_AXIS: process_count(), ICI_AXIS: len(devs)},
+                    devs[0],
+                    devices=devs if process_count() == 1 else None)
     return Mesh({DCN_AXIS: process_count(), ICI_AXIS: int(local_shards)},
                 _normalized(resolve_device(device)))
 
@@ -87,13 +96,14 @@ def hybrid_node_sharding(mesh: Mesh) -> NamedSharding:
 def shard_cluster_hybrid(state, mesh: Mesh):
     """Place a ClusterState on the hybrid mesh (the same rules as
     ``parallel.mesh``: per-node arrays shard, facts replicate).  With one
-    process every node-axis leaf must divide the mesh and lie on its
-    device, and the state is returned as it is; over several processes
-    it raises ``NotImplementedError`` (the four-card leg)."""
+    process this is ``parallel.mesh.shard_state`` (virtual: the state as
+    it is, checked; placed: a ``PlacedState``); over several processes
+    it raises ``NotImplementedError``, naming the multi-process
+    slice."""
     if mesh.shape[DCN_AXIS] > 1:
         raise NotImplementedError(
-            f"shard_cluster_hybrid over {mesh.shape[DCN_AXIS]} processes: "
-            + FOUR_CARD_LEG)
-    check_placement(state, mesh, what="shard_cluster_hybrid")
-    return state
+            f"shard_cluster_hybrid over {mesh.shape[DCN_AXIS]} processes "
+            f"is not ported yet: it waits for the slice of "
+            f"{LATER_SLICES['processes']}")
+    return shard_state(state, mesh)
 

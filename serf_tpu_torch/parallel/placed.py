@@ -1,0 +1,798 @@
+"""The per-round flagship on a placed mesh: each shard's rows are tensors
+of their own, on their own device, driven from one process.
+
+Counterpart of the reference's multi-chip round (``models/swim.py``
+``cluster_round`` with a mesh over ``jax.devices()``), where GSPMD
+partitions every elementwise or rolled phase across the chips and the
+authored legs run under ``shard_map``.  Here every phase is partitioned
+by hand and issued shard by shard, in shard order (the calls are
+asynchronous, so shards on distinct cards overlap):
+
+- row-local work runs on the shard's own rows, on its device, through
+  the same model code as the unsharded round (``row0=`` and the
+  ``*_rows`` arguments name where a shard's rows lie);
+- a rolled read (a rotation peer, a probe target or helper, a push/pull
+  partner, a Vivaldi peer) fetches the one or two contiguous row runs it
+  needs from the shards that hold them (:func:`window`), iid reads the
+  whole plane (:func:`gather_all`): block copies, peer to peer between
+  cards;
+- the gossip exchange runs the reference's two schedules across the
+  shards (:func:`exchange_placed`): ``ring`` moves each packet block
+  shard to shard, one hop at a time; ``allgather`` assembles the whole
+  packet plane on each shard's device;
+- a reduction over the node axis (a skip gate, the merge's learn flags,
+  the telemetry partials) reduces each shard's integer partial on shard
+  0's device in shard order, so each gate is one counted host read, as
+  in the unsharded round;
+- a gather at a few global rows (a fact subject's incarnation, a picked
+  node's origin) takes each value from the shard that owns its row
+  (:func:`take`), and the few node-axis scatters of iid probing sum the
+  shards' partial planes;
+- replicated leaves (the fact table, the scalars, the controller) are
+  computed alike on every shard from replicated inputs.
+
+Each kernel launches once per shard over its ``N/P`` rows on its device
+(the reference's ``_maybe_shard``).  The round is bit-exact with the
+unsharded one on every integer leaf; Vivaldi runs the same float32 ops
+on each row.
+
+Scope: the per-round flavour, fused or plain, with rotation or iid
+peers, round-robin or random probes, the controller and the telemetry
+rows.  The deferred and phased flavours, chaos (``drop_rate``) and the
+propagation and invariant rows raise ``NotImplementedError`` naming
+their slice (``parallel.mesh.LATER_SLICES``).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from serf_tpu_torch import host_bool, host_int, prng
+from serf_tpu_torch.bits import MASK32, as_u64, pack_bits, unpack_bits
+from serf_tpu_torch.bits import alive_words as _alive_words
+from serf_tpu_torch.control.device import (
+    KNOB_FANOUT,
+    KNOB_PROBE_MULT,
+    KNOB_STRETCH_Q,
+    ControlSignals,
+    control_step,
+    gate_injections,
+)
+from serf_tpu_torch.models import vivaldi as viv
+from serf_tpu_torch.models.antientropy import push_pull_merge
+from serf_tpu_torch.models.dissemination import (
+    CLAMP_EVERY,
+    K_ALIVE,
+    K_DEAD,
+    K_SUSPECT,
+    K_USER_EVENT,
+    GossipConfig,
+    batch_slots,
+    clamp_stamps,
+    first_argmax,
+    inject_facts_batch,
+    launch_mode,
+    merge_apply,
+    merge_learn,
+    mod_age,
+    nibble_age_pred_words,
+    owned_rows,
+    pick_scores,
+    pick_top,
+    scatter_max_bool,
+    select_phase,
+)
+from serf_tpu_torch.models.failure import (
+    FailureConfig,
+    _facts_about,
+    _refutation_matrix,
+    _subject_covered,
+    believed_subjects,
+    live_suspicions,
+    suspicion_q_of,
+)
+from serf_tpu_torch.parallel.mesh import (
+    PlacedState,
+    check_shards,
+    later_slice,
+)
+
+
+class Layout:
+    """Where an ``n``-node state's rows lie on a placed mesh: shard ``s``
+    holds rows ``[s * nl, (s + 1) * nl)`` on ``devs[s]``."""
+
+    def __init__(self, mesh, n: int):
+        if n % mesh.size:
+            raise ValueError(f"a {mesh.size}-shard placed mesh does not "
+                             f"divide n={n}")
+        self.devs = mesh.devices
+        self.d = mesh.size
+        self.n = n
+        self.nl = n // mesh.size
+        self.dev0 = self.devs[0]
+
+    def row0(self, s: int) -> int:
+        return s * self.nl
+
+    def rows(self, s: int) -> tuple:
+        return (s * self.nl, (s + 1) * self.nl)
+
+    def ids(self, s: int, dtype=torch.int64) -> torch.Tensor:
+        """Shard ``s``'s global row ids, on its device."""
+        return torch.arange(s * self.nl, (s + 1) * self.nl, dtype=dtype,
+                            device=self.devs[s])
+
+    def broadcast(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """A replicated value onto every shard's device."""
+        return [_to(t, dev) for dev in self.devs]
+
+    def any(self, parts) -> torch.Tensor:
+        """OR of the shards' 0-d bools, on shard 0's device."""
+        return torch.any(torch.stack([_to(torch.any(p), self.dev0)
+                                      for p in parts]))
+
+    def sum(self, parts) -> torch.Tensor:
+        """Sum of the shards' integer partials, on shard 0's device, in
+        shard order."""
+        acc = _to(parts[0], self.dev0)
+        for p in parts[1:]:
+            acc = acc + _to(p, self.dev0)
+        return acc
+
+
+def _to(t: torch.Tensor, dev) -> torch.Tensor:
+    return t if t.device == dev else t.to(dev, non_blocking=True)
+
+
+def window(planes, start: int, lay: Layout, dev) -> torch.Tensor:
+    """Rows ``[start, start + nl)`` (mod ``n``) of the global plane whose
+    shard pieces are ``planes``, on ``dev``: the tail of the shard that
+    holds ``start`` and the head of the next, at most two block
+    copies."""
+    s0, r = divmod(start % lay.n, lay.nl)
+    head = _to(planes[s0][r:], dev)
+    if r == 0:
+        return head
+    return torch.cat([head, _to(planes[(s0 + 1) % lay.d][:r], dev)])
+
+
+def gather_all(planes, dev) -> torch.Tensor:
+    """The whole plane on ``dev`` (``all_gather(tiled=True)``)."""
+    return torch.cat([_to(p, dev) for p in planes])
+
+
+def take(planes, idx: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """The global plane's values at global rows ``idx`` (in range), on
+    shard 0's device, each from the shard that owns its row."""
+    out = None
+    for s, p in enumerate(planes):
+        local, own = owned_rows(_to(idx, p.device), lay.row0(s), lay.nl)
+        got = _to(p[local], lay.dev0)
+        own = _to(own, lay.dev0)
+        out = torch.where(own, got, torch.zeros_like(got) if out is None
+                          else out)
+    return out
+
+
+def _rows_of(total: torch.Tensor, lay: Layout) -> List[torch.Tensor]:
+    """A global ``[N]`` plane on shard 0's device split back into the
+    shards' rows on their devices."""
+    return [_to(total[a:b], dev)
+            for (a, b), dev in zip(map(lay.rows, range(lay.d)), lay.devs)]
+
+
+def _hop(blocks, lay: Layout):
+    """``ppermute`` to the next shard: shard ``s``'s visiting block moves
+    to shard ``(s + 1) % P``, each a block copy onto the receiver's
+    device."""
+    out = []
+    for s, dev in enumerate(lay.devs):
+        src = blocks[(s - 1) % lay.d]
+        dst = torch.empty(src.shape, dtype=src.dtype, device=dev)
+        out.append(dst.copy_(src, non_blocking=True))
+    return out
+
+
+# -- the exchange -------------------------------------------------------------
+
+def _masked(contrib, f: int, allowed, eff):
+    zero = torch.zeros((), dtype=contrib.dtype, device=contrib.device)
+    if allowed is not None:
+        contrib = torch.where(allowed[:, None], contrib, zero)
+    if eff is not None:
+        contrib = torch.where(f < eff, contrib, zero)
+    return contrib
+
+
+def _rotation_runs(s: int, v: int, off: int, lay: Layout):
+    """The runs ``(a, b, c)`` of shard ``s``'s receivers whose rolled
+    read ``(i + off) % n`` lands in shard ``v``'s block: receivers ``[a,
+    b)`` read the block's rows ``[c, c + b - a)``."""
+    s0, r = divmod((lay.row0(s) + off) % lay.n, lay.nl)
+    runs = []
+    if v == s0:
+        runs.append((0, lay.nl - r, r))
+    if v == (s0 + 1) % lay.d and r:
+        runs.append((lay.nl - r, lay.nl, 0))
+    return runs
+
+
+def _circular(full: torch.Tensor, start: int, length: int) -> torch.Tensor:
+    n = full.shape[0]
+    start %= n
+    if start + length <= n:
+        return full[start:start + length]
+    return torch.cat([full[start:], full[:start + length - n]])
+
+
+def _or_fanout(got: torch.Tensor) -> torch.Tensor:
+    acc = got[:, 0]
+    for f in range(1, got.shape[1]):
+        acc = acc | got[:, f]
+    return acc
+
+
+def exchange_placed(packets, cfg: GossipConfig, key, lay: Layout,
+                    schedule: str, group=None, eff_fanout=None):
+    """The pull-exchange across placed shards, bit-identical to
+    ``dissemination.exchange_phase`` on the global plane: the same draws
+    (rotation offsets on the host, iid sources drawn for each shard's
+    own rows), the same group and fan-out masks, the OR of the legs.
+    ``packets``, ``group`` and ``eff_fanout`` are per-shard lists."""
+    from serf_tpu_torch.parallel.ring import EXCHANGE_SCHEDULES
+    if schedule not in EXCHANGE_SCHEDULES:
+        raise ValueError(f"unknown exchange schedule {schedule!r} "
+                         f"(one of {EXCHANGE_SCHEDULES})")
+    d, nl = lay.d, lay.nl
+    grp = group if group is not None else [None] * d
+    eff = eff_fanout if eff_fanout is not None else [None] * d
+    acc = [torch.zeros_like(p) for p in packets]
+    if cfg.peer_sampling == "rotation":
+        offs = [int(o) for o in prng.randint_host(key, (cfg.fanout,), 1,
+                                                  lay.n)]
+        if schedule == "allgather":
+            for s, dev in enumerate(lay.devs):
+                full = gather_all(packets, dev)
+                fgrp = gather_all(group, dev) if group is not None else None
+                for f, off in enumerate(offs):
+                    start = lay.row0(s) + off
+                    allowed = (None if fgrp is None else
+                               _circular(fgrp, start, nl) == grp[s])
+                    acc[s] = acc[s] | _masked(_circular(full, start, nl), f,
+                                              allowed, eff[s])
+            return acc
+        vis_pk, vis_grp = list(packets), group
+        for h in range(d):
+            for s in range(d):
+                v = (s - h) % d
+                for f, off in enumerate(offs):
+                    for a, b, c in _rotation_runs(s, v, off, lay):
+                        allowed = (None if vis_grp is None else
+                                   vis_grp[s][c:c + b - a] == grp[s][a:b])
+                        acc[s][a:b] |= _masked(vis_pk[s][c:c + b - a], f,
+                                               allowed, eff[s])
+            if h < d - 1:
+                vis_pk = _hop(vis_pk, lay)
+                vis_grp = _hop(vis_grp, lay) if vis_grp is not None else None
+        return acc
+    # iid: each shard draws its own receivers' sources
+    srcs, fmask = [], []
+    for s, dev in enumerate(lay.devs):
+        srcs.append(prng.randint(key, (lay.n, cfg.fanout), 0, lay.n, dev,
+                                 rows=lay.rows(s)).to(torch.int64))
+        fmask.append(None if eff[s] is None else (
+            torch.arange(cfg.fanout, dtype=torch.int32, device=dev)
+            < eff[s])[None, :])
+
+    def resolve(s, got, ok):
+        """OR shard ``s``'s legs ``got [nl, F, W]`` where ``ok``."""
+        if fmask[s] is not None:
+            ok = fmask[s] if ok is None else ok & fmask[s]
+        if ok is not None:
+            got = torch.where(ok[..., None], got, 0)
+        return acc[s] | _or_fanout(got)
+
+    if schedule == "allgather":
+        for s, dev in enumerate(lay.devs):
+            ok = None
+            if group is not None:
+                ok = gather_all(group, dev)[srcs[s]] == grp[s][:, None]
+            acc[s] = resolve(s, gather_all(packets, dev)[srcs[s]], ok)
+        return acc
+    local = [x % nl for x in srcs]
+    owner = [x // nl for x in srcs]
+    vis_pk, vis_grp = list(packets), group
+    for h in range(d):
+        for s in range(d):
+            # the block of shard (s - h) % P visits shard s on hop h
+            ok = owner[s] == (s - h) % d
+            if vis_grp is not None:
+                ok = ok & (vis_grp[s][local[s]] == grp[s][:, None])
+            acc[s] = resolve(s, vis_pk[s][local[s]], ok)
+        if h < d - 1:
+            vis_pk = _hop(vis_pk, lay)
+            vis_grp = _hop(vis_grp, lay) if vis_grp is not None else None
+    return acc
+
+
+# -- the gossip round ---------------------------------------------------------
+
+def round_step_placed(gs, cfg: GossipConfig, key, lay: Layout,
+                      schedule: str, group=None, eff_fanout=None):
+    """``dissemination.round_step`` across placed shards: the quiet gate,
+    the cache gate, the merge's ``learned_any`` and the wrap clamp's
+    gate each one host read for all shards; each shard's select and
+    merge on its own rows (its kernels launched on its device); the
+    exchange under ``schedule``."""
+    g0 = gs[0]
+    if host_bool(g0.round - g0.last_learn < cfg.transmit_window_rounds):
+        mode = launch_mode(cfg, lay.d)
+        cached = (cfg.use_sendable_cache
+                  and host_bool(g0.sendable_round == g0.round))
+        packets = [select_phase(g, cfg, cached=cached, mode=mode)
+                   for g in gs]
+        incoming = exchange_placed(packets, cfg, key, lay, schedule,
+                                   group=group, eff_fanout=eff_fanout)
+        learns = [merge_learn(g, inc, cfg, mode)
+                  for g, inc in zip(gs, incoming)]
+        learned_any = host_bool(lay.any([lr[2] for lr in learns]))
+        gs = [merge_apply(g, cfg, mode, known, pending, learned_any)
+              for g, (known, pending, _) in zip(gs, learns)]
+    due = host_bool(g0.round + 1 - gs[0].last_clamp >= CLAMP_EVERY)
+    out = []
+    for g in gs:
+        stamp, last_clamp = clamp_stamps(g.stamp, g0.round + 1,
+                                         g.last_clamp, cfg, due=due)
+        out.append(g._replace(stamp=stamp, last_clamp=last_clamp,
+                              round=g.round + 1))
+    return out
+
+
+def _subject_incs(gs, lay: Layout):
+    """``failure.subject_incarnations`` on every shard: each subject's
+    incarnation from the shard that owns it (the ``pmax`` leg)."""
+    subj = torch.clamp(gs[0].facts.subject, 0, lay.n - 1).to(torch.int64)
+    return lay.broadcast(take([g.incarnation for g in gs], subj, lay))
+
+
+def inject_placed(gs, cfg: GossipConfig, subjects, kind: int, incarnations,
+                  ltimes, origins, active, lay: Layout):
+    """``dissemination.inject_facts_batch`` across placed shards (its
+    inputs per-shard copies of one batch): the retired-DEAD gate is one
+    host read, its coverage an AND of the shards' partials and its
+    incarnations taken from their owners; each shard writes its own
+    rows and the whole replicated fact table."""
+    g0 = gs[0]
+    f = g0.facts
+    m = subjects[0].shape[0]
+    slots = batch_slots(g0, cfg.k_facts, m)
+    maybe_dead = f.valid[slots] & (f.kind[slots] == K_DEAD) & active[0]
+    retired = [None] * lay.d
+    if host_bool(maybe_dead.any()):
+        covered, anyone = [], []
+        for g in gs:
+            sl = _to(slots, g.known.device)
+            cols = ((g.known[:, sl // 32] >> (sl % 32)[None, :]) & 1).to(
+                torch.bool)
+            covered.append(torch.all(cols | ~g.alive[:, None], dim=0))
+            anyone.append(torch.any(g.alive))
+        all_cov = covered[0].to(lay.dev0)
+        for c in covered[1:]:
+            all_cov = all_cov & _to(c, lay.dev0)
+        r_subj = torch.clamp(f.subject[slots].to(torch.int64), 0, lay.n - 1)
+        inc_at = take([g.incarnation for g in gs], r_subj, lay)
+        retired = lay.broadcast(
+            maybe_dead & all_cov & lay.any(anyone)
+            & (as_u64(f.incarnation[slots]) >= as_u64(inc_at)))
+    return [inject_facts_batch(g, cfg, subjects[s], kind, incarnations[s],
+                               ltimes[s], origins[s], active[s],
+                               row0=lay.row0(s), retired=retired[s])
+            for s, g in enumerate(gs)]
+
+
+def _bounded_inject_placed(gs, cfg: GossipConfig, candidates, kind: int,
+                           incarnations, origins, max_new: int, key,
+                           lay: Layout):
+    """``failure._bounded_inject`` across placed shards: one host read
+    for any candidate; each shard scores its own rows (its rows of the
+    global draw), the pick runs on the gathered scores on shard 0's
+    device, and the picked nodes' incarnations and origins come from
+    their owners."""
+    if not host_bool(lay.any(candidates)):
+        return gs
+    k_score, k_layout = prng.split(key)
+    scores = [pick_scores(c, k_score, n=lay.n, row0=lay.row0(s))
+              for s, c in enumerate(candidates)]
+    subjects, active = pick_top(gather_all(scores, lay.dev0), max_new,
+                                k_layout)
+    idx = subjects.to(torch.int64)
+    return inject_placed(
+        gs, cfg, lay.broadcast(subjects), kind,
+        lay.broadcast(take(incarnations, idx, lay)),
+        [g.round.expand(max_new) for g in gs],
+        lay.broadcast(take(origins, idx, lay)), lay.broadcast(active), lay)
+
+
+def _rotation_offset(round_: int, n: int) -> int:
+    """``failure.rotation_offset`` of a round known on the host."""
+    return 1 + ((round_ * 2654435761) & MASK32) % max(1, n - 1)
+
+
+def probe_placed(gs, cfg: GossipConfig, fcfg: FailureConfig, key,
+                 round_: int, lay: Layout):
+    """``failure.probe_round`` (no chaos group) across placed shards, at
+    the round ``round_`` the caller read on the host."""
+    n, nl = lay.n, lay.nl
+    k_target, k_drop, k_help, k_hdrop, k_pick = prng.split(key, 5)
+    p_drop, ki = fcfg.probe_drop_rate, fcfg.indirect_probes
+    alive = [g.alive for g in gs]
+    detected, detector_of, subject_detected = [], [], []
+    if fcfg.probe_schedule == "round_robin":
+        offset = _rotation_offset(round_, n)
+        h_offs = ([int(o) for o in prng.randint_host(k_help, (ki,), 1, n)]
+                  if ki > 0 else [])
+        for s, (g, dev) in enumerate(zip(gs, lay.devs)):
+            row0 = lay.row0(s)
+            dropped = prng.bernoulli(k_drop, p_drop, (n,), dev,
+                                     rows=lay.rows(s))
+            target_up = window(alive, row0 + offset, lay, dev)
+            ack = target_up & ~dropped
+            if ki > 0:
+                h_drop = prng.bernoulli(k_hdrop, p_drop, (n, ki), dev,
+                                        rows=lay.rows(s))
+                for h, h_off in enumerate(h_offs):
+                    helper_ok = window(alive, row0 + h_off, lay, dev)
+                    ack = ack | (target_up & helper_ok & ~h_drop[:, h])
+            detected.append(g.alive & ~ack & (n > 1))
+        # invert the rotation: subject j's prober is (j - offset) % n
+        for s, dev in enumerate(lay.devs):
+            subject_detected.append(
+                window(detected, lay.row0(s) + n - offset, lay, dev))
+            detector_of.append(((lay.ids(s) + (n - offset)) % n).to(
+                torch.int32))
+    else:
+        hits, det_p1 = [], []
+        alive_all = [gather_all(alive, dev) for dev in lay.devs]
+        for s, (g, dev) in enumerate(zip(gs, lay.devs)):
+            targets = prng.randint(k_target, (n,), 0, n, dev,
+                                   rows=lay.rows(s)).to(torch.int64)
+            target_up = alive_all[s][targets]
+            dropped = prng.bernoulli(k_drop, p_drop, (n,), dev,
+                                     rows=lay.rows(s))
+            ack = target_up & ~dropped
+            if ki > 0:
+                helpers = prng.randint(k_help, (n, ki), 0, n, dev,
+                                       rows=lay.rows(s)).to(torch.int64)
+                h_drop = prng.bernoulli(k_hdrop, p_drop, (n, ki), dev,
+                                        rows=lay.rows(s))
+                ack = ack | torch.any(target_up[:, None]
+                                      & alive_all[s][helpers] & ~h_drop,
+                                      dim=1)
+            ids = lay.ids(s)
+            det = g.alive & ~ack & (targets != ids)
+            # the shard's partial scatters over the whole node axis
+            hits.append(torch.zeros((n,), dtype=torch.int32,
+                                    device=dev).index_add_(
+                0, targets, det.to(torch.int32)))
+            det_p1.append(torch.zeros((n,), dtype=torch.int32,
+                                      device=dev).scatter_reduce(
+                0, targets, torch.where(det, ids + 1, 0).to(torch.int32),
+                reduce="amax", include_self=True))
+        subject_detected = [h > 0 for h in _rows_of(lay.sum(hits), lay)]
+        top = _to(det_p1[0], lay.dev0)
+        for p in det_p1[1:]:
+            top = torch.maximum(top, _to(p, lay.dev0))
+        detector_of = [torch.clamp(p - 1, min=0) for p in _rows_of(top, lay)]
+    subj_inc = _subject_incs(gs, lay)
+    candidates = []
+    for s, g in enumerate(gs):
+        already = (_subject_covered(g, cfg, (K_SUSPECT, K_DEAD), subj_inc[s],
+                                    row0=lay.row0(s)) | g.tombstone)
+        candidates.append(subject_detected[s] & ~already)
+    return _bounded_inject_placed(gs, cfg, candidates, K_SUSPECT,
+                                  [g.incarnation for g in gs], detector_of,
+                                  fcfg.max_new_facts, k_pick, lay)
+
+
+def refute_placed(gs, cfg: GossipConfig, fcfg: FailureConfig, key,
+                  lay: Layout):
+    """``failure.refute_round`` across placed shards: the accusations
+    read each subject's liveness from its owner; one host read gates
+    the phase."""
+    f0 = gs[0].facts
+    subj = torch.clamp(f0.subject, 0, lay.n - 1).to(torch.int64)
+    subj_inc = _subject_incs(gs, lay)
+    could = (_facts_about(gs[0], (K_SUSPECT, K_DEAD), inc_current=True,
+                          subj_inc=subj_inc[0])
+             & take([g.alive for g in gs], subj, lay))
+    tomb_alive = [g.tombstone & g.alive for g in gs]
+    if not host_bool(torch.any(could) | lay.any(tomb_alive)):
+        return gs
+    could = lay.broadcast(could)
+    accused, new_incs, ids = [], [], []
+    for s, g in enumerate(gs):
+        known = unpack_bits(g.known, cfg.k_facts)
+        mine = lay.ids(s, torch.int32)
+        about_me = g.facts.subject[None, :] == mine[:, None]
+        acc = torch.any(known & could[s][None, :] & about_me,
+                        dim=1) | tomb_alive[s]
+        accused.append(acc)
+        new_incs.append(torch.where(acc, g.incarnation + 1, g.incarnation))
+        ids.append(mine)
+    gs = [g._replace(incarnation=inc) for g, inc in zip(gs, new_incs)]
+    return _bounded_inject_placed(gs, cfg, accused, K_ALIVE, new_incs, ids,
+                                  fcfg.max_new_facts, key, lay)
+
+
+def declare_placed(gs, cfg: GossipConfig, fcfg: FailureConfig, key,
+                   lay: Layout, stretch_q=None):
+    """``failure.declare_round`` across placed shards: per-fact expiry is
+    an OR of the shards' partials and each fact's declarer the lowest
+    global row among them, reduced into the replicated facts alike on
+    every shard."""
+    n, nl, k = lay.n, lay.nl, cfg.k_facts
+    subj_inc = _subject_incs(gs, lay)
+    if not host_bool(torch.any(live_suspicions(gs[0],
+                                               subj_inc=subj_inc[0]))):
+        return gs
+    expired, has, first = [], [], []
+    for s, g in enumerate(gs):
+        suspect = _facts_about(g, (K_SUSPECT,))
+        refuted = torch.any(_refutation_matrix(g), dim=1)
+        fact_words = pack_bits(suspect & ~refuted)
+        sq = suspicion_q_of(fcfg, None if stretch_q is None
+                            else stretch_q[s])
+        if cfg.pack_stamp:
+            b = g.stamp
+            aged = nibble_age_pred_words(b & 0xF, b >> 4, g.round, sq,
+                                         ge=True)
+        else:
+            aged = pack_bits(mod_age(g, cfg) >= sq)
+        ex = unpack_bits(g.known & aged & fact_words[None, :]
+                         & _alive_words(g.alive), k)
+        expired.append(ex)
+        has.append(torch.any(ex, dim=0))
+        first.append(first_argmax(ex.to(torch.uint8), 0) + lay.row0(s))
+    # the lowest global knower: the first shard in order that has one
+    fact_has = torch.zeros((k,), dtype=torch.bool, device=lay.dev0)
+    declarer = torch.zeros((k,), dtype=torch.int32, device=lay.dev0)
+    for h, fi in zip(has, first):
+        h = _to(h, lay.dev0)
+        declarer = torch.where(h & ~fact_has, _to(fi, lay.dev0), declarer)
+        fact_has = fact_has | h
+    fact_has, declarer = lay.broadcast(fact_has), lay.broadcast(declarer)
+    candidates, declarers = [], []
+    for s, g in enumerate(gs):
+        subj = torch.clamp(g.facts.subject, min=0).to(torch.int64)
+        local, own = owned_rows(subj, lay.row0(s), nl)
+        subject_expired = scatter_max_bool(
+            torch.zeros((nl,), dtype=torch.bool, device=lay.devs[s]),
+            torch.where(own, local, nl), fact_has[s])
+        already_dead = (_subject_covered(g, cfg, (K_DEAD,), subj_inc[s],
+                                         row0=lay.row0(s)) | g.tombstone)
+        candidates.append(subject_expired & ~already_dead)
+        p1 = torch.zeros((nl,), dtype=torch.int32,
+                         device=lay.devs[s]).scatter_reduce(
+            0, local, torch.where(fact_has[s] & (subj < n) & own,
+                                  declarer[s] + 1, 0).to(torch.int32),
+            reduce="amax", include_self=True)
+        declarers.append(torch.clamp(p1 - 1, min=0))
+    return _bounded_inject_placed(gs, cfg, candidates, K_DEAD,
+                                  [g.incarnation for g in gs], declarers,
+                                  fcfg.max_new_facts, key, lay)
+
+
+def push_pull_placed(gs, cfg: GossipConfig, key, group, lay: Layout):
+    """``antientropy.push_pull_round`` (per-round flavour) across placed
+    shards: each shard pulls its partners' known rows from the shards
+    that hold them; ``learned_any`` is one host read."""
+    n = lay.n
+    incoming = []
+    if cfg.peer_sampling == "rotation":
+        off = int(prng.randint_host(key, (1,), 1, n)[0])
+    for s, (g, dev) in enumerate(zip(gs, lay.devs)):
+        if cfg.peer_sampling == "rotation":
+            start = lay.row0(s) + off
+            partner_known = window([x.known for x in gs], start, lay, dev)
+            ok = g.alive & window([x.alive for x in gs], start, lay, dev)
+            ok = ok & (group[s] == window(group, start, lay, dev))
+        else:
+            partners = prng.randint(key, (n,), 0, n, dev,
+                                    rows=lay.rows(s)).to(torch.int64)
+            partner_known = gather_all([x.known for x in gs], dev)[partners]
+            ok = g.alive & gather_all([x.alive for x in gs], dev)[partners]
+            ok = ok & (group[s] == gather_all(group, dev)[partners])
+        incoming.append(torch.where(ok[:, None], partner_known, 0))
+    learned_any = host_bool(lay.any([(inc & ~g.known) != 0
+                                     for g, inc in zip(gs, incoming)]))
+    return [push_pull_merge(g, cfg, inc, learned_any)
+            for g, inc in zip(gs, incoming)]
+
+
+def vivaldi_placed(sts, cfg, gs, k_peer, k_viv, lay: Layout):
+    """``swim.vivaldi_phase`` across placed shards: each shard reads its
+    peers' liveness, group, position and coordinates from the shards
+    that hold them and draws its own rows of the unit-vector planes."""
+    n = lay.n
+    planes = {name: [getattr(st.vivaldi, name) for st in sts]
+              for name in ("vec", "height", "error", "adjustment")}
+    alive = [g.alive for g in gs]
+    group = [st.group for st in sts]
+    pos = [st.positions for st in sts]
+    if cfg.gossip.peer_sampling == "rotation":
+        voff = int(prng.randint_host(k_peer, (1,), 1, n)[0])
+    out = []
+    for s, (st, g, dev) in enumerate(zip(sts, gs, lay.devs)):
+        if cfg.gossip.peer_sampling == "rotation":
+            start = lay.row0(s) + voff
+
+            def peer(planes_, start=start, dev=dev):
+                return window(planes_, start, lay, dev)
+            reachable = (g.alive & peer(alive)
+                         & (st.group == peer(group)))
+        else:
+            peers = prng.randint(k_peer, (n,), 0, n, dev,
+                                 rows=lay.rows(s)).to(torch.int64)
+
+            def peer(planes_, peers=peers, dev=dev):
+                return gather_all(planes_, dev)[peers]
+            reachable = (g.alive & peer(alive) & (st.group == peer(group))
+                         & (peers != lay.ids(s)))
+        rtt = viv.ground_truth_rtt_rows(st.positions, peer(pos))
+        out.append(viv.vivaldi_update(
+            st.vivaldi, cfg.vivaldi, None, rtt, k_viv, active=reachable,
+            peer_rows=tuple(peer(planes[name]) for name in
+                            ("vec", "height", "error", "adjustment")),
+            draw_rows=(lay.row0(s), n)))
+    return out
+
+
+# -- the cluster round and its rows ----------------------------------------
+
+def _check(state, cfg, what: str) -> Layout:
+    if not isinstance(state, PlacedState):
+        raise TypeError(f"{what} on a placed mesh takes the PlacedState "
+                        f"of parallel.mesh.shard_state, not "
+                        f"{type(state).__name__}")
+    if cfg.gossip.stamp_deferred or not cfg.gossip.fused_kernels:
+        raise later_slice("the deferred or phased flavour", "flavours")
+    check_shards(state, what)
+    return Layout(state.mesh, cfg.n)
+
+
+def cluster_round(state: PlacedState, cfg, key, drop_rate=None,
+                  collect_propagation: bool = False) -> PlacedState:
+    """``swim.cluster_round`` on a placed mesh, with the same host reads
+    (the round counter, the probe-cadence knob under control, the
+    gates)."""
+    if drop_rate is not None:
+        raise later_slice("a chaos round (drop_rate)", "chaos")
+    if collect_propagation:
+        raise later_slice("the propagation rows", "chaos")
+    lay = _check(state, cfg, "cluster_round")
+    sts = list(state.shards)
+    k_gossip, k_probe, k_refute, k_declare, k_pp, k_viv, k_peer = \
+        prng.split(key, 7)
+    gs = [st.gossip for st in sts]
+    r0 = host_int(gs[0].round)
+    eff_fanout = stretch_q = None
+    probe_every = cfg.probe_every
+    if cfg.control.enabled:
+        eff_fanout = [st.control.knobs[KNOB_FANOUT] for st in sts]
+        stretch_q = [st.control.knobs[KNOB_STRETCH_Q] for st in sts]
+        probe_every *= host_int(sts[0].control.knobs[KNOB_PROBE_MULT])
+    probe_tick = r0 % probe_every == 0
+    group = [st.group for st in sts]
+    gs = round_step_placed(gs, cfg.gossip, k_gossip, lay,
+                           cfg.exchange_schedule, group=group,
+                           eff_fanout=eff_fanout)
+    if cfg.with_failure:
+        if probe_tick:
+            gs = probe_placed(gs, cfg.gossip, cfg.failure, k_probe, r0 + 1,
+                              lay)
+        gs = refute_placed(gs, cfg.gossip, cfg.failure, k_refute, lay)
+        if probe_tick:
+            gs = declare_placed(gs, cfg.gossip, cfg.failure, k_declare, lay,
+                                stretch_q=stretch_q)
+    if cfg.push_pull_every > 0 and (r0 + 1) % cfg.push_pull_every == 0:
+        gs = push_pull_placed(gs, cfg.gossip, k_pp, group, lay)
+    if cfg.with_vivaldi and probe_tick:
+        vivs = vivaldi_placed(sts, cfg, gs, k_peer, k_viv, lay)
+    else:
+        vivs = [st.vivaldi for st in sts]
+    return PlacedState([st._replace(gossip=g, vivaldi=v)
+                        for st, g, v in zip(sts, gs, vivs)], state.mesh)
+
+
+def sustained_round(state: PlacedState, cfg, key,
+                    events_per_round: int) -> PlacedState:
+    """``swim.sustained_round`` on a placed mesh: the batch (event ids,
+    origins, the admission gate under control) made alike on every
+    shard, injected by :func:`inject_placed`, then :func:`cluster_round`."""
+    lay = _check(state, cfg, "sustained_round")
+    m = events_per_round
+    k_org, k_rnd = prng.split(key)
+    eids, origins, active, sts = [], [], [], []
+    for st, dev in zip(state.shards, lay.devs):
+        eids.append((st.gossip.round * m
+                     + torch.arange(m, dtype=torch.int32, device=dev)
+                     + 1).to(torch.int32))
+        origins.append(prng.randint(k_org, (m,), 0, cfg.n, dev))
+        act = torch.ones((m,), dtype=torch.bool, device=dev)
+        if cfg.control.enabled:
+            act, ctrl = gate_injections(st.control, act)
+            st = st._replace(control=ctrl)
+        active.append(act)
+        sts.append(st)
+    gs = inject_placed(
+        [st.gossip for st in sts], cfg.gossip, eids, K_USER_EVENT,
+        [torch.zeros((m,), dtype=torch.int32, device=dev)
+         for dev in lay.devs], eids, origins, active, lay)
+    return cluster_round(
+        PlacedState([st._replace(gossip=g) for st, g in zip(sts, gs)],
+                    state.mesh), cfg, k_rnd)
+
+
+def round_telemetry(state: PlacedState, cfg,
+                    with_cols: bool = False):
+    """``swim.round_telemetry`` on a placed mesh, on shard 0's device:
+    the subject incarnations from their owners, one host read for the
+    believed-dead evidence gate, the integer partials (alive count,
+    coverage and believer columns, false-DEAD count) summed across the
+    shards, the float math once after the reduces."""
+    from serf_tpu_torch.models.swim import (telemetry_counts,
+                                            telemetry_finish,
+                                            telemetry_stretch)
+    lay = _check(state, cfg, "round_telemetry")
+    sts = list(state.shards)
+    gs = [st.gossip for st in sts]
+    k = cfg.gossip.k_facts
+    subj_inc = _subject_incs(gs, lay)
+    g0 = gs[0]
+    evidence = host_bool(torch.any(
+        _facts_about(g0, (K_DEAD,), inc_current=True, subj_inc=subj_inc[0])
+        | _facts_about(g0, (K_SUSPECT,), inc_current=True,
+                       subj_inc=subj_inc[0])))
+    stage1 = []
+    for s, (st, g) in enumerate(zip(sts, gs)):
+        alive_cnt, colcnt, believers = telemetry_counts(
+            g, cfg, stretch_q=telemetry_stretch(st, cfg),
+            subj_inc=subj_inc[s], evidence=evidence)
+        stage1.append(torch.cat([alive_cnt[None], colcnt, believers]))
+    stage1 = lay.sum(stage1)
+    alive_cnt, colcnt, believers = (stage1[0], stage1[1:1 + k],
+                                    stage1[1 + k:])
+    fd = []
+    for s, (g, b, a) in enumerate(zip(gs, lay.broadcast(believers),
+                                      lay.broadcast(alive_cnt))):
+        believed = believed_subjects(g, lay.nl, b, a, row0=lay.row0(s))
+        fd.append(torch.sum((believed | g.tombstone) & g.alive))
+    row = telemetry_finish(g0, cfg, alive_cnt, colcnt, lay.sum(fd),
+                           subj_inc=subj_inc[0])
+    if with_cols:
+        return row, colcnt, alive_cnt
+    return row
+
+
+def control_tick(state: PlacedState, cfg, row=None):
+    """``swim.control_tick`` on a placed mesh: the row (computed here
+    when not given) onto every shard, and each shard's replicated
+    controller advanced alike."""
+    from serf_tpu_torch.models.swim import TELEMETRY_FIELDS
+    if not cfg.control.enabled:
+        return state, row
+    if row is None:
+        row = round_telemetry(state, cfg)
+    lay = _check(state, cfg, "control_tick")
+    out = []
+    for st, r in zip(state.shards, lay.broadcast(row)):
+        sig = ControlSignals(
+            agreement=r[TELEMETRY_FIELDS.index("agreement")],
+            false_dead=r[TELEMETRY_FIELDS.index("false_dead")],
+            overflow=r[TELEMETRY_FIELDS.index("overflow")])
+        out.append(st._replace(control=control_step(
+            st.control, sig, cfg.control, cfg.gossip, cfg.failure)))
+    return PlacedState(out, state.mesh), row

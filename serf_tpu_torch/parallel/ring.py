@@ -1,5 +1,5 @@
 """The flagship sharded exchange: the reference's two schedules on a mesh
-of virtual shards.
+of virtual shards (a placed mesh's legs: ``parallel.placed``).
 
 Counterpart of ``serf_tpu/parallel/ring.py``.  ``cluster_round`` with a
 mesh routes its gossip exchange through :func:`exchange_sharded`, which
@@ -51,7 +51,7 @@ from serf_tpu_torch.models.dissemination import (
     sample_offsets,
 )
 from serf_tpu_torch.obs import flight
-from serf_tpu_torch.parallel.mesh import shards
+from serf_tpu_torch.parallel.mesh import later_slice, shards
 
 #: the legal schedules (``ClusterConfig.exchange_schedule`` validates
 #: against this; ``accounting.ici_round_traffic`` models both)
@@ -234,7 +234,16 @@ def exchange_sharded(packets: torch.Tensor, cfg: GossipConfig, key,
     hook), bit-identical for the same ``key``: the PRNG splits and the
     sample shapes are ``exchange_phase``'s (the rotation offsets and the
     loss masks are drawn at their global shapes and viewed per shard,
-    never drawn per shard), and only the schedule differs."""
+    never drawn per shard), and only the schedule differs.  On a placed
+    mesh ``packets``, ``group`` and ``eff_fanout`` are the shards' lists
+    and the legs run across them (``parallel.placed.exchange_placed``)."""
+    if mesh.placed:
+        from serf_tpu_torch.parallel import placed
+        if drop_rate is not None:
+            raise later_slice("a chaos exchange (drop_rate)", "chaos")
+        return placed.exchange_placed(
+            packets, cfg, key, placed.Layout(mesh, cfg.n), schedule,
+            group=group, eff_fanout=eff_fanout)
     if schedule not in EXCHANGE_SCHEDULES:
         raise ValueError(f"unknown exchange schedule {schedule!r} "
                          f"(one of {EXCHANGE_SCHEDULES})")
@@ -299,7 +308,12 @@ def round_telemetry_sharded(state, cfg, mesh, with_cols: bool = False):
     agrees on, so the row is bit-identical to the gathered one.  A mesh
     that does not divide ``n`` records ``shard-fallback`` and returns
     the gathered row.  ``with_cols`` also returns the post-``psum``
-    ``(colcnt, alive_cnt)``."""
+    ``(colcnt, alive_cnt)``.  On a placed mesh ``state`` is a
+    ``PlacedState`` and the legs reduce across its shards
+    (``parallel.placed.round_telemetry``)."""
+    if mesh.placed:
+        from serf_tpu_torch.parallel import placed
+        return placed.round_telemetry(state, cfg, with_cols=with_cols)
     from serf_tpu_torch.models.failure import believed_subjects
     from serf_tpu_torch.models.swim import (
         round_telemetry,
@@ -358,7 +372,19 @@ def sharded_round_step(state: GossipState, cfg: GossipConfig, key, mesh,
     threaded into select and merge, so the fused kernels launch once per
     shard.  On a mesh the standalone family takes the plain path (the
     reference's dispatch rule).  Bit-exact with ``round_step(state, cfg,
-    key, group, drop_rate)`` by construction."""
+    key, group, drop_rate)`` by construction.  On a placed mesh
+    ``state``, ``group`` and ``eff_fanout`` are the shards' lists
+    (``parallel.placed.round_step_placed``)."""
+    if mesh.placed:
+        from serf_tpu_torch.parallel import placed
+        if drop_rate is not None or collect_propagation:
+            raise later_slice("a chaos round or its propagation row",
+                              "chaos")
+        if cfg.stamp_deferred or not cfg.fused_kernels:
+            raise later_slice("the deferred or phased flavour", "flavours")
+        return placed.round_step_placed(
+            state, cfg, key, placed.Layout(mesh, cfg.n), schedule,
+            group=group, eff_fanout=eff_fanout)
     return round_step(state, cfg, key, group=group, drop_rate=drop_rate,
                       eff_fanout=eff_fanout,
                       collect_propagation=collect_propagation,

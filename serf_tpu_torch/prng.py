@@ -18,6 +18,14 @@ instead of the ~170 elementwise launches of the device form; larger
 draws run on the device they are asked for.  A draw of shape ``()`` is
 computed on the host and returns a Python value.  There is no global
 generator state.
+
+Row ranges: under the partitionable threefry element ``i`` of a draw
+hashes only its own flat index ``(i >> 32, i & 0xffffffff)``, so
+``rows=(lo, hi)`` draws rows ``[lo, hi)`` of axis 0 alone and gets the
+global draw's bits for them (a placed shard's own rows,
+``parallel.placed``).  The host/device rule reads the size of what is
+drawn: a shard's slice of a large draw may take the host path, with the
+same bits and the same non-blocking copy.
 """
 
 from __future__ import annotations
@@ -73,14 +81,28 @@ def split(k: np.ndarray, num: int = 2) -> np.ndarray:
     return np.stack([b1, b2], axis=1).astype(np.uint32)
 
 
-def _host_bits(k: np.ndarray, shape) -> np.ndarray:
-    """32-bit random words of ``shape`` on the host (uint64 values)."""
+def _host_bits(k: np.ndarray, shape, first: int = 0) -> np.ndarray:
+    """32-bit random words of ``shape`` on the host (uint64 values), the
+    draw's flat elements ``first, first + 1, ...``."""
     k1, k2 = (int(v) for v in np.asarray(k, np.uint32))
     size = math.prod(shape)
-    lo = np.arange(size, dtype=np.uint64)
+    lo = np.arange(first, first + size, dtype=np.uint64)
     hi = lo >> np.uint64(32)
     b1, b2 = _threefry2x32(k1, k2, hi, lo & np.uint64(MASK32))
     return (b1 ^ b2).reshape(shape)
+
+
+def _row_range(shape, rows):
+    """``(shape of rows [lo, hi) of axis 0, first flat element)`` of a
+    draw of ``shape`` (the whole draw without ``rows``)."""
+    shape = tuple(shape)
+    if rows is None:
+        return shape, 0
+    lo, hi = (int(r) for r in rows)
+    if not (shape and 0 <= lo <= hi <= shape[0]):
+        raise ValueError(f"rows {rows} outside axis 0 of {shape}")
+    inner = math.prod(shape[1:])
+    return (hi - lo,) + shape[1:], lo * inner
 
 
 #: draws up to this many values are made on the host (see module doc)
@@ -98,33 +120,54 @@ def to_device(arr: np.ndarray, device) -> torch.Tensor:
     return t.to(dev)
 
 
-def random_bits(k: np.ndarray, shape, device) -> torch.Tensor:
+def random_bits(k: np.ndarray, shape, device, rows=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)``: int64 tensor of u32
-    values on ``device``."""
+    values on ``device`` (with ``rows``, rows ``[lo, hi)`` of it)."""
     k1, k2 = (int(v) for v in np.asarray(k, np.uint32))
+    shape, first = _row_range(shape, rows)
     size = math.prod(shape)
     if size <= HOST_DRAW_MAX:
-        return to_device(_host_bits(k, shape).astype(np.int64), device)
-    lo = torch.arange(size, dtype=torch.int64, device=device)
+        return to_device(_host_bits(k, shape, first).astype(np.int64),
+                         device)
+    lo = torch.arange(first, first + size, dtype=torch.int64, device=device)
     hi = lo >> 32
     b1, b2 = _threefry2x32(k1, k2, hi, lo & MASK32)
     return (b1 ^ b2).reshape(shape)
 
 
-def randint(k: np.ndarray, shape, minval: int, maxval: int,
-            device) -> torch.Tensor:
-    """``jax.random.randint(key, shape, minval, maxval)`` (int32): two
-    32-bit draws folded into the span by modular arithmetic
-    (``random._randint``; u32 products wrap)."""
-    k_hi, k_lo = split(k)
-    higher = random_bits(k_hi, shape, device)
-    lower = random_bits(k_lo, shape, device)
+def _fold_span(higher, lower, minval: int, maxval: int):
+    """``random._randint``'s fold of two u32 words into the span (numpy
+    uint64 or torch int64 values; u32 products wrap).  Returns the
+    offsets plus ``minval``, not yet wrapped to 32 bits."""
     span = (maxval - minval) & MASK32 if maxval > minval else 1
     multiplier = (1 << 16) % span
     multiplier = ((multiplier * multiplier) & MASK32) % span
     off = (((higher % span) * multiplier) & MASK32)
     off = ((off + (lower % span)) & MASK32) % span
-    return wrap_i32(off + minval)
+    return off + minval
+
+
+def randint(k: np.ndarray, shape, minval: int, maxval: int,
+            device, rows=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32): two
+    32-bit draws folded into the span by modular arithmetic
+    (``random._randint``; u32 products wrap).  ``rows`` as in
+    :func:`random_bits`."""
+    k_hi, k_lo = split(k)
+    higher = random_bits(k_hi, shape, device, rows)
+    lower = random_bits(k_lo, shape, device, rows)
+    return wrap_i32(_fold_span(higher, lower, minval, maxval))
+
+
+def randint_host(k: np.ndarray, shape, minval: int,
+                 maxval: int) -> np.ndarray:
+    """:func:`randint`'s values as a host ``int64`` array, with no device
+    involved: the rotation offsets a placed round slices its shards by
+    (the same bits as the device tensor ``randint`` gives)."""
+    k_hi, k_lo = split(k)
+    v = _fold_span(_host_bits(k_hi, shape).astype(np.int64),
+                   _host_bits(k_lo, shape).astype(np.int64), minval, maxval)
+    return (v & MASK32).astype(np.uint32).view(np.int32).astype(np.int64)
 
 
 def _bits_to_unit(bits):
@@ -133,9 +176,10 @@ def _bits_to_unit(bits):
     return (bits >> 9) | 0x3F800000
 
 
-def uniform(k: np.ndarray, shape, device) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32, on ``device``."""
-    f = wrap_i32(_bits_to_unit(random_bits(k, shape, device)))
+def uniform(k: np.ndarray, shape, device, rows=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in float32, on ``device``
+    (``rows`` as in :func:`random_bits`)."""
+    f = wrap_i32(_bits_to_unit(random_bits(k, shape, device, rows)))
     return f.view(torch.float32) - 1.0
 
 
@@ -144,25 +188,27 @@ def uniform(k: np.ndarray, shape, device) -> torch.Tensor:
 _NORMAL_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))
 
 
-def normal_uniform(k: np.ndarray, shape, device) -> torch.Tensor:
+def normal_uniform(k: np.ndarray, shape, device, rows=None
+                   ) -> torch.Tensor:
     """The uniform that ``jax.random.normal(key, shape)`` (float32) maps:
     ``uniform(key, shape, minval=nextafter(-1, 0), maxval=1)``, each
     step in float32 as ``random._uniform`` does it (scale, shift, clamp
-    at ``minval``).  Bit-exact with the reference."""
+    at ``minval``).  Bit-exact with the reference.  ``rows`` as in
+    :func:`random_bits`."""
     lo = const(float(_NORMAL_LO), torch.float32, device)
     span = const(float(np.float32(1.0) - _NORMAL_LO), torch.float32,
                  device)
-    f = uniform(k, shape, device)
+    f = uniform(k, shape, device, rows)
     return torch.maximum(lo, f * span + lo)
 
 
-def normal(k: np.ndarray, shape, device) -> torch.Tensor:
+def normal(k: np.ndarray, shape, device, rows=None) -> torch.Tensor:
     """``jax.random.normal(key, shape)`` in float32: ``sqrt(2) *
     erfinv(u)`` over :func:`normal_uniform` (``random._normal_real``).
     The uniform is bit-exact; ``erfinv`` is ATen's, which differs from
-    XLA's by a few float32 ulp."""
+    XLA's by a few float32 ulp.  ``rows`` as in :func:`random_bits`."""
     root2 = const(float(np.float32(np.sqrt(2.0))), torch.float32, device)
-    return root2 * torch.erfinv(normal_uniform(k, shape, device))
+    return root2 * torch.erfinv(normal_uniform(k, shape, device, rows))
 
 
 def uniform_scalar(k: np.ndarray) -> np.float32:
@@ -171,19 +217,22 @@ def uniform_scalar(k: np.ndarray) -> np.float32:
     return (f.view(np.float32) - np.float32(1.0))[0]
 
 
-def bernoulli(k: np.ndarray, p: float = 0.5, shape=(), device=None):
+def bernoulli(k: np.ndarray, p: float = 0.5, shape=(), device=None,
+              rows=None):
     """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` in float32.
     Shape ``()`` returns a host ``bool``; otherwise a bool tensor.  ``p``
     may be a 0-d float32 tensor on the draw's device (a chaos phase's
-    loss rate), which is compared as it is, with no copy."""
+    loss rate), which is compared as it is, with no copy.  ``rows`` as
+    in :func:`random_bits`."""
     if shape == ():
         return bool(uniform_scalar(k) < np.float32(p))
     if isinstance(p, torch.Tensor):
-        return uniform(k, shape, device) < p
+        return uniform(k, shape, device, rows) < p
     if p <= 0.0:
         # uniform draws lie in [0, 1): none is below 0
-        return torch.zeros(shape, dtype=torch.bool, device=device)
-    u = uniform(k, shape, device)
+        return torch.zeros(_row_range(shape, rows)[0], dtype=torch.bool,
+                           device=device)
+    u = uniform(k, shape, device, rows)
     # p rounded to float32 as the reference's ``u < np.float32(p)``,
     # filled in on the device (no host-to-device copy)
     return u < torch.full((), p, dtype=torch.float32, device=u.device)

@@ -58,6 +58,8 @@ def replay_device(rec: Recording, mesh=None, device=None) -> RunRecorder:
     if rec.plane != "device":
         raise RecordingError(
             f"replay_device on a {rec.plane!r}-plane recording")
+    from serf_tpu_torch.parallel.mesh import refuse_placed
+    refuse_placed(mesh, "a replay (replay_device)", "chaos")
     if device is None and mesh is not None:
         device = mesh.device
     dev = resolve_device(device)

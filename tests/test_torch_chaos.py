@@ -236,11 +236,13 @@ def test_entry_points_default_to_cuda():
 
 
 def test_mesh_raises():
-    """A mesh over distinct devices (the four-card leg) is refused; the
-    sharded plan itself runs (``tests/test_torch_sharded_round.py``)."""
+    """A chaos plan on a placed mesh (distinct devices) raises, naming
+    the slice that places it, before anything runs; the plan on a
+    virtual mesh runs (``tests/test_torch_sharded_round.py``)."""
     from serf_tpu_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError, match="four-card leg"):
+    with pytest.raises(NotImplementedError,
+                       match="churn-query, chaos, replay and checkpoint"):
         tdev.run_device_plan(tplan.named_plan("self-check"),
                              t_ab("self-check", 16, 32, False),
                              device="cpu",

@@ -347,10 +347,19 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 @pytest.mark.parametrize("what", ["mesh"])
 def test_later_slices_raise(what):
-    """A mesh whose shards span distinct devices is the four-card leg,
-    not ported: building one raises, naming it."""
-    with pytest.raises(NotImplementedError, match="four-card leg"):
-        make_mesh(devices=["cpu", "meta"])
+    """A mesh whose shards span distinct devices is a placed mesh; the
+    rows a later slice places (here the invariant rows of the chaos
+    slice) raise on it, naming that slice, and never fall back."""
+    from serf_tpu_torch.parallel.mesh import shard_state
+    mesh = make_mesh(devices=["cpu", "meta"])
+    assert mesh.placed
+    cfg = tswim.flagship_config(64, k_facts=32)
+    st = shard_state(tswim.make_cluster(cfg, prng.key(0), device="cpu"),
+                     make_mesh(devices=["cpu"] * 2, placed=True))
+    with pytest.raises(NotImplementedError,
+                       match="churn-query, chaos, replay and checkpoint"):
+        tswim.run_cluster_sustained(st, cfg, prng.key(1), 1, mesh=mesh,
+                                    collect_invariants=True)
 
 
 # -- the port stands alone ----------------------------------------------------

@@ -227,8 +227,23 @@ def test_make_mesh_device_rule():
     assert m.device.type == "cpu"
     assert tmesh.make_mesh(devices=["cpu"] * 3).size == 3
     assert tmesh.make_mesh(device="cpu").size == 1
-    with pytest.raises(NotImplementedError, match="four-card leg"):
-        tmesh.make_mesh(devices=["cpu", "meta"])
+    assert not tmesh.make_mesh(devices=["cpu"] * 3).placed
+    # distinct devices give a placed mesh; one device repeated gives one
+    # when asked for
+    placed = tmesh.make_mesh(devices=["cpu", "meta"])
+    assert placed.placed and placed.size == 2
+    assert [d.type for d in placed.devices] == ["cpu", "meta"]
+    two = tmesh.make_mesh(devices=["cpu"] * 2, placed=True)
+    assert two.placed and two.devices == (torch.device("cpu"),) * 2
+    # a path not yet placed raises, naming its slice
+    tcfg = _tcfg(_cfg())
+    tcfg = dataclasses.replace(tcfg, gossip=dataclasses.replace(
+        tcfg.gossip, stamp_flush_unit=2))
+    ts = tmesh.shard_state(tswim.make_cluster(tcfg, prng.key(0),
+                                              device="cpu"), two)
+    with pytest.raises(NotImplementedError,
+                       match="deferred and phased flavours"):
+        tswim.sustained_round(ts, tcfg, prng.key(1), 2, mesh=two)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tmesh.make_mesh(8)
@@ -296,7 +311,7 @@ def _free_port() -> int:
 def test_two_process_gloo_group():
     """Two processes joined by ``initialize_multihost`` over ``gloo``: the
     hybrid mesh is ``(2, local)``, a collective crosses the group, and
-    ``shard_cluster_hybrid`` raises naming the four-card leg."""
+    ``shard_cluster_hybrid`` raises naming the multi-process slice."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     with hard_limit(120):
         # a port freed by _free_port can be taken before rank 0 binds it
@@ -321,7 +336,7 @@ def test_two_process_gloo_group():
         got = json.loads(out.strip().splitlines()[-1])
         assert got["shape"] == {"dcn": 2, "ici": 2}
         assert got["world"] == 2 and got["sum"] == 3.0
-        assert "four-card leg" in got["raised"]
+        assert "multi-process meshes" in got["raised"]
 
 
 def test_dryrun_multichip_on_the_cpu():
