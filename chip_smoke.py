@@ -284,15 +284,40 @@ more than phase 11's, the believed-dead evidence gate); (b) each of the three ke
 250,000 rows timed against its byte bound; (c) rounds/s of each
 schedule on 4 placed shards beside the unsharded run (20 warm-up, 100
 timed rounds); (d) the devices: with one card all 4 shards share
-``cuda:0``; with two or more, (a) and (c) run again with the shards
-spread over ``min(count, 4)`` cards, and peer access is logged.  The
-phase must end inside 60 s.
+``cuda:0``; with two or more, (a), (c), (e)'s deferred ring run and
+(f)'s recorded chaos-heal run again with the shards spread over
+``min(count, 4)`` cards, and peer access is logged.  (b) also holds
+``fused_flush``'s launch on one shard's rows to its plain version and
+times it.  (e) The deferred flagship (unit 4) on 4 placed shards, both
+schedules, and the phased flagship, the ring, 30 rounds from phase 4's
+seeding at N = 1,000,000, each against the unsharded run and the
+virtual mesh's as in (a): the deferred launches are 4 times the virtual
+mesh's (``fused_flush`` once per shard on a flush round), the phased
+round launches nothing (on a mesh the standalone family takes the plain
+path, the reference's dispatch rule, so its equality with the unsharded
+run, whose ``select_packets`` and ``merge_incoming`` launch, is one
+more kernel-against-plain check; the two cache leaves the standalone
+family never keeps are compared with the virtual mesh only).  (f)
+``partition-heal-loss`` on 4 placed shards at 1M, recorded with every
+row, and its replay on the placed mesh, then the controlled
+``control-overload-shed`` leg (the deferred flavour at unit 2 under the
+controller, K = 32), recorded: the final state, the rows, the
+decisions and the ledger equal the unsharded run's in the same call,
+the digest streams, reports and ledgers the reference's fixture, the
+replay diffs clean, the launches 4 times the unsharded run's, the host
+syncs the same.  (g) A checkpoint at round 15 of a 4-shard placed run
+at 1M writes the bytes of an unsharded save of the gathered state;
+restored onto 2 placed shards and unsharded and resumed 15 rounds, each
+equals the unbroken run; a 3-shard placed mesh raises ``ValueError``.
+(e)-(g) must end inside 120 s and the phase's one-card parts inside
+180 s (the distinct-card repeat of (d), on a machine with two or more
+cards, inside 120 s more).
 
 The line before the last is ``{"kernels": [...]}`` (with each kernel's
 launches on phase 11's and 12's runs and, for the four kernels that
 take a mesh, their one launch's µs at 1M over 8 shards, and for the
-three of the placed path their launch's µs on one shard's 250,000
-rows); the last is ``{"ok": true, "device": {...}}``.  Needs no network
+four of the placed paths (and ``fused_flush``) their launch's µs on
+one shard's 250,000 rows); the last is ``{"ok": true, "device": {...}}``.  Needs no network
 and imports no JAX.
 """
 
@@ -4635,12 +4660,17 @@ def rows_differ(a, b) -> list:
     """Two chaos runs' collected rows: the telemetry series and final row
     (the float-summed coverage within ``COVERAGE_RTOL``, every other
     field exact), the propagation rows and sentinel coverage, the
-    invariant rows."""
+    invariant rows, the control rows and decisions (those ``a``
+    collected)."""
     import numpy as np
     bad = []
+    if a.control_rows is not None and (
+            not np.array_equal(a.control_rows, b.control_rows)
+            or a.control_decisions != b.control_decisions):
+        bad.append("control rows or decisions")
     names = a.telemetry.names()
     if names != b.telemetry.names():
-        return ["telemetry series names"]
+        return bad + ["telemetry series names"]
     for name in names:
         x = np.asarray(a.telemetry.get(name).points(), dtype=np.float64)
         y = np.asarray(b.telemetry.get(name).points(), dtype=np.float64)
@@ -4656,12 +4686,16 @@ def rows_differ(a, b) -> list:
         if not (np.isclose(v, w, rtol=COVERAGE_RTOL, atol=0)
                 if k == "coverage" else v == w):
             bad.append(f"final row {k}")
-    for what, x, y in (
-            ("propagation rows", a.propagation["rows"],
-             b.propagation["rows"]),
-            ("sentinel coverage", a.propagation["coverage"],
-             b.propagation["coverage"]),
-            ("invariant rows", a.watchdog["rows"], b.watchdog["rows"])):
+    pairs = []
+    if a.propagation is not None:
+        pairs += [("propagation rows", a.propagation["rows"],
+                   b.propagation["rows"]),
+                  ("sentinel coverage", a.propagation["coverage"],
+                   b.propagation["coverage"])]
+    if a.watchdog is not None:
+        pairs.append(("invariant rows", a.watchdog["rows"],
+                      b.watchdog["rows"]))
+    for what, x, y in pairs:
         if x.shape != y.shape or not np.array_equal(x, y):
             bad.append(what)
     return bad
@@ -4903,9 +4937,22 @@ PLACED_ROUNDS = 30
 PLACED_ROWS = N_MAIN // PLACED_P
 #: the placed path's kernels: the per-round flagship's, once per shard
 PLACED_KERNELS = PATHS["per-round"]["kernels"]
+#: 12(b): the kernels checked and timed on one shard's rows (the
+#: deferred flush's too)
+PLACED_SHARD_KERNELS = PLACED_KERNELS + ("fused_flush",)
 #: 12(c): warm-up and timed rounds of each timed run
 PLACED_WARM, PLACED_TIMED = 20, 100
-PHASE12_LIMIT_S = 60.0
+#: 12(e): the (path, schedule) runs of the flavours
+PLACED_FLAVOURS = (("deferred", "ring"), ("deferred", "allgather"),
+                   ("phased", "ring"))
+#: the leaves the standalone family never keeps (the plain path on a
+#: mesh does): compared with the virtual mesh only
+CACHE_LEAVES = ("gossip.sendable", "gossip.sendable_round")
+#: 12(g): the checkpoint's round, the placed shard counts it resumes on
+#: (0: unsharded), and a shard count that does not divide N
+PLACED_CKPT_ROUND, PLACED_RESUME, PLACED_BAD_P = 15, (2, 0), 3
+PHASE12_LIMIT_S, PHASE12_NEW_LIMIT_S, PHASE12_SPREAD_LIMIT_S = \
+    180.0, 120.0, 120.0
 
 
 def placed_devices(distinct: bool) -> list:
@@ -4962,15 +5009,19 @@ def placed_run(rk, st, cfg, key, rounds: int, mesh, warm_rounds: int = 0,
     return st, rows, run
 
 
-def placed_differ(ref, ref_rows, st, rows) -> list:
+def placed_differ(ref, ref_rows, st, rows, skip=()) -> list:
     """A placed run against another on the card: every integer leaf
-    equal, Vivaldi within ``FLOAT_RTOL``/``FLOAT_ATOL``, the telemetry
-    rows equal (the float-summed coverage within ``COVERAGE_RTOL``)."""
+    equal (but those in ``skip``), Vivaldi within
+    ``FLOAT_RTOL``/``FLOAT_ATOL``, the telemetry rows equal (the
+    float-summed coverage within ``COVERAGE_RTOL``; ``rows`` None: no
+    rows compared)."""
     import torch
 
     from serf_tpu_torch.models.swim import TELEMETRY_FIELDS
     bad = []
     for (path, x), (_, y) in zip(tensor_leaves(ref), tensor_leaves(st)):
+        if path in skip:
+            continue
         if x.dtype != y.dtype or x.shape != y.shape:
             bad.append(f"{path}: {x.dtype}{tuple(x.shape)} vs "
                        f"{y.dtype}{tuple(y.shape)}")
@@ -4980,6 +5031,8 @@ def placed_differ(ref, ref_rows, st, rows) -> list:
                            f"{float(torch.max(torch.abs(x - y)))}")
         elif not torch.equal(x, y):
             bad.append(f"{path}: {int(torch.sum(x != y))} cells differ")
+    if rows is None:
+        return bad
     cov = TELEMETRY_FIELDS.index("coverage")
     keep = [i for i in range(len(TELEMETRY_FIELDS)) if i != cov]
     if not torch.equal(rows[:, keep], ref_rows[:, keep]) or not \
@@ -5064,12 +5117,12 @@ def placed_exact(rk, n: int, p: int, devices, what: str) -> dict:
 
 
 def check_shard_kernels(rk, devices) -> dict:
-    """Each kernel of the placed path on one shard's rows (N/P at the
+    """Each kernel of the placed paths on one shard's rows (N/P at the
     flagship width, and the ragged check's), on each device the shards
     use, launched while ``cuda:0`` is current: == its plain version.
     Returns the largest |kernel - plain| per kernel."""
     import torch
-    errs = {name: 0 for name in PLACED_KERNELS}
+    errs = {name: 0 for name in PLACED_SHARD_KERNELS}
     rows = (PLACED_ROWS, PLACED_RAGGED[0] // PLACED_RAGGED[1])
     for dev in sorted({torch.device(d) for d in devices}, key=str):
         for n in rows:
@@ -5085,7 +5138,10 @@ def check_shard_kernels(rk, devices) -> dict:
                         k_facts=K_MAIN, stamp_cols=K_MAIN // 2),
                     fused_merge=rk.fused_merge(
                         p["known"], p["incoming"], p["alive"], p["stamp"],
-                        r, limit_q=7, with_cache=True, **kw))
+                        r, limit_q=7, with_cache=True, **kw),
+                    fused_flush=rk.fused_flush(
+                        p["known2"], p["new"], p["overlay"], p["stamp"], r,
+                        limit_q=7, with_cache=True, **kw))
             sync_all()
             want = dict(
                 select_packets=rk.select_packets_plain(
@@ -5094,8 +5150,11 @@ def check_shard_kernels(rk, devices) -> dict:
                     p["sendable"], p["known"], p["alive"]),
                 fused_merge=rk.fused_merge_plain(
                     p["known"], p["incoming"], p["alive"], p["stamp"], r,
+                    limit_q=7, with_cache=True, **kw),
+                fused_flush=rk.fused_flush_plain(
+                    p["known2"], p["new"], p["overlay"], p["stamp"], r,
                     limit_q=7, with_cache=True, **kw))
-            for name in PLACED_KERNELS:
+            for name in PLACED_SHARD_KERNELS:
                 g, w = got[name], want[name]
                 if name == "fused_merge":
                     if bool(torch.any(g[3] != 0)) != bool(
@@ -5106,6 +5165,9 @@ def check_shard_kernels(rk, devices) -> dict:
                         torch.int32), g[2].flatten()]), torch.cat(
                         [w[0].flatten(), w[1].flatten().to(torch.int32),
                          w[2].flatten()])
+                elif name == "fused_flush":
+                    g, w = (torch.cat([x[0].flatten().to(torch.int32),
+                                       x[1].flatten()]) for x in (g, w))
                 if g.device != dev:
                     raise AssertionError(f"phase 12: {name} wrote on "
                                          f"{g.device}, its shard on {dev}")
@@ -5113,7 +5175,7 @@ def check_shard_kernels(rk, devices) -> dict:
                 if errs[name]:
                     raise AssertionError(f"phase 12: {name} on {dev}, "
                                          f"n={n}: kernel != plain version")
-    log(f"phase 12 (b) select_packets, fused_select_cached, fused_merge == "
+    log(f"phase 12 (b) {', '.join(PLACED_SHARD_KERNELS)} == "
         f"plain versions on one shard's rows ({rows[0]} and {rows[1]}, "
         f"k={K_MAIN}) on {sorted({str(d) for d in devices})}, launched "
         f"with cuda:0 current")
@@ -5154,10 +5216,262 @@ def placed_timing(rk, card: str, devices, what: str) -> dict:
     return out
 
 
+def placed_flavours(rk, devices, what: str,
+                    runs=PLACED_FLAVOURS) -> dict:
+    """12(e): the seeded deferred (unit 4) and phased flagships at
+    N_MAIN on a placed mesh on ``devices``, 30 rounds per (path,
+    schedule) of ``runs``, against the unsharded run and the virtual
+    mesh of as many shards, as :func:`placed_exact`: the deferred
+    launches ``len(devices)`` times the virtual mesh's, the phased none
+    (the plain path on any mesh; its cache leaves, which the standalone
+    kernels never keep, held to the virtual mesh only), host syncs the
+    unsharded run's."""
+    import dataclasses as dc
+
+    import torch
+
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.parallel.mesh import make_mesh
+    p = len(devices)
+    out, bad = {}, []
+    for path in dict.fromkeys(f for f, _ in runs):
+        base = kernel_config(N_MAIN, **PATHS[path]["gossip"])
+        st0, _ = seeded_state(base, "cuda")
+        ref, ref_rows, run0 = placed_run(rk, st0, base, prng.key(11),
+                                         PLACED_ROUNDS, None)
+        check_launches(rk, path, f"phase 12 (e) {path} unsharded")
+        out[f"{path} unsharded"] = run0
+        for schedule in (sc for f, sc in runs if f == path):
+            cfg = dc.replace(base, exchange_schedule=schedule)
+            virt, virt_rows, vrun = placed_run(rk, st0, cfg, prng.key(11),
+                                               PLACED_ROUNDS,
+                                               make_mesh(p, device="cuda"))
+            mesh = make_mesh(devices=devices, placed=True)
+            st, rows, run = placed_run(rk, st0, cfg, prng.key(11),
+                                       PLACED_ROUNDS, mesh)
+            tag = f"{what} {path} n={N_MAIN} P={p} {schedule}"
+            skip = CACHE_LEAVES if path == "phased" else ()
+            for other, other_rows, name, sk in (
+                    (ref, ref_rows, "unsharded", skip),
+                    (virt, virt_rows, "virtual", ())):
+                diff = placed_differ(other, other_rows, st, rows, sk)
+                if diff:
+                    bad.append(f"{tag}: differs from the {name} run: "
+                               f"{diff}")
+            want = {k: p * v for k, v in vrun["launches"].items()}
+            if path == "phased" and any(want.values()):
+                bad.append(f"{tag}: the virtual mesh launched "
+                           f"{vrun['launches']}")
+            if run["launches"] != want:
+                bad.append(f"{tag}: launches {run['launches']}, want "
+                           f"{want}")
+            if run["replicas"]:
+                bad.append(f"{tag}: replicas differ {run['replicas']}")
+            if run["syncs"] != run0["syncs"]:
+                bad.append(f"{tag}: {run['syncs']} host syncs, unsharded "
+                           f"{run0['syncs']}")
+            run["floats_bit_equal"] = float_leaves_equal(ref, st)
+            out[f"{path} {schedule}"] = run
+            log(f"phase 12 (e) {tag} k={K_MAIN}, {PLACED_ROUNDS} rounds, "
+                f"shards on {[str(d) for d in mesh.devices]}: every "
+                f"integer leaf"
+                f"{' but the cache leaves' if skip else ''} and telemetry "
+                f"row equal to the unsharded run's, every one to the "
+                f"virtual run's, Vivaldi "
+                f"{'bit-equal' if run['floats_bit_equal'] else 'within tolerance'}"
+                f", replicated leaves equal on every shard; launches "
+                f"{json.dumps(run['launches'])} ({p} x the virtual mesh's "
+                f"{json.dumps(vrun['launches'])}; unsharded "
+                f"{json.dumps(run0['launches'])}), dispatch calls == "
+                f"launches, host_syncs_per_round "
+                f"{run['syncs'] / PLACED_ROUNDS:.2f} (unsharded "
+                f"{run0['syncs'] / PLACED_ROUNDS:.2f}), {run['s']:.2f} s "
+                f"(unsharded {run0['s']:.2f} s)")
+            del virt, st
+        del st0, ref
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("phase 12 (e): " + "; ".join(bad))
+    return out
+
+
+def placed_chaos(rk, devices, what: str, shed: bool = True) -> dict:
+    """12(f): ``partition-heal-loss`` at N_MAIN on a placed mesh on
+    ``devices``, recorded with every row, and its replay on that mesh;
+    with ``shed``, the controlled ``control-overload-shed`` leg,
+    recorded.  Each against the unsharded run in this call (final
+    state, rows, decisions, ledger) and the reference's fixture
+    (digests, report, ledger, decisions); launches ``len(devices)``
+    times the unsharded run's, host syncs the same."""
+    import torch
+
+    from serf_tpu_torch import host_syncs
+    from serf_tpu_torch.parallel.mesh import gather_state, make_mesh
+    from serf_tpu_torch.replay.differ import diff_recordings
+    from serf_tpu_torch.replay.replayer import replay_device
+    p = len(devices)
+    mesh = make_mesh(devices=devices, placed=True)
+    fixture = load_chaos_fixture()
+
+    def timed(fn):
+        reset_counts(rk)
+        s0 = host_syncs()
+        t0 = time.perf_counter()
+        value = fn()
+        sync_all()
+        run = dict(s=time.perf_counter() - t0, syncs=host_syncs() - s0,
+                   launches=dict(rk.LAUNCHES))
+        check_dispatch(rk, "phase 12 (f)")
+        return value, run
+
+    legs = [("chaos-heal", False, EVIDENCE)]
+    if shed:
+        legs.append(("chaos-shed", True, dict(collect_telemetry=True,
+                                              collect_invariants=True)))
+    out, bad = {}, []
+    for name, controlled, flags in legs:
+        spec = CHAOS_PATHS[name]
+        plan = spec["plan"]
+        cfg = chaos_config(plan, N_MAIN, spec["k"], controlled)
+        (flat, _), run0 = timed(lambda: chaos_run(plan, cfg, "cuda",
+                                                  **flags))
+        (res, rec), run = timed(lambda: chaos_run(
+            plan, cfg, "cuda", record=True, mesh=mesh, **flags))
+        tag = f"{what} {plan} n={N_MAIN} P={p}"
+        bad += [f"{tag}: {b}" for b in rows_differ(res, flat)]
+        bad += fixture_differ(tag, res, rec, fixture[plan])
+        diff = placed_differ(flat.state, None, gather_state(res.state,
+                                                           "cuda:0"), None)
+        if diff:
+            bad.append(f"{tag}: final state differs: {diff}")
+        if (res.offered, res.dropped) != (flat.offered, flat.dropped):
+            bad.append(f"{tag}: ledger")
+        want = {k: p * v for k, v in run0["launches"].items()}
+        if set(k for k, v in run0["launches"].items() if v) != \
+                set(spec["kernels"]):
+            bad.append(f"{tag}: unsharded launches {run0['launches']}")
+        runs = {"run": run}
+        if name == "chaos-heal":
+            replayed, rep = timed(lambda: replay_device(
+                rec, mesh=mesh).to_recording())
+            d = diff_recordings(rec, replayed)
+            if not d.ok:
+                bad.append(f"{tag}: record -> replay diverged: "
+                           f"{d.to_dict()}")
+            runs["replay"] = rep
+        for kind, r in runs.items():
+            if r["launches"] != want:
+                bad.append(f"{tag} {kind}: launches {r['launches']}, "
+                           f"want {want}")
+        # the replay collects the digests alone, so only the run has the
+        # unsharded run's reads to equal
+        if run["syncs"] != run0["syncs"]:
+            bad.append(f"{tag}: {run['syncs']} host syncs, unsharded "
+                       f"{run0['syncs']}")
+        rounds = res.rounds_run
+        out[name] = dict(rounds=rounds, unsharded=run0, **runs)
+        rep_note = (f"; replay on the placed mesh "
+                    f"{rounds / runs['replay']['s']:.2f} rounds/s, "
+                    f"host_syncs_per_round "
+                    f"{runs['replay']['syncs'] / rounds:.2f}, diffs clean, "
+                    f"launches {json.dumps(runs['replay']['launches'])}"
+                    if "replay" in runs else "")
+        log(f"phase 12 (f) {tag} k={spec['k']}, "
+            f"{'controlled, ' if controlled else ''}recorded, shards on "
+            f"{[str(d) for d in mesh.devices]}: {rounds} rounds at "
+            f"{rounds / run['s']:.2f} rounds/s (unsharded "
+            f"{rounds / run0['s']:.2f}), host_syncs_per_round "
+            f"{run['syncs'] / rounds:.2f} (unsharded "
+            f"{run0['syncs'] / rounds:.2f}); launches "
+            f"{json.dumps(run['launches'])} ({p} x the unsharded run's "
+            f"{json.dumps(run0['launches'])}){rep_note}; final state, "
+            f"rows, decisions and ledger equal the unsharded run's, "
+            f"digests, report, ledger and decisions the reference's")
+        del flat, res
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("phase 12 (f): " + "; ".join(bad))
+    return out
+
+
+def placed_checkpoint(rk, devices) -> dict:
+    """12(g): at N_MAIN, a checkpoint at round 15 of a placed run on
+    ``devices`` writes the bytes of an unsharded save of the gathered
+    state; restored onto 2 placed shards and unsharded and resumed, each
+    equals the unbroken run; a 3-shard placed mesh raises."""
+    import hashlib
+    import os
+
+    import torch
+
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.models import checkpoint
+    from serf_tpu_torch.models.swim import make_cluster, run_cluster_sustained
+    from serf_tpu_torch.parallel.mesh import (gather_state, make_mesh,
+                                              shard_state)
+    cfg = kernel_config(N_MAIN)
+    st0, _ = seeded_state(cfg, "cuda")
+    k1, k2 = prng.split(prng.key(17))
+    mesh = make_mesh(devices=devices, placed=True)
+
+    def run(st, key, mesh_):
+        return run_cluster_sustained(st, cfg, key, PLACED_CKPT_ROUND,
+                                     events_per_round=EVENTS_PER_ROUND,
+                                     mesh=mesh_)
+    mid = run(shard_state(st0, mesh), k1, mesh)
+    path, flat = checkpoint_path("placed.npz"), checkpoint_path("flat.npz")
+    t0 = time.perf_counter()
+    checkpoint.save(path, mid)
+    save_s = time.perf_counter() - t0
+    checkpoint.save(flat, gather_state(mid, "cuda:0"))
+
+    def sha(f):
+        with open(f, "rb") as fh:
+            return hashlib.sha256(fh.read()).hexdigest()
+    bad = [] if sha(path) == sha(flat) else ["the placed save's bytes "
+                                             "differ from the unsharded "
+                                             "save's"]
+    unbroken = gather_state(run(mid, k2, mesh), "cuda:0")
+    template = make_cluster(cfg, prng.key(0), device="cuda")
+    for p in PLACED_RESUME:
+        to = make_mesh(devices=devices[:p], placed=True) if p else None
+        back = checkpoint.restore(path, template, mesh=to)
+        resumed = run(back, k2, to)
+        if p:
+            resumed = gather_state(resumed, "cuda:0")
+        diff = placed_differ(unbroken, None, resumed, None)
+        if diff:
+            bad.append(f"resumed on {p or 'no'} placed shards: {diff}")
+    try:
+        checkpoint.restore(path, template, mesh=make_mesh(
+            devices=["cuda:0"] * PLACED_BAD_P, placed=True))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        bad.append(f"a restore onto {PLACED_BAD_P} placed shards did not "
+                   f"raise")
+    mb = os.path.getsize(path) / 1e6
+    for f in (path, flat):
+        os.remove(f)
+    del st0, mid, unbroken
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("phase 12 (g): " + "; ".join(bad))
+    log(f"phase 12 (g) n={N_MAIN}: checkpoint at round {PLACED_CKPT_ROUND} "
+        f"of a {len(devices)}-shard placed run ({mb:.1f} MB, saved in "
+        f"{save_s:.2f} s) holds the bytes of the unsharded save; restored "
+        f"onto {PLACED_RESUME[0]} placed shards and unsharded and resumed "
+        f"{PLACED_CKPT_ROUND} rounds: equal to the unbroken run; onto "
+        f"{PLACED_BAD_P} placed shards: ValueError ({refused[:80]}...)")
+    return dict(mb=mb, save_s=save_s)
+
+
 def placed_full(rk) -> dict:
-    """Phase 12: the per-round flagship on a placed mesh, parts (a)-(d),
-    each logged beside the card line; the whole phase inside
-    :data:`PHASE12_LIMIT_S`."""
+    """Phase 12: the flagships, chaos and checkpoint on a placed mesh,
+    parts (a)-(g), each logged beside the card line; the one-card parts
+    inside :data:`PHASE12_LIMIT_S`, (e)-(g) inside
+    :data:`PHASE12_NEW_LIMIT_S`, the distinct-card repeat of (d) inside
+    :data:`PHASE12_SPREAD_LIMIT_S`."""
     import torch
     card = card_line()
     t0 = time.perf_counter()
@@ -5168,33 +5482,50 @@ def placed_full(rk) -> dict:
     out["ragged"] = placed_exact(rk, n, p, ["cuda:0"] * p, "one card")
     out["errs"] = check_shard_kernels(rk, one)
     out["times"] = measure_kernels(rk, torch.device("cuda:0"), PLACED_ROWS,
-                                   K_MAIN, only=PLACED_KERNELS,
+                                   K_MAIN, only=PLACED_SHARD_KERNELS,
                                    limit_n=N_MAIN)
     log_kernel_times(out["times"], f"at n={PLACED_ROWS} k={K_MAIN}, one "
                      f"shard's launch of {PLACED_P} at n={N_MAIN} "
                      f"(phase 12 (b))", card)
     out["timing"] = placed_timing(rk, card, one, "one card")
+    t_new = time.perf_counter()
+    out["flavours"] = placed_flavours(rk, one, "one card")
+    out["chaos"] = placed_chaos(rk, one, "one card")
+    out["checkpoint"] = placed_checkpoint(rk, one)
+    out["new_s"] = time.perf_counter() - t_new
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 12 (e)-(g) {out['new_s']:.2f} s, phase 12 on one card "
+        f"{out['s']:.2f} s on the machine with {card}")
+    if out["new_s"] > PHASE12_NEW_LIMIT_S or out["s"] > PHASE12_LIMIT_S:
+        raise AssertionError(
+            f"phase 12 took {out['s']:.1f} s on one card ((e)-(g) "
+            f"{out['new_s']:.1f} s), over its {PHASE12_LIMIT_S} s "
+            f"({PHASE12_NEW_LIMIT_S} s)")
     if count >= 2:
+        t_spread = time.perf_counter()
         spread = placed_devices(True)
         cards = sorted(set(spread))
         peers = {f"cuda:0->{c}": torch.cuda.can_device_access_peer(
             0, torch.device(c).index) for c in cards[1:]}
         log(f"phase 12 (d) {count} cards: shards on {spread}, peer access "
             f"{json.dumps(peers)}")
-        out["distinct"] = placed_exact(rk, N_MAIN, PLACED_P, spread,
-                                       f"{len(cards)} cards")
+        where = f"{len(cards)} cards"
+        out["distinct"] = placed_exact(rk, N_MAIN, PLACED_P, spread, where)
         errs = check_shard_kernels(rk, spread)
         out["errs"] = {k: max(v, errs[k]) for k, v in out["errs"].items()}
-        out["timing"].update(placed_timing(rk, card, spread,
-                                           f"{len(cards)} cards"))
+        out["timing"].update(placed_timing(rk, card, spread, where))
+        out["distinct_flavours"] = placed_flavours(
+            rk, spread, where, runs=(("deferred", "ring"),))
+        out["distinct_chaos"] = placed_chaos(rk, spread, where, shed=False)
+        spread_s = time.perf_counter() - t_spread
+        log(f"phase 12 (d) the repeat on {where}: {spread_s:.2f} s")
+        if spread_s > PHASE12_SPREAD_LIMIT_S:
+            raise AssertionError(f"phase 12 (d) took {spread_s:.1f} s on "
+                                 f"{where}, over its "
+                                 f"{PHASE12_SPREAD_LIMIT_S} s")
     else:
         log(f"phase 12 (d) one card: all {PLACED_P} shards shared cuda:0 "
             f"(separate tensors, their own launches and block copies)")
-    out["s"] = time.perf_counter() - t0
-    if out["s"] > PHASE12_LIMIT_S:
-        raise AssertionError(f"phase 12 took {out['s']:.1f} s, over its "
-                             f"{PHASE12_LIMIT_S} s")
-    log(f"phase 12 (e) phase 12 {out['s']:.2f} s on the machine with {card}")
     return out
 
 
@@ -5382,11 +5713,18 @@ def main() -> int:
         sharded["chaos"]["launches"]
     shard_launches["phase 11 chaos-heal replay on 8 shards"] = \
         sharded["chaos"]["replay_launches"]
-    for part in ("exact", "ragged", "distinct"):
+    for part in ("exact", "ragged", "distinct", "flavours",
+                 "distinct_flavours"):
         for schedule, r in placed.get(part, {}).items():
-            if schedule != "unsharded":
+            if not schedule.endswith("unsharded"):
                 shard_launches[f"phase 12 {part} placed {schedule}"] = \
                     r["launches"]
+    for part in ("chaos", "distinct_chaos"):
+        for name, r in placed.get(part, {}).items():
+            for kind in ("run", "replay"):
+                if kind in r:
+                    shard_launches[f"phase 12 {part} placed {name} "
+                                   f"{kind}"] = r[kind]["launches"]
     shard_times = placed["times"]
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], path=KERNEL_PATH[name],

@@ -75,7 +75,9 @@ from serf_tpu_torch.obs.watchdog import (
     emit_device_watchdog,
     summarize_invariants,
 )
-from serf_tpu_torch.replay.digest import state_digest
+from serf_tpu_torch.parallel.mesh import PlacedState, gather_state, shard_state
+from serf_tpu_torch.parallel.placed import rep
+from serf_tpu_torch.replay.digest import placed_digest, state_digest
 from serf_tpu_torch.replay.recording import (
     NODE_DIGEST_CAP,
     device_config_to_dict,
@@ -188,9 +190,14 @@ def run_phase(state: ClusterState, cfg: ClusterConfig, key,
     threaded through, seeded by ``inv_cov0``, and the invariant entry
     is ``(irows, carry)``.  One flag returns its bare stream, several a
     tuple in that order; with none the bare final state is returned."""
-    dev = init_alive.device
-    st = state._replace(gossip=state.gossip._replace(
-        alive=init_alive & ~down), group=group)
+    if mesh is not None and mesh.placed:
+        from serf_tpu_torch.parallel import placed
+        dev = mesh.device
+        st = placed.with_masks(state, cfg, init_alive, group, down)
+    else:
+        dev = init_alive.device
+        st = state._replace(gossip=state.gossip._replace(
+            alive=init_alive & ~down), group=group)
     track_cov = collect_invariants and collect_propagation
     prev_cov = None
     if track_cov:
@@ -210,23 +217,27 @@ def run_phase(state: ClusterState, cfg: ClusterConfig, key,
                    if (collect_telemetry or collect_invariants
                        or cfg.control.enabled) else None)
         st, row = control_tick(st, cfg, row, mesh=mesh)
+        g0 = rep(st).gossip
         if collect_digests:
-            overall, node = state_digest(st.gossip, cfg.gossip)
+            overall, node = (
+                placed_digest(st, cfg.gossip, include_nodes)
+                if isinstance(st, PlacedState)
+                else state_digest(st.gossip, cfg.gossip))
             digs.append(overall)
             if include_nodes:
                 nodes.append(node)
         if collect_telemetry:
             rows.append(row)
         if collect_control:
-            crows.append(control_row(st.control))
+            crows.append(control_row(rep(st).control))
         if collect_propagation:
-            prow, cov = propagation_row(st.gossip, pair, colcnt, alive_cnt,
+            prow, cov = propagation_row(g0, pair, colcnt, alive_cnt,
                                         sentinels)
             props.append(prow)
             covs.append(cov)
         if collect_invariants:
             irow, new_prev = invariant_row(
-                st.gossip, row, sentinels if track_cov else None,
+                g0, row, sentinels if track_cov else None,
                 colcnt if track_cov else None, prev_cov,
                 deferred=cfg.gossip.stamp_deferred)
             if track_cov:
@@ -257,7 +268,14 @@ def inject_chunk(st: ClusterState, cfg: ClusterConfig, eids: torch.Tensor,
     ``eids``, incarnation 0), every entry offered; under control
     (``gated``) the chunk passes the admission gate first and refusals
     land in the shed ledger.  ``ltimes`` stays an operand so that a
-    perturbed recording replays perturbed."""
+    perturbed recording replays perturbed.  A ``PlacedState`` takes the
+    batch onto every shard (``parallel.placed.inject_gated``)."""
+    if isinstance(st, PlacedState):
+        from serf_tpu_torch.parallel import placed
+        lay = placed.Layout(st.mesh, cfg.n)
+        return placed.inject_gated(
+            st, cfg, lay.broadcast(eids), lay.broadcast(ltimes),
+            lay.broadcast(origins), gated, kind)
     dev = st.gossip.known.device
     active = torch.ones(eids.shape, dtype=torch.bool, device=dev)
     control = st.control
@@ -268,6 +286,14 @@ def inject_chunk(st: ClusterState, cfg: ClusterConfig, eids: torch.Tensor,
         incarnations=torch.zeros(eids.shape, dtype=torch.int32, device=dev),
         ltimes=ltimes, origins=origins, active=active)
     return st._replace(gossip=g, control=control)
+
+
+def alive_of(state):
+    """The liveness each phase's down mask starts from: the state's
+    ``alive``, or its placed shards' rows."""
+    if isinstance(state, PlacedState):
+        return [st.gossip.alive for st in state.shards]
+    return state.gossip.alive
 
 
 def control_base_row(cfg: ClusterConfig) -> np.ndarray:
@@ -345,18 +371,20 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
     placed on the mesh (``parallel.mesh.shard_state``), every phase
     exchanges under the config's schedule, and the rows are the
     in-collective ones; the read-outs after the run are the same
-    reductions.  ``recorder`` (a
+    reductions.  A placed mesh runs it with each shard's rows on its own
+    device: the masks lowered once on the mesh's shard 0 device and
+    sliced per shard each scan, every stacked row on that device, the
+    read-outs on the gathered final state (``state`` of the result
+    stays the ``PlacedState``).  ``recorder`` (a
     ``replay.recording.RunRecorder``) makes the run a recording: every
     injection batch and every scan's key is a step, and the scans emit
     the per-round membership-view digests (one device-to-host copy per
     scan).  The other rows are stacked on the device and read once,
     after the whole plan ran."""
     plan.validate()
-    from serf_tpu_torch.parallel.mesh import refuse_placed
-    refuse_placed(mesh, "a chaos plan (run_device_plan)", "chaos")
     if device is None and mesh is not None:
         device = mesh.device
-    dev = (state.gossip.known.device if state is not None
+    dev = (rep(state).gossip.known.device if state is not None
            else resolve_device(device))
     sched = lower_plan(plan, cfg.n, dev)
     key = key if key is not None else prng.key(plan.seed)
@@ -375,10 +403,9 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
                           events_per_phase=events_per_phase,
                           mesh_devices=(mesh.size if mesh is not None
                                         else 1))
-    if mesh is not None:
-        from serf_tpu_torch.parallel.mesh import shard_state
+    if mesh is not None and not isinstance(state, PlacedState):
         state = shard_state(state, mesh)
-    init_alive = state.gossip.alive
+    init_alive = alive_of(state)
     want_ctl = cfg.control.enabled
     ctl_base = control_base_row(cfg) if want_ctl else None
 
@@ -548,7 +575,11 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
                           shed=d["shed"])
         emit_control_metrics(control_rows[-1], {"plane": "device"})
         stretch_q = int(control_final["stretch_q"])
-    report = inv.check_device(plan, state, cfg, init_alive,
+    final = state
+    if isinstance(state, PlacedState):
+        final, init_alive = gather_state(state), torch.cat(
+            [a.to(state.mesh.device) for a in init_alive])
+    report = inv.check_device(plan, final, cfg, init_alive,
                               rounds_run=total, offered=len(injected),
                               expect_overflow=expect_overflow,
                               stretch_q=stretch_q)
@@ -556,8 +587,8 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
         inv.check_control_device(report, control_rows, cfg.control,
                                  knob_bounds(cfg.control, cfg.gossip,
                                              cfg.failure))
-    ledger = torch.stack([as_u64(state.gossip.overflow),
-                          as_u64(state.gossip.injected)]).cpu().tolist()
+    ledger = torch.stack([as_u64(final.gossip.overflow),
+                          as_u64(final.gossip.injected)]).cpu().tolist()
     telemetry = None
     telemetry_final = None
     propagation = None

@@ -55,12 +55,13 @@ def push_pull_merge(state: GossipState, cfg: GossipConfig,
     """The sync's merge of the partners' words ``incoming`` (zero where
     no partner answered): learn, stamp pass, cache, ledgers.  The
     per-round flavor's ``learned_any`` is one host read unless the
-    caller passes it (a placed round reads it once for all shards)."""
+    caller passes it (a placed round reads it once for all shards; on
+    the deferred flavor it passes the global device bool)."""
     k = cfg.k_facts
     new_words = incoming & ~state.known
     known = state.known | new_words
     if cfg.stamp_deferred:
-        return _push_pull_deferred(state, cfg, known, new_words)
+        return _push_pull_deferred(state, cfg, known, new_words, learned_any)
     if learned_any is None:
         learned_any = host_bool(torch.any(new_words != 0))
 
@@ -88,15 +89,16 @@ def push_pull_merge(state: GossipState, cfg: GossipConfig,
 
 
 def _push_pull_deferred(state: GossipState, cfg: GossipConfig,
-                        known: torch.Tensor,
-                        new_words: torch.Tensor) -> GossipState:
+                        known: torch.Tensor, new_words: torch.Tensor,
+                        learned_any=None) -> GossipState:
     """The deferred branch: learns go to the overlay (q-age 0 for every
     reader), and the next flush writes them with the quarter of
     flush - 1, which is this round's quarter.  A flush may already have
     run this round (``last_flush == round``); these learns are newer, so
     ``last_flush`` is backdated below ``last_learn`` to re-arm the
     pending predicate (it is only ever compared, never a stamp)."""
-    learned_any = torch.any(new_words != 0)
+    if learned_any is None:
+        learned_any = torch.any(new_words != 0)
     last_flush = torch.where(
         learned_any, torch.clamp(state.last_flush, max=state.round - 1),
         state.last_flush)

@@ -17,8 +17,10 @@ leaf, or a shape or dtype that differs from the template's.  Files
 written before the cache and tombstone leaves existed restore them at
 their lossless (cache) or recoverable (tombstone) defaults, as the
 reference does.  The restored tree lands on the template's devices.
-A state saved on a mesh gives the same mesh-agnostic file, and
-``restore(..., mesh=)`` checks that the mesh divides every node axis.
+A state saved on a mesh gives the same mesh-agnostic file (a placed
+state's shards gathered in row order), and ``restore(..., mesh=)``
+checks that the mesh divides every node axis, then places the tree on
+it, virtual or placed, whatever shard count it was saved from.
 """
 
 from __future__ import annotations
@@ -99,8 +101,12 @@ def _np_dtype(t: torch.Tensor, u32: bool) -> np.dtype:
 
 
 def save(path: str, state: Any) -> None:
-    """Write the state tree to ``path`` (gathered to the host; atomic
-    replace, so a crash never leaves a half-written checkpoint)."""
+    """Write the state tree to ``path`` (gathered to the host, a
+    ``parallel.mesh.PlacedState``'s shards in row order; atomic replace,
+    so a crash never leaves a half-written checkpoint)."""
+    from serf_tpu_torch.parallel.mesh import PlacedState, gather_state
+    if isinstance(state, PlacedState):
+        state = gather_state(state, "cpu")
     arrays = {key: _host(t, u32) for key, t, u32 in _leaves(state)}
     arrays[_SCHEMA_KEY] = np.asarray(_schema_version(), np.int64)
     tmp = path + ".tmp"
@@ -112,8 +118,9 @@ def save(path: str, state: Any) -> None:
 def _validate_mesh(state: Any, mesh) -> Any:
     """Fail-closed re-shard: every axis the node sharding would split
     must be divisible by the mesh size (a 1M-node checkpoint restored
-    onto a 7-shard mesh must raise).  On the mesh's one device the
-    restored tree is its shards' row blocks as it is."""
+    onto a 7-shard mesh must raise).  On a virtual mesh the restored
+    tree is its shards' row blocks as it is; a placed mesh takes each
+    shard's rows onto its device (``shard_state``)."""
     from serf_tpu_torch.parallel.mesh import (
         _flat_with_names,
         _spec_for,
@@ -135,15 +142,16 @@ def _validate_mesh(state: Any, mesh) -> Any:
 
 def restore(path: str, template: Any, mesh=None) -> Any:
     """Load ``path`` into the structure, shapes and devices of
-    ``template`` (the ``make_*`` result for the same config).  ``mesh``
-    re-shards the restored tree onto a mesh (``parallel.mesh``), failing
-    closed with ``ValueError`` when the mesh does not divide a node
-    axis.  A placed mesh raises ``NotImplementedError`` (a later
-    slice)."""
+    ``template`` (the ``make_*`` result for the same config; a placed
+    template is gathered first).  ``mesh`` re-shards the restored tree
+    onto a mesh (``parallel.mesh``; a placed one gives a
+    ``PlacedState``), failing closed with ``ValueError`` when the mesh
+    does not divide a node axis."""
     import zipfile
 
-    from serf_tpu_torch.parallel.mesh import refuse_placed
-    refuse_placed(mesh, "a checkpoint restore", "chaos")
+    from serf_tpu_torch.parallel.mesh import PlacedState, gather_state
+    if isinstance(template, PlacedState):
+        template = gather_state(template)
     try:
         with np.load(path) as data:
             if _SCHEMA_KEY in data:

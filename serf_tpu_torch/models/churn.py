@@ -164,7 +164,8 @@ def composed_step(state: ClusterState, qstate, countdown: torch.Tensor,
     the leave countdown, then the expired leavers go dark.  Returns
     ``(state, qstate, countdown)``."""
     from serf_tpu_torch.parallel.mesh import refuse_placed
-    refuse_placed(mesh, "the churn-query step (composed_step)", "chaos")
+    refuse_placed(mesh, "the churn-query step (composed_step)",
+                  "churn-query")
     k_churn, k_round, k_query = prng.split(key, 3)
     g, new_leavers = churn_round(state.gossip, cfg.gossip, ccfg, k_churn)
     state = cluster_round(state._replace(gossip=g), cfg, k_round, mesh=mesh)

@@ -788,11 +788,15 @@ def select_phase(state: GossipState, cfg: GossipConfig,
     select launches once over the whole plane (``ops.round_kernels``'
     launch rule).  A placed shard (``parallel.placed``) passes the
     round's ``mode`` and the cache gate's answer ``cached``, each
-    decided once for all shards."""
+    decided once for all shards; a device bool ``cached`` picks between
+    both branches on the device, with no host read."""
     if mode is None:
         mode = _dispatch(cfg, mesh)
     if mode == "kernels":
         return _select_packets(state, cfg, mesh)
+    if isinstance(cached, torch.Tensor):
+        return torch.where(cached, select_phase(state, cfg, mesh, True, mode),
+                           select_phase(state, cfg, mesh, False, mode))
     if cached is None:
         cached = (cfg.use_sendable_cache
                   and host_bool(state.sendable_round == state.round))
@@ -990,9 +994,11 @@ def merge_apply(state: GossipState, cfg: GossipConfig, mode: str,
     """The per-round merge after its gate (:func:`merge_learn`): with
     nothing learned the stamp/cache outputs are discarded and
     ``last_clamp`` does not move; otherwise the fused outputs are kept,
-    or the plain stamp learn pass runs."""
+    or the plain stamp learn pass runs.  ``learned_any`` a device bool:
+    the gate is taken on the device (both outcomes computed, no host
+    read)."""
     r1 = state.round + 1
-    if learned_any:
+    if isinstance(learned_any, torch.Tensor) or learned_any:
         last_clamp = r1
         if mode == "fused":
             stamp, sendable2 = pending
@@ -1004,6 +1010,12 @@ def merge_apply(state: GossipState, cfg: GossipConfig, mode: str,
         else:
             stamp, sendable, sendable_round = learn_stamp_pass(
                 state.stamp, known, pending, r1, cfg, state.sendable)
+        if isinstance(learned_any, torch.Tensor):
+            stamp, sendable, sendable_round, last_clamp = (
+                torch.where(learned_any, new, old) for new, old in (
+                    (stamp, state.stamp), (sendable, state.sendable),
+                    (sendable_round, state.sendable_round),
+                    (last_clamp, state.last_clamp)))
     else:
         stamp, sendable = state.stamp, state.sendable
         sendable_round, last_clamp = state.sendable_round, state.last_clamp
@@ -1025,14 +1037,39 @@ def _merge_phase_deferred(state: GossipState, incoming: torch.Tensor,
     defer branch ORs the learns into the overlay and the cache, and keeps
     the cache valid for the next round except across a skipped boundary
     (where a quarter crossing may expire cached bits)."""
+    known, new_words, learned_any = deferred_learn(state, incoming)
+    flush_due, do_flush = deferred_gate(state, cfg, learned_any, stamp_unit)
+    return deferred_apply(state, cfg, mode, known, new_words, learned_any,
+                          flush_due, host_bool(do_flush), mesh)
+
+
+def deferred_learn(state: GossipState, incoming: torch.Tensor):
+    """The deferred merge's word-plane learn: ``(known', new_words,
+    learned)``, ``learned`` a device bool (a placed shard's partial)."""
+    new_words = _learn_words(state, incoming)
+    return state.known | new_words, new_words, torch.any(new_words != 0)
+
+
+def deferred_gate(state: GossipState, cfg: GossipConfig, learned_any,
+                  stamp_unit=None):
+    """``(flush_due, do_flush)``, device bools of the replicated scalars
+    and the (global) ``learned_any``."""
     nxt = state.round + 1
     unit = cfg.stamp_flush_unit if stamp_unit is None else stamp_unit
-    new_words = _learn_words(state, incoming)
-    known = state.known | new_words
-    learned_any = torch.any(new_words != 0)
     flush_due = torch.remainder(nxt, unit) == 0
     pending = state.last_learn > state.last_flush
-    if host_bool(flush_due & (learned_any | pending)):
+    return flush_due, flush_due & (learned_any | pending)
+
+
+def deferred_apply(state: GossipState, cfg: GossipConfig, mode: str,
+                   known: torch.Tensor, new_words: torch.Tensor,
+                   learned_any, flush_due, do_flush: bool,
+                   mesh=None) -> GossipState:
+    """The deferred merge after its one host read ``do_flush``: the
+    cohort flush (``fused_flush`` over these rows, or the plain pass) or
+    the defer branch's overlay and cache ORs."""
+    nxt = state.round + 1
+    if do_flush:
         if mode == "fused":
             from serf_tpu_torch.ops import round_kernels
             stamp, sendable = round_kernels.fused_flush(

@@ -19,8 +19,9 @@ unsharded round.  The adaptive controller (``control.enabled``) and the
 per-round telemetry, propagation and invariant rows (the ``collect_*``
 flags) run on both.  A placed mesh (``make_mesh(devices=[...])``, the
 state a ``parallel.mesh.PlacedState`` from ``shard_state``) runs the
-per-round flagship with each shard's rows on its own device
-(``parallel.placed``), the telemetry rows and the controller with it.
+same rounds with each shard's rows on its own device
+(``parallel.placed``): every flavour, the chaos masks, the controller
+and every row.
 
 Host syncs per round: the reference's round-cadence conds (probe tick,
 push/pull tick) both derive from one read of ``round`` at the top of
@@ -85,7 +86,6 @@ from serf_tpu_torch.models.vivaldi import (
     make_vivaldi,
     vivaldi_update,
 )
-from serf_tpu_torch.parallel.mesh import later_slice
 # the propagation row's field order lives with its readers (as in the
 # reference); re-exported here beside TELEMETRY_FIELDS
 from serf_tpu_torch.obs.propagation import PROPAGATION_FIELDS  # noqa: F401
@@ -298,9 +298,8 @@ def sustained_round(state: ClusterState, cfg: ClusterConfig, key,
             f"or lower events_per_round)")
     if mesh is not None and mesh.placed:
         from serf_tpu_torch.parallel import placed
-        if collect_propagation:
-            raise later_slice("the propagation rows", "chaos")
-        return placed.sustained_round(state, cfg, key, m)
+        return placed.sustained_round(state, cfg, key, m,
+                                      collect_propagation=collect_propagation)
     k_org, k_rnd = prng.split(key)
     g = state.gossip
     dev = g.known.device
@@ -336,25 +335,23 @@ def run_cluster_sustained(state: ClusterState, cfg: ClusterConfig, key,
     carry of the coverage-monotonicity predicate, which ``inv_cov0``
     seeds for a chunked caller.  ``mesh`` runs the sharded round and the
     in-collective telemetry row; on a placed mesh (the state a
-    ``PlacedState``) the rows are on shard 0's device, and the
-    propagation and invariant rows wait for a later slice."""
+    ``PlacedState``) every row is on shard 0's device, folded from the
+    shards' reduced partials and shard 0's replicated leaves."""
+    from serf_tpu_torch.parallel.placed import rep
     if collect_propagation and events_per_round <= 0:
         raise ValueError(
             "collect_propagation traces the first injected batch as "
             "sentinel facts — it needs events_per_round >= 1")
-    if mesh is not None and mesh.placed and (collect_propagation
-                                             or collect_invariants):
-        raise later_slice("the propagation and invariant rows", "chaos")
     m = events_per_round
+    g0 = rep(state).gossip
+    dev = g0.known.device
     if collect_propagation:
-        dev = state.gossip.known.device
         # the eids sustained_round assigns to the first round's batch
-        sentinels = (state.gossip.round * m
+        sentinels = (g0.round * m
                      + torch.arange(m, dtype=torch.int32, device=dev) + 1)
     track_cov = collect_invariants and collect_propagation
     prev_cov = None
     if track_cov:
-        dev = state.gossip.known.device
         prev_cov = inv_cov0 if inv_cov0 is not None else (
             torch.zeros((m,), dtype=torch.float32, device=dev),
             torch.full((), -1.0, dtype=torch.float32, device=dev))
@@ -374,13 +371,13 @@ def run_cluster_sustained(state: ClusterState, cfg: ClusterConfig, key,
         if collect_telemetry:
             rows.append(row)
         if collect_propagation:
-            prow, cov = propagation_row(state.gossip, pair, colcnt,
+            prow, cov = propagation_row(rep(state).gossip, pair, colcnt,
                                         alive_cnt, sentinels)
             props.append(prow)
             covs.append(cov)
         if collect_invariants:
             irow, prev_cov = invariant_row(
-                state.gossip, row, sentinels if track_cov else None,
+                rep(state).gossip, row, sentinels if track_cov else None,
                 colcnt if track_cov else None, prev_cov,
                 deferred=cfg.gossip.stamp_deferred)
             irows.append(irow)

@@ -25,10 +25,11 @@ A :class:`Mesh` takes one of two forms:
   :func:`shard_state` splits a state into a :class:`PlacedState`,
   :func:`gather_state` brings one back to one device, and
   :func:`replicas_differ` checks that the shards agree on every
-  replicated leaf.  The per-round flagship runs on it
-  (``parallel.placed``); every other path that takes a mesh raises
-  ``NotImplementedError`` on a placed one, naming its later slice
-  (:data:`LATER_SLICES`, :func:`refuse_placed`).
+  replicated leaf.  The flagship rounds of every flavour, chaos,
+  record/replay and checkpoint run on it (``parallel.placed``); the
+  tools and churn-query raise ``NotImplementedError`` on a placed mesh,
+  naming their later slice (:data:`LATER_SLICES`,
+  :func:`refuse_placed`).
 
 The placement rule (:func:`partition_specs`) is the reference's, kept as
 data: a leaf shards on axis 0, on axis 1 (the ``[Q, N]`` query planes,
@@ -44,13 +45,14 @@ NODE_AXIS = "nodes"
 #: the slices of the four-card port still to come, in order; a path on a
 #: placed mesh that waits for one raises ``NotImplementedError`` naming it
 LATER_SLICES = {
-    "flavours": "the deferred and phased flavours on a placed mesh (the "
-                "placed launches of fused_flush and merge_incoming)",
-    "chaos": "churn-query, chaos, replay and checkpoint on a placed mesh",
     "tools": "the tools on a placed mesh (multichip_ab, roundprof --mesh, "
              "chaos --devices, entry.dryrun_multichip)",
     "processes": "multi-process meshes over torch.distributed with nccl, "
                  "one rank a card",
+    "churn-query": "churn-query on a placed mesh (the reference's churn "
+                   "and query step takes no mesh, so a placed "
+                   "composed_step is a port-only extension that waits "
+                   "behind the tools and the nccl slices)",
 }
 
 

@@ -1,4 +1,4 @@
-"""The per-round flagship on a placed mesh: each shard's rows are tensors
+"""The flagship rounds on a placed mesh: each shard's rows are tensors
 of their own, on their own device, driven from one process.
 
 Counterpart of the reference's multi-chip round (``models/swim.py``
@@ -36,11 +36,15 @@ Each kernel launches once per shard over its ``N/P`` rows on its device
 unsharded one on every integer leaf; Vivaldi runs the same float32 ops
 on each row.
 
-Scope: the per-round flavour, fused or plain, with rotation or iid
-peers, round-robin or random probes, the controller and the telemetry
-rows.  The deferred and phased flavours, chaos (``drop_rate``) and the
-propagation and invariant rows raise ``NotImplementedError`` naming
-their slice (``parallel.mesh.LATER_SLICES``).
+Scope: the per-round, deferred and phased flavours, fused or plain,
+with rotation or iid peers, round-robin or random probes, the
+controller, the chaos masks (``drop_rate``, the partition groups, the
+down nodes) and the telemetry, propagation and invariant rows; the
+chaos executor, record/replay and checkpoint run on it through their
+own modules.  The phased flavour runs plain, as on any mesh (the
+reference's dispatch rule).  The tools and churn-query raise
+``NotImplementedError`` naming their slice
+(``parallel.mesh.LATER_SLICES``).
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from serf_tpu_torch.bits import alive_words as _alive_words
 from serf_tpu_torch.control.device import (
     KNOB_FANOUT,
     KNOB_PROBE_MULT,
+    KNOB_STAMP_UNIT,
     KNOB_STRETCH_Q,
     ControlSignals,
     control_step,
@@ -69,8 +74,12 @@ from serf_tpu_torch.models.dissemination import (
     K_SUSPECT,
     K_USER_EVENT,
     GossipConfig,
+    _learn_words,
     batch_slots,
     clamp_stamps,
+    deferred_apply,
+    deferred_gate,
+    deferred_learn,
     first_argmax,
     inject_facts_batch,
     launch_mode,
@@ -81,6 +90,7 @@ from serf_tpu_torch.models.dissemination import (
     owned_rows,
     pick_scores,
     pick_top,
+    popcount,
     scatter_max_bool,
     select_phase,
 )
@@ -93,11 +103,7 @@ from serf_tpu_torch.models.failure import (
     live_suspicions,
     suspicion_q_of,
 )
-from serf_tpu_torch.parallel.mesh import (
-    PlacedState,
-    check_shards,
-    later_slice,
-)
+from serf_tpu_torch.parallel.mesh import PlacedState, check_shards
 
 
 class Layout:
@@ -178,8 +184,9 @@ def take(planes, idx: torch.Tensor, lay: Layout) -> torch.Tensor:
 
 
 def _rows_of(total: torch.Tensor, lay: Layout) -> List[torch.Tensor]:
-    """A global ``[N]`` plane on shard 0's device split back into the
-    shards' rows on their devices."""
+    """A global ``[N]`` plane (on shard 0's device, or a chaos phase's
+    mask on any device) split into the shards' rows on their
+    devices."""
     return [_to(total[a:b], dev)
             for (a, b), dev in zip(map(lay.rows, range(lay.d)), lay.devs)]
 
@@ -198,10 +205,12 @@ def _hop(blocks, lay: Layout):
 
 # -- the exchange -------------------------------------------------------------
 
-def _masked(contrib, f: int, allowed, eff):
+def _masked(contrib, f: int, allowed, eff, lost=None):
     zero = torch.zeros((), dtype=contrib.dtype, device=contrib.device)
     if allowed is not None:
         contrib = torch.where(allowed[:, None], contrib, zero)
+    if lost is not None:
+        contrib = torch.where(lost[:, None], zero, contrib)
     if eff is not None:
         contrib = torch.where(f < eff, contrib, zero)
     return contrib
@@ -235,13 +244,26 @@ def _or_fanout(got: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _rotation_lost(k_drop, drop, fanout: int, f: int, lay: Layout,
+                   s: int):
+    """Shard ``s``'s receivers' row of fan-out ``f`` of the rotation loss
+    draw ``bernoulli(k_drop, drop, (F, N))``: a run of its flat
+    elements."""
+    first = f * lay.n + lay.row0(s)
+    return prng.bernoulli(k_drop, drop, (fanout * lay.n,), lay.devs[s],
+                          rows=(first, first + lay.nl))
+
+
 def exchange_placed(packets, cfg: GossipConfig, key, lay: Layout,
-                    schedule: str, group=None, eff_fanout=None):
+                    schedule: str, group=None, eff_fanout=None,
+                    drop_rate=None):
     """The pull-exchange across placed shards, bit-identical to
     ``dissemination.exchange_phase`` on the global plane: the same draws
-    (rotation offsets on the host, iid sources drawn for each shard's
-    own rows), the same group and fan-out masks, the OR of the legs.
-    ``packets``, ``group`` and ``eff_fanout`` are per-shard lists."""
+    (rotation offsets on the host, iid sources and the loss masks drawn
+    for each shard's own rows), the same group, loss and fan-out masks,
+    the OR of the legs.  ``packets``, ``group``, ``eff_fanout`` and
+    ``drop_rate`` (a chaos round's loss rate on each shard's device)
+    are per-shard lists."""
     from serf_tpu_torch.parallel.ring import EXCHANGE_SCHEDULES
     if schedule not in EXCHANGE_SCHEDULES:
         raise ValueError(f"unknown exchange schedule {schedule!r} "
@@ -249,10 +271,16 @@ def exchange_placed(packets, cfg: GossipConfig, key, lay: Layout,
     d, nl = lay.d, lay.nl
     grp = group if group is not None else [None] * d
     eff = eff_fanout if eff_fanout is not None else [None] * d
+    if drop_rate is not None:
+        key, k_drop = prng.split(key)
     acc = [torch.zeros_like(p) for p in packets]
     if cfg.peer_sampling == "rotation":
         offs = [int(o) for o in prng.randint_host(key, (cfg.fanout,), 1,
                                                   lay.n)]
+        lost = [[None if drop_rate is None else
+                 _rotation_lost(k_drop, drop_rate[s], cfg.fanout, f,
+                                lay, s)
+                 for f in range(cfg.fanout)] for s in range(d)]
         if schedule == "allgather":
             for s, dev in enumerate(lay.devs):
                 full = gather_all(packets, dev)
@@ -262,7 +290,7 @@ def exchange_placed(packets, cfg: GossipConfig, key, lay: Layout,
                     allowed = (None if fgrp is None else
                                _circular(fgrp, start, nl) == grp[s])
                     acc[s] = acc[s] | _masked(_circular(full, start, nl), f,
-                                              allowed, eff[s])
+                                              allowed, eff[s], lost[s][f])
             return acc
         vis_pk, vis_grp = list(packets), group
         for h in range(d):
@@ -272,25 +300,31 @@ def exchange_placed(packets, cfg: GossipConfig, key, lay: Layout,
                     for a, b, c in _rotation_runs(s, v, off, lay):
                         allowed = (None if vis_grp is None else
                                    vis_grp[s][c:c + b - a] == grp[s][a:b])
-                        acc[s][a:b] |= _masked(vis_pk[s][c:c + b - a], f,
-                                               allowed, eff[s])
+                        lo = lost[s][f]
+                        acc[s][a:b] |= _masked(
+                            vis_pk[s][c:c + b - a], f, allowed, eff[s],
+                            None if lo is None else lo[a:b])
             if h < d - 1:
                 vis_pk = _hop(vis_pk, lay)
                 vis_grp = _hop(vis_grp, lay) if vis_grp is not None else None
         return acc
     # iid: each shard draws its own receivers' sources
-    srcs, fmask = [], []
+    srcs, fmask, keep = [], [], []
     for s, dev in enumerate(lay.devs):
         srcs.append(prng.randint(key, (lay.n, cfg.fanout), 0, lay.n, dev,
                                  rows=lay.rows(s)).to(torch.int64))
         fmask.append(None if eff[s] is None else (
             torch.arange(cfg.fanout, dtype=torch.int32, device=dev)
             < eff[s])[None, :])
+        keep.append(None if drop_rate is None else ~prng.bernoulli(
+            k_drop, drop_rate[s], (lay.n, cfg.fanout), dev,
+            rows=lay.rows(s)))
 
     def resolve(s, got, ok):
         """OR shard ``s``'s legs ``got [nl, F, W]`` where ``ok``."""
-        if fmask[s] is not None:
-            ok = fmask[s] if ok is None else ok & fmask[s]
+        for mask in (keep[s], fmask[s]):
+            if mask is not None:
+                ok = mask if ok is None else ok & mask
         if ok is not None:
             got = torch.where(ok[..., None], got, 0)
         return acc[s] | _or_fanout(got)
@@ -321,34 +355,83 @@ def exchange_placed(packets, cfg: GossipConfig, key, lay: Layout,
 # -- the gossip round ---------------------------------------------------------
 
 def round_step_placed(gs, cfg: GossipConfig, key, lay: Layout,
-                      schedule: str, group=None, eff_fanout=None):
+                      schedule: str, group=None, eff_fanout=None,
+                      drop_rate=None, stamp_unit=None,
+                      collect_propagation: bool = False):
     """``dissemination.round_step`` across placed shards: the quiet gate,
-    the cache gate, the merge's ``learned_any`` and the wrap clamp's
-    gate each one host read for all shards; each shard's select and
-    merge on its own rows (its kernels launched on its device); the
-    exchange under ``schedule``."""
+    the cache gate, the merge's ``learned_any`` (the deferred flavour:
+    its flush gate) and the wrap clamp's gate each one host read for
+    all shards; each shard's select and merge on its own rows (its
+    kernels launched on its device); the exchange under ``schedule``.
+    The phased flavour takes the plain path, as on any mesh
+    (``launch_mode``), with its cache and learn gates on the device, so
+    it reads the host no more often than the unsharded standalone
+    family.  ``stamp_unit`` and ``drop_rate`` are per-shard lists.
+    With ``collect_propagation`` also returns the ``(slots_sent,
+    slots_learned)`` pair on shard 0's device."""
     g0 = gs[0]
+    prop = None
+    if collect_propagation:
+        zero = torch.zeros((), dtype=torch.int32, device=lay.dev0)
+        prop = (zero, zero)
     if host_bool(g0.round - g0.last_learn < cfg.transmit_window_rounds):
         mode = launch_mode(cfg, lay.d)
-        cached = (cfg.use_sendable_cache
-                  and host_bool(g0.sendable_round == g0.round))
-        packets = [select_phase(g, cfg, cached=cached, mode=mode)
-                   for g in gs]
+        on_device = not (cfg.fused_kernels or cfg.stamp_deferred)
+        if on_device:
+            cached = [(g.sendable_round == g.round)
+                      if cfg.use_sendable_cache else False for g in gs]
+        else:
+            cached = [cfg.use_sendable_cache
+                      and host_bool(g0.sendable_round == g0.round)] * lay.d
+        packets = [select_phase(g, cfg, cached=c, mode=mode)
+                   for g, c in zip(gs, cached)]
         incoming = exchange_placed(packets, cfg, key, lay, schedule,
-                                   group=group, eff_fanout=eff_fanout)
-        learns = [merge_learn(g, inc, cfg, mode)
-                  for g, inc in zip(gs, incoming)]
-        learned_any = host_bool(lay.any([lr[2] for lr in learns]))
-        gs = [merge_apply(g, cfg, mode, known, pending, learned_any)
-              for g, (known, pending, _) in zip(gs, learns)]
+                                   group=group, eff_fanout=eff_fanout,
+                                   drop_rate=drop_rate)
+        if collect_propagation:
+            eff = cfg.fanout if eff_fanout is None else eff_fanout[0]
+            sent = lay.sum([torch.sum(popcount(p)) for p in packets])
+            learned = lay.sum([torch.sum(popcount(_learn_words(g, inc)))
+                               for g, inc in zip(gs, incoming)])
+            prop = ((eff * sent).to(torch.int32), learned.to(torch.int32))
+        if cfg.stamp_deferred:
+            gs = _merge_deferred_placed(gs, incoming, cfg, mode, lay,
+                                        stamp_unit)
+        else:
+            learns = [merge_learn(g, inc, cfg, mode)
+                      for g, inc in zip(gs, incoming)]
+            learned_any = lay.any([lr[2] for lr in learns])
+            gates = (lay.broadcast(learned_any) if on_device
+                     else [host_bool(learned_any)] * lay.d)
+            gs = [merge_apply(g, cfg, mode, known, pending, gate)
+                  for g, (known, pending, _), gate in zip(gs, learns, gates)]
     due = host_bool(g0.round + 1 - gs[0].last_clamp >= CLAMP_EVERY)
     out = []
     for g in gs:
-        stamp, last_clamp = clamp_stamps(g.stamp, g0.round + 1,
+        # each shard's own copy of the replicated round, on its device
+        stamp, last_clamp = clamp_stamps(g.stamp, g.round + 1,
                                          g.last_clamp, cfg, due=due)
         out.append(g._replace(stamp=stamp, last_clamp=last_clamp,
                               round=g.round + 1))
-    return out
+    return (out, prop) if collect_propagation else out
+
+
+def _merge_deferred_placed(gs, incoming, cfg: GossipConfig, mode: str,
+                           lay: Layout, stamp_unit=None):
+    """``dissemination._merge_phase_deferred`` across placed shards: each
+    shard learns on its rows, the flush gate is one host read of the
+    shards' ``learned_any`` reduced on shard 0, then each shard flushes
+    its own rows (one ``fused_flush`` launch on its device) or ORs its
+    overlay and cache."""
+    learns = [deferred_learn(g, inc) for g, inc in zip(gs, incoming)]
+    learned_any = lay.any([lr[2] for lr in learns])
+    units = stamp_unit if stamp_unit is not None else [None] * lay.d
+    flush_due, do_flush = deferred_gate(gs[0], cfg, learned_any, units[0])
+    do_flush = host_bool(do_flush)
+    return [deferred_apply(g, cfg, mode, known, new_words, la, fd, do_flush)
+            for g, (known, new_words, _), la, fd in zip(
+                gs, learns, lay.broadcast(learned_any),
+                lay.broadcast(flush_due))]
 
 
 def _subject_incs(gs, lay: Layout):
@@ -422,12 +505,15 @@ def _rotation_offset(round_: int, n: int) -> int:
 
 
 def probe_placed(gs, cfg: GossipConfig, fcfg: FailureConfig, key,
-                 round_: int, lay: Layout):
-    """``failure.probe_round`` (no chaos group) across placed shards, at
-    the round ``round_`` the caller read on the host."""
+                 round_: int, lay: Layout, group=None, drop=None):
+    """``failure.probe_round`` across placed shards, at the round
+    ``round_`` the caller read on the host; ``group`` and ``drop`` (a
+    chaos round's partition groups and loss rate, per-shard lists) are
+    its ``group`` and ``drop_override``."""
     n, nl = lay.n, lay.nl
     k_target, k_drop, k_help, k_hdrop, k_pick = prng.split(key, 5)
-    p_drop, ki = fcfg.probe_drop_rate, fcfg.indirect_probes
+    p_drop = drop if drop is not None else [fcfg.probe_drop_rate] * lay.d
+    ki = fcfg.indirect_probes
     alive = [g.alive for g in gs]
     detected, detector_of, subject_detected = [], [], []
     if fcfg.probe_schedule == "round_robin":
@@ -436,16 +522,24 @@ def probe_placed(gs, cfg: GossipConfig, fcfg: FailureConfig, key,
                   if ki > 0 else [])
         for s, (g, dev) in enumerate(zip(gs, lay.devs)):
             row0 = lay.row0(s)
-            dropped = prng.bernoulli(k_drop, p_drop, (n,), dev,
+
+            def reach(off, row0=row0, dev=dev, s=s):
+                """The peer at ``off`` is up and, under chaos, in this
+                row's group."""
+                up = window(alive, row0 + off, lay, dev)
+                if group is not None:
+                    up = up & (window(group, row0 + off, lay, dev)
+                               == group[s])
+                return up
+            dropped = prng.bernoulli(k_drop, p_drop[s], (n,), dev,
                                      rows=lay.rows(s))
-            target_up = window(alive, row0 + offset, lay, dev)
+            target_up = reach(offset)
             ack = target_up & ~dropped
             if ki > 0:
-                h_drop = prng.bernoulli(k_hdrop, p_drop, (n, ki), dev,
+                h_drop = prng.bernoulli(k_hdrop, p_drop[s], (n, ki), dev,
                                         rows=lay.rows(s))
                 for h, h_off in enumerate(h_offs):
-                    helper_ok = window(alive, row0 + h_off, lay, dev)
-                    ack = ack | (target_up & helper_ok & ~h_drop[:, h])
+                    ack = ack | (target_up & reach(h_off) & ~h_drop[:, h])
             detected.append(g.alive & ~ack & (n > 1))
         # invert the rotation: subject j's prober is (j - offset) % n
         for s, dev in enumerate(lay.devs):
@@ -457,20 +551,26 @@ def probe_placed(gs, cfg: GossipConfig, fcfg: FailureConfig, key,
         hits, det_p1 = [], []
         alive_all = [gather_all(alive, dev) for dev in lay.devs]
         for s, (g, dev) in enumerate(zip(gs, lay.devs)):
+            group_all = gather_all(group, dev) if group is not None else None
             targets = prng.randint(k_target, (n,), 0, n, dev,
                                    rows=lay.rows(s)).to(torch.int64)
             target_up = alive_all[s][targets]
-            dropped = prng.bernoulli(k_drop, p_drop, (n,), dev,
+            if group is not None:
+                target_up = target_up & (group_all[targets] == group[s])
+            dropped = prng.bernoulli(k_drop, p_drop[s], (n,), dev,
                                      rows=lay.rows(s))
             ack = target_up & ~dropped
             if ki > 0:
                 helpers = prng.randint(k_help, (n, ki), 0, n, dev,
                                        rows=lay.rows(s)).to(torch.int64)
-                h_drop = prng.bernoulli(k_hdrop, p_drop, (n, ki), dev,
+                helper_ok = alive_all[s][helpers]
+                if group is not None:
+                    helper_ok = helper_ok & (group_all[helpers]
+                                             == group[s][:, None])
+                h_drop = prng.bernoulli(k_hdrop, p_drop[s], (n, ki), dev,
                                         rows=lay.rows(s))
-                ack = ack | torch.any(target_up[:, None]
-                                      & alive_all[s][helpers] & ~h_drop,
-                                      dim=1)
+                ack = ack | torch.any(target_up[:, None] & helper_ok
+                                      & ~h_drop, dim=1)
             ids = lay.ids(s)
             det = g.alive & ~ack & (targets != ids)
             # the shard's partial scatters over the whole node axis
@@ -586,9 +686,10 @@ def declare_placed(gs, cfg: GossipConfig, fcfg: FailureConfig, key,
 
 
 def push_pull_placed(gs, cfg: GossipConfig, key, group, lay: Layout):
-    """``antientropy.push_pull_round`` (per-round flavour) across placed
-    shards: each shard pulls its partners' known rows from the shards
-    that hold them; ``learned_any`` is one host read."""
+    """``antientropy.push_pull_round`` across placed shards: each shard
+    pulls its partners' known rows from the shards that hold them;
+    ``learned_any`` is one host read (the deferred flavour: a device
+    bool, broadcast to every shard)."""
     n = lay.n
     incoming = []
     if cfg.peer_sampling == "rotation":
@@ -606,10 +707,13 @@ def push_pull_placed(gs, cfg: GossipConfig, key, group, lay: Layout):
             ok = g.alive & gather_all([x.alive for x in gs], dev)[partners]
             ok = ok & (group[s] == gather_all(group, dev)[partners])
         incoming.append(torch.where(ok[:, None], partner_known, 0))
-    learned_any = host_bool(lay.any([(inc & ~g.known) != 0
-                                     for g, inc in zip(gs, incoming)]))
-    return [push_pull_merge(g, cfg, inc, learned_any)
-            for g, inc in zip(gs, incoming)]
+    learned_any = lay.any([(inc & ~g.known) != 0
+                           for g, inc in zip(gs, incoming)])
+    # the deferred sync keeps its gate on the device, as unsharded
+    gates = (lay.broadcast(learned_any) if cfg.stamp_deferred
+             else [host_bool(learned_any)] * lay.d)
+    return [push_pull_merge(g, cfg, inc, gate)
+            for g, inc, gate in zip(gs, incoming, gates)]
 
 
 def vivaldi_placed(sts, cfg, gs, k_peer, k_viv, lay: Layout):
@@ -657,42 +761,74 @@ def _check(state, cfg, what: str) -> Layout:
         raise TypeError(f"{what} on a placed mesh takes the PlacedState "
                         f"of parallel.mesh.shard_state, not "
                         f"{type(state).__name__}")
-    if cfg.gossip.stamp_deferred or not cfg.gossip.fused_kernels:
-        raise later_slice("the deferred or phased flavour", "flavours")
     check_shards(state, what)
     return Layout(state.mesh, cfg.n)
 
 
+def rep(state):
+    """The tree whose replicated leaves (the fact table, the scalars, the
+    controller) a reader takes: shard 0's of a :class:`PlacedState`,
+    else the state itself."""
+    return state.shards[0] if isinstance(state, PlacedState) else state
+
+
+def with_masks(state: PlacedState, cfg, init_alive, group, down
+               ) -> PlacedState:
+    """``faults.device.run_phase``'s masks on a placed state: each
+    shard's liveness ``init_alive & ~down`` and partition group from its
+    rows of the phase's global planes (``init_alive`` per shard)."""
+    lay = _check(state, cfg, "run_phase")
+    return PlacedState([
+        st._replace(gossip=st.gossip._replace(alive=a & ~d), group=g)
+        for st, a, g, d in zip(state.shards, init_alive,
+                               _rows_of(group, lay), _rows_of(down, lay))],
+        state.mesh)
+
+
 def cluster_round(state: PlacedState, cfg, key, drop_rate=None,
-                  collect_propagation: bool = False) -> PlacedState:
+                  collect_propagation: bool = False):
     """``swim.cluster_round`` on a placed mesh, with the same host reads
     (the round counter, the probe-cadence knob under control, the
-    gates)."""
-    if drop_rate is not None:
-        raise later_slice("a chaos round (drop_rate)", "chaos")
-    if collect_propagation:
-        raise later_slice("the propagation rows", "chaos")
+    gates).  ``drop_rate`` (a float, or a 0-d tensor on any device)
+    makes it a chaos round: the loss masks drawn for each shard's rows,
+    the probes judged within the partition groups.  With
+    ``collect_propagation`` returns ``(state, (slots_sent,
+    slots_learned))`` on shard 0's device."""
     lay = _check(state, cfg, "cluster_round")
     sts = list(state.shards)
     k_gossip, k_probe, k_refute, k_declare, k_pp, k_viv, k_peer = \
         prng.split(key, 7)
     gs = [st.gossip for st in sts]
     r0 = host_int(gs[0].round)
-    eff_fanout = stretch_q = None
+    eff_fanout = stretch_q = stamp_unit = None
     probe_every = cfg.probe_every
     if cfg.control.enabled:
         eff_fanout = [st.control.knobs[KNOB_FANOUT] for st in sts]
         stretch_q = [st.control.knobs[KNOB_STRETCH_Q] for st in sts]
+        if cfg.gossip.stamp_deferred:
+            stamp_unit = [torch.bitwise_left_shift(
+                torch.ones_like(st.control.knobs[KNOB_STAMP_UNIT]),
+                st.control.knobs[KNOB_STAMP_UNIT]) for st in sts]
         probe_every *= host_int(sts[0].control.knobs[KNOB_PROBE_MULT])
     probe_tick = r0 % probe_every == 0
     group = [st.group for st in sts]
+    drops = None
+    if drop_rate is not None:
+        drops = (lay.broadcast(drop_rate)
+                 if isinstance(drop_rate, torch.Tensor)
+                 else [drop_rate] * lay.d)
     gs = round_step_placed(gs, cfg.gossip, k_gossip, lay,
                            cfg.exchange_schedule, group=group,
-                           eff_fanout=eff_fanout)
+                           eff_fanout=eff_fanout, drop_rate=drops,
+                           stamp_unit=stamp_unit,
+                           collect_propagation=collect_propagation)
+    if collect_propagation:
+        gs, prop = gs
     if cfg.with_failure:
         if probe_tick:
             gs = probe_placed(gs, cfg.gossip, cfg.failure, k_probe, r0 + 1,
-                              lay)
+                              lay, group=None if drops is None else group,
+                              drop=drops)
         gs = refute_placed(gs, cfg.gossip, cfg.failure, k_refute, lay)
         if probe_tick:
             gs = declare_placed(gs, cfg.gossip, cfg.failure, k_declare, lay,
@@ -703,37 +839,52 @@ def cluster_round(state: PlacedState, cfg, key, drop_rate=None,
         vivs = vivaldi_placed(sts, cfg, gs, k_peer, k_viv, lay)
     else:
         vivs = [st.vivaldi for st in sts]
-    return PlacedState([st._replace(gossip=g, vivaldi=v)
-                        for st, g, v in zip(sts, gs, vivs)], state.mesh)
+    nxt = PlacedState([st._replace(gossip=g, vivaldi=v)
+                       for st, g, v in zip(sts, gs, vivs)], state.mesh)
+    return (nxt, prop) if collect_propagation else nxt
 
 
-def sustained_round(state: PlacedState, cfg, key,
-                    events_per_round: int) -> PlacedState:
-    """``swim.sustained_round`` on a placed mesh: the batch (event ids,
-    origins, the admission gate under control) made alike on every
-    shard, injected by :func:`inject_placed`, then :func:`cluster_round`."""
-    lay = _check(state, cfg, "sustained_round")
-    m = events_per_round
-    k_org, k_rnd = prng.split(key)
-    eids, origins, active, sts = [], [], [], []
-    for st, dev in zip(state.shards, lay.devs):
-        eids.append((st.gossip.round * m
-                     + torch.arange(m, dtype=torch.int32, device=dev)
-                     + 1).to(torch.int32))
-        origins.append(prng.randint(k_org, (m,), 0, cfg.n, dev))
-        act = torch.ones((m,), dtype=torch.bool, device=dev)
-        if cfg.control.enabled:
+def inject_gated(state: PlacedState, cfg, eids, ltimes, origins,
+                 gated: bool, kind: int = K_USER_EVENT) -> PlacedState:
+    """One batch of facts (subjects ``eids``, incarnation 0; per-shard
+    copies) offered to every shard: under control (``gated``) each
+    shard's replicated admission gate lets the same entries through,
+    then :func:`inject_placed`."""
+    lay = _check(state, cfg, "inject")
+    active, sts = [], []
+    for st, e in zip(state.shards, eids):
+        act = torch.ones(e.shape, dtype=torch.bool, device=e.device)
+        if gated:
             act, ctrl = gate_injections(st.control, act)
             st = st._replace(control=ctrl)
         active.append(act)
         sts.append(st)
     gs = inject_placed(
-        [st.gossip for st in sts], cfg.gossip, eids, K_USER_EVENT,
-        [torch.zeros((m,), dtype=torch.int32, device=dev)
-         for dev in lay.devs], eids, origins, active, lay)
-    return cluster_round(
-        PlacedState([st._replace(gossip=g) for st, g in zip(sts, gs)],
-                    state.mesh), cfg, k_rnd)
+        [st.gossip for st in sts], cfg.gossip, eids, kind,
+        [torch.zeros(e.shape, dtype=torch.int32, device=e.device)
+         for e in eids], ltimes, origins, active, lay)
+    return PlacedState([st._replace(gossip=g) for st, g in zip(sts, gs)],
+                       state.mesh)
+
+
+def sustained_round(state: PlacedState, cfg, key, events_per_round: int,
+                    collect_propagation: bool = False):
+    """``swim.sustained_round`` on a placed mesh: the batch (event ids,
+    origins) made alike on every shard and offered through
+    :func:`inject_gated`, then :func:`cluster_round`."""
+    lay = _check(state, cfg, "sustained_round")
+    m = events_per_round
+    k_org, k_rnd = prng.split(key)
+    eids, origins = [], []
+    for st, dev in zip(state.shards, lay.devs):
+        eids.append((st.gossip.round * m
+                     + torch.arange(m, dtype=torch.int32, device=dev)
+                     + 1).to(torch.int32))
+        origins.append(prng.randint(k_org, (m,), 0, cfg.n, dev))
+    state = inject_gated(state, cfg, eids, eids, origins,
+                         cfg.control.enabled)
+    return cluster_round(state, cfg, k_rnd,
+                         collect_propagation=collect_propagation)
 
 
 def round_telemetry(state: PlacedState, cfg,

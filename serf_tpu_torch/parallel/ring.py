@@ -51,7 +51,7 @@ from serf_tpu_torch.models.dissemination import (
     sample_offsets,
 )
 from serf_tpu_torch.obs import flight
-from serf_tpu_torch.parallel.mesh import later_slice, shards
+from serf_tpu_torch.parallel.mesh import shards
 
 #: the legal schedules (``ClusterConfig.exchange_schedule`` validates
 #: against this; ``accounting.ici_round_traffic`` models both)
@@ -235,15 +235,14 @@ def exchange_sharded(packets: torch.Tensor, cfg: GossipConfig, key,
     sample shapes are ``exchange_phase``'s (the rotation offsets and the
     loss masks are drawn at their global shapes and viewed per shard,
     never drawn per shard), and only the schedule differs.  On a placed
-    mesh ``packets``, ``group`` and ``eff_fanout`` are the shards' lists
-    and the legs run across them (``parallel.placed.exchange_placed``)."""
+    mesh ``packets``, ``group``, ``eff_fanout`` and ``drop_rate`` are
+    the shards' lists and the legs run across them
+    (``parallel.placed.exchange_placed``)."""
     if mesh.placed:
         from serf_tpu_torch.parallel import placed
-        if drop_rate is not None:
-            raise later_slice("a chaos exchange (drop_rate)", "chaos")
         return placed.exchange_placed(
             packets, cfg, key, placed.Layout(mesh, cfg.n), schedule,
-            group=group, eff_fanout=eff_fanout)
+            group=group, eff_fanout=eff_fanout, drop_rate=drop_rate)
     if schedule not in EXCHANGE_SCHEDULES:
         raise ValueError(f"unknown exchange schedule {schedule!r} "
                          f"(one of {EXCHANGE_SCHEDULES})")
@@ -373,18 +372,15 @@ def sharded_round_step(state: GossipState, cfg: GossipConfig, key, mesh,
     shard.  On a mesh the standalone family takes the plain path (the
     reference's dispatch rule).  Bit-exact with ``round_step(state, cfg,
     key, group, drop_rate)`` by construction.  On a placed mesh
-    ``state``, ``group`` and ``eff_fanout`` are the shards' lists
+    ``state``, ``group``, ``eff_fanout``, ``stamp_unit`` and
+    ``drop_rate`` are the shards' lists
     (``parallel.placed.round_step_placed``)."""
     if mesh.placed:
         from serf_tpu_torch.parallel import placed
-        if drop_rate is not None or collect_propagation:
-            raise later_slice("a chaos round or its propagation row",
-                              "chaos")
-        if cfg.stamp_deferred or not cfg.fused_kernels:
-            raise later_slice("the deferred or phased flavour", "flavours")
         return placed.round_step_placed(
             state, cfg, key, placed.Layout(mesh, cfg.n), schedule,
-            group=group, eff_fanout=eff_fanout)
+            group=group, eff_fanout=eff_fanout, drop_rate=drop_rate,
+            stamp_unit=stamp_unit, collect_propagation=collect_propagation)
     return round_step(state, cfg, key, group=group, drop_rate=drop_rate,
                       eff_fanout=eff_fanout,
                       collect_propagation=collect_propagation,

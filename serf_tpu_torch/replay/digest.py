@@ -58,9 +58,9 @@ def _mix(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return _mul32(h ^ _u32(x), _FNV_PRIME)
 
 
-def _odd_weights(m: int, mult: int, device) -> torch.Tensor:
-    """``(2 i + 1) * mult mod 2^32`` for ``i < m``."""
-    i = torch.arange(m, dtype=torch.int64, device=device)
+def _odd_weights(m: int, mult: int, device, first: int = 0) -> torch.Tensor:
+    """``(2 i + 1) * mult mod 2^32`` for ``first <= i < first + m``."""
+    i = torch.arange(first, first + m, dtype=torch.int64, device=device)
     return _mul32((2 * i + 1) & MASK32, mult)
 
 
@@ -75,11 +75,9 @@ def fact_hashes(state: GossipState) -> torch.Tensor:
     return h
 
 
-def state_digest(state: GossipState, cfg: GossipConfig
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(overall, per-node [N])`` knowledge-view digests as int64
-    tensors of u32 values, on the state's device (nothing is read on the
-    host)."""
+def node_digests(state: GossipState, cfg: GossipConfig) -> torch.Tensor:
+    """int64[rows] u32 values: each node's knowledge-view digest (row
+    local: a placed shard digests its own rows)."""
     k = cfg.k_facts
     dev = state.known.device
     weighted = _mul32(fact_hashes(state), _odd_weights(k, _SLOT_MULT, dev))
@@ -88,11 +86,38 @@ def state_digest(state: GossipState, cfg: GossipConfig
                      dim=1) & MASK32
     node = _mix(node, state.alive)
     node = _mix(node, state.tombstone)
-    node = _mix(node, state.incarnation)
-    n = node.shape[0]
-    overall = torch.sum(_mul32(node, _odd_weights(n, _NODE_MULT, dev))
-                        ) & MASK32
-    return _mix(overall, state.round), node
+    return _mix(node, state.incarnation)
+
+
+def fold_nodes(node: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """The commutative node fold ``sum(node_i * w(i)) mod 2^32`` over the
+    global ids ``row0, row0 + 1, ...`` of ``node``'s rows: shards' folds
+    add up, mod 2^32, to the whole cluster's."""
+    w = _odd_weights(node.shape[0], _NODE_MULT, node.device, row0)
+    return torch.sum(_mul32(node, w)) & MASK32
+
+
+def state_digest(state: GossipState, cfg: GossipConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(overall, per-node [N])`` knowledge-view digests as int64
+    tensors of u32 values, on the state's device (nothing is read on the
+    host)."""
+    node = node_digests(state, cfg)
+    return _mix(fold_nodes(node), state.round), node
+
+
+def placed_digest(state, cfg: GossipConfig, with_nodes: bool = True):
+    """:func:`state_digest` of a placed cluster (``parallel.mesh
+    .PlacedState``): each shard digests and folds its own rows, the
+    folds add up on shard 0's device; the per-node digests (when asked)
+    are gathered there in row order."""
+    from serf_tpu_torch.parallel.placed import Layout, gather_all
+    lay = Layout(state.mesh, cfg.n)
+    nodes = [node_digests(st.gossip, cfg) for st in state.shards]
+    overall = lay.sum([fold_nodes(nd, lay.row0(s))
+                       for s, nd in enumerate(nodes)]) & MASK32
+    overall = _mix(overall, state.shards[0].gossip.round)
+    return overall, gather_all(nodes, lay.dev0) if with_nodes else None
 
 
 def host_view_digest(serfs) -> Tuple[str, Dict[str, str]]:

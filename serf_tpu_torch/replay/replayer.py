@@ -29,6 +29,7 @@ import torch
 
 from serf_tpu_torch import prng, resolve_device
 from serf_tpu_torch.faults.device import (
+    alive_of,
     control_base_row,
     inject_chunk,
     lower_plan,
@@ -54,12 +55,13 @@ def replay_device(rec: Recording, mesh=None, device=None) -> RunRecorder:
     recorder (diff its ``to_recording()`` against the source with
     ``differ.diff_recordings``).  A recording made on a mesh
     (``mesh_devices > 1``) replays on a mesh of as many shards on the
-    replay's device unless ``mesh`` is given."""
+    replay's device unless ``mesh`` is given.  Recordings are
+    mesh-agnostic: any recording replays on a placed ``mesh`` (each
+    shard's rows on its own device), and a placed recording replays
+    unsharded or on a virtual mesh."""
     if rec.plane != "device":
         raise RecordingError(
             f"replay_device on a {rec.plane!r}-plane recording")
-    from serf_tpu_torch.parallel.mesh import refuse_placed
-    refuse_placed(mesh, "a replay (replay_device)", "chaos")
     if device is None and mesh is not None:
         device = mesh.device
     dev = resolve_device(device)
@@ -89,7 +91,7 @@ def replay_device(rec: Recording, mesh=None, device=None) -> RunRecorder:
             if mesh is not None:
                 from serf_tpu_torch.parallel.mesh import shard_state
                 state = shard_state(state, mesh)
-            init_alive = state.gossip.alive
+            init_alive = alive_of(state)
             out.step("init", **a)
         elif op == "inject":
             if state is None:

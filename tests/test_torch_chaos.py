@@ -236,17 +236,19 @@ def test_entry_points_default_to_cuda():
 
 
 def test_mesh_raises():
-    """A chaos plan on a placed mesh (distinct devices) raises, naming
-    the slice that places it, before anything runs; the plan on a
-    virtual mesh runs (``tests/test_torch_sharded_round.py``)."""
+    """A path still waiting for its slice on a placed mesh (distinct
+    devices) raises, naming that slice, before anything runs: the
+    churn-query step, whose reference takes no mesh.  The chaos plan
+    itself runs on a placed mesh (``tests/test_torch_placed_chaos.py``)
+    and on a virtual one (``tests/test_torch_sharded_round.py``)."""
+    from serf_tpu_torch.models.churn import composed_step
     from serf_tpu_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError,
-                       match="churn-query, chaos, replay and checkpoint"):
-        tdev.run_device_plan(tplan.named_plan("self-check"),
-                             t_ab("self-check", 16, 32, False),
-                             device="cpu",
-                             mesh=make_mesh(devices=["cpu", "meta"]))
+    with pytest.raises(NotImplementedError, match="churn-query on a "
+                       "placed mesh"):
+        composed_step(None, None, None, t_ab("self-check", 16, 32, False),
+                      None, None, None,
+                      mesh=make_mesh(devices=["cpu", "meta"]))
 
 
 def test_new_modules_are_in_the_import_scan():

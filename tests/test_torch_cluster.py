@@ -347,19 +347,16 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 @pytest.mark.parametrize("what", ["mesh"])
 def test_later_slices_raise(what):
-    """A mesh whose shards span distinct devices is a placed mesh; the
-    rows a later slice places (here the invariant rows of the chaos
-    slice) raise on it, naming that slice, and never fall back."""
-    from serf_tpu_torch.parallel.mesh import shard_state
+    """A mesh whose shards span distinct devices is a placed mesh; a
+    path a later slice places (here the round profile of the tools
+    slice) raises on it, naming that slice, and never falls back."""
+    from serf_tpu_torch.obs.profile import profile_round
     mesh = make_mesh(devices=["cpu", "meta"])
     assert mesh.placed
     cfg = tswim.flagship_config(64, k_facts=32)
-    st = shard_state(tswim.make_cluster(cfg, prng.key(0), device="cpu"),
-                     make_mesh(devices=["cpu"] * 2, placed=True))
-    with pytest.raises(NotImplementedError,
-                       match="churn-query, chaos, replay and checkpoint"):
-        tswim.run_cluster_sustained(st, cfg, prng.key(1), 1, mesh=mesh,
-                                    collect_invariants=True)
+    with pytest.raises(NotImplementedError, match="the tools on a placed "
+                       "mesh"):
+        profile_round(cfg, mesh=mesh, device="cpu")
 
 
 # -- the port stands alone ----------------------------------------------------

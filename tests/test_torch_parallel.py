@@ -236,14 +236,14 @@ def test_make_mesh_device_rule():
     two = tmesh.make_mesh(devices=["cpu"] * 2, placed=True)
     assert two.placed and two.devices == (torch.device("cpu"),) * 2
     # a path not yet placed raises, naming its slice
+    from serf_tpu_torch.models.churn import composed_step
     tcfg = _tcfg(_cfg())
-    tcfg = dataclasses.replace(tcfg, gossip=dataclasses.replace(
-        tcfg.gossip, stamp_flush_unit=2))
     ts = tmesh.shard_state(tswim.make_cluster(tcfg, prng.key(0),
                                               device="cpu"), two)
     with pytest.raises(NotImplementedError,
-                       match="deferred and phased flavours"):
-        tswim.sustained_round(ts, tcfg, prng.key(1), 2, mesh=two)
+                       match="churn-query on a placed mesh"):
+        composed_step(ts, None, None, tcfg, None, None, prng.key(1),
+                      mesh=two)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tmesh.make_mesh(8)

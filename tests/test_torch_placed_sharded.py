@@ -11,8 +11,9 @@ there, and the port's all-gather leg is held against the reference's
 unsharded run in ``test_torch_placed_round.py``.
 
 Also: a placed mesh over distinct devices, the hybrid mesh of one
-process over its local devices, and the paths a later slice places
-raising ``NotImplementedError`` with that slice's name.
+process over its local devices, the paths this slice placed equal to
+the unsharded run, and the paths a later slice places raising
+``NotImplementedError`` with that slice's name.
 """
 
 import dataclasses
@@ -101,49 +102,90 @@ def _placed_cpu(cfg, p=2):
     return st, mesh
 
 
+def _same(got, want):
+    """Two trees of tensors (states, row tuples) bit-equal, leaf for
+    leaf, a placed state gathered first."""
+    if isinstance(got, tmesh.PlacedState):
+        got = convert.from_placed(got)
+        want = convert.to_numpy(want)
+        return [k for k in want if not np.array_equal(got[k], want[k])]
+    if isinstance(want, torch.Tensor):
+        return [] if torch.equal(got, want) else ["tensor"]
+    return [b for g, w in zip(got, want) for b in _same(g, w)]
+
+
 @pytest.mark.parametrize("path", ["deferred", "phased", "chaos-round",
                                   "propagation", "checkpoint", "replay",
                                   "profile", "churn-query"])
 def test_paths_not_placed_raise_naming_their_slice(path, tmp_path):
-    """Each path a later slice places raises ``NotImplementedError`` on
-    a placed mesh, naming that slice; none falls back."""
+    """The paths this slice placed (the deferred and phased flavours, a
+    chaos round, the propagation rows, a checkpoint restore, a replay)
+    run on a placed mesh and equal the unsharded run; the two still
+    waiting for a slice (the round profile: the tools; churn-query)
+    raise ``NotImplementedError`` on a placed mesh, naming it, and never
+    fall back."""
     base = tswim.flagship_config(64, k_facts=32)
-    flavour = "the deferred and phased flavours"
-    chaos = "churn-query, chaos, replay and checkpoint"
+    if path in ("profile", "churn-query"):
+        st, mesh = _placed_cpu(base)
+        with pytest.raises(NotImplementedError, match=(
+                "the tools" if path == "profile" else "churn-query on a "
+                "placed mesh")):
+            if path == "profile":
+                from serf_tpu_torch.obs.profile import profile_round
+                profile_round(base, mesh=mesh, device="cpu")
+            else:
+                from serf_tpu_torch.models.churn import composed_step
+                composed_step(st, None, None, base, None, None, prng.key(1),
+                              mesh=mesh)
+        return
+    cfg = base
     if path in ("deferred", "phased"):
         gossip = (dict(stamp_flush_unit=2) if path == "deferred"
                   else dict(fused_kernels=False))
         cfg = dataclasses.replace(base, gossip=dataclasses.replace(
-            base.gossip, **gossip))
-        st, mesh = _placed_cpu(cfg)
-        with pytest.raises(NotImplementedError, match=flavour):
-            tswim.run_cluster_sustained(st, cfg, prng.key(1), 2, mesh=mesh)
+            base.gossip, use_pallas=True, **gossip))
+    st, mesh = _placed_cpu(cfg)
+    flat = tswim.make_cluster(cfg, prng.key(0), device="cpu")
+    if path in ("deferred", "phased"):
+        got = tswim.run_cluster_sustained(st, cfg, prng.key(1), 6,
+                                          mesh=mesh)
+        # on a mesh the phased flavour runs the plain path, whose cache
+        # leaves the standalone kernels never keep
+        plain = dataclasses.replace(cfg, gossip=dataclasses.replace(
+            cfg.gossip, use_pallas=path == "deferred"))
+        want = tswim.run_cluster_sustained(flat, plain, prng.key(1), 6)
+    elif path == "chaos-round":
+        group = (torch.arange(64) % 2).to(torch.int32)
+        drop = torch.full((), 0.1, dtype=torch.float32)
+        st = tmesh.shard_state(flat._replace(group=group), mesh)
+        got = tswim.cluster_round(st, base, prng.key(1), drop_rate=drop,
+                                  mesh=mesh)
+        want = tswim.cluster_round(flat._replace(group=group), base,
+                                   prng.key(1), drop_rate=drop)
+    elif path == "propagation":
+        got = tswim.run_cluster_sustained(st, base, prng.key(1), 2,
+                                          mesh=mesh,
+                                          collect_propagation=True)
+        want = tswim.run_cluster_sustained(flat, base, prng.key(1), 2,
+                                           collect_propagation=True)
+        assert _same(got[1], want[1]) == []
+        got, want = got[0], want[0]
+    elif path == "checkpoint":
+        tck.save(str(tmp_path / "flat.npz"), flat)
+        got = tck.restore(str(tmp_path / "flat.npz"), flat, mesh=mesh)
+        want = flat
+    else:
+        from serf_tpu_torch.faults.device import run_device_plan
+        from serf_tpu_torch.replay.differ import diff_recordings
+        from serf_tpu_torch.replay.recording import RunRecorder
+        from serf_tpu_torch.replay.replayer import replay_device
+        rec = RunRecorder()
+        res = run_device_plan(tplan.named_plan("self-check"), base,
+                              device="cpu", recorder=rec)
+        again = replay_device(rec.to_recording(), mesh=mesh)
+        assert diff_recordings(rec.to_recording(),
+                               again.to_recording()).ok
         return
-    st, mesh = _placed_cpu(base)
-    with pytest.raises(NotImplementedError, match=(
-            "the tools" if path == "profile" else chaos)):
-        if path == "chaos-round":
-            tswim.cluster_round(st, base, prng.key(1), drop_rate=0.1,
-                                mesh=mesh)
-        elif path == "propagation":
-            tswim.run_cluster_sustained(st, base, prng.key(1), 2, mesh=mesh,
-                                        collect_propagation=True)
-        elif path == "checkpoint":
-            tck.restore(str(tmp_path / "none.npz"),
-                        tswim.make_cluster(base, prng.key(0), device="cpu"),
-                        mesh=mesh)
-        elif path == "replay":
-            from serf_tpu_torch.replay.recording import (RunRecorder,
-                                                         plan_to_dict)
-            from serf_tpu_torch.replay.replayer import replay_device
-            rec = RunRecorder()
-            rec.header(plane="device", plan=plan_to_dict(
-                tplan.named_plan("self-check")), seed=0, config={})
-            replay_device(rec.to_recording(), mesh=mesh)
-        elif path == "profile":
-            from serf_tpu_torch.obs.profile import profile_round
-            profile_round(base, mesh=mesh, device="cpu")
-        else:
-            from serf_tpu_torch.models.churn import composed_step
-            composed_step(st, None, None, base, None, None, prng.key(1),
-                          mesh=mesh)
+    assert isinstance(got, tmesh.PlacedState)
+    assert tmesh.replicas_differ(got) == []
+    assert _same(got, want) == []
