@@ -1450,18 +1450,23 @@ def alive_at_or_after(alive, start: int):
 
 
 def cq_window(carry, cfg, ccfg, qcfg, key, rounds, plane=None,
-              origins=None, stream=None):
+              origins=None, stream=None, mesh=None):
     """``rounds`` composed steps from ``carry``; with ``origins``, a query
     is launched before every CQ_QUERY_EVERY-th step (unfiltered and
     tag-filtered in turn).  With ``stream`` (a DeviceEventStream) each
-    round's summary is pushed and the events are returned too."""
+    round's summary is pushed and the events are returned too.  On a
+    placed ``mesh`` the carry is placed (``shard_state`` of each part)
+    and each origin is picked from the shards' liveness gathered on
+    shard 0's card."""
     from serf_tpu_torch import prng
     from serf_tpu_torch.models.churn import composed_step, trace_step
     from serf_tpu_torch.models.events import summarize
     from serf_tpu_torch.models.query import (launch_query, no_filter_mask,
                                              tag_filter_mask)
+    from serf_tpu_torch.parallel import placed
     st, qs, cd, tr = carry
-    dev = st.gossip.alive.device
+    on_mesh = mesh is not None and mesh.placed
+    dev = placed.rep(st).gossip.alive.device
     events = []
     for r, k in enumerate(prng.split(key, rounds)):
         if origins is not None and r % CQ_QUERY_EVERY == 0:
@@ -1469,12 +1474,17 @@ def cq_window(carry, cfg, ccfg, qcfg, key, rounds, plane=None,
             eligible = (no_filter_mask(cfg.n, device=dev) if qn % 2 == 0
                         else tag_filter_mask(plane, 0,
                                              1 + (qn // 2) % CQ_TAG_VALUES))
+            g = placed.gossip_of(st) if on_mesh else st.gossip
+            alive = (placed.gather_all([x.alive for x in g.shards], dev)
+                     if on_mesh else g.alive)
             g, qs, _ = launch_query(
-                st.gossip, qs, cfg.gossip, qcfg,
-                origin=alive_at_or_after(st.gossip.alive, int(origins[r])),
+                g, qs, cfg.gossip, qcfg,
+                origin=alive_at_or_after(alive, int(origins[r])),
                 eligible=eligible)
-            st = st._replace(gossip=g)
-        st, qs, cd = composed_step(st, qs, cd, cfg, ccfg, qcfg, k)
+            st = placed.with_gossip(st, g) if on_mesh \
+                else st._replace(gossip=g)
+        st, qs, cd = composed_step(st, qs, cd, cfg, ccfg, qcfg, k,
+                                   mesh=mesh)
         tr = trace_step(tr, st)
         if stream is not None:
             events += stream.push(summarize(st.gossip, cfg.gossip))
@@ -1723,7 +1733,8 @@ def churn_query_full(profile: bool = False) -> dict:
         churn_syncs=churn_syncs / CQ_CHURN_ROUNDS,
         settle_syncs=settle_syncs / settle, launches=launches,
         setup_s=setup_s, churn_s=churn_s, settle_s=settle_s,
-        settle=settle, downs=downs, reads=reads, profile=prof)
+        settle=settle, downs=downs, reads=reads, profile=prof,
+        leaves=want)
 
 
 # -- phases 3 and 4: the chaos and record/replay paths ------------------------
@@ -2185,8 +2196,6 @@ def run_tool(rk, what: str, main, argv, phase: str = "phase 5",
     import contextlib
     import io
 
-    import torch
-
     from serf_tpu_torch import host_syncs
     reset_counts(rk)
     s0 = host_syncs()
@@ -2194,7 +2203,7 @@ def run_tool(rk, what: str, main, argv, phase: str = "phase 5",
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = main(list(argv), **kw)
-    torch.cuda.synchronize()
+    sync_all()
     secs = time.perf_counter() - t0
     launches = check_launches(rk, "tools", f"{phase} {what}", want=())
     return dict(rc=rc, out=out.getvalue(), s=secs,
@@ -3919,8 +3928,8 @@ def host_plans(chaos) -> dict:
             raise AssertionError(f"phase 9 (a) {name}: JSON keys "
                                  f"{sorted(set(d) ^ CHAOS_JSON_KEYS)} "
                                  f"differ from the reference tool's")
-        red = [i["name"] for r in d["reports"] for i in r["invariants"]
-               if not i["ok"]]
+        red = [f"{i['name']}: {i['detail']}" for r in d["reports"]
+               for i in r["invariants"] if not i["ok"]]
         if rc != 0 or not d["ok"] or red:
             raise AssertionError(f"phase 9 (a) {name}: exit {rc}, red "
                                  f"invariants {red}")
@@ -5529,6 +5538,329 @@ def placed_full(rk) -> dict:
     return out
 
 
+# -- phase 13: churn-query and the mesh tools on a placed mesh ----------------
+
+#: the placed shard count of every part
+PHASE13_P = 4
+#: 13(c): the multichip_ab sizes (rows a shard) and repetitions
+PHASE13_AB_SIZES, PHASE13_AB_REPS = (16384, 131072), 20
+#: 13(f): the card-to-card copy whose rate is logged, and its repeats
+PEER_COPY_BYTES, PEER_COPY_REPS = 256 << 20, 10
+PHASE13_LIMIT_S, PHASE13_SPREAD_LIMIT_S = 150.0, 120.0
+
+
+def placed_churn_query(rk, cq: dict, devices, what: str, card: str) -> dict:
+    """13(a): phase 4's churn-query path (N = CQ_N, K = CQ_K: the churn
+    window with its six queries, then the settle window) on a placed mesh
+    over ``devices``: the whole carry (cluster, queries, countdown,
+    trace) equal to phase 4's unsharded run on every leaf, every
+    replicated leaf equal on every shard, each kernel launched
+    ``PHASE13_P`` times as often as there, the host syncs a round equal,
+    and the reference test's outcome checks on the placed run."""
+    from serf_tpu_torch import host_syncs, prng
+    from serf_tpu_torch.models.failure import believed_dead, \
+        detection_complete
+    from serf_tpu_torch.parallel.mesh import (gather_state, make_mesh,
+                                              replicas_differ, shard_state)
+    cfg, ccfg, qcfg = cq_configs(CQ_N, raised=False)
+    _, settle_ccfg, _ = cq_configs(CQ_N, raised=False, settle=True)
+    settle = cq["settle"]
+    mesh = make_mesh(devices=devices, placed=True)
+    carry, plane, origins = cq_start(cfg, qcfg, devices[0])
+    carry = tuple(shard_state(x, mesh) for x in carry)
+    sync_all()
+    reset_counts(rk)
+    s0 = host_syncs()
+    t0 = time.perf_counter()
+    carry, _ = cq_window(carry, cfg, ccfg, qcfg, prng.key(7),
+                         CQ_CHURN_ROUNDS, plane, origins, mesh=mesh)
+    sync_all()
+    churn_s = time.perf_counter() - t0
+    churn_syncs = host_syncs() - s0
+    s0 = host_syncs()
+    t0 = time.perf_counter()
+    final, _ = cq_window(carry, cfg, settle_ccfg, qcfg, prng.key(8), settle,
+                         mesh=mesh)
+    sync_all()
+    settle_s = time.perf_counter() - t0
+    settle_syncs = host_syncs() - s0
+    launches = check_launches(rk, "churn-query", f"phase 13 (a) {what}",
+                              CQ_KERNELS)
+    bad = [p for x in final for p in replicas_differ(x)]
+    got = tuple(gather_state(x, devices[0]) for x in final)
+    leaves = carry_leaves(got)
+    bad += [p for p, x in cq["leaves"].items()
+            if x.tobytes() != leaves[p].tobytes()]
+    want = {k: PHASE13_P * v for k, v in cq["launches"].items()}
+    if launches != want:
+        bad.append(f"launches {launches}, want {PHASE13_P} x the "
+                   f"unsharded run's: {want}")
+    syncs = (churn_syncs / CQ_CHURN_ROUNDS, settle_syncs / settle)
+    if syncs != (cq["churn_syncs"], cq["settle_syncs"]):
+        bad.append(f"host syncs a round {syncs}, the unsharded run's "
+                   f"{(cq['churn_syncs'], cq['settle_syncs'])}")
+    st, _, _, tr = got
+    downs = int(tr.ever_down.sum())
+    false_dead = int((believed_dead(st.gossip, cfg.gossip, cfg.failure)
+                      & tr.always_up).sum())
+    if downs <= 10 or false_dead or not bool(detection_complete(
+            st.gossip, cfg.gossip, cfg.failure)):
+        bad.append(f"outcome: {downs} down, {false_dead} false deaths, "
+                   f"detection incomplete")
+    if bad:
+        raise AssertionError(f"phase 13 (a) {what}: " + "; ".join(bad))
+    out = dict(launches=launches, syncs=syncs, churn_s=churn_s,
+               settle_s=settle_s, churn_rps=CQ_CHURN_ROUNDS / churn_s,
+               settle_rps=settle / settle_s)
+    log(f"phase 13 (a) churn-query n={CQ_N} k={CQ_K} on {PHASE13_P} placed "
+        f"shards ({what}: {devices}): {CQ_CHURN_ROUNDS} churned + {settle} "
+        f"settle rounds, all {len(leaves)} carry leaves equal to the "
+        f"unsharded run's, replicas equal, {downs} down, detection "
+        f"complete, 0 false deaths; launches {json.dumps(launches)} "
+        f"({PHASE13_P} x unsharded); host syncs a round churn "
+        f"{syncs[0]:.2f} / settle {syncs[1]:.2f} (the unsharded run's); "
+        f"rounds/s churn {out['churn_rps']:.2f} / settle "
+        f"{out['settle_rps']:.2f} against unsharded {cq['churn_rps']:.2f} / "
+        f"{cq['settle_rps']:.2f} ({out['churn_rps'] / cq['churn_rps']:.2f} / "
+        f"{out['settle_rps'] / cq['settle_rps']:.2f}); {churn_s:.3f} + "
+        f"{settle_s:.3f} s ({card})")
+    return out
+
+
+def placed_roundprof(rk, card: str) -> dict:
+    """13(b): ``roundprof --mesh 4 --placed`` at N = 1M: exit 0, the
+    placement and shard count labelled, the attribution check in its
+    band; each phase's wall and each card's device time logged."""
+    from serf_tpu_torch.tools import roundprof
+    run = run_tool(rk, "roundprof --mesh 4 --placed", roundprof.main, [
+        "--n", str(N_MAIN), "--mesh", str(PHASE13_P), "--placed",
+        "--json"], phase="phase 13 (b)")
+    prof = json.loads(run["out"])
+    frac = prof["attributed_device_frac"]
+    lo, hi = ATTRIBUTION_BAND
+    w = prof["whole_round"]
+    log(f"phase 13 (b) roundprof --n {N_MAIN} --mesh {PHASE13_P} --placed: "
+        f"exit {run['rc']} in {run['s']:.2f} s, placement "
+        f"{prof['placement']}, attributed_device_frac {frac}, whole round "
+        f"{w['wall_ms']:.3f} ms wall / {w['device_busy_ms']:.3f} ms device "
+        f"busy, by card {json.dumps(w['device_busy_ms_by_device'])}, "
+        f"{w['host_reads']:.2f} host reads a round; the tool's seconds "
+        f"{json.dumps(prof['seconds'])} ({card})")
+    for r in prof["phases"]:
+        log(f"phase 13 (b)   {r['phase']}: wall {r['wall_ms']:.3f} ms, "
+            f"device busy {r['device_busy_ms']:.3f} ms (by card "
+            f"{json.dumps(r['device_busy_ms_by_device'])}), host reads "
+            f"{r['host_reads']:.2f}, model MB a shard "
+            f"{r['model_bytes'] / 1e6:.2f}")
+    if run["rc"] != 0 or frac is None or not lo <= frac <= hi or \
+            prof["devices"] != PHASE13_P or prof["placement"] != "one-card":
+        raise AssertionError(
+            f"phase 13 (b) roundprof --placed: exit {run['rc']}, devices "
+            f"{prof['devices']}, placement {prof['placement']}, "
+            f"attributed_device_frac {frac} outside [{lo}, {hi}]")
+    return dict(s=run["s"], frac=frac, wall_ms=w["wall_ms"],
+                busy_ms=w["device_busy_ms"])
+
+
+def placed_multichip_ab(rk, device: str, what: str, card: str) -> dict:
+    """13(c): ``multichip_ab --devices 4 --placed`` (or over a device
+    list) at PHASE13_AB_SIZES: exit 0, both schedules' rates, the
+    virtual run's keys with ``placement``, the hop's source named."""
+    import tempfile
+
+    from serf_tpu_torch.tools import multichip_ab
+    docs = {}
+    with tempfile.TemporaryDirectory(prefix="multichip-ab-") as td:
+        for name, argv in (
+                ("virtual", ["--devices", str(PHASE13_P), "--reps", "2",
+                             "--per-device", "1024"]),
+                ("placed", ["--devices", str(PHASE13_P), "--placed",
+                            "--device", device, "--reps",
+                            str(PHASE13_AB_REPS), "--per-device",
+                            *map(str, PHASE13_AB_SIZES)])):
+            path = f"{td}/{name}.json"
+            run = run_tool(rk, f"multichip_ab {name}", multichip_ab.main,
+                           argv + ["--out", path], phase="phase 13 (c)")
+            if run["rc"] != 0:
+                raise AssertionError(f"phase 13 (c) multichip_ab {name}: "
+                                     f"exit {run['rc']}")
+            docs[name] = json.loads(open(path).read())
+            docs[name]["s"] = run["s"]
+    ab, virtual = docs["placed"], docs["virtual"]
+    want = "distinct" if "," in device else "one-card"
+    bad = []
+    if set(ab) != set(virtual) or ab["placement"] != want:
+        bad.append(f"keys {sorted(set(ab) ^ set(virtual))}, placement "
+                   f"{ab['placement']} (want {want})")
+    if not all(r["ring_rps"] > 0 and r["allgather_rps"] > 0
+               for r in ab["results"]) or len(ab["results"]) != \
+            len(PHASE13_AB_SIZES):
+        bad.append("a schedule did not run")
+    if bad:
+        raise AssertionError(f"phase 13 (c) {what}: " + "; ".join(bad))
+    log(f"phase 13 (c) multichip_ab --devices {PHASE13_P} --placed "
+        f"({what}: {ab['device']}): exit 0 in {ab['s']:.2f} s; rows "
+        + json.dumps([{k: r[k] for k in ("n", "allgather_rps", "ring_rps",
+                                         "model_schedule_recommended")}
+                      for r in ab["results"]])
+        + f"; hop latency {ab['hop_latency_s'] * 1e6:.2f} us "
+        f"({ab['hop_latency_source']}); the virtual run's hop "
+        f"{virtual['hop_latency_s'] * 1e6:.2f} us ({card})")
+    return ab
+
+
+def placed_chaos_tool(rk, card: str) -> dict:
+    """13(d): ``chaos --plane device --devices 4 --placed`` on
+    ``partition-heal-loss`` at the tool's own N: exit 0, and the JSON
+    (verdicts, report, SLOs) and the recorded digest stream equal the
+    virtual mesh's run in this call."""
+    from serf_tpu_torch.replay.differ import diff_recordings
+    from serf_tpu_torch.tools import chaos
+    runs = {}
+    for name, extra in (("virtual", []), ("placed", ["--placed"])):
+        keep = {}
+        run = run_tool(rk, f"chaos --devices {PHASE13_P} {name}", chaos.main,
+                       ["--plan", "partition-heal-loss", "--plane",
+                        "device", "--devices", str(PHASE13_P), "--json",
+                        "--record-on-fail", "--record-dir",
+                        checkpoint_path("phase13")] + extra,
+                       phase="phase 13 (d)", keep=keep)
+        runs[name] = (run, json.loads(run["out"]),
+                      keep["recorder"].to_recording(), keep["result"])
+    (rv, dv, recv, _), (rp, dp, recp, res) = runs["virtual"], runs["placed"]
+    bad = json_differ(dv, dp)
+    if not diff_recordings(recv, recp).ok:
+        bad.append("the recorded digests differ")
+    if rv["rc"] != 0 or rp["rc"] != 0 or \
+            dp.get("device_mesh_devices") != PHASE13_P:
+        bad.append(f"exit {rv['rc']} / {rp['rc']}, device_mesh_devices "
+                   f"{dp.get('device_mesh_devices')}")
+    if bad:
+        raise AssertionError("phase 13 (d) chaos --placed: "
+                             + "; ".join(bad))
+    log(f"phase 13 (d) chaos --plan partition-heal-loss --devices "
+        f"{PHASE13_P} --placed (n = the tool's 256): exit 0, JSON, report "
+        f"and {len(recp.records)} recorded records equal the virtual mesh's; "
+        f"{res.rounds_run} rounds in {rp['s']:.2f} s (virtual "
+        f"{rv['s']:.2f} s) ({card})")
+    return dict(s=rp["s"], virtual_s=rv["s"], rounds=res.rounds_run)
+
+
+#: the dry run's outcomes (its rates are this host's timings)
+DRYRUN_OUTCOMES = ("devices", "n", "rounds", "coverage",
+                   "detection_complete", "query_responses", "alive")
+
+
+def placed_dryrun(rk, device, what: str, card: str,
+                  virtual: dict = None) -> dict:
+    """13(e): ``entry.dryrun_multichip(4, placed=True)`` (or over a
+    device list): every assertion passes, no kernel launches, and the
+    outcomes equal the virtual mesh's run."""
+    import contextlib
+    import io
+
+    from serf_tpu_torch.entry import dryrun_multichip
+    out = {}
+    for name, kw in (("virtual", {}),
+                     ("placed", dict(device=device, placed=True))):
+        if name == "virtual" and virtual is not None:
+            out[name] = virtual
+            continue
+        reset_counts(rk)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out[name] = dryrun_multichip(PHASE13_P, **kw)
+        sync_all()
+        out[name]["s"] = time.perf_counter() - t0
+        check_launches(rk, "tools", f"phase 13 (e) {name}", want=())
+        log(f"phase 13 (e) dryrun_multichip({PHASE13_P}) {name} ({what}): "
+            f"{buf.getvalue().strip()} in {out[name]['s']:.2f} s ({card})")
+    v, p = out["virtual"], out["placed"]
+    if any(v[k] != p[k] for k in DRYRUN_OUTCOMES):
+        raise AssertionError(f"phase 13 (e) {what}: outcomes differ: "
+                             + json.dumps({k: (v[k], p[k])
+                                           for k in DRYRUN_OUTCOMES}))
+    return out
+
+
+def peer_copy_rate(card: str) -> dict:
+    """13(f): one PEER_COPY_BYTES copy from cuda:0 to cuda:1, timed over
+    PEER_COPY_REPS copies after a warm one (host clock ending in a
+    synchronize of both cards)."""
+    import torch
+    src = torch.ones(PEER_COPY_BYTES, dtype=torch.uint8, device="cuda:0")
+    dst = torch.empty(PEER_COPY_BYTES, dtype=torch.uint8, device="cuda:1")
+    dst.copy_(src)
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(PEER_COPY_REPS):
+        dst.copy_(src, non_blocking=True)
+    sync_all()
+    secs = (time.perf_counter() - t0) / PEER_COPY_REPS
+    if not bool(torch.equal(dst.to("cuda:0"), src)):
+        raise AssertionError("phase 13 (f) the peer copy's bytes differ")
+    rate = PEER_COPY_BYTES / secs
+    log(f"phase 13 (f) peer copy cuda:0 -> cuda:1 of {PEER_COPY_BYTES} "
+        f"bytes: {secs * 1e3:.3f} ms, {rate / 1e9:.2f} GB/s (peer access "
+        f"{torch.cuda.can_device_access_peer(0, 1)}) ({card})")
+    return dict(s=secs, bytes_per_s=rate)
+
+
+def placed_tools_full(rk, cq: dict) -> dict:
+    """Phase 13: churn-query and the four mesh tools on a placed mesh,
+    parts (a)-(e) on PHASE13_P shards of one card inside
+    :data:`PHASE13_LIMIT_S`; with two or more cards (f): (a), (c) and
+    (e) again on distinct cards, the hop a real peer copy, and one
+    card-to-card copy's rate, inside :data:`PHASE13_SPREAD_LIMIT_S`."""
+    import torch
+    card = card_line()
+    t0 = time.perf_counter()
+    one = ["cuda:0"] * PHASE13_P
+    out = {"churn_query": placed_churn_query(rk, cq, one, "one card", card)}
+    out["roundprof"] = placed_roundprof(rk, card)
+    out["multichip_ab"] = placed_multichip_ab(rk, "cuda:0", "one card",
+                                              card)
+    out["chaos"] = placed_chaos_tool(rk, card)
+    out["dryrun"] = placed_dryrun(rk, "cuda:0", "one card", card)
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 13 (a)-(e) on one card: {out['s']:.2f} s ({card})")
+    if out["s"] > PHASE13_LIMIT_S:
+        raise AssertionError(f"phase 13 took {out['s']:.1f} s on one card, "
+                             f"over its {PHASE13_LIMIT_S} s")
+    if torch.cuda.device_count() >= 2:
+        out.update(placed_tools_spread(rk, cq, card,
+                                       out["dryrun"]["virtual"]))
+    else:
+        log("phase 13 (f) one card: every shard shared cuda:0")
+    return out
+
+
+def placed_tools_spread(rk, cq: dict, card: str, virtual=None) -> dict:
+    """13(f), on a machine with two or more cards: (a), (c) and (e) on
+    the shards spread over distinct cards (``virtual``: (e)'s virtual
+    run, made here when not given), the hop a real peer copy, and one
+    card-to-card copy's rate, inside :data:`PHASE13_SPREAD_LIMIT_S`."""
+    t0 = time.perf_counter()
+    spread = placed_devices(True)
+    where = f"{len(set(spread))} cards"
+    out = {"distinct_churn_query": placed_churn_query(rk, cq, spread, where,
+                                                      card)}
+    out["distinct_multichip_ab"] = placed_multichip_ab(
+        rk, ",".join(spread), where, card)
+    out["distinct_dryrun"] = placed_dryrun(rk, spread, where, card,
+                                           virtual=virtual)
+    out["peer_copy"] = peer_copy_rate(card)
+    out["spread_s"] = time.perf_counter() - t0
+    log(f"phase 13 (f) the repeat on {where}: {out['spread_s']:.2f} s "
+        f"({card})")
+    if out["spread_s"] > PHASE13_SPREAD_LIMIT_S:
+        raise AssertionError(f"phase 13 (f) took {out['spread_s']:.1f} s "
+                             f"on {where}, over its "
+                             f"{PHASE13_SPREAD_LIMIT_S} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5613,6 +5945,8 @@ def main() -> int:
     mark("phase 11 sharded round")
     placed = placed_full(rk)
     mark("phase 12 placed mesh")
+    tools13 = placed_tools_full(rk, cq)
+    mark("phase 13 placed churn-query and mesh tools")
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
         log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "
@@ -5725,6 +6059,10 @@ def main() -> int:
                 if kind in r:
                     shard_launches[f"phase 12 {part} placed {name} "
                                    f"{kind}"] = r[kind]["launches"]
+    for part in ("churn_query", "distinct_churn_query"):
+        if part in tools13:
+            shard_launches[f"phase 13 (a) placed {part}"] = \
+                tools13[part]["launches"]
     shard_times = placed["times"]
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], path=KERNEL_PATH[name],

@@ -19,6 +19,13 @@ churn, the sharded ``cluster_round`` and the query gather composed over
 ring and all-gather steps, the sustained round on the mesh, and the
 reference's protocol assertions (the three seeded crashes detected, the
 seeded fact everywhere, every alive node's response, the query closed).
+``placed=True`` runs it on ``n_devices`` placed shards of the device
+(each shard's rows as tensors of their own, ``parallel.placed``), and a
+device list (``device=["cuda:0", "cuda:1", ...]`` or ``"cuda:0,cuda:1"``)
+places one shard on each card::
+
+    dryrun_multichip(4, placed=True)                 # one card
+    dryrun_multichip(4, device="cuda:0,cuda:1,cuda:2,cuda:3")
 """
 
 from __future__ import annotations
@@ -55,11 +62,15 @@ def entry(n: int = ENTRY_N, device=None):
 DRYRUN_ROUNDS = 50
 
 
-def dryrun_multichip(n_devices: int, device=None) -> dict:
+def dryrun_multichip(n_devices: int, device=None, placed: bool = False
+                     ) -> dict:
     """The sharded dry run on ``n_devices`` virtual shards of ``device``
-    (default the card), at ``128 * n_devices`` nodes.  Raises
+    (default the card), at ``128 * n_devices`` nodes; ``placed`` places
+    the shards' rows as tensors of their own, and a device list places
+    one shard on each device (``parallel.mesh.tool_mesh``).  Raises
     ``AssertionError`` when a protocol outcome fails; returns the
-    outcomes and the two schedules' rounds/s at this scale."""
+    outcomes, the placement and the two schedules' rounds/s at this
+    scale."""
     import time
 
     import torch
@@ -92,10 +103,21 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
         make_cluster,
         run_cluster_sustained,
     )
-    from serf_tpu_torch.parallel.mesh import make_mesh, shard_state
+    from serf_tpu_torch.parallel.mesh import (
+        gather_state,
+        placement,
+        shard_state,
+        tool_mesh,
+    )
+    from serf_tpu_torch.parallel.placed import rep
     from serf_tpu_torch.parallel.ring import sharded_round_step
 
-    dev = resolve_device(device)
+    if isinstance(device, (list, tuple)):
+        device = ",".join(str(d) for d in device)
+    listed = isinstance(device, str) and "," in device
+    mesh = tool_mesh(n_devices, device if listed else resolve_device(device),
+                     placed=placed)
+    dev = mesh.device
     n = 128 * n_devices
     cfg = ClusterConfig(
         # k_facts=64: the sustained round's fact-lifetime check needs
@@ -123,37 +145,46 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
                                 timeout_rounds=30)
     state = state._replace(gossip=g)
 
-    mesh = make_mesh(n_devices, device=dev)
     out, q_out = shard_state(state, mesh), shard_state(qstate, mesh)
-    cd = linger_init(n, dev)
+    cd = shard_state(linger_init(n, dev), mesh)
     for k in prng.split(prng.key(1), DRYRUN_ROUNDS):
         out, q_out, cd = composed_step(out, q_out, cd, cfg, ccfg, qcfg, k,
                                        mesh=mesh)
 
-    ring_out = sharded_round_step(out.gossip, cfg.gossip, prng.key(2), mesh,
-                                  schedule="ring")
-    assert host_int(ring_out.round) == host_int(out.gossip.round) + 1
+    def gossip(st):
+        """The round step's state: a placed state's shard list."""
+        return [s.gossip for s in st.shards] if mesh.placed else st.gossip
+
+    def round_of(g):
+        """The round counter (a placed state's read from every shard, so
+        that the read waits for every card)."""
+        return [host_int(x.round) for x in g][0] if mesh.placed \
+            else host_int(g.round)
+
+    ring_out = sharded_round_step(gossip(out), cfg.gossip, prng.key(2),
+                                  mesh, schedule="ring")
+    assert round_of(ring_out) == host_int(rep(out).gossip.round) + 1
 
     def rps(schedule, g0, reps=30):
         g1 = sharded_round_step(g0, cfg.gossip, prng.key(3), mesh,
                                 schedule=schedule)          # warm
-        host_int(g1.round)
+        round_of(g1)
         t0 = time.perf_counter()
         gg = g0
         for i in range(reps):
             gg = sharded_round_step(gg, cfg.gossip, prng.key(4 + i), mesh,
                                     schedule=schedule)
-        host_int(gg.round)                                  # the barrier
+        round_of(gg)                                        # the barrier
         return reps / (time.perf_counter() - t0)
 
-    allgather_rps = rps("allgather", out.gossip)
-    ring_rps = rps("ring", out.gossip)
+    allgather_rps = rps("allgather", gossip(out))
+    ring_rps = rps("ring", gossip(out))
 
     # the sustained load on the mesh: injection every round, the quiet
     # gate held open
     sus = run_cluster_sustained(shard_state(state, mesh), cfg, prng.key(5),
                                 20, events_per_round=2, mesh=mesh)
-    g_s = sus.gossip
+    g_s = rep(sus).gossip
     assert (host_int(g_s.next_slot)
             - host_int(state.gossip.next_slot)) >= 40, \
         "sustained injection did not run every round on the mesh"
@@ -161,25 +192,27 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
         < cfg.gossip.transmit_limit, \
         "quiescent gate closed under sustained load on the mesh"
 
-    assert host_int(out.gossip.round) == DRYRUN_ROUNDS
-    cov = float(coverage(out.gossip, cfg.gossip)[0])
+    final = gather_state(out) if mesh.placed else out
+    assert host_int(final.gossip.round) == DRYRUN_ROUNDS
+    cov = float(coverage(final.gossip, cfg.gossip)[0])
     assert cov == 1.0, f"seeded fact not fully disseminated: {cov}"
-    det = bool(detection_complete(out.gossip, cfg.gossip, cfg.failure))
+    det = bool(detection_complete(final.gossip, cfg.gossip, cfg.failure))
     assert det, "seeded crashes not detected cluster-wide within the run"
     resp = host_int(num_responses(q_out)[0])
     n_alive = n - len(dead)
     assert resp == n_alive, \
         f"query gathered {resp} responses, want every alive node {n_alive}"
-    assert bool(torch.all(out.gossip.round > q_out.deadline)), \
+    assert bool(torch.all(final.gossip.round > rep(q_out).deadline)), \
         "query should have closed (deadline passed) within the run"
+    where = placement(mesh)
     result = dict(devices=n_devices, n=n, rounds=DRYRUN_ROUNDS,
                   coverage=cov, detection_complete=det,
                   query_responses=resp, alive=n_alive,
                   allgather_rps=allgather_rps, ring_rps=ring_rps,
-                  device=str(dev))
-    print(f"dryrun_multichip({n_devices}): ok — mesh={mesh.shape}, n={n}, "
-          f"rounds={DRYRUN_ROUNDS}, coverage[0]={cov:.4f}, "
+                  device=str(dev), placement=where)
+    print(f"dryrun_multichip({n_devices}): ok — mesh={mesh.shape} "
+          f"({where}), n={n}, rounds={DRYRUN_ROUNDS}, coverage[0]={cov:.4f}, "
           f"detection_complete={det}, query_responses={resp}/{n_alive}, "
           f"allgather_rps={allgather_rps:.1f}, ring_rps={ring_rps:.1f} "
-          f"on {dev}")
+          f"on {mesh.devices if mesh.placed else dev}")
     return result

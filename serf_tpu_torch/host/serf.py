@@ -283,12 +283,17 @@ class _SerfSwimDelegate(SwimDelegate):
         # user events: replay through the normal handler (dedup + min_time)
         if is_join and s._event_join_ignore:
             s._event_min_time = pp.event_ltime + 1
+        # each event keeps its trace context, which the wire carries: an
+        # event whose first sight here is this merge must still land in
+        # the propagation ledger, or its later gossip copy counts as a
+        # duplicate and the trace is never seen at this node at all
         for cell in pp.events:
             if cell is None:
                 continue
             for ev in cell.events:
                 s._handle_user_event(
-                    UserEventMessage(cell.ltime, ev.name, ev.payload, ev.cc),
+                    UserEventMessage(cell.ltime, ev.name, ev.payload, ev.cc,
+                                     ev.tctx),
                     rebroadcast=False,
                 )
 

@@ -12,8 +12,10 @@ kind fire per round (``pick_bounded``).  Keys split exactly as the
 reference splits them, so a run matches it bit for bit.
 
 :func:`composed_step` is the composed churn + protocol + query step of
-the reference's graft entry (``__graft_entry__.py`` ``full_step``), run
-unsharded.
+the reference's graft entry (``__graft_entry__.py`` ``full_step``): run
+unsharded, on a virtual mesh (the sharded cluster round) or on a placed
+mesh (every phase across the shards, as the reference's dry run shards
+the cluster and query states over its mesh).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from serf_tpu_torch.models.dissemination import (
 )
 from serf_tpu_torch.models.query import query_round
 from serf_tpu_torch.models.swim import ClusterConfig, ClusterState, cluster_round
+from serf_tpu_torch.parallel.mesh import PlacedState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,11 +125,20 @@ class ChurnTrace(NamedTuple):
 
 
 def trace_init(state: ClusterState) -> ChurnTrace:
+    """The trace of ``state`` (a placed state: each shard's rows)."""
+    if isinstance(state, PlacedState):
+        return PlacedState([trace_init(st) for st in state.shards],
+                           state.mesh)
     return ChurnTrace(ever_down=~state.gossip.alive,
                       always_up=state.gossip.alive)
 
 
 def trace_step(trace: ChurnTrace, state: ClusterState) -> ChurnTrace:
+    """The trace advanced over ``state`` (placed: row-local, shard by
+    shard)."""
+    if isinstance(state, PlacedState):
+        return PlacedState([trace_step(t, st) for t, st in
+                            zip(trace.shards, state.shards)], state.mesh)
     alive = state.gossip.alive
     return ChurnTrace(ever_down=trace.ever_down | ~alive,
                       always_up=trace.always_up & alive)
@@ -162,11 +174,14 @@ def composed_step(state: ClusterState, qstate, countdown: torch.Tensor,
     ``full_step``; on ``mesh`` the cluster round is the sharded one):
     split the key in three, churn, the cluster round, the query gather,
     the leave countdown, then the expired leavers go dark.  Returns
-    ``(state, qstate, countdown)``."""
-    from serf_tpu_torch.parallel.mesh import refuse_placed
-    refuse_placed(mesh, "the churn-query step (composed_step)",
-                  "churn-query")
+    ``(state, qstate, countdown)``.  On a placed mesh the three are
+    ``PlacedState``s (``parallel.mesh.shard_state`` of each) and every
+    phase runs across the shards (:func:`_composed_step_placed`)."""
     k_churn, k_round, k_query = prng.split(key, 3)
+    if mesh is not None and mesh.placed:
+        return _composed_step_placed(state, qstate, countdown, cfg, ccfg,
+                                     qcfg, (k_churn, k_round, k_query),
+                                     response_value)
     g, new_leavers = churn_round(state.gossip, cfg.gossip, ccfg, k_churn)
     state = cluster_round(state._replace(gossip=g), cfg, k_round, mesh=mesh)
     qstate = query_round(state.gossip, qstate, cfg.gossip, qcfg, k_query,
@@ -175,3 +190,35 @@ def composed_step(state: ClusterState, qstate, countdown: torch.Tensor,
                                      ccfg.leave_linger_rounds,
                                      alive=state.gossip.alive)
     return _go_dark(state, go_down), qstate, countdown
+
+
+def _composed_step_placed(state, qstate, countdown, cfg: ClusterConfig,
+                          ccfg: ChurnConfig, qcfg, keys, response_value):
+    """:func:`composed_step` on a placed mesh: the bounded churn picks on
+    the gathered want masks (``placed.churn_round_placed``), the placed
+    cluster round, the placed query gather, then the countdown and the
+    go-dark step on each shard's own rows."""
+    from serf_tpu_torch.parallel import placed
+    k_churn, k_round, k_query = keys
+    lay = placed.Layout(state.mesh, cfg.n)
+    for what, t in (("qstate", qstate), ("countdown", countdown)):
+        if not isinstance(t, PlacedState) or \
+                t.mesh.devices != state.mesh.devices:
+            raise TypeError(f"composed_step on a placed mesh takes the "
+                            f"{what} placed on the state's mesh "
+                            f"(parallel.mesh.shard_state)")
+    gs, new_leavers = placed.churn_round_placed(
+        [st.gossip for st in state.shards], cfg.gossip, ccfg, k_churn, lay)
+    state = placed.cluster_round(
+        placed.with_gossip(state, PlacedState(gs, state.mesh)), cfg,
+        k_round)
+    qstate = query_round(placed.gossip_of(state), qstate, cfg.gossip, qcfg,
+                         k_query, response_value=response_value)
+    sts, cds = [], []
+    for st, cd, fresh in zip(state.shards, countdown.shards, new_leavers):
+        cd, go_down = linger_step(cd, fresh, ccfg.leave_linger_rounds,
+                                  alive=st.gossip.alive)
+        sts.append(_go_dark(st, go_down))
+        cds.append(cd)
+    return (PlacedState(sts, state.mesh), qstate,
+            PlacedState(cds, state.mesh))

@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from serf_tpu_torch import prng, resolve_device
+from serf_tpu_torch import const, prng, resolve_device
 from serf_tpu_torch.bits import wrap_i32
 from serf_tpu_torch.models.dissemination import (
     K_QUERY,
@@ -37,6 +37,7 @@ from serf_tpu_torch.models.dissemination import (
     sample_offsets,
     scatter_max_bool,
 )
+from serf_tpu_torch.parallel.mesh import PlacedState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,24 +149,44 @@ def launch_query(gossip: GossipState, qstate: QueryState, cfg: GossipConfig,
     """Open a query: claim the next query slot and scatter a ``K_QUERY``
     fact.  Returns ``(gossip', qstate', q_idx)`` with ``q_idx`` an int32
     device scalar.  Reusing a ring slot closes the query that lived
-    there."""
+    there.  On a placed mesh ``gossip`` and ``qstate`` are
+    ``PlacedState``s (``parallel.placed.launch_query``)."""
     if timeout_rounds is None:
         timeout_rounds = default_timeout_rounds(cfg.n, qcfg.timeout_mult)
-    dev = gossip.known.device
+    if isinstance(qstate, PlacedState):
+        from serf_tpu_torch.parallel import placed
+        return placed.launch_query(gossip, qstate, cfg, qcfg, origin,
+                                   eligible, want_ack, timeout_rounds, ltime)
+    qi, slot, lt = _claim(gossip, qstate, cfg, qcfg, ltime)
+    gossip = inject_fact(gossip, cfg, subject=qi, kind=K_QUERY,
+                         incarnation=0, ltime=lt, origin=origin)
+    return gossip, open_slot(qstate, qcfg, qi, slot, lt, origin,
+                             gossip.round + timeout_rounds, want_ack,
+                             eligible), qi.to(torch.int32)
+
+
+def _claim(gossip: GossipState, qstate: QueryState, cfg: GossipConfig,
+           qcfg: QueryConfig, ltime=None):
+    """A launch's query slot, ring slot and ltime (device scalars read
+    from the replicated cursors)."""
     qi = torch.remainder(qstate.next_q, qcfg.q_slots)
     slot = torch.remainder(gossip.next_slot, cfg.k_facts)
     lt = (gossip.round if ltime is None
-          else wrap_i32(torch.as_tensor(ltime, device=dev).to(torch.int64)))
-    gossip = inject_fact(gossip, cfg, subject=qi, kind=K_QUERY,
-                         incarnation=0, ltime=lt, origin=origin)
+          else wrap_i32(const(ltime, torch.int64, gossip.known.device)))
+    return qi, slot, lt
+
+
+def open_slot(qstate: QueryState, qcfg: QueryConfig, qi, slot, lt, origin,
+              deadline, want_ack, eligible: torch.Tensor) -> QueryState:
+    """``qstate`` with query ``qi`` opened (its ``[Q, N]`` rows from
+    ``eligible``, which may be a placed shard's columns)."""
+    dev = qstate.origin.device
     hit = torch.arange(qcfg.q_slots, device=dev) == qi
-    origin = torch.as_tensor(origin, device=dev).to(torch.int32)
-    return gossip, QueryState(
-        origin=_set_row(qstate.origin, hit, origin),
+    return QueryState(
+        origin=_set_row(qstate.origin, hit, const(origin, torch.int32, dev)),
         fact_slot=_set_row(qstate.fact_slot, hit, slot),
         ltime=_set_row(qstate.ltime, hit, lt),
-        deadline=_set_row(qstate.deadline, hit,
-                          gossip.round + timeout_rounds),
+        deadline=_set_row(qstate.deadline, hit, deadline),
         want_ack=_set_row(qstate.want_ack, hit, want_ack),
         eligible=_set_row(qstate.eligible, hit, eligible),
         valid=_set_row(qstate.valid, hit, True),
@@ -174,7 +195,7 @@ def launch_query(gossip: GossipState, qstate: QueryState, cfg: GossipConfig,
         responded=_set_row(qstate.responded, hit, False),
         resp_value=_set_row(qstate.resp_value, hit, 0),
         next_q=qstate.next_q + 1,
-    ), qi.to(torch.int32)
+    )
 
 
 def _knows(gossip: GossipState, fact_slot: torch.Tensor) -> torch.Tensor:
@@ -194,24 +215,19 @@ def query_round(gossip: GossipState, qstate: QueryState, cfg: GossipConfig,
     response.  ``response_value`` i32[N] (default: the node index);
     ``drop_direct`` bool[Q, N]: the direct send is lost; ``drop_relay``
     bool[Q, N, R]: relayed copy r is lost.  A responder attempts exactly
-    once; any surviving path delivers; arrivals OR in."""
+    once; any surviving path delivers; arrivals OR in.  On a placed mesh
+    ``gossip`` and ``qstate`` are ``PlacedState``s
+    (``parallel.placed.query_round``)."""
+    if isinstance(qstate, PlacedState):
+        from serf_tpu_torch.parallel import placed
+        return placed.query_round(gossip, qstate, cfg, qcfg, key,
+                                  response_value, drop_direct, drop_relay)
     q, n = qcfg.q_slots, cfg.n
     dev = gossip.known.device
     if response_value is None:
         response_value = torch.arange(n, dtype=torch.int32, device=dev)
 
-    knows = _knows(gossip, qstate.fact_slot)
-    facts = gossip.facts
-    slot = qstate.fact_slot.to(torch.int64)
-    # the ring slot must still carry OUR query fact (not overwritten)
-    slot_is_ours = ((facts.kind[slot] == K_QUERY)
-                    & (facts.subject[slot]
-                       == torch.arange(q, dtype=torch.int32, device=dev))
-                    & facts.valid[slot])
-    open_q = qstate.valid & slot_is_ours & (gossip.round <= qstate.deadline)
-    senders = (knows & qstate.eligible & gossip.alive[None, :]
-               & open_q[:, None] & ~qstate.attempted)
-
+    senders = query_senders(gossip, qstate, qcfg)
     arrive = (torch.ones((q, n), dtype=torch.bool, device=dev)
               if drop_direct is None else ~drop_direct)
     origin_alive = gossip.alive[qstate.origin.to(torch.int64)]
@@ -236,8 +252,36 @@ def query_round(gossip: GossipState, qstate: QueryState, cfg: GossipConfig,
             if drop_relay is not None:
                 relay_ok = relay_ok & ~drop_relay
             arrive = arrive | torch.any(relay_ok, dim=-1)
-    arrive = arrive & origin_alive[:, None]
+    return gathered(qstate, senders, arrive & origin_alive[:, None],
+                    response_value)
 
+
+def query_senders(gossip: GossipState, qstate: QueryState,
+                  qcfg: QueryConfig) -> torch.Tensor:
+    """bool[Q, N]: the nodes that answer this round (they know an open
+    query, pass its filter, are alive and have not answered yet); a
+    placed shard's columns from its own rows and its replicated copies of
+    the fact table and the query slots."""
+    q = qcfg.q_slots
+    dev = gossip.known.device
+    knows = _knows(gossip, qstate.fact_slot)
+    facts = gossip.facts
+    slot = qstate.fact_slot.to(torch.int64)
+    # the ring slot must still carry OUR query fact (not overwritten)
+    slot_is_ours = ((facts.kind[slot] == K_QUERY)
+                    & (facts.subject[slot]
+                       == torch.arange(q, dtype=torch.int32, device=dev))
+                    & facts.valid[slot])
+    open_q = qstate.valid & slot_is_ours & (gossip.round <= qstate.deadline)
+    return (knows & qstate.eligible & gossip.alive[None, :]
+            & open_q[:, None] & ~qstate.attempted)
+
+
+def gathered(qstate: QueryState, senders: torch.Tensor,
+             arrive: torch.Tensor, response_value: torch.Tensor
+             ) -> QueryState:
+    """The arrivals OR'd into ``qstate``: ``senders`` attempted, the ones
+    whose answer ``arrive``s are acked (where asked) and responded."""
     delivered = senders & arrive
     return qstate._replace(
         attempted=qstate.attempted | senders,
@@ -250,17 +294,30 @@ def query_round(gossip: GossipState, qstate: QueryState, cfg: GossipConfig,
 # -- views -------------------------------------------------------------------
 
 def num_acks(qstate: QueryState) -> torch.Tensor:
-    """i32[Q] acks received per query."""
+    """i32[Q] acks received per query (a placed state: summed over the
+    shards on shard 0's device)."""
+    if isinstance(qstate, PlacedState):
+        from serf_tpu_torch.parallel import placed
+        return placed.fold_queries(qstate, num_acks)
     return torch.sum(qstate.acked, dim=1).to(torch.int32)
 
 
 def num_responses(qstate: QueryState) -> torch.Tensor:
-    """i32[Q] responses received per query."""
+    """i32[Q] responses received per query (a placed state: summed over
+    the shards on shard 0's device)."""
+    if isinstance(qstate, PlacedState):
+        from serf_tpu_torch.parallel import placed
+        return placed.fold_queries(qstate, num_responses)
     return torch.sum(qstate.responded, dim=1).to(torch.int32)
 
 
 def responders(qstate: QueryState, qi) -> torch.Tensor:
-    """bool[N]: nodes whose response reached the origin for query ``qi``."""
+    """bool[N]: nodes whose response reached the origin for query ``qi``
+    (a placed state: the shards' columns joined on shard 0's device)."""
+    if isinstance(qstate, PlacedState):
+        from serf_tpu_torch.parallel import placed
+        return placed.gather_all([q.responded[qi] for q in qstate.shards],
+                                 qstate.mesh.device)
     return qstate.responded[qi]
 
 

@@ -186,6 +186,57 @@ def _phase_callables(state, cfg, events_per_round: int, mesh=None,
     ]
 
 
+def _placed_phase_callables(state, cfg, events_per_round: int, mesh,
+                            schedule: str = "ring"):
+    """:func:`_phase_callables` on a placed mesh: each phase is
+    ``parallel.placed``'s, the one the placed round composes, over the
+    shards' gossip states (the probe at the warmed state's round, read
+    once here)."""
+    from serf_tpu_torch import host_int, prng
+    from serf_tpu_torch.models.dissemination import K_USER_EVENT
+    from serf_tpu_torch.parallel import placed
+
+    gcfg, fcfg = cfg.gossip, cfg.failure
+    lay = placed.Layout(mesh, cfg.n)
+    sts = list(state.shards)
+    gs = [st.gossip for st in sts]
+    group = [st.group for st in sts]
+    key = prng.key(11)
+    m = events_per_round
+    eids, origins, zeros, ones = [], [], [], []
+    for g, dev in zip(gs, lay.devs):
+        eids.append((g.round * m + torch.arange(m, dtype=torch.int32,
+                                                device=dev) + 1
+                     ).to(torch.int32))
+        origins.append(prng.randint(prng.key(12), (m,), 0, cfg.n, dev))
+        zeros.append(torch.zeros((m,), dtype=torch.int32, device=dev))
+        ones.append(torch.ones((m,), dtype=torch.bool, device=dev))
+    round_ = host_int(gs[0].round)
+    packets = placed.select_placed(gs, gcfg, lay)
+    incoming = placed.exchange_placed(packets, gcfg, key, lay, schedule)
+    return [
+        ("inject", lambda gs, key: placed.inject_placed(
+            gs, gcfg, eids, K_USER_EVENT, zeros, eids, origins, ones, lay),
+         (gs,)),
+        ("selection", lambda gs, key: placed.select_placed(gs, gcfg, lay),
+         (gs,)),
+        ("exchange", lambda p, key: placed.exchange_placed(
+            p, gcfg, key, lay, schedule), (packets,)),
+        ("merge", lambda gs, key: placed.merge_placed(gs, incoming, gcfg,
+                                                       lay), (gs,)),
+        ("probe", lambda gs, key: placed.probe_placed(
+            gs, gcfg, fcfg, key, round_, lay), (gs,)),
+        ("refute", lambda gs, key: placed.refute_placed(
+            gs, gcfg, fcfg, key, lay), (gs,)),
+        ("declare", lambda gs, key: placed.declare_placed(
+            gs, gcfg, fcfg, key, lay), (gs,)),
+        ("push_pull", lambda gs, key: placed.push_pull_placed(
+            gs, gcfg, key, group, lay), (gs,)),
+        ("vivaldi", lambda gs, key: placed.vivaldi_placed(
+            sts, cfg, gs, key, key, lay), (gs,)),
+    ]
+
+
 def phase_cadence(cfg, report) -> Dict[str, float]:
     """Occurrences per round of each profiled phase: the largest
     ``Entry.cadence`` of the phase in the byte model, else the round's
@@ -226,7 +277,11 @@ def reading(prof, on_cuda: bool) -> Dict[str, Any]:
       between its memory and pageable host memory, either way (a
       host-made tensor copied in, a ``.cpu()`` read copied out; the host
       waits for both), in either kind of profile;
-    - ``kernels``/``ops``: the 15 largest device-time entries of each.
+    - ``kernels``/``ops``: the 15 largest device-time entries of each;
+    - ``busy_ms_by_device``: the kernels' device time on each card (on
+      the CPU: ``{"cpu": device_busy_ms}``).  Over distinct cards the
+      round's device time is the largest of them, not their sum, so
+      ``device_busy_ms`` is that maximum there.
     """
     kernels, ops = [], []
     stream_syncs = h2d_pageable = d2h_pageable = 0
@@ -252,22 +307,53 @@ def reading(prof, on_cuda: bool) -> Dict[str, Any]:
     ops.sort(reverse=True)
     busy_ms = (sum(r[0] for r in kernels) if on_cuda else cpu_self_us) / 1e3
     waits: Dict[str, int] = {}
+    by_device: Dict[str, float] = {}
     for ev in prof.events():
+        if on_cuda and ev.device_type != torch.autograd.DeviceType.CPU \
+                and _FENCE_KERNEL not in ev.name:
+            # a kernel's own record, by the card it ran on
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0)
+            card = f"cuda:{ev.device_index}"
+            by_device[card] = by_device.get(card, 0.0) + us / 1e3
         if ev.name not in _SYNC_NAMES:
             continue
         op = ev
         while op.cpu_parent is not None:
             op = op.cpu_parent
         waits[op.name] = waits.get(op.name, 0) + 1
+    if not on_cuda:
+        by_device = {"cpu": busy_ms}
+    elif len(by_device) > 1:
+        busy_ms = max(by_device.values())
 
     def table(rows):
         return [dict(name=k[:90], device_ms=us / 1e3, calls=c)
                 for us, k, c in rows[:15]]
 
-    return dict(device_busy_ms=busy_ms, stream_syncs=stream_syncs,
+    return dict(device_busy_ms=busy_ms, busy_ms_by_device=by_device,
+                stream_syncs=stream_syncs,
                 waits=waits, blocking_copies=waits.get("aten::to", 0),
                 h2d_pageable=h2d_pageable, d2h_pageable=d2h_pageable,
                 kernels=table(kernels), ops=table(ops))
+
+
+def _distinct(devices) -> List[torch.device]:
+    """``devices`` (one device or several) without repeats, in order."""
+    if isinstance(devices, torch.device):
+        return [devices]
+    out: List[torch.device] = []
+    for d in devices:
+        if torch.device(d) not in out:
+            out.append(torch.device(d))
+    return out
+
+
+def _sync(devices) -> None:
+    for d in _distinct(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def profiled(run: Callable[[], Any], device: torch.device,
@@ -275,10 +361,12 @@ def profiled(run: Callable[[], Any], device: torch.device,
     """``run()`` under ``torch.profiler`` (CUDA and CPU activities on the
     card, CPU only otherwise; on the card ``cpu_ops=False`` records the
     CUDA activity alone, a fraction of the events to read for a long
-    window), ended by a synchronize.  Returns ``(value,
-    reading(...))``."""
+    window), ended by a synchronize (of every card, where ``device`` is
+    a list of a placed mesh's).  Returns ``(value, reading(...))``."""
     from torch.profiler import ProfilerActivity, profile
 
+    devices = _distinct(device)
+    device = devices[0]
     on_cuda = device.type == "cuda"
     acts = ([ProfilerActivity.CPU] if cpu_ops or not on_cuda else []) + (
         [ProfilerActivity.CUDA] if on_cuda else [])
@@ -293,8 +381,7 @@ def profiled(run: Callable[[], Any], device: torch.device,
             torch.cuda.synchronize(device)
             time.sleep(0.002)
         value = run()
-        if on_cuda:
-            torch.cuda.synchronize(device)
+        _sync(devices)
     rd = reading(prof, on_cuda)
     if rd["waits"].get("cudaDeviceSynchronize"):
         # the fence's own wait is not the run's
@@ -313,20 +400,30 @@ def warm_tracer(device: torch.device) -> None:
             torch.cuda.synchronize(device)
 
 
-def _timed_ms(calls: List[Callable[[], Any]],
-              device: torch.device) -> float:
+def _timed_ms(calls: List[Callable[[], Any]], device) -> float:
     """Mean ms per call of ``calls``: CUDA events around them on the
-    card, the host clock on the CPU."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
+    card, the host clock on the CPU.  ``device`` may list a placed
+    mesh's cards: a pair of events on each, and the longest pair is the
+    calls' time (the cards work side by side)."""
+    devices = _distinct(device)
+    if devices[0].type == "cuda":
+        _sync(devices)
+        pairs = []
+        for d in devices:
+            with torch.cuda.device(d):
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                pairs.append((d, start))
         for c in calls:
             c()
-        stop.record()
-        stop.synchronize()
-        return start.elapsed_time(stop) / len(calls)
+        spans = []
+        for d, start in pairs:
+            with torch.cuda.device(d):
+                stop = torch.cuda.Event(enable_timing=True)
+                stop.record()
+            stop.synchronize()
+            spans.append(start.elapsed_time(stop))
+        return max(spans) / len(calls)
     t0 = time.perf_counter()
     for c in calls:
         c()
@@ -355,9 +452,11 @@ def _measure(calls, device, cpu_ops: bool = True) -> Dict[str, Any]:
         # every phase of the round runs device work, so a card window
         # with no kernel record lost its records (seen on an H100 even
         # behind the start-up fence): profile the same calls again
-        if device.type != "cuda" or rd["device_busy_ms"] > 0:
+        if _distinct(device)[0].type != "cuda" or rd["device_busy_ms"] > 0:
             break
     out = dict(wall_ms=wall, device_busy_ms=rd["device_busy_ms"] / n,
+               busy_ms_by_device={d: v / n for d, v in
+                                  rd["busy_ms_by_device"].items()},
                host_reads=reads, h2d_pageable=rd["h2d_pageable"] / n,
                stream_syncs=rd["stream_syncs"] / n, launches=launches)
     if cpu_ops:
@@ -378,7 +477,11 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
     whole round the config's ``exchange_schedule``); the model byte
     columns are per shard, as the reference's are per chip (``devices``
     and ``schedule`` in the output say which flavor ran), and the
-    achieved rates divide the whole device's bytes by its time.
+    achieved rates divide the whole device's bytes by its time.  On a
+    placed mesh (``placement`` in the output) each phase is
+    ``parallel.placed``'s, the timings synchronize every shard's card,
+    and the device time of a window over distinct cards is the busiest
+    card's (``device_busy_ms_by_device`` has each card's).
     ``whole_rounds`` is the depth of the whole-round measurement
     the attribution check divides by (keep the cadences' common period
     for the check to mean anything).  Returns the JSON-ready dict of the
@@ -392,9 +495,8 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
     from serf_tpu_torch.models.swim import sustained_round
     from serf_tpu_torch.obs.device import dispatch_timer
 
+    from serf_tpu_torch.parallel.mesh import placement
     n_devices = 1
-    from serf_tpu_torch.parallel.mesh import refuse_placed
-    refuse_placed(mesh, "the round profile (roundprof --mesh)", "tools")
     if mesh is not None:
         from serf_tpu_torch.parallel.mesh import shards
         n_devices = shards(mesh)
@@ -408,6 +510,9 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
         if device is None:
             device = mesh.device
     dev = resolve_device(device)
+    # the cards the timings synchronize (a placed mesh's, each once)
+    devs = _distinct(mesh.devices) if mesh is not None and mesh.placed \
+        else [dev]
     if hbm_bytes_per_s is None:
         hbm_bytes_per_s = H100_HBM_BYTES_PER_S
     t0 = time.perf_counter()
@@ -428,17 +533,20 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
 
     key = prng.key(5)
     rows: List[Dict[str, Any]] = []
-    for name, fn, args in _phase_callables(state, cfg, events_per_round,
-                                           mesh=mesh, schedule=schedule):
+    phases = (_placed_phase_callables if mesh is not None and mesh.placed
+              else _phase_callables)
+    for name, fn, args in phases(state, cfg, events_per_round, mesh=mesh,
+                                 schedule=schedule):
         with dispatch_timer(f"profile.{name}", signature=cfg.n):
             fn(*args, key=key)                          # warm dispatch
-        m = _measure([lambda: fn(*args, key=key)] * timed_calls, dev)
+        m = _measure([lambda: fn(*args, key=key)] * timed_calls, devs)
         busy = m["device_busy_ms"]
         occ = model_occur.get(name, 0.0)
         rows.append({
             "phase": name,
             "wall_ms": round(m["wall_ms"], 4),
             "device_busy_ms": round(busy, 4),
+            "device_busy_ms_by_device": _rounded(m["busy_ms_by_device"]),
             "host_reads": m["host_reads"],
             "blocking_copies": m["blocking_copies"],
             "h2d_pageable": m["h2d_pageable"],
@@ -466,7 +574,7 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
     t2 = time.perf_counter()
     # the long window records the CUDA activity alone (its reading is
     # the kernels, the syncs and the pageable copies)
-    whole = _measure([step(k) for k in keys], dev, cpu_ops=False)
+    whole = _measure([step(k) for k in keys], devs, cpu_ops=False)
     box[0] = state
     t3 = time.perf_counter()
 
@@ -505,11 +613,14 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
         "hbm_bytes_per_s": hbm_bytes_per_s,
         "devices": n_devices,
         "schedule": schedule if n_devices > 1 else None,
+        "placement": placement(mesh),
         "phases": rows,
         "whole_round": {
             "rounds": whole_rounds,
             "wall_ms": round(whole["wall_ms"], 4),
             "device_busy_ms": round(whole_busy, 4),
+            "device_busy_ms_by_device": _rounded(
+                whole["busy_ms_by_device"]),
             "host_reads": whole["host_reads"],
             "h2d_pageable": whole["h2d_pageable"],
             "stream_syncs": whole["stream_syncs"],
@@ -537,6 +648,10 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
         "seconds": {"warm": round(t1 - t0, 3), "phases": round(t2 - t1, 3),
                     "whole": round(t3 - t2, 3)},
     }
+
+
+def _rounded(by_device: Dict[str, float]) -> Dict[str, float]:
+    return {d: round(v, 4) for d, v in by_device.items()}
 
 
 def profile_table(profile: Dict[str, Any]) -> str:
@@ -570,6 +685,10 @@ def profile_table(profile: Dict[str, Any]) -> str:
         f"pageable host-to-device copies a round, bound "
         f"{w['measured_rps_bound']} rps "
         f"(model ceiling {w['model_ceiling_rps']})")
+    by_device = w.get("device_busy_ms_by_device", {})
+    if len(by_device) > 1:
+        lines.append("device ms a round by card: " + ", ".join(
+            f"{d} {v:.3f}" for d, v in sorted(by_device.items())))
     frac = profile.get("attributed_device_frac")
     lines.append(f"attributed device time: "
                  f"{'n/a' if frac is None else f'{frac:.1%}'} of the "

@@ -271,8 +271,13 @@ def render_coverage(curve: Sequence[float], width: int = 60,
 # ---------------------------------------------------------------------------
 
 #: bounded recent-trace map size — provenance is a debugging tail, not
-#: a log (the flight-recorder sizing philosophy)
-RECENT_TRACES = 8
+#: a log (the flight-recorder sizing philosophy).  It must outlast a
+#: burst of first sights between a probe's arrival and its reader's
+#: poll: one push/pull merge after a heal notes every event the other
+#: side gossiped during the partition at once, and the reference's 8
+#: then evicts the chaos plans' message-loss and coverage probes
+#: (``faults/host.py``) before they are read
+RECENT_TRACES = 256
 #: recent traces shipped in the ``_serf_stats`` payload (the 1 KiB
 #: payload budget caps the per-node contribution)
 PAYLOAD_TRACES = 4

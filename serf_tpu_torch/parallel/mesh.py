@@ -26,10 +26,9 @@ A :class:`Mesh` takes one of two forms:
   :func:`gather_state` brings one back to one device, and
   :func:`replicas_differ` checks that the shards agree on every
   replicated leaf.  The flagship rounds of every flavour, chaos,
-  record/replay and checkpoint run on it (``parallel.placed``); the
-  tools and churn-query raise ``NotImplementedError`` on a placed mesh,
-  naming their later slice (:data:`LATER_SLICES`,
-  :func:`refuse_placed`).
+  record/replay, checkpoint, the churn-query step and the tools run on
+  it (``parallel.placed``); only a mesh over several processes waits
+  for a later slice (:data:`LATER_SLICES`).
 
 The placement rule (:func:`partition_specs`) is the reference's, kept as
 data: a leaf shards on axis 0, on axis 1 (the ``[Q, N]`` query planes,
@@ -42,33 +41,12 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 NODE_AXIS = "nodes"
 
-#: the slices of the four-card port still to come, in order; a path on a
-#: placed mesh that waits for one raises ``NotImplementedError`` naming it
+#: the slices of the four-card port still to come; a path that waits for
+#: one raises ``NotImplementedError`` naming it
 LATER_SLICES = {
-    "tools": "the tools on a placed mesh (multichip_ab, roundprof --mesh, "
-             "chaos --devices, entry.dryrun_multichip)",
     "processes": "multi-process meshes over torch.distributed with nccl, "
                  "one rank a card",
-    "churn-query": "churn-query on a placed mesh (the reference's churn "
-                   "and query step takes no mesh, so a placed "
-                   "composed_step is a port-only extension that waits "
-                   "behind the tools and the nccl slices)",
 }
-
-
-def later_slice(what: str, later: str) -> NotImplementedError:
-    """The error of ``what`` on a placed mesh, which waits for
-    ``LATER_SLICES[later]``."""
-    return NotImplementedError(
-        f"{what} on a placed mesh is not ported yet: it waits for the "
-        f"slice of {LATER_SLICES[later]}")
-
-
-def refuse_placed(mesh, what: str, later: str) -> None:
-    """Raise :func:`later_slice`'s error if ``mesh`` is placed: ``what``
-    never falls back to the virtual mesh or to the CPU."""
-    if mesh is not None and mesh.placed:
-        raise later_slice(what, later)
 
 
 class PartitionSpec(tuple):
@@ -151,13 +129,21 @@ def make_mesh(n_devices: Optional[int] = None, devices=None, *,
     than one distinct device gives a placed mesh; a list naming one
     device gives virtual shards of it.  ``placed=True`` asks for a
     placed mesh whatever the list (or ``n_devices`` placed shards all on
-    ``device``): the one-card form of the placed mesh."""
+    ``device``): the one-card form of the placed mesh.  A card the
+    machine lacks raises."""
+    import torch
+
     from serf_tpu_torch import resolve_device
 
     if devices is not None:
         devs = [_normalized(resolve_device(d)) for d in devices]
         if not devs:
             raise ValueError("make_mesh: an empty device list")
+        for d in devs:
+            if d.type == "cuda" and d.index >= torch.cuda.device_count():
+                raise ValueError(
+                    f"make_mesh: {d} names a card this machine lacks "
+                    f"({torch.cuda.device_count()} visible)")
         if placed or len(set(devs)) > 1:
             return Mesh({NODE_AXIS: len(devs)}, devs[0], devices=devs)
         return Mesh({NODE_AXIS: len(devs)}, devs[0])
@@ -166,6 +152,37 @@ def make_mesh(n_devices: Optional[int] = None, devices=None, *,
     if placed:
         return Mesh({NODE_AXIS: n}, dev, devices=[dev] * n)
     return Mesh({NODE_AXIS: n}, dev)
+
+
+def tool_mesh(count: int, device, placed: bool = False) -> Optional[Mesh]:
+    """The mesh a command line's ``--devices``/``--mesh`` count,
+    ``--device`` and ``--placed`` name, by :func:`make_mesh`'s rule: a
+    comma-separated ``device`` (``cuda:0,cuda:1``) is the shards' device
+    list (``count`` 0 or its length); otherwise ``count`` shards of
+    ``device``, placed with ``placed``.  ``None`` for an unsharded run
+    (``count`` 0, neither a list nor ``placed``)."""
+    names = ([d.strip() for d in device.split(",")]
+             if isinstance(device, str) and "," in device else None)
+    if names is not None:
+        if count not in (0, len(names)):
+            raise ValueError(f"{count} shards asked over the "
+                             f"{len(names)} devices {device!r}")
+        return make_mesh(devices=names, placed=placed)
+    if count <= 0 and not placed:
+        return None
+    return make_mesh(max(count, 1), device=device, placed=placed)
+
+
+def placement(mesh) -> Optional[str]:
+    """Where a mesh's shards lie: ``"virtual"`` (row blocks of one
+    tensor), ``"one-card"`` (placed, every shard on one device) or
+    ``"distinct"`` (placed on distinct devices); ``None`` without a
+    mesh."""
+    if mesh is None:
+        return None
+    if not mesh.placed:
+        return "virtual"
+    return "one-card" if len(set(mesh.devices)) == 1 else "distinct"
 
 
 def shards(mesh) -> int:

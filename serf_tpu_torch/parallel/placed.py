@@ -40,11 +40,11 @@ Scope: the per-round, deferred and phased flavours, fused or plain,
 with rotation or iid peers, round-robin or random probes, the
 controller, the chaos masks (``drop_rate``, the partition groups, the
 down nodes) and the telemetry, propagation and invariant rows; the
-chaos executor, record/replay and checkpoint run on it through their
-own modules.  The phased flavour runs plain, as on any mesh (the
-reference's dispatch rule).  The tools and churn-query raise
-``NotImplementedError`` naming their slice
-(``parallel.mesh.LATER_SLICES``).
+churn round, the query launch, gather and views of the churn-query step
+(``models.churn.composed_step``); the chaos executor, record/replay,
+checkpoint, the profiler and the mesh tools run on it through their own
+modules.  The phased flavour runs plain, as on any mesh (the
+reference's dispatch rule).
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ from typing import List
 
 import torch
 
-from serf_tpu_torch import host_bool, host_int, prng
+from serf_tpu_torch import const, host_bool, host_int, prng
 from serf_tpu_torch.bits import MASK32, as_u64, pack_bits, unpack_bits
 from serf_tpu_torch.bits import alive_words as _alive_words
 from serf_tpu_torch.control.device import (
@@ -71,6 +71,8 @@ from serf_tpu_torch.models.dissemination import (
     CLAMP_EVERY,
     K_ALIVE,
     K_DEAD,
+    K_LEAVE,
+    K_QUERY,
     K_SUSPECT,
     K_USER_EVENT,
     GossipConfig,
@@ -88,6 +90,7 @@ from serf_tpu_torch.models.dissemination import (
     mod_age,
     nibble_age_pred_words,
     owned_rows,
+    pick_bounded,
     pick_scores,
     pick_top,
     popcount,
@@ -375,16 +378,7 @@ def round_step_placed(gs, cfg: GossipConfig, key, lay: Layout,
         zero = torch.zeros((), dtype=torch.int32, device=lay.dev0)
         prop = (zero, zero)
     if host_bool(g0.round - g0.last_learn < cfg.transmit_window_rounds):
-        mode = launch_mode(cfg, lay.d)
-        on_device = not (cfg.fused_kernels or cfg.stamp_deferred)
-        if on_device:
-            cached = [(g.sendable_round == g.round)
-                      if cfg.use_sendable_cache else False for g in gs]
-        else:
-            cached = [cfg.use_sendable_cache
-                      and host_bool(g0.sendable_round == g0.round)] * lay.d
-        packets = [select_phase(g, cfg, cached=c, mode=mode)
-                   for g, c in zip(gs, cached)]
+        packets = select_placed(gs, cfg, lay)
         incoming = exchange_placed(packets, cfg, key, lay, schedule,
                                    group=group, eff_fanout=eff_fanout,
                                    drop_rate=drop_rate)
@@ -394,17 +388,7 @@ def round_step_placed(gs, cfg: GossipConfig, key, lay: Layout,
             learned = lay.sum([torch.sum(popcount(_learn_words(g, inc)))
                                for g, inc in zip(gs, incoming)])
             prop = ((eff * sent).to(torch.int32), learned.to(torch.int32))
-        if cfg.stamp_deferred:
-            gs = _merge_deferred_placed(gs, incoming, cfg, mode, lay,
-                                        stamp_unit)
-        else:
-            learns = [merge_learn(g, inc, cfg, mode)
-                      for g, inc in zip(gs, incoming)]
-            learned_any = lay.any([lr[2] for lr in learns])
-            gates = (lay.broadcast(learned_any) if on_device
-                     else [host_bool(learned_any)] * lay.d)
-            gs = [merge_apply(g, cfg, mode, known, pending, gate)
-                  for g, (known, pending, _), gate in zip(gs, learns, gates)]
+        gs = merge_placed(gs, incoming, cfg, lay, stamp_unit)
     due = host_bool(g0.round + 1 - gs[0].last_clamp >= CLAMP_EVERY)
     out = []
     for g in gs:
@@ -414,6 +398,47 @@ def round_step_placed(gs, cfg: GossipConfig, key, lay: Layout,
         out.append(g._replace(stamp=stamp, last_clamp=last_clamp,
                               round=g.round + 1))
     return (out, prop) if collect_propagation else out
+
+
+def _gates_on_device(cfg: GossipConfig) -> bool:
+    """The phased flavour keeps its cache and learn gates on the device
+    (the plain path it takes on a mesh); the fused and deferred flavours
+    read them on the host, as unsharded."""
+    return not (cfg.fused_kernels or cfg.stamp_deferred)
+
+
+def select_placed(gs, cfg: GossipConfig, lay: Layout):
+    """``dissemination.select_phase`` across placed shards: the cache gate
+    one host read for all shards (the phased flavour: on the device),
+    each shard's packets from its own rows."""
+    mode = launch_mode(cfg, lay.d)
+    g0 = gs[0]
+    if _gates_on_device(cfg):
+        cached = [(g.sendable_round == g.round)
+                  if cfg.use_sendable_cache else False for g in gs]
+    else:
+        cached = [cfg.use_sendable_cache
+                  and host_bool(g0.sendable_round == g0.round)] * lay.d
+    return [select_phase(g, cfg, cached=c, mode=mode)
+            for g, c in zip(gs, cached)]
+
+
+def merge_placed(gs, incoming, cfg: GossipConfig, lay: Layout,
+                 stamp_unit=None):
+    """``dissemination.merge_phase`` across placed shards: each shard
+    learns on its rows, the global ``learned_any`` is one host read (the
+    phased flavour: on the device), then each shard applies its merge
+    (the deferred flavour: :func:`_merge_deferred_placed`)."""
+    mode = launch_mode(cfg, lay.d)
+    if cfg.stamp_deferred:
+        return _merge_deferred_placed(gs, incoming, cfg, mode, lay,
+                                      stamp_unit)
+    learns = [merge_learn(g, inc, cfg, mode) for g, inc in zip(gs, incoming)]
+    learned_any = lay.any([lr[2] for lr in learns])
+    gates = (lay.broadcast(learned_any) if _gates_on_device(cfg)
+             else [host_bool(learned_any)] * lay.d)
+    return [merge_apply(g, cfg, mode, known, pending, gate)
+            for g, (known, pending, _), gate in zip(gs, learns, gates)]
 
 
 def _merge_deferred_placed(gs, incoming, cfg: GossipConfig, mode: str,
@@ -491,12 +516,21 @@ def _bounded_inject_placed(gs, cfg: GossipConfig, candidates, kind: int,
               for s, c in enumerate(candidates)]
     subjects, active = pick_top(gather_all(scores, lay.dev0), max_new,
                                 k_layout)
-    idx = subjects.to(torch.int64)
+    return _inject_picked(gs, cfg, kind, subjects, active, incarnations,
+                          take(origins, subjects, lay), lay)
+
+
+def _inject_picked(gs, cfg: GossipConfig, kind: int, subjects, active,
+                   incarnations, origins, lay: Layout):
+    """A batch picked on shard 0's device (``subjects``, ``active``,
+    ``origins``) injected on every shard, at each shard's own round,
+    with the subjects' ``incarnations`` taken from the shards that own
+    them (:func:`inject_placed`)."""
     return inject_placed(
         gs, cfg, lay.broadcast(subjects), kind,
-        lay.broadcast(take(incarnations, idx, lay)),
-        [g.round.expand(max_new) for g in gs],
-        lay.broadcast(take(origins, idx, lay)), lay.broadcast(active), lay)
+        lay.broadcast(take(incarnations, subjects, lay)),
+        [g.round.expand(subjects.shape[0]) for g in gs],
+        lay.broadcast(origins), lay.broadcast(active), lay)
 
 
 def _rotation_offset(round_: int, n: int) -> int:
@@ -947,3 +981,169 @@ def control_tick(state: PlacedState, cfg, row=None):
         out.append(st._replace(control=control_step(
             st.control, sig, cfg.control, cfg.gossip, cfg.failure)))
     return PlacedState(out, state.mesh), row
+
+
+# -- churn and queries ----------------------------------------------------------
+
+def gossip_of(state: PlacedState) -> PlacedState:
+    """The shards' gossip states of a placed cluster state, as the
+    ``PlacedState`` the query functions take."""
+    return PlacedState([st.gossip for st in state.shards], state.mesh)
+
+
+def with_gossip(state: PlacedState, gossip: PlacedState) -> PlacedState:
+    """``state._replace(gossip=...)`` shard by shard."""
+    return PlacedState([st._replace(gossip=g)
+                        for st, g in zip(state.shards, gossip.shards)],
+                       state.mesh)
+
+
+def churn_round_placed(gs, cfg: GossipConfig, ccfg, key, lay: Layout):
+    """``churn.churn_round`` across placed shards: each shard draws its
+    rows of the three ``(N,)`` Bernoulli planes; each kind's bounded
+    pick runs once, on the global want mask gathered on shard 0's device
+    (``pick_bounded`` itself, so its answer is the unsharded one, with no
+    host read); the fails, rejoins, incarnation bumps and liveness are
+    row-local; the ``K_LEAVE``/``K_ALIVE`` batches go through
+    :func:`inject_placed`.  Returns ``(gs, new leavers per shard)``."""
+    n, m = lay.n, ccfg.max_events
+    k_f, k_l, k_r, k_pf, k_pl, k_pr = prng.split(key, 6)
+    want_fail, want_leave, want_rejoin = [], [], []
+    for s, (g, dev) in enumerate(zip(gs, lay.devs)):
+        rows = lay.rows(s)
+        fail = prng.bernoulli(k_f, ccfg.fail_rate, (n,), dev,
+                              rows=rows) & g.alive
+        want_fail.append(fail)
+        want_leave.append(prng.bernoulli(k_l, ccfg.leave_rate, (n,), dev,
+                                         rows=rows) & g.alive & ~fail)
+        want_rejoin.append(prng.bernoulli(k_r, ccfg.rejoin_rate, (n,), dev,
+                                          rows=rows) & ~g.alive)
+    fails, _, _ = pick_bounded(gather_all(want_fail, lay.dev0), m, k_pf)
+    leaves, leave_subj, leave_act = pick_bounded(
+        gather_all(want_leave, lay.dev0), m, k_pl)
+    rejoins, rejoin_subj, rejoin_act = pick_bounded(
+        gather_all(want_rejoin, lay.dev0), m, k_pr)
+    out = []
+    for g, f, r in zip(gs, _rows_of(fails, lay), _rows_of(rejoins, lay)):
+        # a rejoiner returns with a bumped incarnation (u32, wraps)
+        out.append(g._replace(
+            alive=(g.alive & ~f) | r,
+            incarnation=torch.where(r, g.incarnation + 1, g.incarnation)))
+    incs = [g.incarnation for g in out]
+    # static branches on the configured rates, as the reference's
+    if ccfg.leave_rate > 0:
+        out = _inject_picked(out, cfg, K_LEAVE, leave_subj, leave_act, incs,
+                             leave_subj, lay)
+    if ccfg.rejoin_rate > 0:
+        out = _inject_picked(out, cfg, K_ALIVE, rejoin_subj, rejoin_act,
+                             incs, rejoin_subj, lay)
+    return out, _rows_of(leaves, lay)
+
+
+def launch_query(gossip: PlacedState, qstate: PlacedState, cfg: GossipConfig,
+                 qcfg, origin, eligible, want_ack, timeout_rounds: int,
+                 ltime=None):
+    """``query.launch_query`` on a placed mesh: the slot cursors and the
+    ``K_QUERY`` fact are replicated (one :func:`inject_placed` batch),
+    the query's ``[Q, N]`` rows take each shard's columns of the global
+    ``eligible`` (or of its ``PlacedState``).  ``origin`` and ``ltime``
+    may be device scalars on any device; each shard takes its own copy.
+    Returns ``(gossip', qstate', q_idx)``, ``q_idx`` on shard 0's
+    device."""
+    from serf_tpu_torch.models.query import _claim, open_slot
+    lay = Layout(gossip.mesh, cfg.n)
+    el = (eligible.shards if isinstance(eligible, PlacedState)
+          else _rows_of(eligible, lay))
+    gs, qs = list(gossip.shards), list(qstate.shards)
+    claims = [_claim(g, q, cfg, qcfg, ltime) for g, q in zip(gs, qs)]
+    origins = [const(origin, torch.int64, dev).reshape(1)
+               for dev in lay.devs]
+    gs = inject_placed(
+        gs, cfg, [qi.reshape(1) for qi, _, _ in claims], K_QUERY,
+        [torch.zeros((1,), dtype=torch.int64, device=dev)
+         for dev in lay.devs],
+        [lt.reshape(1) for _, _, lt in claims], origins,
+        [torch.ones((1,), dtype=torch.bool, device=dev)
+         for dev in lay.devs], lay)
+    qs = [open_slot(q, qcfg, qi, slot, lt, o[0], g.round + timeout_rounds,
+                    want_ack, e)
+          for q, (qi, slot, lt), o, g, e in zip(qs, claims, origins, gs, el)]
+    return (PlacedState(gs, gossip.mesh), PlacedState(qs, qstate.mesh),
+            claims[0][0].to(torch.int32))
+
+
+def _columns(x, lay: Layout, s: int):
+    """Shard ``s``'s columns (axis 1) of a global ``[Q, N, ...]`` plane,
+    on its device."""
+    a, b = lay.rows(s)
+    return None if x is None else _to(x[:, a:b], lay.devs[s])
+
+
+def query_round(gossip: PlacedState, qstate: PlacedState, cfg: GossipConfig,
+                qcfg, key, response_value=None, drop_direct=None,
+                drop_relay=None) -> PlacedState:
+    """``query.query_round`` on a placed mesh: each shard answers from its
+    own ``known`` rows and its replicated copies of the facts and the
+    query slots; each query origin's liveness is read from the shard
+    that holds it; a rotation relay reads its rolled rows across the
+    shard edges (:func:`window`, offsets drawn on the host), an iid
+    relay each shard's columns of the global ``(Q, N, R)`` draw.
+    ``response_value``, ``drop_direct`` and ``drop_relay`` are the
+    global planes."""
+    from serf_tpu_torch.models.query import gathered, query_senders
+    lay = Layout(gossip.mesh, cfg.n)
+    q, n, nl = qcfg.q_slots, cfg.n, lay.nl
+    gs, qs = gossip.shards, qstate.shards
+    alive = [g.alive for g in gs]
+    origin_alive = lay.broadcast(take(alive, qs[0].origin, lay))
+    r = qcfg.relay_factor
+    if r > 0 and cfg.peer_sampling == "rotation":
+        # one random rotation per (query, relay path)
+        offs = prng.randint_host(key, (q * r,), 1, n).reshape(q, r)
+    elif r > 0:
+        alive_all = [gather_all(alive, dev) for dev in lay.devs]
+    out = []
+    for s, (g, qq, dev) in enumerate(zip(gs, qs, lay.devs)):
+        senders = query_senders(g, qq, qcfg)
+        arrive = (torch.ones((q, nl), dtype=torch.bool, device=dev)
+                  if drop_direct is None
+                  else ~_columns(drop_direct, lay, s))
+        lost = _columns(drop_relay, lay, s)
+        if r > 0 and cfg.peer_sampling == "rotation":
+            rows = []
+            for qi in range(q):
+                any_ok = torch.zeros((nl,), dtype=torch.bool, device=dev)
+                for ri in range(r):
+                    ok = window(alive, lay.row0(s) + int(offs[qi, ri]), lay,
+                                dev)
+                    if lost is not None:
+                        ok = ok & ~lost[qi, :, ri]
+                    any_ok = any_ok | ok
+                rows.append(any_ok)
+            arrive = arrive | torch.stack(rows)
+        elif r > 0:
+            # the shard's columns of the global draw, in one draw
+            mids = prng.randint(key, (q, n, r), 0, n, dev,
+                                cols=lay.rows(s)).to(torch.int64)
+            relay_ok = alive_all[s][mids]
+            if lost is not None:
+                relay_ok = relay_ok & ~lost
+            arrive = arrive | torch.any(relay_ok, dim=-1)
+        values = (lay.ids(s, torch.int32) if response_value is None
+                  else _to(response_value[lay.row0(s):lay.row0(s) + nl],
+                           dev))
+        out.append(gathered(qq, senders, arrive & origin_alive[s][:, None],
+                            values))
+    return PlacedState(out, qstate.mesh)
+
+
+def fold_queries(qstate: PlacedState, view) -> torch.Tensor:
+    """A per-query count ``view`` (``num_acks``, ``num_responses``) of a
+    placed query state: each shard's counts summed on shard 0's
+    device, in shard order."""
+    dev0 = qstate.mesh.devices[0]
+    acc = None
+    for q in qstate.shards:
+        part = _to(view(q), dev0)
+        acc = part if acc is None else acc + part
+    return acc

@@ -23,7 +23,8 @@ Row ranges: under the partitionable threefry element ``i`` of a draw
 hashes only its own flat index ``(i >> 32, i & 0xffffffff)``, so
 ``rows=(lo, hi)`` draws rows ``[lo, hi)`` of axis 0 alone and gets the
 global draw's bits for them (a placed shard's own rows,
-``parallel.placed``).  The host/device rule reads the size of what is
+``parallel.placed``), and ``cols=(lo, hi)`` columns ``[lo, hi)`` of axis
+1 (a shard's columns of a ``[Q, N, ...]`` draw).  The host/device rule reads the size of what is
 drawn: a shard's slice of a large draw may take the host path, with the
 same bits and the same non-blocking copy.
 """
@@ -81,12 +82,15 @@ def split(k: np.ndarray, num: int = 2) -> np.ndarray:
     return np.stack([b1, b2], axis=1).astype(np.uint32)
 
 
-def _host_bits(k: np.ndarray, shape, first: int = 0) -> np.ndarray:
+def _host_bits(k: np.ndarray, shape, first: int = 0,
+               flat=None) -> np.ndarray:
     """32-bit random words of ``shape`` on the host (uint64 values), the
-    draw's flat elements ``first, first + 1, ...``."""
+    draw's flat elements ``first, first + 1, ...`` (or those ``flat``
+    names)."""
     k1, k2 = (int(v) for v in np.asarray(k, np.uint32))
     size = math.prod(shape)
-    lo = np.arange(first, first + size, dtype=np.uint64)
+    lo = (np.arange(first, first + size, dtype=np.uint64) if flat is None
+          else flat.astype(np.uint64).reshape(-1))
     hi = lo >> np.uint64(32)
     b1, b2 = _threefry2x32(k1, k2, hi, lo & np.uint64(MASK32))
     return (b1 ^ b2).reshape(shape)
@@ -105,6 +109,22 @@ def _row_range(shape, rows):
     return (hi - lo,) + shape[1:], lo * inner
 
 
+def _col_range(shape, cols, xp, device=None):
+    """``(shape of columns [lo, hi) of axis 1, their flat elements)`` of a
+    draw of ``shape``: one run of flat elements per index of axis 0
+    (``xp`` numpy, or torch on ``device``)."""
+    shape = tuple(shape)
+    lo, hi = (int(c) for c in cols)
+    if not (len(shape) >= 2 and 0 <= lo <= hi <= shape[1]):
+        raise ValueError(f"cols {cols} outside axis 1 of {shape}")
+    inner = math.prod(shape[2:])
+    kw = {} if xp is np else dict(device=device)
+    run = xp.arange(lo * inner, hi * inner, dtype=xp.int64, **kw)
+    heads = xp.arange(shape[0], dtype=xp.int64, **kw) * (shape[1] * inner)
+    out = (shape[0], hi - lo) + shape[2:]
+    return out, (heads[:, None] + run[None, :]).reshape(out)
+
+
 #: draws up to this many values are made on the host (see module doc)
 HOST_DRAW_MAX = 4096
 
@@ -120,10 +140,20 @@ def to_device(arr: np.ndarray, device) -> torch.Tensor:
     return t.to(dev)
 
 
-def random_bits(k: np.ndarray, shape, device, rows=None) -> torch.Tensor:
+def random_bits(k: np.ndarray, shape, device, rows=None,
+                cols=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)``: int64 tensor of u32
-    values on ``device`` (with ``rows``, rows ``[lo, hi)`` of it)."""
+    values on ``device`` (with ``rows``, rows ``[lo, hi)`` of it; with
+    ``cols``, columns ``[lo, hi)`` of axis 1)."""
     k1, k2 = (int(v) for v in np.asarray(k, np.uint32))
+    if cols is not None:
+        out, flat = _col_range(shape, cols, np)
+        if math.prod(out) <= HOST_DRAW_MAX:
+            return to_device(_host_bits(k, out, flat=flat).astype(np.int64),
+                             device)
+        out, lo = _col_range(shape, cols, torch, device)
+        b1, b2 = _threefry2x32(k1, k2, lo >> 32, lo & MASK32)
+        return b1 ^ b2
     shape, first = _row_range(shape, rows)
     size = math.prod(shape)
     if size <= HOST_DRAW_MAX:
@@ -148,14 +178,14 @@ def _fold_span(higher, lower, minval: int, maxval: int):
 
 
 def randint(k: np.ndarray, shape, minval: int, maxval: int,
-            device, rows=None) -> torch.Tensor:
+            device, rows=None, cols=None) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` (int32): two
     32-bit draws folded into the span by modular arithmetic
-    (``random._randint``; u32 products wrap).  ``rows`` as in
-    :func:`random_bits`."""
+    (``random._randint``; u32 products wrap).  ``rows`` and ``cols`` as
+    in :func:`random_bits`."""
     k_hi, k_lo = split(k)
-    higher = random_bits(k_hi, shape, device, rows)
-    lower = random_bits(k_lo, shape, device, rows)
+    higher = random_bits(k_hi, shape, device, rows, cols)
+    lower = random_bits(k_lo, shape, device, rows, cols)
     return wrap_i32(_fold_span(higher, lower, minval, maxval))
 
 

@@ -30,7 +30,9 @@ SLOs (the static legs may breach).  The degradation counter block is the
 ``serf.proc.*`` totals accumulated during the run.  ``--devices``
 sizes the device plane's mesh for the sharded flagship round: 0 = auto,
 1 = unsharded, d > 1 = exactly d virtual shards of the device (which
-must divide ``--n``).  The port has no counterpart of XLA's forced host
+must divide ``--n``); ``--placed`` places them as tensors of their own
+(``parallel.placed``), and a device list (``--device
+cuda:0,cuda:1,cuda:2,cuda:3``) places one shard on each card.  The port has no counterpart of XLA's forced host
 device count, so auto is ``best_device_count(n, torch.cuda.device_count())``
 (one on the CPU): on a one-card host it runs unsharded, as the
 reference's auto does on a one-chip host.
@@ -59,36 +61,45 @@ def run_host(plan, recorder=None, controlled: bool = False):
 
 
 def run_device(plan, n: int, k_facts: int, devices: int = 0,
-               recorder=None, controlled: bool = False, device=None):
+               recorder=None, controlled: bool = False, device=None,
+               placed: bool = False):
     """One device leg: ``(DeviceChaosResult, mesh size)``.  ``devices``:
     0 = auto (the largest visible card count dividing ``n``), 1 =
     unsharded, d > 1 = exactly d virtual shards (fail loud rather than
-    truncate: the report never claims a mesh size that did not run)."""
+    truncate: the report never claims a mesh size that did not run).
+    ``placed`` places the d shards' rows as tensors of their own on the
+    one ``device``; a device list (``"cuda:0,cuda:1"``) places one shard
+    on each (``parallel.mesh.tool_mesh``)."""
     import torch
 
     from serf_tpu_torch import resolve_device
     from serf_tpu_torch.control.profiles import device_ab_config
     from serf_tpu_torch.faults.device import run_device_plan
-    from serf_tpu_torch.parallel.mesh import best_device_count, make_mesh
+    from serf_tpu_torch.parallel.mesh import best_device_count, tool_mesh
 
     cfg = device_ab_config(plan.name, n, k_facts, controlled)
-    dev = resolve_device(device)
+    listed = isinstance(device, str) and "," in device
+    dev = None if listed else resolve_device(device)
     mesh = None
     d = devices
-    if d == 0:
+    if listed:
+        d = len(device.split(","))
+    elif d == 0:
         visible = torch.cuda.device_count() if dev.type == "cuda" else 1
         d = best_device_count(n, visible)
-    elif d > 1 and n % d != 0:
+    if d > 1 and n % d != 0:
         raise SystemExit(
             f"--devices {d} does not divide --n {n}; pick a dividing "
             f"count")
-    if d > 1:
-        mesh = make_mesh(d, device=dev)
+    if d > 1 or listed or placed:
+        mesh = tool_mesh(0 if listed else d,
+                         device if listed else dev, placed=placed)
+        dev = mesh.device
     return (run_device_plan(plan, cfg, mesh=mesh, recorder=recorder,
                             collect_telemetry=True,
                             collect_propagation=True,
                             collect_invariants=True, device=dev),
-            d if mesh is not None else 1)
+            mesh.size if mesh is not None else 1)
 
 
 def run_proc(plan, record_dir: str = ".", record_on_fail: bool = False):
@@ -181,7 +192,11 @@ def main(argv=None, keep=None) -> int:
                          "'both' = host + device")
     ap.add_argument("--device", default="cuda",
                     help="the device plane's device: cuda (default) or "
-                         "cpu")
+                         "cpu; a comma-separated list places one shard "
+                         "on each device")
+    ap.add_argument("--placed", action="store_true",
+                    help="place the --devices shards' rows as tensors of "
+                         "their own (the placed round)")
     ap.add_argument("--n", type=int, default=256,
                     help="device-plane simulated node count")
     ap.add_argument("--k-facts", type=int, default=32)
@@ -239,7 +254,9 @@ def main(argv=None, keep=None) -> int:
     device = None
     if "device" in planes:
         from serf_tpu_torch import resolve_device
-        device = resolve_device(args.device)
+        # a device list stays a string: run_device places a shard on each
+        device = (args.device if "," in args.device
+                  else resolve_device(args.device))
 
     record_on_fail = args.record_on_fail
     if record_on_fail is None:
@@ -290,7 +307,8 @@ def main(argv=None, keep=None) -> int:
                                              args.devices,
                                              recorder=recorder,
                                              controlled=controlled,
-                                             device=device)
+                                             device=device,
+                                             placed=args.placed)
             device_anchor[plane] = (t0, _time.time())
             verdicts = slo.judge_device_run(result, plan)
         final_results[plane] = result

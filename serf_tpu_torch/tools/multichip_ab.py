@@ -8,23 +8,32 @@ where the exchange is a data-dependent gather), at ``--per-device`` rows
 per shard.  The mesh is ``--devices`` virtual shards of one device (the
 card unless ``--device cpu``): its timings measure the schedules' shape
 on one device (block moves and launches, materialization), not NVLink
-bandwidth, so ``ring_wins`` here is not dispositive.  Each row embeds
-the byte model's decision (``accounting.ici_round_traffic``), computed
-with the H100 SXM's NVLink rate from NVIDIA's data sheet (labelled as
-such in the JSON: a published figure, not a measurement) and a hop
-latency measured in this run (one shard-axis block move of a tiny
-tensor on the device: the launch cost of a virtual hop, not an NVLink
-latency).  Each schedule's rate lands on the metrics sink as the
-``serf.shard.*`` gauges.
+bandwidth, so ``ring_wins`` here is not dispositive.  ``--placed``
+places each shard's rows as tensors of their own (``parallel.placed``):
+``--devices`` shards of the one ``--device``, or one shard on each card
+of a device list (``--device cuda:0,cuda:1,cuda:2,cuda:3``), where a
+ring hop is a peer copy from card to card.  Each row embeds the byte
+model's decision (``accounting.ici_round_traffic``), computed with the
+H100 SXM's NVLink rate from NVIDIA's data sheet (labelled as such in the
+JSON: a published figure, not a measurement) and a hop latency measured
+in this run: one hop of a tiny block per shard, which
+``hop_latency_source`` names (a virtual roll on one device, a peer copy
+on one card, or a peer copy between distinct cards: only the last is an
+NVLink latency).  ``placement`` says where the shards lay (``virtual``,
+``one-card`` or ``distinct``).  Each schedule's rate lands on the
+metrics sink as the ``serf.shard.*`` gauges.
 
     python -m serf_tpu_torch.tools.multichip_ab [--devices 8] \\
         [--reps 20] [--per-device 1024 16384 131072] [--out PATH]
+    python -m serf_tpu_torch.tools.multichip_ab --devices 4 --placed
+    python -m serf_tpu_torch.tools.multichip_ab \\
+        --device cuda:0,cuda:1,cuda:2,cuda:3
 
 The JSON has the reference tool's keys (``devices``, ``reps``,
 ``results`` rows with ``n``, ``n_per_device``, ``allgather_rps``,
 ``ring_rps``, ``ring_wins``, the model's bytes per shard and its
 recommendation, ``crossover_n``, ``note``, ``ici_model_1m_8chip``) plus
-the model's inputs and their sources.  It is written only where ``--out``
+the model's inputs and their sources and the placement.  It is written only where ``--out``
 points (never over the reference's ``MULTICHIP_AB.json``) and printed
 with ``--json``.
 """
@@ -42,24 +51,46 @@ LINK_SOURCE = ("NVIDIA H100 SXM data sheet: NVLink 900 GB/s; a published "
                "figure, not a measurement")
 
 
-def hop_latency_s(d: int, device, reps: int = 200) -> float:
-    """Mean seconds of one shard-axis block move of a ``(d, 1, 1)``
-    tensor on ``device`` (the ring's hop with no payload: its launch
-    cost), the host clock around ``reps`` moves ending in a
-    synchronize."""
+#: what a hop of each placement is (``hop_latency_source``)
+HOP_SOURCES = {"virtual": "virtual roll", "one-card": "peer copy on one card",
+               "distinct": "peer copy between distinct cards"}
+
+
+def hop_latency_s(mesh, reps: int = 200) -> float:
+    """Mean seconds of one ring hop of a ``(1, 1)`` block per shard (the
+    hop with no payload: its fixed cost), the host clock around
+    ``reps`` hops ending in a synchronize of every card.  Virtual: a
+    ``torch.roll`` over the shard axis on the one device
+    (``ring._hop``); placed: each block copied onto the next shard's
+    device (``placed._hop``)."""
     import torch
 
-    from serf_tpu_torch.parallel.ring import _hop
+    from serf_tpu_torch.parallel import placed, ring
 
-    x = torch.zeros((d, 1, 1), dtype=torch.int32, device=device)
-    sync = (torch.cuda.synchronize if device.type == "cuda"
-            else (lambda *a: None))
-    _hop(x)
-    sync(device)
+    d = mesh.size
+    devs = mesh.devices if mesh.placed else (mesh.device,)
+    cards = sorted({str(dv) for dv in devs if dv.type == "cuda"})
+
+    def sync():
+        for c in cards:
+            torch.cuda.synchronize(c)
+
+    if mesh.placed:
+        lay = placed.Layout(mesh, d)
+        x = [torch.zeros((1, 1), dtype=torch.int32, device=dv)
+             for dv in devs]
+
+        def hop(blocks):
+            return placed._hop(blocks, lay)
+    else:
+        x = torch.zeros((d, 1, 1), dtype=torch.int32, device=mesh.device)
+        hop = ring._hop
+    hop(x)
+    sync()
     t0 = time.perf_counter()
     for _ in range(reps):
-        x = _hop(x)
-    sync(device)
+        x = hop(x)
+    sync()
     return (time.perf_counter() - t0) / reps
 
 
@@ -75,6 +106,19 @@ def model(n: int, d: int, hop_s: float) -> dict:
                              hop_latency_s=hop_s)
 
 
+#: how the note names each placement's shards
+_SHARDS = {"virtual": "virtual shards of one",
+           "one-card": "placed shards of one"}
+
+
+def _barrier(state) -> None:
+    """The timing barrier: a read of the round counter (a placed state's
+    from every shard, so every card has finished)."""
+    from serf_tpu_torch import host_int
+    for g in (state if isinstance(state, list) else [state]):
+        host_int(g.round)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--devices", type=int, default=8,
@@ -82,8 +126,11 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--per-device", type=int, nargs="*",
                     default=[1024, 16384, 131072])
+    ap.add_argument("--placed", action="store_true",
+                    help="place each shard's rows as tensors of their own")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu")
+                    help="cuda (default) or cpu; a comma-separated list "
+                         "places one shard on each device")
     ap.add_argument("--out", default=None,
                     help="write the JSON here (nothing is written without "
                          "it)")
@@ -91,7 +138,7 @@ def main(argv=None) -> int:
                     help="print the JSON on stdout")
     args = ap.parse_args(argv)
 
-    from serf_tpu_torch import host_int, prng, resolve_device
+    from serf_tpu_torch import prng, resolve_device
     from serf_tpu_torch.models.dissemination import (
         K_USER_EVENT,
         GossipConfig,
@@ -100,15 +147,18 @@ def main(argv=None) -> int:
     )
     from serf_tpu_torch.parallel.mesh import (
         emit_shard_metrics,
-        make_mesh,
+        placement,
         shard_state,
+        tool_mesh,
     )
     from serf_tpu_torch.parallel.ring import sharded_round_step
 
-    device = resolve_device(args.device)
-    d = args.devices
-    mesh = make_mesh(d, device=device)
-    hop_s = hop_latency_s(d, device)
+    mesh = tool_mesh(max(args.devices, 1) if "," not in args.device
+                     else 0, args.device, placed=args.placed)
+    device = resolve_device(mesh.device)
+    d = mesh.size
+    where = placement(mesh)
+    hop_s = hop_latency_s(mesh)
     log = sys.stderr if args.json else sys.stdout
 
     results = []
@@ -121,17 +171,20 @@ def main(argv=None) -> int:
                             incarnation=0, ltime=i + 1,
                             origin=(i * (n // 8)) % n)
         g = shard_state(g, mesh)
+        if mesh.placed:
+            # the placed round takes and gives the shards' states
+            g = list(g.shards)
 
         def rps(schedule, g0):
             g1 = sharded_round_step(g0, cfg, prng.key(1), mesh,
                                     schedule=schedule)     # warm
-            host_int(g1.round)
+            _barrier(g1)
             t0 = time.perf_counter()
             gg = g0
             for i in range(args.reps):
                 gg = sharded_round_step(gg, cfg, prng.key(2 + i), mesh,
                                         schedule=schedule)
-            host_int(gg.round)                             # the barrier
+            _barrier(gg)
             return args.reps / (time.perf_counter() - t0)
 
         ag_rps, ring_rps = rps("allgather", g), rps("ring", g)
@@ -163,19 +216,29 @@ def main(argv=None) -> int:
     out = {
         "devices": d, "reps": args.reps, "results": results,
         "crossover_n": crossover,
-        "note": f"{d} virtual shards of one {device.type} device: the "
-                "schedules' shape (block moves, launches, "
-                "materialization), not NVLink bandwidth — ring_wins here "
-                "is NOT dispositive; the decision of record is "
-                "accounting.ici_round_traffic's schedule.recommended",
+        "note": (f"{d} {_SHARDS[where]} {device.type} device: the "
+                 "schedules' shape (block moves, launches, "
+                 "materialization), not NVLink bandwidth — ring_wins here "
+                 "is NOT dispositive; the decision of record is "
+                 "accounting.ici_round_traffic's schedule.recommended"
+                 if where != "distinct" else
+                 f"{d} placed shards on distinct cards "
+                 f"({', '.join(str(x) for x in mesh.devices)}): each ring "
+                 "hop a peer copy between cards, every shard issued from "
+                 "one process — the decision of record is "
+                 "accounting.ici_round_traffic's schedule.recommended"),
         "ici_model_1m_8chip": model(1_000_000, 8, hop_s),
-        "device": str(device),
+        "device": (",".join(str(x) for x in mesh.devices)
+                   if where == "distinct" else str(device)),
         "link_bytes_per_s": H100_SXM_NVLINK_BYTES_PER_S,
         "link_source": LINK_SOURCE,
         "hop_latency_s": hop_s,
-        "hop_latency_source": (f"measured in this run: one shard-axis "
-                               f"block move of a ({d}, 1, 1) tensor on "
-                               f"{device}; not an NVLink latency"),
+        "hop_latency_source": (f"{HOP_SOURCES[where]}, measured in this "
+                               f"run: one ring hop of a 1-element block "
+                               f"per shard over {d} shards"
+                               + ("" if where == "distinct"
+                                  else "; not an NVLink latency")),
+        "placement": where,
     }
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:

@@ -12,6 +12,8 @@ Usage (the card unless ``--device cpu``)::
     python -m serf_tpu_torch.tools.roundprof [--n 65536] [--k 64] \\
         [--calls 3] [--warm 24] [--events 2] [--json]
     python -m serf_tpu_torch.tools.roundprof --mesh 8 --schedule ring
+    python -m serf_tpu_torch.tools.roundprof --mesh 4 --placed
+    python -m serf_tpu_torch.tools.roundprof --device cuda:0,cuda:1,cuda:2,cuda:3
     python -m serf_tpu_torch.tools.roundprof --fused [--json]
     python -m serf_tpu_torch.tools.roundprof --stamp-unit 4 [--fused]
 
@@ -34,8 +36,13 @@ kernels (where ``fused_flush`` runs).  ``--mesh P`` profiles the
 sharded flagship path on P virtual shards of the device (P must divide
 ``--n``; the exchange phase runs ``--schedule``'s leg, and the byte
 columns are per shard); the port has no counterpart of XLA's forced host
-device count, so P is not limited by the visible cards.  ``--fused`` and
-``--stamp-unit`` are single-device A/Bs and refuse ``--mesh``.
+device count, so P is not limited by the visible cards.  ``--mesh P
+--placed`` profiles the placed round (``parallel.placed``): P shards of
+the one ``--device``, each with tensors of its own; a device list
+(``--device cuda:0,cuda:1,cuda:2,cuda:3``) places a shard on each card
+(``parallel.mesh.tool_mesh``), and the JSON then has each card's
+device time (``device_busy_ms_by_device``).  ``--fused`` and
+``--stamp-unit`` are single-device A/Bs and refuse a mesh.
 """
 
 from __future__ import annotations
@@ -69,12 +76,19 @@ def main(argv=None) -> int:
     ap.add_argument("--stamp-unit", type=int, default=0,
                     help="per-round stamps against cohort flushes of this "
                          "unit (2 or 4; 0 = off)")
+    ap.add_argument("--placed", action="store_true",
+                    help="with --mesh: place each shard's rows as tensors "
+                         "of their own (the placed round)")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu")
+                    help="cuda (default) or cpu; a comma-separated list "
+                         "places one shard on each device")
     ap.add_argument("--json", action="store_true",
                     help="print the JSON contract on stdout")
     args = ap.parse_args(argv)
 
+    from serf_tpu_torch.parallel.mesh import tool_mesh
+    mesh = tool_mesh(args.mesh, args.device, placed=args.placed)
+    args.mesh = 0 if mesh is None else mesh.size
     if args.mesh and (args.fused or args.stamp_unit):
         # the standalone kernels of the --fused A/B cannot shard, and
         # --stamp-unit is an unsharded A/B: profiling either unsharded
@@ -94,20 +108,19 @@ def main(argv=None) -> int:
     from serf_tpu_torch.models.swim import flagship_config
     from serf_tpu_torch.obs.profile import profile_table
 
-    prof = _profile(flagship_config(args.n, k_facts=args.k), args)
+    prof = _profile(flagship_config(args.n, k_facts=args.k), args, mesh)
     sys.stderr.write(profile_table(prof) + "\n")
     if args.json:
         print(json.dumps(prof))
     return 0
 
 
-def _profile(cfg, args):
+def _profile(cfg, args, mesh=None):
     from serf_tpu_torch import resolve_device
     from serf_tpu_torch.obs.profile import profile_round
-    from serf_tpu_torch.parallel.mesh import make_mesh
 
-    device = resolve_device(args.device)
-    mesh = make_mesh(args.mesh, device=device) if args.mesh else None
+    device = mesh.device if mesh is not None else resolve_device(
+        args.device)
     return profile_round(cfg, events_per_round=args.events,
                          timed_calls=args.calls, warm_rounds=args.warm,
                          mesh=mesh, schedule=args.schedule, device=device)

@@ -236,19 +236,24 @@ def test_entry_points_default_to_cuda():
 
 
 def test_mesh_raises():
-    """A path still waiting for its slice on a placed mesh (distinct
-    devices) raises, naming that slice, before anything runs: the
-    churn-query step, whose reference takes no mesh.  The chaos plan
-    itself runs on a placed mesh (``tests/test_torch_placed_chaos.py``)
-    and on a virtual one (``tests/test_torch_sharded_round.py``)."""
-    from serf_tpu_torch.models.churn import composed_step
-    from serf_tpu_torch.parallel.mesh import make_mesh
+    """The one path still waiting for its slice raises, naming that
+    slice, before anything runs: a chaos cluster placed on a hybrid mesh
+    over more than one process (the multi-process slice).  The chaos
+    plan runs on a placed mesh (``tests/test_torch_placed_chaos.py``,
+    ``chaos --devices --placed`` in ``tests/test_torch_placed_tools.py``)
+    and on a virtual one (``tests/test_torch_sharded_round.py``); the
+    churn-query step runs placed too
+    (``tests/test_torch_placed_churn_query.py``)."""
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.parallel import multihost
 
-    with pytest.raises(NotImplementedError, match="churn-query on a "
-                       "placed mesh"):
-        composed_step(None, None, None, t_ab("self-check", 16, 32, False),
-                      None, None, None,
-                      mesh=make_mesh(devices=["cpu", "meta"]))
+    cfg = t_ab("self-check", 16, 32, False)
+    st = tswim.make_cluster(cfg, prng.key(0), device="cpu")
+    mesh = multihost.Mesh({multihost.DCN_AXIS: 2, multihost.ICI_AXIS: 1},
+                          "cpu")
+    with pytest.raises(NotImplementedError, match="over 2 processes .* "
+                       "nccl"):
+        multihost.shard_cluster_hybrid(st, mesh)
 
 
 def test_new_modules_are_in_the_import_scan():

@@ -347,16 +347,22 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 @pytest.mark.parametrize("what", ["mesh"])
 def test_later_slices_raise(what):
-    """A mesh whose shards span distinct devices is a placed mesh; a
-    path a later slice places (here the round profile of the tools
-    slice) raises on it, naming that slice, and never falls back."""
-    from serf_tpu_torch.obs.profile import profile_round
+    """A mesh whose shards span distinct devices is a placed mesh; the
+    one path a later slice places (a hybrid mesh over more than one
+    process: the multi-process slice) raises, naming that slice, and
+    never falls back."""
+    from serf_tpu_torch.parallel import multihost
+    from serf_tpu_torch.parallel.mesh import LATER_SLICES
     mesh = make_mesh(devices=["cpu", "meta"])
     assert mesh.placed
+    assert set(LATER_SLICES) == {"processes"}
     cfg = tswim.flagship_config(64, k_facts=32)
-    with pytest.raises(NotImplementedError, match="the tools on a placed "
-                       "mesh"):
-        profile_round(cfg, mesh=mesh, device="cpu")
+    st = tswim.make_cluster(cfg, prng.key(0), device="cpu")
+    hybrid = multihost.Mesh({multihost.DCN_AXIS: 2,
+                             multihost.ICI_AXIS: 2}, "cpu")
+    with pytest.raises(NotImplementedError, match="multi-process meshes "
+                       "over torch.distributed with nccl"):
+        multihost.shard_cluster_hybrid(st, hybrid)
 
 
 # -- the port stands alone ----------------------------------------------------

@@ -278,7 +278,8 @@ async def dropped_stream_shutdown(pkg_name: str) -> bool:
 
 
 @pytest.mark.parametrize("pkg_name", PACKAGES)
-def test_shutdown_with_a_dropped_stream(pkg_name):
+def test_shutdown_with_a_dropped_stream(pkg_name, monkeypatch):
+    retry_port0_binds(pkg_name, monkeypatch)
     finished = asyncio.run(asyncio.wait_for(
         dropped_stream_shutdown(pkg_name), 10.0))
     # the port's shutdown aborts the connection; the reference's waits

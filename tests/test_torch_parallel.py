@@ -1,13 +1,12 @@
 """``serf_tpu_torch/parallel/`` against ``serf_tpu/parallel/`` on the CPU:
 
-- the in-collective rows: ``round_telemetry(mesh=)`` (``with_cols``
-  included, through the propagation row) and the propagation and
-  invariant rows of a sharded run, per round, against the reference's
-  gathered rows (``tests/test_telemetry_collective.py:73``'s identity,
-  asserted here against the reference's unsharded run because this jax
-  refuses its in-collective ``shard_map``), for both schedules x both
-  stamp flavors x the controller off and on — and bit for bit against
-  the port's own unsharded rows;
+- the in-collective rows: ``round_telemetry(mesh=, with_cols=True)``
+  here; the propagation and invariant rows of a sharded run, per round,
+  against the reference's gathered rows (``tests/test_telemetry_
+  collective.py:73``'s identity, asserted against the reference's
+  unsharded run because this jax refuses its in-collective
+  ``shard_map``), in ``test_torch_parallel_rows.py``, which uses this
+  file's helpers;
 - the placement rule: the port's spec for every leaf of
   ``ClusterState``, ``QueryState`` and ``DeviceFaultSchedule`` equals
   the reference's ``partition_specs``, as axis positions;
@@ -50,7 +49,6 @@ from serf_tpu_torch.parallel import mesh as tmesh
 from serf_tpu_torch.parallel import multihost as tmulti
 from test_torch_cluster import _leaves, _mismatches, _tcfg
 from test_torch_host_scenarios import hard_limit
-from test_torch_telemetry import _assert_telemetry_rows
 
 # one ATen thread per test process: tier-1 runs six xdist workers on
 # the machine's cores, and a full-width intra-op pool in each of them
@@ -105,25 +103,6 @@ def _port_rows(jcfg, mesh):
         prng.key(3), ROUNDS, 2, mesh=mesh, **FLAGS)
     final, rows, (prows, covs), (irows, _) = out
     return final, rows.numpy(), prows.numpy(), covs.numpy(), irows.numpy()
-
-
-@pytest.mark.parametrize("control", [False, True])
-@pytest.mark.parametrize("schedule", ["ring", "allgather"])
-@pytest.mark.parametrize("pack", [True, False])
-def test_in_collective_rows_match(pack, schedule, control):
-    jcfg = _cfg(pack=pack, schedule=schedule, control=control)
-    jfinal, jrows, jprows, jcovs, jirows = _ref_rows(pack, control)
-    sharded = _port_rows(jcfg, tmesh.make_mesh(8, device="cpu"))
-    final, rows, prows, covs, irows = sharded
-    assert _mismatches(_leaves(jfinal), convert.to_numpy(final)) == []
-    _assert_telemetry_rows(rows, np.asarray(jrows))
-    assert np.array_equal(prows, np.asarray(jprows))
-    assert np.array_equal(covs, np.asarray(jcovs))
-    assert np.array_equal(irows, np.asarray(jirows))
-    # the in-collective identity: bit for bit the port's gathered rows
-    _, *plain = _port_rows(jcfg, None)
-    for got, want in zip((rows, prows, covs, irows), plain):
-        assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
 def test_round_telemetry_with_cols_on_a_mesh():
@@ -235,15 +214,28 @@ def test_make_mesh_device_rule():
     assert [d.type for d in placed.devices] == ["cpu", "meta"]
     two = tmesh.make_mesh(devices=["cpu"] * 2, placed=True)
     assert two.placed and two.devices == (torch.device("cpu"),) * 2
-    # a path not yet placed raises, naming its slice
-    from serf_tpu_torch.models.churn import composed_step
+    # the churn-query step runs on the one-card placed mesh and equals
+    # the unsharded step
+    from serf_tpu_torch.models import churn as tch
     tcfg = _tcfg(_cfg())
-    ts = tmesh.shard_state(tswim.make_cluster(tcfg, prng.key(0),
-                                              device="cpu"), two)
-    with pytest.raises(NotImplementedError,
-                       match="churn-query on a placed mesh"):
-        composed_step(ts, None, None, tcfg, None, None, prng.key(1),
-                      mesh=two)
+    qcfg = tq.QueryConfig(q_slots=2, relay_factor=2)
+    ccfg = tch.ChurnConfig(fail_rate=0.05, leave_rate=0.05,
+                           rejoin_rate=0.5, max_events=4)
+    flat = (tswim.make_cluster(tcfg, prng.key(0), device="cpu"),
+            tq.make_queries(tcfg.gossip, qcfg, device="cpu"),
+            tch.linger_init(tcfg.n, device="cpu"))
+    got = tch.composed_step(*(tmesh.shard_state(x, two) for x in flat),
+                            tcfg, ccfg, qcfg, prng.key(1), mesh=two)
+    want = tch.composed_step(*flat, tcfg, ccfg, qcfg, prng.key(1))
+    for g, w in zip(got, want):
+        assert isinstance(g, tmesh.PlacedState)
+        back = tmesh.gather_state(g)
+        if isinstance(w, torch.Tensor):
+            assert torch.equal(back, w)
+            continue
+        want_np = convert.to_numpy(w)
+        for name, x in convert.to_numpy(back).items():
+            assert np.array_equal(x, want_np[name]), name
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tmesh.make_mesh(8)

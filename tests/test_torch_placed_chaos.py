@@ -10,7 +10,8 @@ unsharded plan runs:
   atol 1e-5), the invariant report, the overflow ledger, the telemetry,
   propagation, invariant and control rows, the decisions and the
   recording's digest stream equal to the reference's, the host syncs
-  equal to the port's unsharded run's;
+  equal to the port's unsharded run's (the controlled shed leg's cases:
+  ``test_torch_placed_chaos_shed.py``);
 - record/replay across placements, through files: a placed recording
   replayed on a placed mesh of another shard count and on the virtual
   mesh it names, and the reference's recording replayed on a placed
@@ -114,12 +115,38 @@ def _stream(rec):
     return out
 
 
-CASES = [pytest.param(name, p, id=f"{name}-P{p}")
-         for name in PLANS for p in SHARDS]
+#: the plans this file runs (the controlled shed leg's cases are
+#: ``test_torch_placed_chaos_shed.py``'s, so that neither file holds a
+#: tier-1 worker past about a minute)
+HERE = ("partition-heal-loss", "self-check")
 
 
-@pytest.mark.parametrize("name,p", CASES)
+def cases(plans):
+    return [pytest.param(name, p, id=f"{name}-P{p}")
+            for name in plans for p in SHARDS]
+
+
+@pytest.mark.parametrize("name,p", cases(HERE))
 def test_placed_plan_state_report_and_ledger(name, p):
+    check_state_report_and_ledger(name, p)
+
+
+@pytest.mark.parametrize("name,p", cases(HERE))
+def test_placed_plan_rows(name, p):
+    check_rows(name, p)
+
+
+@pytest.mark.parametrize("name,p", cases(HERE))
+def test_placed_plan_digest_stream(name, p):
+    check_digest_stream(name, p)
+
+
+@pytest.mark.parametrize("name", HERE)
+def test_placed_recordings_replay_across_placements(name, tmp_path):
+    check_replay_across_placements(name, tmp_path)
+
+
+def check_state_report_and_ledger(name, p):
     r = plan_runs(name)
     j, t = r["j"], r[p]["res"]
     assert isinstance(t.state, tmesh.PlacedState)
@@ -132,8 +159,7 @@ def test_placed_plan_state_report_and_ledger(name, p):
     assert r[p]["syncs"] == r["syncs"]
 
 
-@pytest.mark.parametrize("name,p", CASES)
-def test_placed_plan_rows(name, p):
+def check_rows(name, p):
     r = plan_runs(name)
     j, t = r["j"], r[p]["res"]
     if j.watchdog is not None:
@@ -154,16 +180,14 @@ def test_placed_plan_rows(name, p):
         assert t.control_final == j.control_final
 
 
-@pytest.mark.parametrize("name,p", CASES)
-def test_placed_plan_digest_stream(name, p):
+def check_digest_stream(name, p):
     r = plan_runs(name)
     rec = r[p]["rec"]
     assert next(iter(rec.steps()))["args"]["mesh_devices"] == p
     assert _stream(rec) == _stream(r["jrec"])
 
 
-@pytest.mark.parametrize("name", list(PLANS))
-def test_placed_recordings_replay_across_placements(name, tmp_path):
+def check_replay_across_placements(name, tmp_path):
     """The 4-shard recording, through a file, replays clean on a placed
     mesh of 2 shards and on the virtual mesh it names; the reference's
     recording, through a file, replays clean on a placed mesh of 4."""

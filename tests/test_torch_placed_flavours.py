@@ -12,14 +12,11 @@ reference:
   equal leaf for leaf; every replicated leaf equal on every shard; host
   syncs equal to the unsharded run's;
 - here the deferred flagship at unit 4 and, under the controller, at
-  unit 2, and the phased flavour; ``test_torch_placed_deferred.py``
-  runs the other two deferred cases;
+  unit 2; ``test_torch_placed_deferred.py`` runs the other two deferred
+  cases, ``test_torch_placed_phased.py`` the phased flavour;
 - the phased flavour on a mesh takes the plain path (the reference's
   dispatch: "standalone kernels are single-device"), so its sendable
-  cache leaves are the plain path's: the placed run equals the
-  reference's unsharded plain-path run on every leaf, and its
-  standalone-kernel run on every leaf but ``sendable`` and
-  ``sendable_round``;
+  cache leaves are the plain path's (``test_torch_placed_phased.py``);
 - the launch rule: the deferred flush launches ``fused_flush`` once per
   shard over its N/P rows, the phased round launches nothing.
 """
@@ -33,7 +30,6 @@ import torch
 
 from serf_tpu.models import swim as jswim
 from serf_tpu_torch import convert, host_syncs, prng
-from serf_tpu_torch.models import dissemination as tdis
 from serf_tpu_torch.models import swim as tswim
 from serf_tpu_torch.obs import device as tobs_dev
 from serf_tpu_torch.ops import round_kernels as trk
@@ -146,9 +142,13 @@ def check_replicas_and_syncs(name: str, p: int) -> None:
     assert got["syncs"] == r["port"]["syncs"]
 
 
-CASES = [pytest.param(name, p, id=f"{name}-P{p}")
-         for name in ("deferred-u4", "deferred-u2-ctl", "phased")
-         for p in SHARDS]
+def cases(names):
+    return [pytest.param(name, p, id=f"{name}-P{p}")
+            for name in names for p in SHARDS]
+
+
+#: the phased flavour's cases are ``test_torch_placed_phased.py``'s
+CASES = cases(("deferred-u4", "deferred-u2-ctl"))
 
 
 @pytest.mark.parametrize("name,p", CASES)
@@ -164,26 +164,6 @@ def test_placed_flavour_matches_virtual_mesh(name, p):
 @pytest.mark.parametrize("name,p", CASES)
 def test_placed_flavour_replicas_and_host_syncs(name, p):
     check_replicas_and_syncs(name, p)
-
-
-def test_placed_phased_is_the_plain_path():
-    """On a mesh the standalone family takes the plain path: the placed
-    phased run equals the reference's unsharded plain-path run on every
-    leaf, and its standalone-kernel run on every leaf but the two cache
-    leaves, which the standalone family never keeps."""
-    r = flavour_runs("phased")
-    tcfg = _tcfg(r["jcfg"])
-    assert tdis.launch_mode(tcfg.gossip, 0) == "kernels"
-    assert tdis.launch_mode(tcfg.gossip, 4) == ""
-    jcfg = flavour_config("phased", use_pallas=False)
-    js, _, _ = _seeded(jcfg, _tcfg(jcfg))
-    jout = jswim.run_cluster_sustained(js, jcfg, jax.random.key(KEY),
-                                       ROUNDS, events_per_round=EVENTS)
-    got = r[4]["placed"]["leaves"]
-    assert _mismatches(_leaves(jout), got) == []
-    differ = [k for k in CACHE_LEAVES
-              if not np.array_equal(r["ref"][k], got[k])]
-    assert differ == list(CACHE_LEAVES)
 
 
 def _stand_in(monkeypatch):

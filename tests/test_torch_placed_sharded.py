@@ -118,25 +118,50 @@ def _same(got, want):
                                   "propagation", "checkpoint", "replay",
                                   "profile", "churn-query"])
 def test_paths_not_placed_raise_naming_their_slice(path, tmp_path):
-    """The paths this slice placed (the deferred and phased flavours, a
-    chaos round, the propagation rows, a checkpoint restore, a replay)
-    run on a placed mesh and equal the unsharded run; the two still
-    waiting for a slice (the round profile: the tools; churn-query)
-    raise ``NotImplementedError`` on a placed mesh, naming it, and never
-    fall back."""
+    """Every path that once waited for a slice runs on a placed mesh:
+    the deferred and phased flavours, a chaos round, the propagation
+    rows, a checkpoint restore and a replay equal the unsharded run; the
+    round profile equals the virtual mesh's profile on its phases and
+    byte columns, and the churn-query step equals the virtual mesh's
+    step on every leaf.  None falls back to the virtual mesh."""
     base = tswim.flagship_config(64, k_facts=32)
-    if path in ("profile", "churn-query"):
-        st, mesh = _placed_cpu(base)
-        with pytest.raises(NotImplementedError, match=(
-                "the tools" if path == "profile" else "churn-query on a "
-                "placed mesh")):
-            if path == "profile":
-                from serf_tpu_torch.obs.profile import profile_round
-                profile_round(base, mesh=mesh, device="cpu")
-            else:
-                from serf_tpu_torch.models.churn import composed_step
-                composed_step(st, None, None, base, None, None, prng.key(1),
-                              mesh=mesh)
+    if path == "profile":
+        from serf_tpu_torch.obs.profile import profile_round
+        _, mesh = _placed_cpu(base)
+        kw = dict(timed_calls=1, warm_rounds=1, device="cpu",
+                  whole_rounds=5)
+        got = profile_round(base, mesh=mesh, **kw)
+        want = profile_round(base, mesh=tmesh.make_mesh(2, device="cpu"),
+                             **kw)
+        assert (got["placement"], want["placement"]) == ("one-card",
+                                                         "virtual")
+        assert [(r["phase"], r["model_bytes"], r["host_reads"])
+                for r in got["phases"]] == \
+            [(r["phase"], r["model_bytes"], r["host_reads"])
+             for r in want["phases"]]
+        return
+    if path == "churn-query":
+        from serf_tpu_torch.models import churn as tch
+        from serf_tpu_torch.models import query as tq
+        _, mesh = _placed_cpu(base)
+        qcfg = tq.QueryConfig(q_slots=2, relay_factor=2)
+        ccfg = tch.ChurnConfig(fail_rate=0.05, leave_rate=0.05,
+                               rejoin_rate=0.5, max_events=4)
+        st = tswim.make_cluster(base, prng.key(0), device="cpu")
+        g, qs, _ = tq.launch_query(
+            st.gossip, tq.make_queries(base.gossip, qcfg, device="cpu"),
+            base.gossip, qcfg, 5, tq.no_filter_mask(64, device="cpu"))
+        carry = (st._replace(gossip=g), qs, tch.linger_init(64, "cpu"))
+        virtual = tmesh.make_mesh(2, device="cpu")
+        got, want = [tmesh.shard_state(x, mesh) for x in carry], carry
+        for key in prng.split(prng.key(1), 4):
+            got = tch.composed_step(*got, base, ccfg, qcfg, key, mesh=mesh)
+            want = tch.composed_step(*want, base, ccfg, qcfg, key,
+                                     mesh=virtual)
+        assert all(isinstance(x, tmesh.PlacedState) for x in got)
+        assert _same(got[0], want[0]) == []
+        assert _same(got[1], want[1]) == []
+        assert torch.equal(tmesh.gather_state(got[2]), want[2])
         return
     cfg = base
     if path in ("deferred", "phased"):

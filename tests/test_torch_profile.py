@@ -57,13 +57,21 @@ def _configs(path):
     return jcfg, _tcfg(jcfg)
 
 
-@pytest.fixture(scope="module", params=sorted(PATHS))
-def prof(request):
-    jcfg, tcfg = _configs(request.param)
-    return dict(path=request.param, jcfg=jcfg, tcfg=tcfg,
+def profiled(path):
+    """The profile of ``path`` and its configs."""
+    jcfg, tcfg = _configs(path)
+    return dict(path=path, jcfg=jcfg, tcfg=tcfg,
                 prof=tprof.profile_round(tcfg, events_per_round=2,
                                          timed_calls=3, warm_rounds=6,
                                          device="cpu"))
+
+
+#: the phased path's profile is ``test_torch_profile_phased.py``'s (these
+#: tests on it), so that neither file holds a tier-1 worker past about a
+#: minute
+@pytest.fixture(scope="module", params=["deferred", "per-round"])
+def prof(request):
+    return profiled(request.param)
 
 
 def test_profile_contract(prof):

@@ -81,7 +81,8 @@ def test_multichip_ab_json(tmp_path, capsys):
     assert set(ref) <= set(written)
     assert set(written) - set(ref) == {
         "device", "link_bytes_per_s", "link_source", "hop_latency_s",
-        "hop_latency_source"}
+        "hop_latency_source", "placement"}
+    assert written["placement"] == "virtual"
     assert "data sheet" in written["link_source"]
     assert written["devices"] == 8 and len(written["results"]) == 2
     for row in written["results"]:

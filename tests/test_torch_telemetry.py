@@ -3,8 +3,9 @@
 coverage (``propagation_row``), and the watchdog's invariant row
 (``invariant_row``, with the deferred ``stamp_staleness_ok``), collected
 by ``run_cluster_sustained`` on both sides from one key, field by field;
-the coverage-monotonicity carry across chunks (``inv_cov0``); and the
-rule that collecting rows changes no leaf of the state.
+and the rule that collecting rows changes no leaf of the state (the
+coverage-monotonicity carry across chunks, ``inv_cov0``, and the row on
+a controlled deferred state: ``test_torch_telemetry_chunked.py``).
 
 Tolerance: every row is f32 folded from integer counts in the
 reference's order, and every field matches the reference bit for bit
@@ -14,8 +15,6 @@ is held to rtol 1e-6 (a few units in the last place; the controller and
 the invariant row never read it).  The counts, ``agreement`` (one
 division of two integer sums) and the propagation row's mean over the
 sentinels are exact."""
-
-import dataclasses
 
 import jax
 import numpy as np
@@ -145,39 +144,6 @@ def test_rows_saw_the_protocol_at_work(rows):
     assert (inv[:, :-1] == 1.0).all() and (inv[:, -1] == 0.0).all()
 
 
-@pytest.mark.parametrize("unit", [1, 4])
-def test_invariant_rows_chunked_with_inv_cov0(unit):
-    """Two chunks of 8 rounds, the second seeded with the first's
-    coverage carry (``inv_cov0``), on both sides: the rows, the carry and
-    the final state match chunk by chunk, and the deferred config's
-    ``stamp_staleness_ok`` holds on every round.  (The second chunk's
-    sentinels are its own first batch, below the carried coverage of the
-    first chunk's, so ``coverage_monotone`` flags that round on both
-    sides alike.)"""
-    jcfg = _flagship(256, stamp_flush_unit=unit)
-    tcfg = _tcfg(jcfg)
-    js, ts, _ = _seeded(jcfg, tcfg)
-    kw = dict(events_per_round=EVENTS, collect_propagation=True,
-              collect_invariants=True)
-    jkeys = jax.random.split(jax.random.key(6))
-    tkeys = prng.split(prng.key(6))
-    j1 = jswim.run_cluster_sustained(js, jcfg, jkeys[0], 8, **kw)
-    j2 = jswim.run_cluster_sustained(j1[0], jcfg, jkeys[1], 8,
-                                     inv_cov0=j1[2][1], **kw)
-    t1 = tswim.run_cluster_sustained(ts, tcfg, tkeys[0], 8, **kw)
-    t2 = tswim.run_cluster_sustained(t1[0], tcfg, tkeys[1], 8,
-                                     inv_cov0=t1[2][1], **kw)
-    for jo, to in ((j1, t1), (j2, t2)):
-        assert np.array_equal(np.asarray(jo[1][0]), _np(to[1][0]))
-        assert np.array_equal(np.asarray(jo[2][0]), _np(to[2][0]))
-        for a, b in zip(jo[2][1], to[2][1]):
-            assert np.array_equal(np.asarray(a), _np(b))
-    assert _mismatches(_leaves(j2[0]), convert.to_numpy(t2[0])) == []
-    irows = torch.cat([t1[2][0], t2[2][0]])
-    idx = tswim.INVARIANT_FIELDS.index("stamp_staleness_ok")
-    assert bool(torch.all(irows[:, idx] == 1.0))
-
-
 def test_propagation_needs_events():
     tcfg = _tcfg(_flagship(64))
     st = tswim.make_cluster(tcfg, prng.key(0), device="cpu")
@@ -186,24 +152,3 @@ def test_propagation_needs_events():
                                     events_per_round=0,
                                     collect_propagation=True)
 
-
-def test_telemetry_row_on_a_controlled_deferred_state():
-    """``round_telemetry`` honours the live suspicion stretch under
-    control (the believed-dead judgment reads the knob)."""
-    jcfg = _flagship(256, stamp_flush_unit=2)
-    jcfg = dataclasses.replace(jcfg, control=dataclasses.replace(
-        jcfg.control, enabled=True))
-    tcfg = _tcfg(jcfg)
-    js, ts, _ = _seeded(jcfg, tcfg)
-    js = jswim.run_cluster_sustained(js, jcfg, jax.random.key(2), 20,
-                                     events_per_round=EVENTS)
-    ts = tswim.run_cluster_sustained(ts, tcfg, prng.key(2), 20,
-                                     events_per_round=EVENTS)
-    for stretch in (0, 3):
-        js = js._replace(control=js.control._replace(
-            knobs=js.control.knobs.at[2].set(stretch)))
-        knobs = ts.control.knobs.clone()
-        knobs[2] = stretch
-        ts = ts._replace(control=ts.control._replace(knobs=knobs))
-        _assert_telemetry_rows(_np(tswim.round_telemetry(ts, tcfg)),
-                               np.asarray(jswim.round_telemetry(js, jcfg)))
