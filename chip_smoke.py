@@ -230,7 +230,11 @@ agent``, torch blocked in them) on real UDP and TCP, driven by the
 ``client`` verb over their unix sockets (``register``, ``list``,
 ``members``), and the same over ``--tls`` and over ``--udpstream``: no
 agent pid among ``nvidia-smi``'s compute apps, none left after the
-kill.  No kernel may launch; the phase must end inside 180 s.
+kill; (f) the port's fuzz harnesses as modules by case count
+(``python -m serf_tpu_torch.fuzz.fuzz_messages --cases 20000`` and
+``fuzz_dstream --cases 5000``): no violation, the native scanner, LZ4
+and snappy on with no diff against the Python scanner.  No kernel may
+launch; the phase must end inside 180 s.
 
 Phase 11 runs the node-sharded flagship round on virtual shards of the
 card (``serf_tpu_torch.parallel``: a mesh of P row blocks of the one
@@ -313,8 +317,29 @@ equals the unbroken run; a 3-shard placed mesh raises ``ValueError``.
 180 s (the distinct-card repeat of (d), on a machine with two or more
 cards, inside 120 s more).
 
+Phase 14 runs the flagship rounds on a mesh that spans processes
+(``serf_tpu_torch.parallel.multihost``: rank processes started by
+``python -m torch.distributed.run --standalone`` running
+``serf_tpu_torch.tools.meshrun``, joined over ``nccl``, each rank's
+shards on its card, every read of another rank's rows a collective), at
+N = 1,000,000, K = 64, from phase 4's seeding.  (a) One rank with 4
+placed shards on cuda:0: the per-round flagship under both schedules,
+the deferred flagship (unit 4, ring) and the per-round flagship under
+the chaos masks (loss 0.05, the bisecting groups healed at half time),
+30 rounds each, gathered to rank 0 and held against the unsharded run
+on cuda:0 in this process: every integer leaf and telemetry row equal,
+Vivaldi bit-equal, each rank's launches a shard those of phase 12's
+placed run, each rank's host syncs the unsharded run's, the replicated
+leaves equal on every rank; (b) with two or more cards the same with
+``min(count, 4)`` ranks, one a card, one shard each (with one card this
+is logged as not run); (c) rounds/s of the per-round flagship per
+schedule in (a) and (b) (20 warm-up, 100 timed rounds) beside phase
+12's unsharded and one-process placed runs, logged.  A rank's non-zero
+exit fails the phase; a rank group that outlives 240 s is killed and
+fails it; (a) must end inside 150 s.
+
 The line before the last is ``{"kernels": [...]}`` (with each kernel's
-launches on phase 11's and 12's runs and, for the four kernels that
+launches on phase 11's, 12's and 14's runs and, for the four kernels that
 take a mesh, their one launch's µs at 1M over 8 shards, and for the
 four of the placed paths (and ``fused_flush``) their launch's µs on
 one shard's 250,000 rows); the last is ``{"ok": true, "device": {...}}``.  Needs no network
@@ -3262,6 +3287,12 @@ def strays_under(path, grace: float = 1.0) -> list:
     return found
 
 
+def checkout_root():
+    """The checkout this script runs from (its own directory)."""
+    import pathlib
+    return pathlib.Path(__file__).resolve().parent
+
+
 def checkout_env() -> dict:
     """This process's environment with the checkout first on the path,
     for the processes the phases spawn."""
@@ -4439,10 +4470,40 @@ def example_part(work) -> dict:
     return out
 
 
+#: 10 (f): the port's fuzz harnesses and their case budgets
+FUZZ_CASES = {"fuzz_messages": 20000, "fuzz_dstream": 5000}
+
+
+def fuzz_part() -> dict:
+    """10 (f): each of the port's fuzz harnesses run as its module
+    (``python -m serf_tpu_torch.fuzz.<name> --cases N --seed 0``) by case
+    count: its JSON line must show every case run, no violation and, for
+    the message harness, the native scanner, LZ4 and snappy taking part
+    with no diff against the Python scanner."""
+    out = {}
+    for mod, cases in FUZZ_CASES.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"serf_tpu_torch.fuzz.{mod}", "--cases",
+             str(cases), "--seed", "0"], cwd=checkout_root(),
+            env=checkout_env(), capture_output=True, text=True, timeout=120)
+        lines = proc.stdout.strip().splitlines()
+        stats = json.loads(lines[-1]) if lines else {}
+        if proc.returncode != 0 or stats.get("cases") != cases or \
+                stats.get("violations") != 0 or \
+                stats.get("native_diffs", 0) != 0 or \
+                (mod == "fuzz_messages" and not stats.get("native")):
+            raise AssertionError(f"phase 10 (f) {mod}: exit "
+                                 f"{proc.returncode}, {stats or lines}, "
+                                 f"{proc.stderr[-2000:]}")
+        out[mod] = dict(stats, s=time.perf_counter() - t0)
+    return out
+
+
 def tools_host_full(rk) -> dict:
-    """Phase 10: serflint, obsexport, blackbox, obstop and the
-    toyregistry example on the card's machine (parts (a)-(e) above),
-    each part logged as it ends.  No kernel may launch; it logs each
+    """Phase 10: serflint, obsexport, blackbox, obstop, the
+    toyregistry example and the fuzz slice on the card's machine (parts
+    (a)-(f) above), each part logged as it ends.  No kernel may launch; it logs each
     part's seconds beside the card line."""
     import pathlib
     import shutil
@@ -4489,12 +4550,21 @@ def tools_host_full(rk) -> dict:
             ("udp+tcp", "tls", "udpstream"))
         + f"; no agent pid among nvidia-smi's compute apps, none left; "
         f"host CPU of the machine with {card}")
+    f = out["fuzz"] = fuzz_part()
+    m, d = f["fuzz_messages"], f["fuzz_dstream"]
+    log(f"phase 10 (f) the port's fuzz harnesses by case count: "
+        f"fuzz_messages {m['cases']} cases ({m['mutations']} mutations, "
+        f"{m['garbage']} garbage, {m['decode_errors']} DecodeErrors), "
+        f"{m['violations']} violations, {m['native_diffs']} native diffs "
+        f"(native scanner, LZ4 and snappy on), {m['s']:.2f} s; "
+        f"fuzz_dstream {d['cases']} cases, {d['violations']} violations, "
+        f"{d['s']:.2f} s; host CPU of the machine with {card}")
     out["s"] = time.perf_counter() - t0
     check_launches(rk, "tools", "phase 10", want=())
     if out["s"] > PHASE10_LIMIT_S:
         raise AssertionError(f"phase 10 took {out['s']:.1f} s, over its "
                              f"{PHASE10_LIMIT_S} s")
-    log(f"phase 10 (f) no kernel launched; phase 10 {out['s']:.2f} s on "
+    log(f"phase 10 (g) no kernel launched; phase 10 {out['s']:.2f} s on "
         f"the machine with {card}")
     return out
 
@@ -5861,6 +5931,220 @@ def placed_tools_spread(rk, cq: dict, card: str, virtual=None) -> dict:
     return out
 
 
+# -- phase 14: the flagship rounds on a mesh that spans processes -------------
+
+#: the checked runs of 14 (a) and (b) (``serf_tpu_torch.tools.meshrun``
+#: specs), and the phase 12 run each one's launches a shard equal
+PHASE14_RUNS = {"per-round:ring:rotation": ("exact", "ring"),
+                "per-round:allgather:rotation": ("exact", "allgather"),
+                "deferred-u4:ring:rotation": ("flavours", "deferred ring"),
+                "per-round:ring:rotation:chaos": None}
+#: the runs 14 (c) times, after the checked ones in the same ranks
+PHASE14_TIMED = ("per-round:ring:rotation", "per-round:allgather:rotation")
+#: 14 (a): one rank's placed shards on cuda:0; (b): ranks at most
+PHASE14_LOCAL, PHASE14_MAX_RANKS = 4, 4
+#: wall seconds of one rank group, start to exit (over it its ranks are
+#: killed and the phase fails), and of the phase on one card
+PHASE14_RANKS_LIMIT_S, PHASE14_LIMIT_S = 240.0, 150.0
+
+
+def rank_group(world: int, local: int, work) -> None:
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    world -m serf_tpu_torch.tools.meshrun`` at N_MAIN: every checked run
+    of :data:`PHASE14_RUNS` (30 rounds from key 11, gathered to rank 0)
+    and the timed runs of :data:`PHASE14_TIMED`, each rank on its card
+    over ``nccl`` with ``local`` placed shards, its files under ``work``.
+    Raises if a rank exits non-zero, or if the group outlives
+    :data:`PHASE14_RANKS_LIMIT_S` (its process group is then killed)."""
+    import os
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", "-m",
+           "serf_tpu_torch.tools.meshrun", "--nodes", str(N_MAIN), "--k",
+           str(K_MAIN), "--local-shards", str(local), "--rounds",
+           str(PLACED_ROUNDS), "--key", "11", "--runs",
+           ",".join(PHASE14_RUNS), "--timed-runs", ",".join(PHASE14_TIMED),
+           "--timeout-s", str(PHASE14_RANKS_LIMIT_S), "--out", str(work)]
+    logf = work / "ranks.log"
+    with open(logf, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=checkout_root(), env=checkout_env(),
+                                stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=PHASE14_RANKS_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(os.getpgid(proc.pid), signal.SIGKILL)
+            proc.wait()
+            raise AssertionError(
+                f"phase 14: {world} ranks outlived "
+                f"{PHASE14_RANKS_LIMIT_S} s and were killed; their log "
+                f"ends {logf.read_text()[-3000:]}")
+    if rc != 0:
+        raise AssertionError(f"phase 14: a rank of {world} exited, the "
+                             f"launcher with {rc}; the log ends "
+                             f"{logf.read_text()[-3000:]}")
+
+
+def multiproc_checks(rk, world: int, local: int, placed12: dict,
+                     what: str) -> dict:
+    """14 (a)/(b): :func:`rank_group`, then each checked run's state
+    gathered to rank 0 against the unsharded run of the same config on
+    cuda:0 in this process: every integer leaf equal and the floats
+    (Vivaldi) bit-equal, the telemetry rows equal (the float-summed
+    coverage within ``COVERAGE_RTOL``), each rank's launches a shard
+    those of phase 12's placed run (a shard of the chaos run: the
+    unsharded run's), each rank's host syncs the unsharded run's, the
+    replicated leaves equal on every rank's shards."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from serf_tpu_torch import convert, host_syncs, prng
+    from serf_tpu_torch.models.swim import TELEMETRY_FIELDS
+    from serf_tpu_torch.tools import meshrun
+    work = checkout_root() / "build" / "chip_smoke" / "phase14" / \
+        f"w{world}l{local}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rank_group(world, local, work)
+    out = {"ranks_s": time.perf_counter() - t0}
+    cov = TELEMETRY_FIELDS.index("coverage")
+    bad = []
+    for spec, p12 in PHASE14_RUNS.items():
+        flavour, schedule, peers = spec.split(":")[:3]
+        cfg = meshrun.run_config(N_MAIN, K_MAIN, flavour, schedule, peers)
+        st0, _ = seeded_state(cfg, "cuda")
+        if p12 is None:
+            reset_counts(rk)
+            s0 = host_syncs()
+            # the key's second half, as placed_run and the ranks take it
+            ref, ref_rows = meshrun.chaos_rounds(
+                st0, cfg, prng.split(prng.key(11))[1], PLACED_ROUNDS)
+            torch.cuda.synchronize()
+            run0 = dict(launches=dict(rk.LAUNCHES), syncs=host_syncs() - s0)
+            want_shard = run0["launches"]
+        else:
+            ref, ref_rows, run0 = placed_run(rk, st0, cfg, prng.key(11),
+                                             PLACED_ROUNDS, None)
+            part, name = p12
+            want_shard = {k: v // PLACED_P for k, v in
+                          placed12[part][name]["launches"].items()}
+        want = convert.to_numpy(ref)
+        ref_rows = ref_rows.cpu().numpy()
+        del st0, ref
+        fname = meshrun._name(spec)
+        with np.load(work / f"{fname}.npz") as z:
+            got = {k: z[k] for k in z.files}
+        ranks = [json.loads((work / f"{fname}.rank{r}.json").read_text())
+                 for r in range(world)]
+        tag = f"{what} {spec} n={N_MAIN} {world} rank(s) x {local} shard(s)"
+        diff = [k for k in want if want[k].dtype != got[k].dtype
+                or not np.array_equal(want[k], got[k])]
+        rows = got["rows"]
+        keep = [i for i in range(rows.shape[1]) if i != cov]
+        if not np.array_equal(rows[:, keep], ref_rows[:, keep]) or not \
+                np.allclose(rows[:, cov], ref_rows[:, cov],
+                            rtol=COVERAGE_RTOL, atol=0):
+            diff.append("telemetry rows")
+        if diff:
+            bad.append(f"{tag}: differs from the unsharded run: {diff}")
+        if want_shard != run0["launches"]:
+            bad.append(f"{tag}: phase 12 launched {want_shard} a shard, "
+                       f"the unsharded run {run0['launches']}")
+        for r in ranks:
+            shard = {k: v // local for k, v in r["launches"].items()}
+            if any(v % local for v in r["launches"].values()) or \
+                    shard != want_shard:
+                bad.append(f"{tag}: rank {r['rank']} launched "
+                           f"{r['launches']}, want {local} x {want_shard}")
+            if r["syncs"] != run0["syncs"]:
+                bad.append(f"{tag}: rank {r['rank']} {r['syncs']} host "
+                           f"syncs, unsharded {run0['syncs']}")
+            if r["replicas"]:
+                bad.append(f"{tag}: rank {r['rank']} replicas differ "
+                           f"{r['replicas']}")
+            if r["backend"] != "nccl" or r["world"] != world:
+                bad.append(f"{tag}: rank {r['rank']} ran over "
+                           f"{r['backend']} in a world of {r['world']}")
+        out[spec] = dict(launches=ranks[0]["launches"],
+                         syncs=ranks[0]["syncs"], s=ranks[0]["s"],
+                         devices=[r["device"] for r in ranks],
+                         unsharded_syncs=run0["syncs"])
+        log(f"phase 14 {tag} over nccl, ranks on {out[spec]['devices']}, "
+            f"k={K_MAIN}, {PLACED_ROUNDS} rounds gathered to rank 0: every "
+            f"integer leaf and telemetry row equal to the unsharded run's "
+            f"on cuda:0, Vivaldi bit-equal, replicated leaves equal on every "
+            f"rank; launches a rank {json.dumps(ranks[0]['launches'])} "
+            f"({local} x {json.dumps(want_shard)} a shard, as phase 12's), "
+            f"host_syncs_per_round {ranks[0]['syncs'] / PLACED_ROUNDS:.2f} "
+            f"(unsharded {run0['syncs'] / PLACED_ROUNDS:.2f}), "
+            f"{ranks[0]['s']:.2f} s")
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("phase 14: " + "; ".join(bad))
+    out["timing"] = {
+        spec: json.loads((work / f"{meshrun._name(spec)}.timed.rank0.json")
+                         .read_text())["rps"] for spec in PHASE14_TIMED}
+    return out
+
+
+def log_multiproc_timing(res: dict, placed12: dict, world: int,
+                         what: str, card: str) -> None:
+    """14 (c): rounds/s of the multi-process runs beside phase 12's
+    unsharded and one-process placed runs on the same cards (logged,
+    not asserted)."""
+    from serf_tpu_torch.tools import meshrun
+    timing = placed12["timing"]
+    base = timing["unsharded"]["rps"]
+    for spec, rps in res["timing"].items():
+        schedule = spec.split(":")[1]
+        one = timing.get(f"{what} P={PLACED_P} {schedule}",
+                         timing.get(f"one card P={PLACED_P} {schedule}"))
+        log(f"phase 14 (c) {what}, {world} rank(s), {spec} n={N_MAIN}: "
+            f"rounds_per_s {rps:.2f} ({rps / base:.2f} of the unsharded "
+            f"{base:.2f}; phase 12's one-process placed run "
+            f"{one['rps']:.2f}) ({meshrun.TIMED_ROUNDS} rounds after "
+            f"{meshrun.WARM_ROUNDS}; {card})")
+
+
+def multiproc_full(rk, placed12: dict) -> dict:
+    """Phase 14: the flagship rounds on a mesh that spans processes,
+    rank processes started by ``torch.distributed.run`` after phase 1
+    built the kernels.  (a) one rank over ``nccl`` with
+    :data:`PHASE14_LOCAL` placed shards on cuda:0; (b) with two or more
+    cards, ``min(count, 4)`` ranks, one a card, one shard each; both
+    checked by :func:`multiproc_checks` and (c) timed
+    (:func:`log_multiproc_timing`)."""
+    import torch
+    card = card_line()
+    t0 = time.perf_counter()
+    out = {"one": multiproc_checks(rk, 1, PHASE14_LOCAL, placed12,
+                                   "(a) one card")}
+    log_multiproc_timing(out["one"], placed12, 1, "one card", card)
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 14 (a) on one card: {out['s']:.2f} s, the ranks "
+        f"{out['one']['ranks_s']:.2f} s of it ({card})")
+    if out["s"] > PHASE14_LIMIT_S:
+        raise AssertionError(f"phase 14 took {out['s']:.1f} s on one card, "
+                             f"over its {PHASE14_LIMIT_S} s")
+    count = torch.cuda.device_count()
+    if count < 2:
+        log("phase 14 (b) did not run: it needs two or more cards, a rank "
+            "a card, and this machine has one; (a) ran")
+        return out
+    w = min(count, PHASE14_MAX_RANKS)
+    t1 = time.perf_counter()
+    out["spread"] = multiproc_checks(rk, w, 1, placed12,
+                                     f"(b) {w} cards")
+    log_multiproc_timing(out["spread"], placed12, w, f"{w} cards", card)
+    log(f"phase 14 (b) on {w} cards: {time.perf_counter() - t1:.2f} s "
+        f"({card})")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5947,6 +6231,8 @@ def main() -> int:
     mark("phase 12 placed mesh")
     tools13 = placed_tools_full(rk, cq)
     mark("phase 13 placed churn-query and mesh tools")
+    procs14 = multiproc_full(rk, placed)
+    mark("phase 14 the mesh over processes")
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
         log(f"{path} launches ({WARMUP_ROUNDS + TIMED_ROUNDS} rounds): "
@@ -6063,6 +6349,11 @@ def main() -> int:
         if part in tools13:
             shard_launches[f"phase 13 (a) placed {part}"] = \
                 tools13[part]["launches"]
+    for part, res in procs14.items():
+        if isinstance(res, dict):
+            for spec in PHASE14_RUNS:
+                shard_launches[f"phase 14 {part} rank 0 {spec}"] = \
+                    res[spec]["launches"]
     shard_times = placed["times"]
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], path=KERNEL_PATH[name],

@@ -381,6 +381,8 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
     the per-round membership-view digests (one device-to-host copy per
     scan).  The other rows are stacked on the device and read once,
     after the whole plan ran."""
+    from serf_tpu_torch.parallel.mesh import refuse_processes
+    refuse_processes(mesh, "processes-chaos", "run_device_plan")
     plan.validate()
     if device is None and mesh is not None:
         device = mesh.device

@@ -104,8 +104,10 @@ def save(path: str, state: Any) -> None:
     """Write the state tree to ``path`` (gathered to the host, a
     ``parallel.mesh.PlacedState``'s shards in row order; atomic replace,
     so a crash never leaves a half-written checkpoint)."""
-    from serf_tpu_torch.parallel.mesh import PlacedState, gather_state
+    from serf_tpu_torch.parallel.mesh import (PlacedState, gather_state,
+                                              refuse_processes)
     if isinstance(state, PlacedState):
+        refuse_processes(state.mesh, "processes-checkpoint", "save")
         state = gather_state(state, "cpu")
     arrays = {key: _host(t, u32) for key, t, u32 in _leaves(state)}
     arrays[_SCHEMA_KEY] = np.asarray(_schema_version(), np.int64)
@@ -149,8 +151,11 @@ def restore(path: str, template: Any, mesh=None) -> Any:
     does not divide a node axis."""
     import zipfile
 
-    from serf_tpu_torch.parallel.mesh import PlacedState, gather_state
+    from serf_tpu_torch.parallel.mesh import (PlacedState, gather_state,
+                                              refuse_processes)
+    refuse_processes(mesh, "processes-checkpoint", "restore")
     if isinstance(template, PlacedState):
+        refuse_processes(template.mesh, "processes-checkpoint", "restore")
         template = gather_state(template)
     try:
         with np.load(path) as data:

@@ -495,7 +495,8 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
     from serf_tpu_torch.models.swim import sustained_round
     from serf_tpu_torch.obs.device import dispatch_timer
 
-    from serf_tpu_torch.parallel.mesh import placement
+    from serf_tpu_torch.parallel.mesh import placement, refuse_processes
+    refuse_processes(mesh, "processes-profiler", "profile_round")
     n_devices = 1
     if mesh is not None:
         from serf_tpu_torch.parallel.mesh import shards

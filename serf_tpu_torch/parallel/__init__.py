@@ -1,8 +1,9 @@
 """Node-axis sharding on a mesh of virtual or placed shards (``mesh``),
 the flagship sharded exchange with its two schedules and the
-in-collective telemetry legs (``ring``), the per-round flagship with
-each shard's rows on its own device (``placed``), and the multi-process
-hybrid mesh (``multihost``).  Counterpart of ``serf_tpu/parallel/``."""
+in-collective telemetry legs (``ring``), the flagship rounds with each
+shard's rows on its own device (``placed``), and the hybrid mesh over a
+``torch.distributed`` group (``multihost``, its collectives in
+``group``).  Counterpart of ``serf_tpu/parallel/``."""
 
 from serf_tpu_torch.parallel.mesh import (
     NODE_AXIS,

@@ -27,8 +27,16 @@ A :class:`Mesh` takes one of two forms:
   :func:`replicas_differ` checks that the shards agree on every
   replicated leaf.  The flagship rounds of every flavour, chaos,
   record/replay, checkpoint, the churn-query step and the tools run on
-  it (``parallel.placed``); only a mesh over several processes waits
-  for a later slice (:data:`LATER_SLICES`).
+  it (``parallel.placed``).
+- **placed over processes** (``mesh.group``, made by
+  ``parallel.multihost.make_hybrid_mesh`` inside a ``torch.distributed``
+  group): the ``(dcn, ici)`` mesh's ``W * L`` shards, of which this
+  process holds ``L`` (``devices``), shards ``[rank * L, (rank + 1) *
+  L)``.  :func:`shard_state` places this rank's shards,
+  :func:`gather_state` all-gathers every rank's rows and
+  :func:`replicas_differ` holds every rank's replicas to rank 0's
+  (``parallel.group``).  The flagship rounds run on it; the paths in
+  :data:`LATER_SLICES` raise on it (:func:`refuse_processes`).
 
 The placement rule (:func:`partition_specs`) is the reference's, kept as
 data: a leaf shards on axis 0, on axis 1 (the ``[Q, N]`` query planes,
@@ -41,12 +49,46 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 NODE_AXIS = "nodes"
 
-#: the slices of the four-card port still to come; a path that waits for
-#: one raises ``NotImplementedError`` naming it
+#: the paths still to come on a mesh that spans processes, in the order
+#: of their slices; each raises ``NotImplementedError`` naming its slice
+#: (:func:`refuse_processes`)
 LATER_SLICES = {
-    "processes": "multi-process meshes over torch.distributed with nccl, "
-                 "one rank a card",
+    "processes-chaos": "the chaos executor (faults.device.run_device_plan) "
+                       "on a mesh that spans processes",
+    "processes-replay": "record/replay (replay.replay_device) on a mesh "
+                        "that spans processes",
+    "processes-checkpoint": "checkpoint save/restore on a mesh that spans "
+                            "processes",
+    "processes-churn-query": "the churn-query step (churn.composed_step, "
+                             "the placed churn round, query launch and "
+                             "gather) on a mesh that spans processes",
+    "processes-profiler": "the round profiler (obs.profile.profile_round) "
+                          "on a mesh that spans processes",
+    "processes-tools": "the four mesh tools (roundprof --mesh, "
+                       "multichip_ab, chaos --devices, dryrun_multichip) "
+                       "inside a process group",
 }
+
+
+def spans_processes(mesh) -> bool:
+    """Whether ``mesh`` is a mesh over a ``torch.distributed`` group."""
+    return mesh is not None and mesh.group
+
+
+def in_process_group() -> bool:
+    """Whether this process has joined a ``torch.distributed`` group."""
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def refuse_processes(where, slice_name: str, what: str) -> None:
+    """Raise ``NotImplementedError`` naming the later slice ``slice_name``
+    when ``where`` (a mesh, or a bool a caller worked out) spans
+    processes."""
+    if where if isinstance(where, bool) else spans_processes(where):
+        raise NotImplementedError(
+            f"{what} on a mesh that spans processes is not ported yet: it "
+            f"waits for the slice of {LATER_SLICES[slice_name]}")
 
 
 class PartitionSpec(tuple):
@@ -77,9 +119,12 @@ class Mesh:
     their product.  Virtual: ``devices`` is ``None`` and every shard is
     a row block on ``device``.  Placed: ``devices`` names each shard's
     device, in shard order, and ``device`` is shard 0's (where gathers
-    and the round's host reads land)."""
+    and the round's host reads land).  Over processes (``group``):
+    ``devices`` are this process's ``local`` shards' devices, the
+    mesh's shards ``[first, first + local)``."""
 
-    def __init__(self, shape: Dict[str, int], device, devices=None):
+    def __init__(self, shape: Dict[str, int], device, devices=None,
+                 group: bool = False):
         import torch
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
@@ -90,12 +135,24 @@ class Mesh:
             size *= int(v)
         self.size = size
         self.devices = None
+        self.group = bool(group)
+        self.local, self.first = size, 0
         if devices is not None:
             self.devices = tuple(torch.device(d) for d in devices)
-            if len(self.devices) != size:
+            self.local = len(self.devices)
+            if self.group:
+                from serf_tpu_torch.parallel import group as grp
+                self.first = grp.rank() * self.local
+                want = grp.world() * self.local
+            else:
+                want = self.local
+            if want != size:
                 raise ValueError(f"{len(self.devices)} devices for a "
                                  f"{size}-shard mesh")
             device = self.devices[0]
+        elif self.group:
+            raise ValueError("a mesh over processes is placed: it needs "
+                             "this process's devices")
         self.device = torch.device(device)
 
     @property
@@ -103,6 +160,10 @@ class Mesh:
         return self.devices is not None
 
     def __repr__(self) -> str:
+        if self.group:
+            return (f"Mesh({self.shape}, shards {self.first}.."
+                    f"{self.first + self.local - 1} of {self.size} placed "
+                    f"on {[str(d) for d in self.devices]})")
         if self.placed:
             return (f"Mesh({self.shape}, placed on "
                     f"{[str(d) for d in self.devices]})")
@@ -160,28 +221,34 @@ def tool_mesh(count: int, device, placed: bool = False) -> Optional[Mesh]:
     comma-separated ``device`` (``cuda:0,cuda:1``) is the shards' device
     list (``count`` 0 or its length); otherwise ``count`` shards of
     ``device``, placed with ``placed``.  ``None`` for an unsharded run
-    (``count`` 0, neither a list nor ``placed``)."""
+    (``count`` 0, neither a list nor ``placed``).  A mesh asked for
+    inside a process group raises: a tool's mesh does not span
+    processes yet, and a mesh of this process alone would be a quiet
+    single-process run."""
     names = ([d.strip() for d in device.split(",")]
              if isinstance(device, str) and "," in device else None)
+    if names is None and count <= 0 and not placed:
+        return None
+    refuse_processes(in_process_group(), "processes-tools", "a mesh tool")
     if names is not None:
         if count not in (0, len(names)):
             raise ValueError(f"{count} shards asked over the "
                              f"{len(names)} devices {device!r}")
         return make_mesh(devices=names, placed=placed)
-    if count <= 0 and not placed:
-        return None
     return make_mesh(max(count, 1), device=device, placed=placed)
 
 
 def placement(mesh) -> Optional[str]:
     """Where a mesh's shards lie: ``"virtual"`` (row blocks of one
-    tensor), ``"one-card"`` (placed, every shard on one device) or
-    ``"distinct"`` (placed on distinct devices); ``None`` without a
-    mesh."""
+    tensor), ``"one-card"`` (placed, every shard on one device),
+    ``"distinct"`` (placed on distinct devices) or ``"processes"``
+    (placed over a process group); ``None`` without a mesh."""
     if mesh is None:
         return None
     if not mesh.placed:
         return "virtual"
+    if mesh.group:
+        return "processes"
     return "one-card" if len(set(mesh.devices)) == 1 else "distinct"
 
 
@@ -340,14 +407,15 @@ def check_placement(state, mesh: Mesh, what: str = "shard_state",
 class PlacedState:
     """A state on a placed mesh: ``shards[s]`` is the state's tree with
     shard ``s``'s rows of every node-axis leaf and a full copy of every
-    replicated leaf, all on ``mesh.devices[s]``."""
+    replicated leaf, all on ``mesh.devices[s]``.  Over processes it
+    holds this process's shards alone (``mesh.local`` of them)."""
 
     def __init__(self, shards, mesh: Mesh):
         self.shards = tuple(shards)
         self.mesh = mesh
-        if len(self.shards) != mesh.size:
-            raise ValueError(f"{len(self.shards)} shard states for a "
-                             f"{mesh.size}-shard mesh")
+        if len(self.shards) != mesh.local:
+            raise ValueError(f"{len(self.shards)} shard states for a mesh "
+                             f"holding {mesh.local} shards here")
 
     def __repr__(self) -> str:
         return f"PlacedState({type(self.shards[0]).__name__}, {self.mesh})"
@@ -372,7 +440,9 @@ def shard_state(state, mesh: Mesh):
     itself.  Placed: a :class:`PlacedState` whose shard ``s`` holds its
     ``N/P`` rows (axis 0, or axis 1 for the ``[Q, N]`` and ``[P, N]``
     planes) and a copy of every replicated leaf, copied onto
-    ``mesh.devices[s]`` from wherever ``state`` lies."""
+    ``mesh.devices[s]`` from wherever ``state`` lies.  Over processes
+    each rank places its own shards, from the whole state every rank
+    made alike."""
     if not mesh.placed:
         check_placement(state, mesh)
         return state
@@ -382,7 +452,7 @@ def shard_state(state, mesh: Mesh):
     flat = _flat_with_names(state)
     pieces = [_split_leaf(names, leaf, d) for _, names, leaf in flat]
     out = []
-    for s, dev in enumerate(mesh.devices):
+    for s, dev in enumerate(mesh.devices, start=mesh.first):
         leaves = [p[s].to(dev, copy=True).contiguous()
                   if isinstance(p[s], torch.Tensor) else p[s]
                   for p in pieces]
@@ -402,9 +472,13 @@ def _leaf_device(state):
 def gather_state(placed: PlacedState, device=None):
     """The global state of a :class:`PlacedState` on one device (default
     the mesh's shard 0 device): node-axis leaves concatenated in shard
-    order, replicated leaves from shard 0.  Copies only; no host read."""
+    order, replicated leaves from shard 0.  Copies only; no host read.
+    Over processes a collective: every rank's rows all-gathered on its
+    own shard device, so every rank (rank 0 among them) holds the whole
+    state, replicated leaves from its own first shard."""
     import torch
-    dev = placed.mesh.device if device is None else torch.device(device)
+    mesh = placed.mesh
+    dev = mesh.device if device is None else torch.device(device)
     flats = [_flat_with_names(st) for st in placed.shards]
     leaves = []
     for i, (_, names, leaf) in enumerate(flats[0]):
@@ -414,6 +488,11 @@ def gather_state(placed: PlacedState, device=None):
         axis = node_axis(_spec_for(names, leaf))
         if axis is None:
             leaves.append(leaf.to(dev))
+        elif mesh.group:
+            from serf_tpu_torch.parallel import group as grp
+            mine = torch.cat([f[i][2].to(mesh.device) for f in flats],
+                             dim=axis)
+            leaves.append(grp.all_gather(mine, dim=axis).to(dev))
         else:
             leaves.append(torch.cat([f[i][2].to(dev) for f in flats],
                                     dim=axis))
@@ -423,13 +502,25 @@ def gather_state(placed: PlacedState, device=None):
 def replicas_differ(placed: PlacedState) -> List[str]:
     """The replicated leaves on which some shard differs from shard 0
     (``[]`` when every shard holds the same copy), compared on shard 0's
-    device."""
+    device.  Over processes a collective: rank 0's first shard's copy
+    is broadcast and every rank's shards are held to it; every rank
+    returns the same list."""
     import torch
     flats = [_flat_with_names(st) for st in placed.shards]
+    mesh = placed.mesh
     bad = []
     for i, (path, names, leaf) in enumerate(flats[0]):
         if not isinstance(leaf, torch.Tensor) or \
                 node_axis(_spec_for(names, leaf)) is not None:
+            continue
+        if mesh.group:
+            from serf_tpu_torch.parallel import group as grp
+            ref = grp.broadcast0(leaf)
+            flags = torch.tensor(
+                [not torch.equal(f[i][2].to(ref.device), ref)
+                 for f in flats], dtype=torch.int32, device=ref.device)
+            flags = grp.all_gather(flags).tolist()
+            bad += [f"{path} (shard {s})" for s, x in enumerate(flags) if x]
             continue
         for s, f in enumerate(flats[1:], start=1):
             other = f[i][2].to(leaf.device)

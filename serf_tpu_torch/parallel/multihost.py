@@ -4,30 +4,49 @@ Counterpart of ``serf_tpu/parallel/multihost.py``.  The reference joins
 hosts with ``jax.distributed``, lays its devices out as a 2-D ``(dcn,
 ici)`` mesh and shards the node dimension over both axes.  Here the
 processes join a ``torch.distributed`` process group
-(:func:`initialize_multihost`: ``gloo`` on the CPU, ``nccl`` on cards),
-and :func:`make_hybrid_mesh` is ``(world size, local shards)``.  With
-one process it degenerates to ``(1, P)``: virtual shards of this
-process's device, or, given the local ``devices``, a placed mesh with a
-shard on each (``parallel.mesh``); :func:`shard_cluster_hybrid` places
-the state on either as ``parallel.mesh.shard_state`` does.  A state
-sharded over more than one process raises ``NotImplementedError``,
-naming the multi-process slice (``nccl``, one rank a card).
+(:func:`initialize_multihost`: ``nccl`` with cards, one rank a card;
+``gloo`` on the CPU), and :func:`make_hybrid_mesh` is ``(world size,
+local shards)``.
+
+Inside a group the mesh is always placed and spans the processes: rank
+``r`` holds shards ``[r * L, (r + 1) * L)`` on its own device, and every
+read of another rank's rows is a collective (``parallel.placed``'s
+group layout over ``parallel.group``).  This holds at world size 1 too,
+so one card's ``nccl`` run goes through every collective.
+:func:`shard_cluster_hybrid` places each rank's shards from the state
+every rank made from one seed; ``cluster_round``, ``sustained_round``,
+``run_cluster_sustained``, ``round_telemetry`` and ``control_tick`` with
+that ``mesh=`` run every rank's shards in lockstep.  The paths of
+``parallel.mesh.LATER_SLICES`` raise on it.  Outside a group the mesh is
+``(1, P)``: virtual shards of this process's device, or, given the local
+``devices``, an in-process placed mesh (``parallel.mesh``).
+
+Run on the CPU with ``W`` processes (each calls
+``initialize_multihost(addr, W, rank, backend="gloo")``), or on cards
+under ``python -m torch.distributed.run --standalone --nproc-per-node W``
+(each calls ``initialize_multihost()``).
 """
 
 from __future__ import annotations
 
+import datetime
+import os
 from typing import Optional
 
 from serf_tpu_torch.parallel.mesh import (
-    LATER_SLICES,
     Mesh,
     NamedSharding,
     P,
+    in_process_group,
     shard_state,
 )
 
 DCN_AXIS = "dcn"
 ICI_AXIS = "ici"
+
+#: seconds a collective (the group's set-up included) may wait before it
+#: raises, so a rank that stops answering fails its peers
+DEFAULT_TIMEOUT_S = 300.0
 
 
 def _backend() -> str:
@@ -38,32 +57,45 @@ def _backend() -> str:
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None,
-                         backend: Optional[str] = None) -> None:
+                         backend: Optional[str] = None,
+                         timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
     """Join the process group.  Called with no arguments it reads the
     ``torch.distributed`` environment (``env://``: ``MASTER_ADDR``,
-    ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``), the counterpart of the
-    reference's pod auto-detection; ``num_processes <= 1`` is a no-op
-    for single-process runs.  ``coordinator_address`` is ``host:port``
-    of rank 0.  ``backend`` defaults to ``nccl`` with a card, else
-    ``gloo``."""
+    ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), the
+    counterpart of the reference's pod auto-detection;
+    ``num_processes <= 1`` is a no-op for single-process runs.
+    ``coordinator_address`` is ``host:port`` of rank 0.  ``backend``
+    defaults to ``nccl`` with a card, else ``gloo``; under ``nccl`` the
+    rank's card (``LOCAL_RANK``, else the rank modulo the cards) becomes
+    the current device before anything touches a card.  A failure to
+    join raises: there is no retry over another backend."""
+    import torch
     import torch.distributed as dist
 
     if num_processes is not None and num_processes <= 1:
         return
     backend = backend or _backend()
-    if (coordinator_address is None and num_processes is None
-            and process_id is None):
-        dist.init_process_group(backend, init_method="env://")
+    env = (coordinator_address is None and num_processes is None
+           and process_id is None)
+    rank = int(os.environ.get("RANK", 0)) if env else int(process_id)
+    kw = dict(timeout=datetime.timedelta(seconds=timeout_s))
+    if backend == "nccl":
+        local = int(os.environ.get("LOCAL_RANK",
+                                   rank % max(1, torch.cuda.device_count())))
+        torch.cuda.set_device(local)
+        kw["device_id"] = torch.device("cuda", local)
+    if env:
+        dist.init_process_group(backend, init_method="env://", **kw)
         return
     dist.init_process_group(backend,
                             init_method=f"tcp://{coordinator_address}",
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=rank, **kw)
 
 
 def process_count() -> int:
     """The process group's world size (1 outside one)."""
     import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
+    if in_process_group():
         return dist.get_world_size()
     return 1
 
@@ -71,20 +103,30 @@ def process_count() -> int:
 def make_hybrid_mesh(local_shards: int = 1, *, device=None,
                      devices=None) -> Mesh:
     """``(dcn, ici)`` mesh: processes on the outer axis, this process's
-    shards inner — ``local_shards`` virtual shards (on ``device``,
-    default ``"cuda"``), or with ``devices`` a placed shard on each of
-    this process's listed devices.  With one process this degenerates to
-    ``(1, local_shards)`` or ``(1, len(devices))``."""
+    shards inner.  Inside a process group (any world size): a placed
+    mesh over the group, ``local_shards`` shards on ``device`` (default
+    ``"cuda"``, the rank's current card), or one on each of
+    ``devices`` (which name one device: a rank holds one).  Outside
+    one, ``(1, local_shards)`` virtual shards of ``device``, or with
+    ``devices`` an in-process placed shard on each."""
     from serf_tpu_torch import resolve_device
     from serf_tpu_torch.parallel.mesh import _normalized
 
     if devices is not None:
         devs = [_normalized(resolve_device(d)) for d in devices]
-        return Mesh({DCN_AXIS: process_count(), ICI_AXIS: len(devs)},
-                    devs[0],
-                    devices=devs if process_count() == 1 else None)
-    return Mesh({DCN_AXIS: process_count(), ICI_AXIS: int(local_shards)},
-                _normalized(resolve_device(device)))
+    elif in_process_group():
+        devs = [_normalized(resolve_device(device))] * int(local_shards)
+    else:
+        return Mesh({DCN_AXIS: 1, ICI_AXIS: int(local_shards)},
+                    _normalized(resolve_device(device)))
+    if not in_process_group():
+        return Mesh({DCN_AXIS: 1, ICI_AXIS: len(devs)}, devs[0],
+                    devices=devs)
+    if len(set(devs)) > 1:
+        raise ValueError(f"make_hybrid_mesh: a rank holds its shards on "
+                         f"one device, not {[str(d) for d in devs]}")
+    return Mesh({DCN_AXIS: process_count(), ICI_AXIS: len(devs)}, devs[0],
+                devices=devs, group=True)
 
 
 def hybrid_node_sharding(mesh: Mesh) -> NamedSharding:
@@ -95,15 +137,15 @@ def hybrid_node_sharding(mesh: Mesh) -> NamedSharding:
 
 def shard_cluster_hybrid(state, mesh: Mesh):
     """Place a ClusterState on the hybrid mesh (the same rules as
-    ``parallel.mesh``: per-node arrays shard, facts replicate).  With one
-    process this is ``parallel.mesh.shard_state`` (virtual: the state as
-    it is, checked; placed: a ``PlacedState``); over several processes
-    it raises ``NotImplementedError``, naming the multi-process
-    slice."""
-    if mesh.shape[DCN_AXIS] > 1:
-        raise NotImplementedError(
-            f"shard_cluster_hybrid over {mesh.shape[DCN_AXIS]} processes "
-            f"is not ported yet: it waits for the slice of "
-            f"{LATER_SLICES['processes']}")
+    ``parallel.mesh``: per-node arrays shard, facts replicate).  Outside
+    a group this is ``parallel.mesh.shard_state`` (virtual: the state as
+    it is, checked; placed: a ``PlacedState``); over a group each rank
+    places its own shards of the state every rank made alike.  A mesh
+    whose ``dcn`` axis is not the group's world size raises
+    ``ValueError``."""
+    if mesh.shape[DCN_AXIS] != process_count():
+        raise ValueError(
+            f"shard_cluster_hybrid: the mesh's {DCN_AXIS} axis spans "
+            f"{mesh.shape[DCN_AXIS]} processes, the process group "
+            f"{process_count()} (join one with initialize_multihost)")
     return shard_state(state, mesh)
-

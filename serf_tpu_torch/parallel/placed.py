@@ -36,6 +36,25 @@ Each kernel launches once per shard over its ``N/P`` rows on its device
 unsharded one on every integer leaf; Vivaldi runs the same float32 ops
 on each row.
 
+Every read of another shard's data goes through a :class:`Layout`
+primitive (``broadcast``, ``any``, ``sum``, ``max``, ``all``,
+``lowest``, ``window``, ``gather_all``, ``take``, ``rows_of``,
+``hop``), and every loop goes over the shards this process holds.  The
+layout has two bodies:
+
+- the **in-process body** (:class:`Layout`): one process holds every
+  shard and a primitive copies blocks between their devices, as above;
+- the **group body** (:class:`GroupLayout`, a mesh that spans a
+  ``torch.distributed`` group: ``parallel.multihost.make_hybrid_mesh``
+  inside one): each rank holds its own ``L`` shards, the reductions are
+  all-reduces of integer partials (so every rank holds each gate and
+  makes the same counted host read), ``gather_all`` an all-gather,
+  ``window`` an all-gather sliced, ``take`` each rank's owned values
+  summed, ``hop`` a send to the next rank and a receive from the one
+  before (local hops stay copies); picks on gathered scores run alike
+  on every rank.  The collectives are ``parallel.group``'s, one body
+  for ``nccl`` and ``gloo``.
+
 Scope: the per-round, deferred and phased flavours, fused or plain,
 with rotation or iid peers, round-robin or random probes, the
 controller, the chaos masks (``drop_rate``, the partition groups, the
@@ -44,7 +63,9 @@ churn round, the query launch, gather and views of the churn-query step
 (``models.churn.composed_step``); the chaos executor, record/replay,
 checkpoint, the profiler and the mesh tools run on it through their own
 modules.  The phased flavour runs plain, as on any mesh (the
-reference's dispatch rule).
+reference's dispatch rule).  Over processes the flagship rounds, the
+controller and the rows run; the churn round and the query step raise
+(``parallel.mesh.LATER_SLICES``).
 """
 
 from __future__ import annotations
@@ -106,12 +127,25 @@ from serf_tpu_torch.models.failure import (
     live_suspicions,
     suspicion_q_of,
 )
-from serf_tpu_torch.parallel.mesh import PlacedState, check_shards
+from serf_tpu_torch.parallel import group as grp
+from serf_tpu_torch.parallel.mesh import (PlacedState, check_shards,
+                                          refuse_processes)
 
 
 class Layout:
-    """Where an ``n``-node state's rows lie on a placed mesh: shard ``s``
-    holds rows ``[s * nl, (s + 1) * nl)`` on ``devs[s]``."""
+    """Where an ``n``-node state's rows lie on a placed mesh: the mesh's
+    ``d`` shards hold ``nl`` rows each, global shard ``g`` rows ``[g *
+    nl, (g + 1) * nl)``.  This process holds ``L`` of them, global
+    shards ``first .. first + L - 1`` on ``devs``; the lists the round
+    passes around are these shards' pieces, indexed ``s = 0 .. L - 1``
+    (``shard(s)`` is the global index).  The in-process body: every
+    shard is here (``first`` 0, ``L == d``).  ``Layout(mesh, n)`` of a
+    mesh that spans processes is the :class:`GroupLayout`."""
+
+    def __new__(cls, mesh, n: int):
+        if cls is Layout and mesh.group:
+            cls = GroupLayout
+        return super().__new__(cls)
 
     def __init__(self, mesh, n: int):
         if n % mesh.size:
@@ -119,20 +153,25 @@ class Layout:
                              f"divide n={n}")
         self.devs = mesh.devices
         self.d = mesh.size
+        self.L = len(self.devs)
+        self.first = mesh.first
         self.n = n
         self.nl = n // mesh.size
         self.dev0 = self.devs[0]
 
+    def shard(self, s: int) -> int:
+        return self.first + s
+
     def row0(self, s: int) -> int:
-        return s * self.nl
+        return (self.first + s) * self.nl
 
     def rows(self, s: int) -> tuple:
-        return (s * self.nl, (s + 1) * self.nl)
+        return (self.row0(s), self.row0(s) + self.nl)
 
     def ids(self, s: int, dtype=torch.int64) -> torch.Tensor:
         """Shard ``s``'s global row ids, on its device."""
-        return torch.arange(s * self.nl, (s + 1) * self.nl, dtype=dtype,
-                            device=self.devs[s])
+        a, b = self.rows(s)
+        return torch.arange(a, b, dtype=dtype, device=self.devs[s])
 
     def broadcast(self, t: torch.Tensor) -> List[torch.Tensor]:
         """A replicated value onto every shard's device."""
@@ -150,6 +189,104 @@ class Layout:
         for p in parts[1:]:
             acc = acc + _to(p, self.dev0)
         return acc
+
+    def max(self, parts) -> torch.Tensor:
+        """Elementwise maximum of the shards' integer partials, on shard
+        0's device."""
+        top = _to(parts[0], self.dev0)
+        for p in parts[1:]:
+            top = torch.maximum(top, _to(p, self.dev0))
+        return top
+
+    def all(self, parts) -> torch.Tensor:
+        """Elementwise AND of the shards' bool planes, on shard 0's
+        device."""
+        acc = _to(parts[0], self.dev0)
+        for c in parts[1:]:
+            acc = acc & _to(c, self.dev0)
+        return acc
+
+    def lowest(self, has, first):
+        """Per column, whether some shard ``has`` it and the ``first``
+        value of the first shard in order that has it (else 0), on shard
+        0's device: ``(has [K] bool, value [K])``."""
+        fact_has = torch.zeros_like(_to(has[0], self.dev0))
+        value = torch.zeros(fact_has.shape, dtype=torch.int32,
+                            device=self.dev0)
+        for h, fi in zip(has, first):
+            h = _to(h, self.dev0)
+            value = torch.where(h & ~fact_has, _to(fi, self.dev0), value)
+            fact_has = fact_has | h
+        return fact_has, value
+
+    def window(self, planes, start: int, dev) -> torch.Tensor:
+        return window(planes, start, self, dev)
+
+    def gather_all(self, planes, dev) -> torch.Tensor:
+        return gather_all(planes, dev)
+
+    def take(self, planes, idx: torch.Tensor) -> torch.Tensor:
+        return take(planes, idx, self)
+
+    def rows_of(self, total: torch.Tensor) -> List[torch.Tensor]:
+        return _rows_of(total, self)
+
+    def hop(self, blocks):
+        return _hop(blocks, self)
+
+
+class GroupLayout(Layout):
+    """The group body: this rank holds shards ``first .. first + L - 1``
+    on its one device; a read of another rank's rows is a collective
+    over the process group (``parallel.group``).  Every rank calls each
+    primitive at the same point of the round, so the collectives pair
+    up; every reduced value (a gate, a count, a pick) is the same on
+    every rank."""
+
+    def any(self, parts) -> torch.Tensor:
+        return grp.all_reduce(Layout.any(self, parts), "max")
+
+    def sum(self, parts) -> torch.Tensor:
+        return grp.all_reduce(Layout.sum(self, parts), "sum")
+
+    def max(self, parts) -> torch.Tensor:
+        return grp.all_reduce(Layout.max(self, parts), "max")
+
+    def all(self, parts) -> torch.Tensor:
+        return grp.all_reduce(Layout.all(self, parts), "min")
+
+    def lowest(self, has, first):
+        mine, value = Layout.lowest(self, has, first)
+        fact_has = grp.all_reduce(mine, "max")
+        # shards lie in row order, so the first shard that has a column
+        # holds its lowest value
+        low = grp.all_reduce(torch.where(mine, value, self.n), "min")
+        return fact_has, torch.where(fact_has, low, 0)
+
+    def gather_all(self, planes, dev) -> torch.Tensor:
+        """The whole plane on ``dev``: this rank's pieces all-gathered."""
+        return grp.all_gather(gather_all(planes, self.dev0)).to(dev)
+
+    def window(self, planes, start: int, dev) -> torch.Tensor:
+        """Rows ``[start, start + nl)`` (mod ``n``): the all-gathered
+        plane, sliced."""
+        return _circular(self.gather_all(planes, dev), start, self.nl)
+
+    def take(self, planes, idx: torch.Tensor) -> torch.Tensor:
+        """Each rank's owned values (zeros elsewhere), reduced: exactly
+        one rank owns each row."""
+        mine = take(planes, idx, self)
+        return grp.all_reduce(mine, "max" if mine.dtype == torch.bool
+                              else "sum")
+
+    def hop(self, blocks):
+        """Shard ``s``'s visiting block to shard ``s + 1``: within the rank
+        a copy, the rank's last block to the next rank's first."""
+        head = grp.ring_shift(blocks[-1])
+        return [head.to(self.devs[0])] + [
+            torch.empty(b.shape, dtype=b.dtype, device=dev).copy_(
+                b, non_blocking=True)
+            for b, dev in zip(blocks[:-1], self.devs[1:])]
 
 
 def _to(t: torch.Tensor, dev) -> torch.Tensor:
@@ -191,7 +328,7 @@ def _rows_of(total: torch.Tensor, lay: Layout) -> List[torch.Tensor]:
     mask on any device) split into the shards' rows on their
     devices."""
     return [_to(total[a:b], dev)
-            for (a, b), dev in zip(map(lay.rows, range(lay.d)), lay.devs)]
+            for (a, b), dev in zip(map(lay.rows, range(lay.L)), lay.devs)]
 
 
 def _hop(blocks, lay: Layout):
@@ -221,8 +358,8 @@ def _masked(contrib, f: int, allowed, eff, lost=None):
 
 def _rotation_runs(s: int, v: int, off: int, lay: Layout):
     """The runs ``(a, b, c)`` of shard ``s``'s receivers whose rolled
-    read ``(i + off) % n`` lands in shard ``v``'s block: receivers ``[a,
-    b)`` read the block's rows ``[c, c + b - a)``."""
+    read ``(i + off) % n`` lands in global shard ``v``'s block:
+    receivers ``[a, b)`` read the block's rows ``[c, c + b - a)``."""
     s0, r = divmod((lay.row0(s) + off) % lay.n, lay.nl)
     runs = []
     if v == s0:
@@ -272,8 +409,8 @@ def exchange_placed(packets, cfg: GossipConfig, key, lay: Layout,
         raise ValueError(f"unknown exchange schedule {schedule!r} "
                          f"(one of {EXCHANGE_SCHEDULES})")
     d, nl = lay.d, lay.nl
-    grp = group if group is not None else [None] * d
-    eff = eff_fanout if eff_fanout is not None else [None] * d
+    grp = group if group is not None else [None] * lay.L
+    eff = eff_fanout if eff_fanout is not None else [None] * lay.L
     if drop_rate is not None:
         key, k_drop = prng.split(key)
     acc = [torch.zeros_like(p) for p in packets]
@@ -283,11 +420,12 @@ def exchange_placed(packets, cfg: GossipConfig, key, lay: Layout,
         lost = [[None if drop_rate is None else
                  _rotation_lost(k_drop, drop_rate[s], cfg.fanout, f,
                                 lay, s)
-                 for f in range(cfg.fanout)] for s in range(d)]
+                 for f in range(cfg.fanout)] for s in range(lay.L)]
         if schedule == "allgather":
             for s, dev in enumerate(lay.devs):
-                full = gather_all(packets, dev)
-                fgrp = gather_all(group, dev) if group is not None else None
+                full = lay.gather_all(packets, dev)
+                fgrp = (lay.gather_all(group, dev) if group is not None
+                        else None)
                 for f, off in enumerate(offs):
                     start = lay.row0(s) + off
                     allowed = (None if fgrp is None else
@@ -297,8 +435,8 @@ def exchange_placed(packets, cfg: GossipConfig, key, lay: Layout,
             return acc
         vis_pk, vis_grp = list(packets), group
         for h in range(d):
-            for s in range(d):
-                v = (s - h) % d
+            for s in range(lay.L):
+                v = (lay.shard(s) - h) % d
                 for f, off in enumerate(offs):
                     for a, b, c in _rotation_runs(s, v, off, lay):
                         allowed = (None if vis_grp is None else
@@ -308,8 +446,8 @@ def exchange_placed(packets, cfg: GossipConfig, key, lay: Layout,
                             vis_pk[s][c:c + b - a], f, allowed, eff[s],
                             None if lo is None else lo[a:b])
             if h < d - 1:
-                vis_pk = _hop(vis_pk, lay)
-                vis_grp = _hop(vis_grp, lay) if vis_grp is not None else None
+                vis_pk = lay.hop(vis_pk)
+                vis_grp = lay.hop(vis_grp) if vis_grp is not None else None
         return acc
     # iid: each shard draws its own receivers' sources
     srcs, fmask, keep = [], [], []
@@ -336,22 +474,22 @@ def exchange_placed(packets, cfg: GossipConfig, key, lay: Layout,
         for s, dev in enumerate(lay.devs):
             ok = None
             if group is not None:
-                ok = gather_all(group, dev)[srcs[s]] == grp[s][:, None]
-            acc[s] = resolve(s, gather_all(packets, dev)[srcs[s]], ok)
+                ok = lay.gather_all(group, dev)[srcs[s]] == grp[s][:, None]
+            acc[s] = resolve(s, lay.gather_all(packets, dev)[srcs[s]], ok)
         return acc
     local = [x % nl for x in srcs]
     owner = [x // nl for x in srcs]
     vis_pk, vis_grp = list(packets), group
     for h in range(d):
-        for s in range(d):
+        for s in range(lay.L):
             # the block of shard (s - h) % P visits shard s on hop h
-            ok = owner[s] == (s - h) % d
+            ok = owner[s] == (lay.shard(s) - h) % d
             if vis_grp is not None:
                 ok = ok & (vis_grp[s][local[s]] == grp[s][:, None])
             acc[s] = resolve(s, vis_pk[s][local[s]], ok)
         if h < d - 1:
-            vis_pk = _hop(vis_pk, lay)
-            vis_grp = _hop(vis_grp, lay) if vis_grp is not None else None
+            vis_pk = lay.hop(vis_pk)
+            vis_grp = lay.hop(vis_grp) if vis_grp is not None else None
     return acc
 
 
@@ -418,7 +556,7 @@ def select_placed(gs, cfg: GossipConfig, lay: Layout):
                   if cfg.use_sendable_cache else False for g in gs]
     else:
         cached = [cfg.use_sendable_cache
-                  and host_bool(g0.sendable_round == g0.round)] * lay.d
+                  and host_bool(g0.sendable_round == g0.round)] * lay.L
     return [select_phase(g, cfg, cached=c, mode=mode)
             for g, c in zip(gs, cached)]
 
@@ -436,7 +574,7 @@ def merge_placed(gs, incoming, cfg: GossipConfig, lay: Layout,
     learns = [merge_learn(g, inc, cfg, mode) for g, inc in zip(gs, incoming)]
     learned_any = lay.any([lr[2] for lr in learns])
     gates = (lay.broadcast(learned_any) if _gates_on_device(cfg)
-             else [host_bool(learned_any)] * lay.d)
+             else [host_bool(learned_any)] * lay.L)
     return [merge_apply(g, cfg, mode, known, pending, gate)
             for g, (known, pending, _), gate in zip(gs, learns, gates)]
 
@@ -450,7 +588,7 @@ def _merge_deferred_placed(gs, incoming, cfg: GossipConfig, mode: str,
     overlay and cache."""
     learns = [deferred_learn(g, inc) for g, inc in zip(gs, incoming)]
     learned_any = lay.any([lr[2] for lr in learns])
-    units = stamp_unit if stamp_unit is not None else [None] * lay.d
+    units = stamp_unit if stamp_unit is not None else [None] * lay.L
     flush_due, do_flush = deferred_gate(gs[0], cfg, learned_any, units[0])
     do_flush = host_bool(do_flush)
     return [deferred_apply(g, cfg, mode, known, new_words, la, fd, do_flush)
@@ -463,7 +601,7 @@ def _subject_incs(gs, lay: Layout):
     """``failure.subject_incarnations`` on every shard: each subject's
     incarnation from the shard that owns it (the ``pmax`` leg)."""
     subj = torch.clamp(gs[0].facts.subject, 0, lay.n - 1).to(torch.int64)
-    return lay.broadcast(take([g.incarnation for g in gs], subj, lay))
+    return lay.broadcast(lay.take([g.incarnation for g in gs], subj))
 
 
 def inject_placed(gs, cfg: GossipConfig, subjects, kind: int, incarnations,
@@ -478,7 +616,7 @@ def inject_placed(gs, cfg: GossipConfig, subjects, kind: int, incarnations,
     m = subjects[0].shape[0]
     slots = batch_slots(g0, cfg.k_facts, m)
     maybe_dead = f.valid[slots] & (f.kind[slots] == K_DEAD) & active[0]
-    retired = [None] * lay.d
+    retired = [None] * lay.L
     if host_bool(maybe_dead.any()):
         covered, anyone = [], []
         for g in gs:
@@ -487,11 +625,9 @@ def inject_placed(gs, cfg: GossipConfig, subjects, kind: int, incarnations,
                 torch.bool)
             covered.append(torch.all(cols | ~g.alive[:, None], dim=0))
             anyone.append(torch.any(g.alive))
-        all_cov = covered[0].to(lay.dev0)
-        for c in covered[1:]:
-            all_cov = all_cov & _to(c, lay.dev0)
+        all_cov = lay.all(covered)
         r_subj = torch.clamp(f.subject[slots].to(torch.int64), 0, lay.n - 1)
-        inc_at = take([g.incarnation for g in gs], r_subj, lay)
+        inc_at = lay.take([g.incarnation for g in gs], r_subj)
         retired = lay.broadcast(
             maybe_dead & all_cov & lay.any(anyone)
             & (as_u64(f.incarnation[slots]) >= as_u64(inc_at)))
@@ -514,10 +650,10 @@ def _bounded_inject_placed(gs, cfg: GossipConfig, candidates, kind: int,
     k_score, k_layout = prng.split(key)
     scores = [pick_scores(c, k_score, n=lay.n, row0=lay.row0(s))
               for s, c in enumerate(candidates)]
-    subjects, active = pick_top(gather_all(scores, lay.dev0), max_new,
+    subjects, active = pick_top(lay.gather_all(scores, lay.dev0), max_new,
                                 k_layout)
     return _inject_picked(gs, cfg, kind, subjects, active, incarnations,
-                          take(origins, subjects, lay), lay)
+                          lay.take(origins, subjects), lay)
 
 
 def _inject_picked(gs, cfg: GossipConfig, kind: int, subjects, active,
@@ -528,7 +664,7 @@ def _inject_picked(gs, cfg: GossipConfig, kind: int, subjects, active,
     them (:func:`inject_placed`)."""
     return inject_placed(
         gs, cfg, lay.broadcast(subjects), kind,
-        lay.broadcast(take(incarnations, subjects, lay)),
+        lay.broadcast(lay.take(incarnations, subjects)),
         [g.round.expand(subjects.shape[0]) for g in gs],
         lay.broadcast(origins), lay.broadcast(active), lay)
 
@@ -546,7 +682,7 @@ def probe_placed(gs, cfg: GossipConfig, fcfg: FailureConfig, key,
     its ``group`` and ``drop_override``."""
     n, nl = lay.n, lay.nl
     k_target, k_drop, k_help, k_hdrop, k_pick = prng.split(key, 5)
-    p_drop = drop if drop is not None else [fcfg.probe_drop_rate] * lay.d
+    p_drop = drop if drop is not None else [fcfg.probe_drop_rate] * lay.L
     ki = fcfg.indirect_probes
     alive = [g.alive for g in gs]
     detected, detector_of, subject_detected = [], [], []
@@ -560,9 +696,9 @@ def probe_placed(gs, cfg: GossipConfig, fcfg: FailureConfig, key,
             def reach(off, row0=row0, dev=dev, s=s):
                 """The peer at ``off`` is up and, under chaos, in this
                 row's group."""
-                up = window(alive, row0 + off, lay, dev)
+                up = lay.window(alive, row0 + off, dev)
                 if group is not None:
-                    up = up & (window(group, row0 + off, lay, dev)
+                    up = up & (lay.window(group, row0 + off, dev)
                                == group[s])
                 return up
             dropped = prng.bernoulli(k_drop, p_drop[s], (n,), dev,
@@ -578,14 +714,15 @@ def probe_placed(gs, cfg: GossipConfig, fcfg: FailureConfig, key,
         # invert the rotation: subject j's prober is (j - offset) % n
         for s, dev in enumerate(lay.devs):
             subject_detected.append(
-                window(detected, lay.row0(s) + n - offset, lay, dev))
+                lay.window(detected, lay.row0(s) + n - offset, dev))
             detector_of.append(((lay.ids(s) + (n - offset)) % n).to(
                 torch.int32))
     else:
         hits, det_p1 = [], []
-        alive_all = [gather_all(alive, dev) for dev in lay.devs]
+        alive_all = [lay.gather_all(alive, dev) for dev in lay.devs]
         for s, (g, dev) in enumerate(zip(gs, lay.devs)):
-            group_all = gather_all(group, dev) if group is not None else None
+            group_all = (lay.gather_all(group, dev) if group is not None
+                         else None)
             targets = prng.randint(k_target, (n,), 0, n, dev,
                                    rows=lay.rows(s)).to(torch.int64)
             target_up = alive_all[s][targets]
@@ -615,11 +752,9 @@ def probe_placed(gs, cfg: GossipConfig, fcfg: FailureConfig, key,
                                       device=dev).scatter_reduce(
                 0, targets, torch.where(det, ids + 1, 0).to(torch.int32),
                 reduce="amax", include_self=True))
-        subject_detected = [h > 0 for h in _rows_of(lay.sum(hits), lay)]
-        top = _to(det_p1[0], lay.dev0)
-        for p in det_p1[1:]:
-            top = torch.maximum(top, _to(p, lay.dev0))
-        detector_of = [torch.clamp(p - 1, min=0) for p in _rows_of(top, lay)]
+        subject_detected = [h > 0 for h in lay.rows_of(lay.sum(hits))]
+        top = lay.max(det_p1)
+        detector_of = [torch.clamp(p - 1, min=0) for p in lay.rows_of(top)]
     subj_inc = _subject_incs(gs, lay)
     candidates = []
     for s, g in enumerate(gs):
@@ -641,7 +776,7 @@ def refute_placed(gs, cfg: GossipConfig, fcfg: FailureConfig, key,
     subj_inc = _subject_incs(gs, lay)
     could = (_facts_about(gs[0], (K_SUSPECT, K_DEAD), inc_current=True,
                           subj_inc=subj_inc[0])
-             & take([g.alive for g in gs], subj, lay))
+             & lay.take([g.alive for g in gs], subj))
     tomb_alive = [g.tombstone & g.alive for g in gs]
     if not host_bool(torch.any(could) | lay.any(tomb_alive)):
         return gs
@@ -691,12 +826,7 @@ def declare_placed(gs, cfg: GossipConfig, fcfg: FailureConfig, key,
         has.append(torch.any(ex, dim=0))
         first.append(first_argmax(ex.to(torch.uint8), 0) + lay.row0(s))
     # the lowest global knower: the first shard in order that has one
-    fact_has = torch.zeros((k,), dtype=torch.bool, device=lay.dev0)
-    declarer = torch.zeros((k,), dtype=torch.int32, device=lay.dev0)
-    for h, fi in zip(has, first):
-        h = _to(h, lay.dev0)
-        declarer = torch.where(h & ~fact_has, _to(fi, lay.dev0), declarer)
-        fact_has = fact_has | h
+    fact_has, declarer = lay.lowest(has, first)
     fact_has, declarer = lay.broadcast(fact_has), lay.broadcast(declarer)
     candidates, declarers = [], []
     for s, g in enumerate(gs):
@@ -731,21 +861,22 @@ def push_pull_placed(gs, cfg: GossipConfig, key, group, lay: Layout):
     for s, (g, dev) in enumerate(zip(gs, lay.devs)):
         if cfg.peer_sampling == "rotation":
             start = lay.row0(s) + off
-            partner_known = window([x.known for x in gs], start, lay, dev)
-            ok = g.alive & window([x.alive for x in gs], start, lay, dev)
-            ok = ok & (group[s] == window(group, start, lay, dev))
+            partner_known = lay.window([x.known for x in gs], start, dev)
+            ok = g.alive & lay.window([x.alive for x in gs], start, dev)
+            ok = ok & (group[s] == lay.window(group, start, dev))
         else:
             partners = prng.randint(key, (n,), 0, n, dev,
                                     rows=lay.rows(s)).to(torch.int64)
-            partner_known = gather_all([x.known for x in gs], dev)[partners]
-            ok = g.alive & gather_all([x.alive for x in gs], dev)[partners]
-            ok = ok & (group[s] == gather_all(group, dev)[partners])
+            partner_known = lay.gather_all([x.known for x in gs],
+                                           dev)[partners]
+            ok = g.alive & lay.gather_all([x.alive for x in gs], dev)[partners]
+            ok = ok & (group[s] == lay.gather_all(group, dev)[partners])
         incoming.append(torch.where(ok[:, None], partner_known, 0))
     learned_any = lay.any([(inc & ~g.known) != 0
                            for g, inc in zip(gs, incoming)])
     # the deferred sync keeps its gate on the device, as unsharded
     gates = (lay.broadcast(learned_any) if cfg.stamp_deferred
-             else [host_bool(learned_any)] * lay.d)
+             else [host_bool(learned_any)] * lay.L)
     return [push_pull_merge(g, cfg, inc, gate)
             for g, inc, gate in zip(gs, incoming, gates)]
 
@@ -768,7 +899,7 @@ def vivaldi_placed(sts, cfg, gs, k_peer, k_viv, lay: Layout):
             start = lay.row0(s) + voff
 
             def peer(planes_, start=start, dev=dev):
-                return window(planes_, start, lay, dev)
+                return lay.window(planes_, start, dev)
             reachable = (g.alive & peer(alive)
                          & (st.group == peer(group)))
         else:
@@ -776,7 +907,7 @@ def vivaldi_placed(sts, cfg, gs, k_peer, k_viv, lay: Layout):
                                  rows=lay.rows(s)).to(torch.int64)
 
             def peer(planes_, peers=peers, dev=dev):
-                return gather_all(planes_, dev)[peers]
+                return lay.gather_all(planes_, dev)[peers]
             reachable = (g.alive & peer(alive) & (st.group == peer(group))
                          & (peers != lay.ids(s)))
         rtt = viv.ground_truth_rtt_rows(st.positions, peer(pos))
@@ -815,7 +946,7 @@ def with_masks(state: PlacedState, cfg, init_alive, group, down
     return PlacedState([
         st._replace(gossip=st.gossip._replace(alive=a & ~d), group=g)
         for st, a, g, d in zip(state.shards, init_alive,
-                               _rows_of(group, lay), _rows_of(down, lay))],
+                               lay.rows_of(group), lay.rows_of(down))],
         state.mesh)
 
 
@@ -850,7 +981,7 @@ def cluster_round(state: PlacedState, cfg, key, drop_rate=None,
     if drop_rate is not None:
         drops = (lay.broadcast(drop_rate)
                  if isinstance(drop_rate, torch.Tensor)
-                 else [drop_rate] * lay.d)
+                 else [drop_rate] * lay.L)
     gs = round_step_placed(gs, cfg.gossip, k_gossip, lay,
                            cfg.exchange_schedule, group=group,
                            eff_fanout=eff_fanout, drop_rate=drops,
@@ -1006,6 +1137,8 @@ def churn_round_placed(gs, cfg: GossipConfig, ccfg, key, lay: Layout):
     host read); the fails, rejoins, incarnation bumps and liveness are
     row-local; the ``K_LEAVE``/``K_ALIVE`` batches go through
     :func:`inject_placed`.  Returns ``(gs, new leavers per shard)``."""
+    refuse_processes(isinstance(lay, GroupLayout), "processes-churn-query",
+                     "the churn round")
     n, m = lay.n, ccfg.max_events
     k_f, k_l, k_r, k_pf, k_pl, k_pr = prng.split(key, 6)
     want_fail, want_leave, want_rejoin = [], [], []
@@ -1018,13 +1151,13 @@ def churn_round_placed(gs, cfg: GossipConfig, ccfg, key, lay: Layout):
                                          rows=rows) & g.alive & ~fail)
         want_rejoin.append(prng.bernoulli(k_r, ccfg.rejoin_rate, (n,), dev,
                                           rows=rows) & ~g.alive)
-    fails, _, _ = pick_bounded(gather_all(want_fail, lay.dev0), m, k_pf)
+    fails, _, _ = pick_bounded(lay.gather_all(want_fail, lay.dev0), m, k_pf)
     leaves, leave_subj, leave_act = pick_bounded(
-        gather_all(want_leave, lay.dev0), m, k_pl)
+        lay.gather_all(want_leave, lay.dev0), m, k_pl)
     rejoins, rejoin_subj, rejoin_act = pick_bounded(
-        gather_all(want_rejoin, lay.dev0), m, k_pr)
+        lay.gather_all(want_rejoin, lay.dev0), m, k_pr)
     out = []
-    for g, f, r in zip(gs, _rows_of(fails, lay), _rows_of(rejoins, lay)):
+    for g, f, r in zip(gs, lay.rows_of(fails), lay.rows_of(rejoins)):
         # a rejoiner returns with a bumped incarnation (u32, wraps)
         out.append(g._replace(
             alive=(g.alive & ~f) | r,
@@ -1037,7 +1170,7 @@ def churn_round_placed(gs, cfg: GossipConfig, ccfg, key, lay: Layout):
     if ccfg.rejoin_rate > 0:
         out = _inject_picked(out, cfg, K_ALIVE, rejoin_subj, rejoin_act,
                              incs, rejoin_subj, lay)
-    return out, _rows_of(leaves, lay)
+    return out, lay.rows_of(leaves)
 
 
 def launch_query(gossip: PlacedState, qstate: PlacedState, cfg: GossipConfig,
@@ -1051,9 +1184,10 @@ def launch_query(gossip: PlacedState, qstate: PlacedState, cfg: GossipConfig,
     Returns ``(gossip', qstate', q_idx)``, ``q_idx`` on shard 0's
     device."""
     from serf_tpu_torch.models.query import _claim, open_slot
+    refuse_processes(gossip.mesh, "processes-churn-query", "launch_query")
     lay = Layout(gossip.mesh, cfg.n)
     el = (eligible.shards if isinstance(eligible, PlacedState)
-          else _rows_of(eligible, lay))
+          else lay.rows_of(eligible))
     gs, qs = list(gossip.shards), list(qstate.shards)
     claims = [_claim(g, q, cfg, qcfg, ltime) for g, q in zip(gs, qs)]
     origins = [const(origin, torch.int64, dev).reshape(1)
@@ -1091,17 +1225,18 @@ def query_round(gossip: PlacedState, qstate: PlacedState, cfg: GossipConfig,
     ``response_value``, ``drop_direct`` and ``drop_relay`` are the
     global planes."""
     from serf_tpu_torch.models.query import gathered, query_senders
+    refuse_processes(gossip.mesh, "processes-churn-query", "query_round")
     lay = Layout(gossip.mesh, cfg.n)
     q, n, nl = qcfg.q_slots, cfg.n, lay.nl
     gs, qs = gossip.shards, qstate.shards
     alive = [g.alive for g in gs]
-    origin_alive = lay.broadcast(take(alive, qs[0].origin, lay))
+    origin_alive = lay.broadcast(lay.take(alive, qs[0].origin))
     r = qcfg.relay_factor
     if r > 0 and cfg.peer_sampling == "rotation":
         # one random rotation per (query, relay path)
         offs = prng.randint_host(key, (q * r,), 1, n).reshape(q, r)
     elif r > 0:
-        alive_all = [gather_all(alive, dev) for dev in lay.devs]
+        alive_all = [lay.gather_all(alive, dev) for dev in lay.devs]
     out = []
     for s, (g, qq, dev) in enumerate(zip(gs, qs, lay.devs)):
         senders = query_senders(g, qq, qcfg)
@@ -1114,8 +1249,8 @@ def query_round(gossip: PlacedState, qstate: PlacedState, cfg: GossipConfig,
             for qi in range(q):
                 any_ok = torch.zeros((nl,), dtype=torch.bool, device=dev)
                 for ri in range(r):
-                    ok = window(alive, lay.row0(s) + int(offs[qi, ri]), lay,
-                                dev)
+                    ok = lay.window(alive, lay.row0(s) + int(offs[qi, ri]),
+                                    dev)
                     if lost is not None:
                         ok = ok & ~lost[qi, :, ri]
                     any_ok = any_ok | ok
@@ -1141,6 +1276,7 @@ def fold_queries(qstate: PlacedState, view) -> torch.Tensor:
     """A per-query count ``view`` (``num_acks``, ``num_responses``) of a
     placed query state: each shard's counts summed on shard 0's
     device, in shard order."""
+    refuse_processes(qstate.mesh, "processes-churn-query", "fold_queries")
     dev0 = qstate.mesh.devices[0]
     acc = None
     for q in qstate.shards:

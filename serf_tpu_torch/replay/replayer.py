@@ -59,6 +59,8 @@ def replay_device(rec: Recording, mesh=None, device=None) -> RunRecorder:
     mesh-agnostic: any recording replays on a placed ``mesh`` (each
     shard's rows on its own device), and a placed recording replays
     unsharded or on a virtual mesh."""
+    from serf_tpu_torch.parallel.mesh import refuse_processes
+    refuse_processes(mesh, "processes-replay", "replay_device")
     if rec.plane != "device":
         raise RecordingError(
             f"replay_device on a {rec.plane!r}-plane recording")

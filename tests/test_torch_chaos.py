@@ -236,14 +236,14 @@ def test_entry_points_default_to_cuda():
 
 
 def test_mesh_raises():
-    """The one path still waiting for its slice raises, naming that
-    slice, before anything runs: a chaos cluster placed on a hybrid mesh
-    over more than one process (the multi-process slice).  The chaos
-    plan runs on a placed mesh (``tests/test_torch_placed_chaos.py``,
+    """A chaos cluster placed on a hybrid mesh whose ``dcn`` axis spans
+    more processes than the process group (here none: one process)
+    raises ``ValueError`` before anything runs, never a quiet
+    single-process run.  Over a real group the chaos executor raises
+    naming its later slice (``tests/test_torch_multiproc_chaos.py``); the
+    chaos plan runs on a placed mesh (``tests/test_torch_placed_chaos.py``,
     ``chaos --devices --placed`` in ``tests/test_torch_placed_tools.py``)
-    and on a virtual one (``tests/test_torch_sharded_round.py``); the
-    churn-query step runs placed too
-    (``tests/test_torch_placed_churn_query.py``)."""
+    and on a virtual one (``tests/test_torch_sharded_round.py``)."""
     from serf_tpu_torch import prng
     from serf_tpu_torch.parallel import multihost
 
@@ -251,8 +251,8 @@ def test_mesh_raises():
     st = tswim.make_cluster(cfg, prng.key(0), device="cpu")
     mesh = multihost.Mesh({multihost.DCN_AXIS: 2, multihost.ICI_AXIS: 1},
                           "cpu")
-    with pytest.raises(NotImplementedError, match="over 2 processes .* "
-                       "nccl"):
+    with pytest.raises(ValueError, match="spans 2 processes, the process "
+                       "group 1"):
         multihost.shard_cluster_hybrid(st, mesh)
 
 

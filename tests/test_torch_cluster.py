@@ -348,20 +348,20 @@ def test_wrappers_never_fall_back_off_the_cpu():
 @pytest.mark.parametrize("what", ["mesh"])
 def test_later_slices_raise(what):
     """A mesh whose shards span distinct devices is a placed mesh; the
-    one path a later slice places (a hybrid mesh over more than one
-    process: the multi-process slice) raises, naming that slice, and
-    never falls back."""
+    later slices are the multi-process paths alone; a hybrid mesh whose
+    ``dcn`` axis is not the process group's world size (here no group)
+    raises ``ValueError`` and never falls back to one process."""
     from serf_tpu_torch.parallel import multihost
     from serf_tpu_torch.parallel.mesh import LATER_SLICES
     mesh = make_mesh(devices=["cpu", "meta"])
     assert mesh.placed
-    assert set(LATER_SLICES) == {"processes"}
+    assert all(name.startswith("processes-") for name in LATER_SLICES)
     cfg = tswim.flagship_config(64, k_facts=32)
     st = tswim.make_cluster(cfg, prng.key(0), device="cpu")
     hybrid = multihost.Mesh({multihost.DCN_AXIS: 2,
                              multihost.ICI_AXIS: 2}, "cpu")
-    with pytest.raises(NotImplementedError, match="multi-process meshes "
-                       "over torch.distributed with nccl"):
+    with pytest.raises(ValueError, match="spans 2 processes, the process "
+                       "group 1"):
         multihost.shard_cluster_hybrid(st, hybrid)
 
 

@@ -13,7 +13,7 @@
 - ``best_device_count`` over a grid; ``make_mesh``'s device rule;
 - the hybrid mesh at one process (``tests/test_device_plane.py:455``),
   and two processes joined over ``gloo`` by ``initialize_multihost``,
-  where ``shard_cluster_hybrid`` raises (the four-card leg);
+  where a round on the mesh over both equals the unsharded round;
 - ``entry.dryrun_multichip(8)``.
 
 Tolerance: the telemetry row's float-summed ``coverage`` against the
@@ -272,24 +272,28 @@ def test_hybrid_multihost_mesh_runs():
 _WORKER = r"""
 import json, sys, torch
 import torch.distributed as dist
-from serf_tpu_torch import prng
+from serf_tpu_torch import convert, prng
 from serf_tpu_torch.models import swim
+from serf_tpu_torch.parallel import mesh as tmesh
 from serf_tpu_torch.parallel import multihost as mh
 
 addr, rank = sys.argv[1], int(sys.argv[2])
-mh.initialize_multihost(addr, 2, rank, backend="gloo")
+mh.initialize_multihost(addr, 2, rank, backend="gloo", timeout_s=30)
 mesh = mh.make_hybrid_mesh(2, device="cpu")
 t = torch.full((1,), float(rank + 1))
 dist.all_reduce(t)
 cfg = swim.flagship_config(64, k_facts=32)
 st = swim.make_cluster(cfg, prng.key(0), device="cpu")
-try:
-    mh.shard_cluster_hybrid(st, mesh)
-    raised = ""
-except NotImplementedError as e:
-    raised = str(e)
+placed = mh.shard_cluster_hybrid(st, mesh)
+out = swim.cluster_round(placed, cfg, prng.key(1), mesh=mesh)
+want = convert.to_numpy(swim.cluster_round(st, cfg, prng.key(1)))
+got = convert.from_placed(out)
 print(json.dumps({"rank": rank, "shape": mesh.shape, "sum": float(t[0]),
-                  "world": mh.process_count(), "raised": raised}))
+                  "world": mh.process_count(), "local": len(out.shards),
+                  "round": int(got["gossip.round"]),
+                  "replicas": tmesh.replicas_differ(out),
+                  "differ": [k for k in want
+                             if not (want[k] == got[k]).all()]}))
 dist.destroy_process_group()
 """
 
@@ -302,8 +306,10 @@ def _free_port() -> int:
 
 def test_two_process_gloo_group():
     """Two processes joined by ``initialize_multihost`` over ``gloo``: the
-    hybrid mesh is ``(2, local)``, a collective crosses the group, and
-    ``shard_cluster_hybrid`` raises naming the multi-process slice."""
+    hybrid mesh is ``(2, local)``, a collective crosses the group,
+    ``shard_cluster_hybrid`` places each rank's two shards, and a round
+    on the four shards equals the unsharded round on every leaf, with
+    the replicas equal across the ranks."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     with hard_limit(120):
         # a port freed by _free_port can be taken before rank 0 binds it
@@ -328,7 +334,8 @@ def test_two_process_gloo_group():
         got = json.loads(out.strip().splitlines()[-1])
         assert got["shape"] == {"dcn": 2, "ici": 2}
         assert got["world"] == 2 and got["sum"] == 3.0
-        assert "multi-process meshes" in got["raised"]
+        assert got["local"] == 2 and got["round"] == 1
+        assert got["replicas"] == [] and got["differ"] == []
 
 
 def test_dryrun_multichip_on_the_cpu():

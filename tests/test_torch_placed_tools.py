@@ -13,7 +13,7 @@ own, ``parallel.placed``), against their runs on the virtual mesh:
 - ``chaos --plane device --devices 2 --placed``: the JSON (verdicts,
   report, SLOs) and the recorded digest stream equal the virtual run's;
 - a device list that names a card the machine lacks raises, and
-  ``LATER_SLICES`` holds the multi-process slice alone.
+  ``LATER_SLICES`` holds the multi-process paths alone.
 """
 
 import json
@@ -100,8 +100,10 @@ def test_device_lists_and_later_slices(monkeypatch):
     """A device list names the placed mesh's shards; one that names a
     card the machine lacks raises (here the machine is made to show two
     cards), as does a card list on a machine without one; only the
-    multi-process slice is still to come."""
-    assert set(tmesh.LATER_SLICES) == {"processes"}
+    multi-process paths are still to come."""
+    assert set(tmesh.LATER_SLICES) == {
+        "processes-chaos", "processes-replay", "processes-checkpoint",
+        "processes-churn-query", "processes-profiler", "processes-tools"}
     assert tmesh.tool_mesh(0, "cpu,meta").devices == (
         torch.device("cpu"), torch.device("meta"))
     assert tmesh.tool_mesh(0, "cpu") is None
