@@ -317,7 +317,8 @@ equals the unbroken run; a 3-shard placed mesh raises ``ValueError``.
 180 s (the distinct-card repeat of (d), on a machine with two or more
 cards, inside 120 s more).
 
-Phase 14 runs the flagship rounds on a mesh that spans processes
+Phase 14 runs the flagship rounds, the chaos executor, record/replay
+and checkpoint on a mesh that spans processes
 (``serf_tpu_torch.parallel.multihost``: rank processes started by
 ``python -m torch.distributed.run --standalone`` running
 ``serf_tpu_torch.tools.meshrun``, joined over ``nccl``, each rank's
@@ -334,9 +335,21 @@ leaves equal on every rank; (b) with two or more cards the same with
 ``min(count, 4)`` ranks, one a card, one shard each (with one card this
 is logged as not run); (c) rounds/s of the per-round flagship per
 schedule in (a) and (b) (20 warm-up, 100 timed rounds) beside phase
-12's unsharded and one-process placed runs, logged.  A rank's non-zero
-exit fails the phase; a rank group that outlives 240 s is killed and
-fails it; (a) must end inside 150 s.
+12's unsharded and one-process placed runs, logged; (d) in the same
+rank group, phase 12 (f)'s chaos legs through ``run_device_plan``
+(``partition-heal-loss`` recorded with every row, then replayed on the
+group; the controlled ``control-overload-shed`` leg, K = 32, recorded):
+the digest streams, reports, ledgers and decisions equal the
+reference's fixture, the final states, rows and decisions the
+unsharded runs' in this process, each rank's launches a shard and host
+syncs the unsharded run's, every rank's read-outs and recording the
+same, the replay diffing clean on every rank and the group's recording
+replayed here unsharded diffing clean; (e) a checkpoint at round 15 of
+the per-round flagship saved on the group (rank 0 writes): its bytes
+the unsharded save's, restored on the group and here unsharded, each
+resumed to round 30 equal to the unbroken run.  A rank's non-zero exit
+fails the phase; a rank group that outlives 300 s is killed and fails
+it; (a), (d) and (e) must end inside 240 s.
 
 The line before the last is ``{"kernels": [...]}`` (with each kernel's
 launches on phase 11's, 12's and 14's runs and, for the four kernels that
@@ -2008,7 +2021,13 @@ def load_chaos_fixture() -> dict:
 
 def fixture_differ(name: str, res, rec, want: dict) -> list:
     """A full-width run against the reference's: the per-round digest
-    stream, rounds, report, ledger and decisions."""
+    stream, rounds, report, ledger and decisions.  ``res`` is a
+    ``DeviceChaosResult``, or its read-outs as ``meshrun.plan_result``
+    gives them (a rank group's)."""
+    got = res if isinstance(res, dict) else dict(
+        rounds_run=res.rounds_run, report=res.report.to_dict(),
+        offered=res.offered, dropped=res.dropped,
+        decisions=res.control_decisions)
     bad = []
     digests = [v["digest"] for v in rec.views()]
     if digests != want["digests"]:
@@ -2017,14 +2036,15 @@ def fixture_differ(name: str, res, rec, want: dict) -> list:
         bad.append(f"digest stream differs from round "
                    f"{None if first is None else first + 1} "
                    f"({len(digests)} vs {len(want['digests'])} rounds)")
-    if res.rounds_run != want["rounds_run"]:
+    if got["rounds_run"] != want["rounds_run"]:
         bad.append("rounds_run")
-    if res.report.to_dict() != want["report"]:
+    if got["report"] != want["report"]:
         bad.append("invariant report")
-    if (res.offered, res.dropped) != (want["offered"], want["dropped"]):
-        bad.append(f"ledger {res.offered}/{res.dropped} vs "
+    if (got["offered"], got["dropped"]) != (want["offered"],
+                                            want["dropped"]):
+        bad.append(f"ledger {got['offered']}/{got['dropped']} vs "
                    f"{want['offered']}/{want['dropped']}")
-    if res.control_decisions != want["decisions"]:
+    if got["decisions"] != want["decisions"]:
         bad.append("control decisions")
     return [f"{name}: {b}" for b in bad]
 
@@ -5941,19 +5961,34 @@ PHASE14_RUNS = {"per-round:ring:rotation": ("exact", "ring"),
                 "per-round:ring:rotation:chaos": None}
 #: the runs 14 (c) times, after the checked ones in the same ranks
 PHASE14_TIMED = ("per-round:ring:rotation", "per-round:allgather:rotation")
+#: 14 (d): phase 12 (f)'s chaos legs as ``meshrun`` plan runs in the
+#: same rank group (``partition-heal-loss`` with every row,
+#: ``control-overload-shed``'s controlled leg with the telemetry and
+#: invariant rows, both recorded), and the heal leg's replay on the group
+PHASE14_PLANS = {
+    "chaos-heal": ("plan:partition-heal-loss:record:telemetry:propagation:"
+                   "invariants"),
+    "chaos-shed": (f"plan:control-overload-shed:ctl:record:k={K_SHED}:"
+                   f"telemetry:invariants")}
+PHASE14_REPLAY = "replay:partition-heal-loss"
+#: 14 (e): a checkpoint at round 15 of the per-round flagship, saved on
+#: the group, restored there and resumed to round 30
+PHASE14_CKPT = f"checkpoint:{PLACED_CKPT_ROUND}"
 #: 14 (a): one rank's placed shards on cuda:0; (b): ranks at most
 PHASE14_LOCAL, PHASE14_MAX_RANKS = 4, 4
 #: wall seconds of one rank group, start to exit (over it its ranks are
 #: killed and the phase fails), and of the phase on one card
-PHASE14_RANKS_LIMIT_S, PHASE14_LIMIT_S = 240.0, 150.0
+PHASE14_RANKS_LIMIT_S, PHASE14_LIMIT_S = 300.0, 240.0
 
 
 def rank_group(world: int, local: int, work) -> None:
     """``python -m torch.distributed.run --standalone --nproc-per-node
     world -m serf_tpu_torch.tools.meshrun`` at N_MAIN: every checked run
-    of :data:`PHASE14_RUNS` (30 rounds from key 11, gathered to rank 0)
-    and the timed runs of :data:`PHASE14_TIMED`, each rank on its card
-    over ``nccl`` with ``local`` placed shards, its files under ``work``.
+    of :data:`PHASE14_RUNS` (30 rounds from key 11, gathered to rank 0),
+    the plans of :data:`PHASE14_PLANS`, :data:`PHASE14_REPLAY`,
+    :data:`PHASE14_CKPT` and the timed runs of :data:`PHASE14_TIMED`,
+    each rank on its card over ``nccl`` with ``local`` placed shards,
+    its files under ``work``.
     Raises if a rank exits non-zero, or if the group outlives
     :data:`PHASE14_RANKS_LIMIT_S` (its process group is then killed)."""
     import os
@@ -5963,7 +5998,9 @@ def rank_group(world: int, local: int, work) -> None:
            "serf_tpu_torch.tools.meshrun", "--nodes", str(N_MAIN), "--k",
            str(K_MAIN), "--local-shards", str(local), "--rounds",
            str(PLACED_ROUNDS), "--key", "11", "--runs",
-           ",".join(PHASE14_RUNS), "--timed-runs", ",".join(PHASE14_TIMED),
+           ",".join([*PHASE14_RUNS, *PHASE14_PLANS.values(),
+                     PHASE14_REPLAY, PHASE14_CKPT]),
+           "--timed-runs", ",".join(PHASE14_TIMED),
            "--timeout-s", str(PHASE14_RANKS_LIMIT_S), "--out", str(work)]
     logf = work / "ranks.log"
     with open(logf, "w") as f:
@@ -5994,7 +6031,10 @@ def multiproc_checks(rk, world: int, local: int, placed12: dict,
     coverage within ``COVERAGE_RTOL``), each rank's launches a shard
     those of phase 12's placed run (a shard of the chaos run: the
     unsharded run's), each rank's host syncs the unsharded run's, the
-    replicated leaves equal on every rank's shards."""
+    replicated leaves equal on every rank's shards; then the same rank
+    group's (d) chaos plans and replay (:func:`multiproc_chaos`) and (e)
+    checkpoint (:func:`multiproc_checkpoint`).  The rank group's files
+    are removed at the end."""
     import shutil
 
     import numpy as np
@@ -6054,21 +6094,7 @@ def multiproc_checks(rk, world: int, local: int, placed12: dict,
         if want_shard != run0["launches"]:
             bad.append(f"{tag}: phase 12 launched {want_shard} a shard, "
                        f"the unsharded run {run0['launches']}")
-        for r in ranks:
-            shard = {k: v // local for k, v in r["launches"].items()}
-            if any(v % local for v in r["launches"].values()) or \
-                    shard != want_shard:
-                bad.append(f"{tag}: rank {r['rank']} launched "
-                           f"{r['launches']}, want {local} x {want_shard}")
-            if r["syncs"] != run0["syncs"]:
-                bad.append(f"{tag}: rank {r['rank']} {r['syncs']} host "
-                           f"syncs, unsharded {run0['syncs']}")
-            if r["replicas"]:
-                bad.append(f"{tag}: rank {r['rank']} replicas differ "
-                           f"{r['replicas']}")
-            if r["backend"] != "nccl" or r["world"] != world:
-                bad.append(f"{tag}: rank {r['rank']} ran over "
-                           f"{r['backend']} in a world of {r['world']}")
+        bad += ranks_differ(tag, ranks, local, world, run0)
         out[spec] = dict(launches=ranks[0]["launches"],
                          syncs=ranks[0]["syncs"], s=ranks[0]["s"],
                          devices=[r["device"] for r in ranks],
@@ -6088,7 +6114,287 @@ def multiproc_checks(rk, world: int, local: int, placed12: dict,
     out["timing"] = {
         spec: json.loads((work / f"{meshrun._name(spec)}.timed.rank0.json")
                          .read_text())["rps"] for spec in PHASE14_TIMED}
+    out["chaos"] = multiproc_chaos(rk, world, local, work, placed12, what)
+    out["checkpoint"] = multiproc_checkpoint(rk, world, local, work, what)
+    shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def group_files(work, spec: str, world: int) -> dict:
+    """What a ``meshrun`` plan or replay run wrote under ``work``: every
+    rank's stats (``ranks``) and rank 0's recording (``rec``); a plan's
+    gathered final state (``leaves``), rows and read-outs too."""
+    import numpy as np
+
+    from serf_tpu_torch.replay.recording import load_recording
+    from serf_tpu_torch.tools import meshrun
+    name = meshrun._name(spec)
+    out = dict(rec=load_recording(work / f"{name}.jsonl"), ranks=[
+        json.loads((work / f"{name}.rank{r}.json").read_text())
+        for r in range(world)])
+    if spec.startswith("plan:"):
+        with np.load(work / f"{name}.npz") as z:
+            out["leaves"] = {k: z[k] for k in z.files}
+        with np.load(work / f"{name}.rows.npz") as z:
+            out["rows"] = {k: z[k] for k in z.files}
+        out["result"] = json.loads((work / f"{name}.result.json")
+                                   .read_text())
+    return out
+
+
+def plan_differ(got: dict, flat) -> list:
+    """A group's plan run (:func:`group_files`) against the unsharded run
+    ``flat`` of the same plan: every leaf of the final state equal (the
+    floats, Vivaldi, bit-equal), every row (the float-summed coverage
+    series and final field within ``COVERAGE_RTOL``) and read-out (the
+    report, the ledger, the decisions) equal."""
+    import numpy as np
+
+    from serf_tpu_torch import convert
+    from serf_tpu_torch.tools import meshrun
+    want = convert.to_numpy(flat.state)
+    bad = [k for k in want if want[k].dtype != got["leaves"][k].dtype
+           or not np.array_equal(want[k], got["leaves"][k])]
+    rows = meshrun.plan_rows(flat)
+    if rows.keys() != got["rows"].keys():
+        bad.append(f"rows {sorted(rows)} vs {sorted(got['rows'])}")
+    for k in rows.keys() & got["rows"].keys():
+        x, y = rows[k], got["rows"][k]
+        if x.shape != y.shape or not (
+                np.allclose(x, y, rtol=COVERAGE_RTOL, atol=0)
+                if k == "series:serf.model.gossip.coverage"
+                else np.array_equal(x, y)):
+            bad.append(k)
+    result, res = meshrun.plan_result(flat), got["result"]
+    for k, v in result.items():
+        if k == "telemetry_final" and v is not None:
+            w = res[k]
+            if v.keys() != w.keys() or any(
+                    not (np.isclose(v[f], w[f], rtol=COVERAGE_RTOL, atol=0)
+                         if f == "coverage" else v[f] == w[f]) for f in v):
+                bad.append(k)
+        elif v != res[k]:
+            bad.append(k)
+    return bad
+
+
+def ranks_differ(tag: str, ranks, local: int, world: int, run0: dict,
+                 same=()) -> list:
+    """Every rank of a group run against the unsharded run ``run0``: its
+    launches ``local`` times the unsharded run's (a shard's the
+    unsharded run's), its host syncs the unsharded run's, no replica
+    apart (where the run has state), over ``nccl`` in a world of
+    ``world``, and the keys of ``same`` (digests of its read-outs and
+    recordings) equal on every rank."""
+    bad = []
+    want = {k: local * v for k, v in run0["launches"].items()}
+    for r in ranks:
+        if r["launches"] != want:
+            bad.append(f"{tag}: rank {r['rank']} launched {r['launches']}, "
+                       f"want {local} x {run0['launches']}")
+        if r["syncs"] != run0["syncs"]:
+            bad.append(f"{tag}: rank {r['rank']} {r['syncs']} host syncs, "
+                       f"unsharded {run0['syncs']}")
+        if r.get("replicas"):
+            bad.append(f"{tag}: rank {r['rank']} replicas differ "
+                       f"{r['replicas']}")
+        if r["backend"] != "nccl" or r["world"] != world:
+            bad.append(f"{tag}: rank {r['rank']} ran over {r['backend']} "
+                       f"in a world of {r['world']}")
+    for key in same:
+        if len({r[key] for r in ranks}) != 1:
+            bad.append(f"{tag}: the ranks' {key} differ")
+    return bad
+
+
+def multiproc_chaos(rk, world: int, local: int, work, placed12: dict,
+                    what: str) -> dict:
+    """14 (d): the rank group's plan runs of :data:`PHASE14_PLANS` and its
+    replay of the heal leg's recording, against the reference's fixture
+    (digests, report, ledger, decisions), the unsharded run of each plan
+    on cuda:0 in this process, recorded (:func:`plan_differ`; launches a
+    shard and host syncs, :func:`ranks_differ`), and the replay diffing
+    clean on every rank; the group's recording replayed here unsharded
+    diffs clean too.  Rounds/s logged beside phase 12 (f)'s placed run
+    and the unsharded run."""
+    import torch
+
+    from serf_tpu_torch import host_syncs
+    from serf_tpu_torch.replay.differ import diff_recordings
+    from serf_tpu_torch.replay.replayer import replay_device
+    from serf_tpu_torch.tools import meshrun
+    fixture = load_chaos_fixture()
+    card = card_line()
+    t0 = time.perf_counter()
+
+    def timed(fn):
+        reset_counts(rk)
+        s0 = host_syncs()
+        t = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        run = dict(s=time.perf_counter() - t, syncs=host_syncs() - s0,
+                   launches=dict(rk.LAUNCHES))
+        check_dispatch(rk, "phase 14 (d)")
+        return value, run
+
+    out, bad = {}, []
+    for name, spec in PHASE14_PLANS.items():
+        run = meshrun.parse_run(spec)
+        plan = run["plan"]
+        cfg = chaos_config(plan, N_MAIN, run["k"] or K_MAIN, run["ctl"])
+        flags = {f"collect_{r}": True for r in sorted(run["rows"])}
+        (flat, _), run0 = timed(lambda: chaos_run(plan, cfg, "cuda",
+                                                  record=True, **flags))
+        got = group_files(work, spec, world)
+        tag = (f"(d) {what} {plan} n={N_MAIN} {world} rank(s) x {local} "
+               f"shard(s)")
+        bad += fixture_differ(tag, got["result"], got["rec"],
+                              fixture[plan])
+        diff = plan_differ(got, flat)
+        if diff:
+            bad.append(f"{tag}: differs from the unsharded run: {diff}")
+        if {k for k, v in run0["launches"].items() if v} != \
+                set(CHAOS_PATHS[name]["kernels"]):
+            bad.append(f"{tag}: unsharded launches {run0['launches']}")
+        bad += ranks_differ(tag, got["ranks"], local, world, run0,
+                            same=("result_sha256", "recording_sha256"))
+        rounds = flat.rounds_run
+        r0 = got["ranks"][0]
+        p12 = placed12["chaos"][name]
+        out[name] = dict(rounds=rounds, unsharded=run0, ranks=got["ranks"])
+        note = ""
+        if name == "chaos-heal":
+            rep = group_files(work, PHASE14_REPLAY, world)
+            again, rep0 = timed(lambda: replay_device(
+                got["rec"], unsharded=True).to_recording())
+            d = diff_recordings(got["rec"], again)
+            if not d.ok:
+                bad.append(f"{tag}: the group's recording replayed here "
+                           f"unsharded diverged: {d.to_dict()}")
+            for r in rep["ranks"]:
+                if not r["diff_ok"]:
+                    bad.append(f"{tag}: rank {r['rank']}'s replay on the "
+                               f"group diverged: {r['diff']}")
+            bad += ranks_differ(f"{tag} replay", rep["ranks"], local, world,
+                                rep0, same=("recording_sha256",))
+            out[name].update(replay=rep["ranks"], replay_unsharded=rep0)
+            q = rep["ranks"][0]
+            note = (f"; replay on the group {rounds / q['s']:.2f} rounds/s "
+                    f"(phase 12 (f)'s placed replay "
+                    f"{rounds / p12['replay']['s']:.2f}, unsharded here "
+                    f"{rounds / rep0['s']:.2f}), diffs clean on every rank, "
+                    f"launches a rank {json.dumps(q['launches'])}, "
+                    f"host_syncs_per_round {q['syncs'] / rounds:.2f} (the "
+                    f"unsharded replay's); the group's recording replayed "
+                    f"here unsharded diffs clean")
+        log(f"phase 14 {tag} k={cfg.gossip.k_facts}, "
+            f"{'controlled, ' if run['ctl'] else ''}recorded, ranks on "
+            f"{[r['device'] for r in got['ranks']]}: {rounds} rounds at "
+            f"{rounds / r0['s']:.2f} rounds/s (phase 12 (f)'s placed run "
+            f"{rounds / p12['run']['s']:.2f}, unsharded here "
+            f"{rounds / run0['s']:.2f}), host_syncs_per_round "
+            f"{r0['syncs'] / rounds:.2f} on every rank (unsharded "
+            f"{run0['syncs'] / rounds:.2f}); launches a rank "
+            f"{json.dumps(r0['launches'])} ({local} x the unsharded run's "
+            f"{json.dumps(run0['launches'])}){note}; final state, rows, "
+            f"decisions and ledger equal the unsharded run's, digests, "
+            f"report, ledger and decisions the reference's; every rank "
+            f"holds the same read-outs and recording ({card})")
+        del flat
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    if bad:
+        raise AssertionError("phase 14 (d): " + "; ".join(bad))
+    return out
+
+
+def multiproc_checkpoint(rk, world: int, local: int, work,
+                         what: str) -> dict:
+    """14 (e): the rank group's :data:`PHASE14_CKPT` run (the per-round
+    flagship to round 15 from phase 4's seeding, saved on the group,
+    restored on the group and resumed to round 30) against the same run
+    unsharded on cuda:0 here: the file's SHA-256 the unsharded save's,
+    every rank reading it so; the group's resumed state, and the group's
+    file restored here unsharded and resumed, each equal to the
+    unsharded unbroken run; launches a shard and host syncs
+    (:func:`ranks_differ`, against the unsharded run, save, restore and
+    resume)."""
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch
+
+    from serf_tpu_torch import convert, host_syncs, prng
+    from serf_tpu_torch.models import checkpoint
+    from serf_tpu_torch.models.swim import make_cluster, run_cluster_sustained
+    from serf_tpu_torch.tools import meshrun
+    card = card_line()
+    t0 = time.perf_counter()
+    cfg = meshrun.run_config(N_MAIN, K_MAIN, "per-round", "ring",
+                             "rotation")
+    st0, _ = seeded_state(cfg, "cuda")
+    k1, k2 = meshrun.checkpoint_keys(11)
+    name = meshrun._name(PHASE14_CKPT)
+    ranks = [json.loads((work / f"{name}.rank{r}.json").read_text())
+             for r in range(world)]
+    group_file = ranks[0]["file"]
+    flat = checkpoint_path("phase14-flat.npz")
+
+    def run(st, key, rounds):
+        return run_cluster_sustained(st, cfg, key, rounds,
+                                     events_per_round=EVENTS_PER_ROUND)
+    on = PLACED_ROUNDS - PLACED_CKPT_ROUND
+    reset_counts(rk)
+    s0 = host_syncs()
+    mid = run(st0, k1, PLACED_CKPT_ROUND)
+    checkpoint.save(flat, mid)
+    resumed = run(checkpoint.restore(group_file, make_cluster(
+        cfg, prng.key(0), device="cuda")), k2, on)
+    torch.cuda.synchronize()
+    run0 = dict(syncs=host_syncs() - s0, launches=dict(rk.LAUNCHES))
+    check_dispatch(rk, "phase 14 (e)")
+    unbroken = run(mid, k2, on)
+    tag = (f"(e) {what} {PHASE14_CKPT} n={N_MAIN} {world} rank(s) x "
+           f"{local} shard(s)")
+    bad = ranks_differ(tag, ranks, local, world, run0)
+    with open(flat, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    if any(r["file_sha256"] != sha for r in ranks):
+        bad.append(f"{tag}: the group's file is not the unsharded save's "
+                   f"bytes on every rank")
+    want = convert.to_numpy(unbroken)
+    for label, path in (("the group's resumed run", work / f"{name}.npz"),
+                        ("the group's file resumed here unsharded", None)):
+        if path is None:
+            leaves = convert.to_numpy(resumed)
+        else:
+            with np.load(path) as z:
+                leaves = {k: z[k] for k in z.files}
+        diff = [k for k in want if want[k].dtype != leaves[k].dtype
+                or not np.array_equal(want[k], leaves[k])]
+        if diff:
+            bad.append(f"{tag}: {label} differs from the unbroken run: "
+                       f"{diff}")
+    mb = ranks[0]["file_bytes"] / 1e6
+    os.remove(flat)
+    del st0, mid, unbroken, resumed
+    torch.cuda.empty_cache()
+    s = time.perf_counter() - t0
+    if bad:
+        raise AssertionError("phase 14 (e): " + "; ".join(bad))
+    r0 = ranks[0]
+    log(f"phase 14 {tag}: the file ({mb:.1f} MB) holds the bytes of the "
+        f"unsharded save on every rank; resumed to round {PLACED_ROUNDS} "
+        f"on the group and here unsharded, each equals the unbroken run; "
+        f"the ranks' run, save, restore and resume {r0['s']:.2f} s, "
+        f"launches a rank {json.dumps(r0['launches'])} ({local} x the "
+        f"unsharded run's {json.dumps(run0['launches'])}), host syncs "
+        f"{r0['syncs']} on every rank (unsharded {run0['syncs']}); this "
+        f"part {s:.2f} s ({card})")
+    return dict(mb=mb, s=s, ranks_s=r0["s"], launches=r0["launches"],
+                syncs=r0["syncs"], unsharded=run0)
 
 
 def log_multiproc_timing(res: dict, placed12: dict, world: int,
@@ -6111,12 +6417,14 @@ def log_multiproc_timing(res: dict, placed12: dict, world: int,
 
 
 def multiproc_full(rk, placed12: dict) -> dict:
-    """Phase 14: the flagship rounds on a mesh that spans processes,
-    rank processes started by ``torch.distributed.run`` after phase 1
-    built the kernels.  (a) one rank over ``nccl`` with
-    :data:`PHASE14_LOCAL` placed shards on cuda:0; (b) with two or more
-    cards, ``min(count, 4)`` ranks, one a card, one shard each; both
-    checked by :func:`multiproc_checks` and (c) timed
+    """Phase 14: the flagship rounds, the chaos plans, a replay and a
+    checkpoint on a mesh that spans processes, rank processes started by
+    ``torch.distributed.run`` after phase 1 built the kernels.  (a) one
+    rank over ``nccl`` with :data:`PHASE14_LOCAL` placed shards on
+    cuda:0; (b) with two or more cards, ``min(count, 4)`` ranks, one a
+    card, one shard each; both checked by :func:`multiproc_checks` (the
+    flagships; (d) :func:`multiproc_chaos`, (e)
+    :func:`multiproc_checkpoint`) and (c) timed
     (:func:`log_multiproc_timing`)."""
     import torch
     card = card_line()
@@ -6125,8 +6433,11 @@ def multiproc_full(rk, placed12: dict) -> dict:
                                    "(a) one card")}
     log_multiproc_timing(out["one"], placed12, 1, "one card", card)
     out["s"] = time.perf_counter() - t0
-    log(f"phase 14 (a) on one card: {out['s']:.2f} s, the ranks "
-        f"{out['one']['ranks_s']:.2f} s of it ({card})")
+    one = out["one"]
+    log(f"phase 14 (a), (d) and (e) on one card: {out['s']:.2f} s, the "
+        f"ranks {one['ranks_s']:.2f} s of it; the checks of (d) "
+        f"{one['chaos']['s']:.2f} s and (e) {one['checkpoint']['s']:.2f} s "
+        f"in this process ({card})")
     if out["s"] > PHASE14_LIMIT_S:
         raise AssertionError(f"phase 14 took {out['s']:.1f} s on one card, "
                              f"over its {PHASE14_LIMIT_S} s")
@@ -6140,8 +6451,9 @@ def multiproc_full(rk, placed12: dict) -> dict:
     out["spread"] = multiproc_checks(rk, w, 1, placed12,
                                      f"(b) {w} cards")
     log_multiproc_timing(out["spread"], placed12, w, f"{w} cards", card)
-    log(f"phase 14 (b) on {w} cards: {time.perf_counter() - t1:.2f} s "
-        f"({card})")
+    log(f"phase 14 (b), (d) and (e) on {w} cards: "
+        f"{time.perf_counter() - t1:.2f} s, the ranks "
+        f"{out['spread']['ranks_s']:.2f} s of it ({card})")
     return out
 
 
@@ -6351,9 +6663,14 @@ def main() -> int:
                 tools13[part]["launches"]
     for part, res in procs14.items():
         if isinstance(res, dict):
-            for spec in PHASE14_RUNS:
-                shard_launches[f"phase 14 {part} rank 0 {spec}"] = \
-                    res[spec]["launches"]
+            runs14 = {spec: res[spec]["launches"] for spec in PHASE14_RUNS}
+            for name, spec in PHASE14_PLANS.items():
+                runs14[spec] = res["chaos"][name]["ranks"][0]["launches"]
+            runs14[PHASE14_REPLAY] = \
+                res["chaos"]["chaos-heal"]["replay"][0]["launches"]
+            runs14[PHASE14_CKPT] = res["checkpoint"]["launches"]
+            for spec, launches in runs14.items():
+                shard_launches[f"phase 14 {part} rank 0 {spec}"] = launches
     shard_times = placed["times"]
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], path=KERNEL_PATH[name],

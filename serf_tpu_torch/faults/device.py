@@ -375,14 +375,20 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
     device: the masks lowered once on the mesh's shard 0 device and
     sliced per shard each scan, every stacked row on that device, the
     read-outs on the gathered final state (``state`` of the result
-    stays the ``PlacedState``).  ``recorder`` (a
+    stays the ``PlacedState``).  A mesh that spans processes
+    (``parallel.multihost.make_hybrid_mesh`` inside a group) runs it on
+    every rank in lockstep: each rank makes the whole cluster from the
+    same key, lowers the same masks on its card and keeps its rows of
+    them, every gate and digest fold is an all-reduce, the injection
+    origins are drawn on the host alike, and the read-outs run on every
+    rank over the all-gathered final state and liveness, so every rank
+    returns the same report, rows and decisions, and its recorder holds
+    the same steps (a caller writes it from one rank).  ``recorder`` (a
     ``replay.recording.RunRecorder``) makes the run a recording: every
     injection batch and every scan's key is a step, and the scans emit
     the per-round membership-view digests (one device-to-host copy per
     scan).  The other rows are stacked on the device and read once,
     after the whole plan ran."""
-    from serf_tpu_torch.parallel.mesh import refuse_processes
-    refuse_processes(mesh, "processes-chaos", "run_device_plan")
     plan.validate()
     if device is None and mesh is not None:
         device = mesh.device
@@ -579,8 +585,10 @@ def run_device_plan(plan: FaultPlan, cfg: ClusterConfig, key=None,
         stretch_q = int(control_final["stretch_q"])
     final = state
     if isinstance(state, PlacedState):
-        final, init_alive = gather_state(state), torch.cat(
-            [a.to(state.mesh.device) for a in init_alive])
+        from serf_tpu_torch.parallel.placed import Layout
+        final = gather_state(state)
+        init_alive = Layout(state.mesh, cfg.n).gather_all(
+            init_alive, state.mesh.device)
     report = inv.check_device(plan, final, cfg, init_alive,
                               rounds_run=total, offered=len(injected),
                               expect_overflow=expect_overflow,

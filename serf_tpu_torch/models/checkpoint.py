@@ -21,6 +21,12 @@ A state saved on a mesh gives the same mesh-agnostic file (a placed
 state's shards gathered in row order), and ``restore(..., mesh=)``
 checks that the mesh divides every node axis, then places the tree on
 it, virtual or placed, whatever shard count it was saved from.
+
+Over a mesh that spans processes both are collective: every rank calls
+``save`` (the state is all-gathered; rank 0 writes the file, the bytes
+of the unsharded save, and every rank waits for it at a barrier) and
+``restore`` (every rank reads the file and places its own shards; a
+placed template is all-gathered).
 """
 
 from __future__ import annotations
@@ -103,12 +109,23 @@ def _np_dtype(t: torch.Tensor, u32: bool) -> np.dtype:
 def save(path: str, state: Any) -> None:
     """Write the state tree to ``path`` (gathered to the host, a
     ``parallel.mesh.PlacedState``'s shards in row order; atomic replace,
-    so a crash never leaves a half-written checkpoint)."""
-    from serf_tpu_torch.parallel.mesh import (PlacedState, gather_state,
-                                              refuse_processes)
+    so a crash never leaves a half-written checkpoint).  A state placed
+    over processes: every rank calls it, rank 0 writes, and no rank
+    returns before the file is in place."""
+    from serf_tpu_torch.parallel.mesh import PlacedState, gather_state
+    group = isinstance(state, PlacedState) and state.mesh.group
     if isinstance(state, PlacedState):
-        refuse_processes(state.mesh, "processes-checkpoint", "save")
         state = gather_state(state, "cpu")
+    if group:
+        from serf_tpu_torch.parallel import group as grp
+        if grp.rank() == 0:
+            _write(path, state)
+        grp.barrier()
+    else:
+        _write(path, state)
+
+
+def _write(path: str, state: Any) -> None:
     arrays = {key: _host(t, u32) for key, t, u32 in _leaves(state)}
     arrays[_SCHEMA_KEY] = np.asarray(_schema_version(), np.int64)
     tmp = path + ".tmp"
@@ -117,29 +134,34 @@ def save(path: str, state: Any) -> None:
     os.replace(tmp, path)
 
 
-def _validate_mesh(state: Any, mesh) -> Any:
+def _check_divides(state: Any, mesh) -> None:
     """Fail-closed re-shard: every axis the node sharding would split
     must be divisible by the mesh size (a 1M-node checkpoint restored
-    onto a 7-shard mesh must raise).  On a virtual mesh the restored
-    tree is its shards' row blocks as it is; a placed mesh takes each
-    shard's rows onto its device (``shard_state``)."""
+    onto a 7-shard mesh must raise).  A placed ``state``'s node axes are
+    its shards' times its mesh's shard count, so the check reads shapes
+    alone: over processes every rank raises alike, before any
+    collective."""
     from serf_tpu_torch.parallel.mesh import (
+        PlacedState,
         _flat_with_names,
         _spec_for,
         node_axis,
-        shard_state,
     )
 
     d = int(mesh.size)
+    whole = 1
+    if isinstance(state, PlacedState):
+        state, whole = state.shards[0], state.mesh.size
     for path, names, leaf in _flat_with_names(state):
+        if not isinstance(leaf, torch.Tensor):
+            continue
         axis = node_axis(_spec_for(names, leaf))
-        if axis is not None and leaf.shape[axis] % d != 0:
+        if axis is not None and leaf.shape[axis] * whole % d != 0:
             raise ValueError(
                 f"checkpoint re-shard device-count mismatch: array "
-                f"{path!r} axis {axis} of size {leaf.shape[axis]} is not "
-                f"divisible by the {d}-device mesh — restore with a "
-                f"device count that divides the node axis")
-    return shard_state(state, mesh)
+                f"{path!r} axis {axis} of size {leaf.shape[axis] * whole} "
+                f"is not divisible by the {d}-device mesh — restore with "
+                f"a device count that divides the node axis")
 
 
 def restore(path: str, template: Any, mesh=None) -> Any:
@@ -147,15 +169,18 @@ def restore(path: str, template: Any, mesh=None) -> Any:
     ``template`` (the ``make_*`` result for the same config; a placed
     template is gathered first).  ``mesh`` re-shards the restored tree
     onto a mesh (``parallel.mesh``; a placed one gives a
-    ``PlacedState``), failing closed with ``ValueError`` when the mesh
-    does not divide a node axis."""
+    ``PlacedState``, over processes this rank's shards), failing closed
+    with ``ValueError`` when the mesh does not divide a node axis.  On
+    a virtual mesh the restored tree is its shards' row blocks as it
+    is."""
     import zipfile
 
     from serf_tpu_torch.parallel.mesh import (PlacedState, gather_state,
-                                              refuse_processes)
-    refuse_processes(mesh, "processes-checkpoint", "restore")
+                                              shard_state)
     if isinstance(template, PlacedState):
-        refuse_processes(template.mesh, "processes-checkpoint", "restore")
+        if mesh is not None:
+            # before the gather: over processes it is a collective
+            _check_divides(template, mesh)
         template = gather_state(template)
     try:
         with np.load(path) as data:
@@ -198,9 +223,10 @@ def restore(path: str, template: Any, mesh=None) -> Any:
                 values[key] = torch.from_numpy(
                     np.array(arr, order="C")).to(leaf.device)
             state = _rebuild(template, values)
-            if mesh is not None:
-                state = _validate_mesh(state, mesh)
-            return state
+            if mesh is None:
+                return state
+            _check_divides(state, mesh)
+            return shard_state(state, mesh)
     except FileNotFoundError:
         raise
     except (zipfile.BadZipFile, KeyError, OSError, EOFError) as e:

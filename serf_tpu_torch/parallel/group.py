@@ -3,11 +3,13 @@
 
 Every function here is a collective over the default process group:
 each rank calls it at the same point with a tensor of the same shape
-and dtype, on its own device.  ``parallel.placed``'s group layout and
-``parallel.mesh``'s gather and replica check are its callers.  Booleans
-travel as ``uint8`` views, and reductions take integer tensors only:
-integer sums, maxima and minima are exact in any order, so every rank
-holds the same answer (a float partial would not be; none is reduced).
+and dtype, on its own device.  ``parallel.placed``'s group layout,
+``parallel.mesh``'s gather and replica check, and the checkpoint's
+save (rank 0 writes, every rank waits at :func:`barrier`) are its
+callers.  Booleans travel as ``uint8`` views, and reductions take
+integer tensors only: integer sums, maxima and minima are exact in any
+order, so every rank holds the same answer (a float partial would not
+be; none is reduced).
 """
 
 from __future__ import annotations
@@ -31,6 +33,11 @@ def rank() -> int:
 
 def world() -> int:
     return _dist().get_world_size()
+
+
+def barrier() -> None:
+    """Wait until every rank reached this call."""
+    _dist().barrier()
 
 
 def _wire(t: torch.Tensor) -> torch.Tensor:

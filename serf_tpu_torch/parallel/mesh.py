@@ -35,7 +35,8 @@ A :class:`Mesh` takes one of two forms:
   L)``.  :func:`shard_state` places this rank's shards,
   :func:`gather_state` all-gathers every rank's rows and
   :func:`replicas_differ` holds every rank's replicas to rank 0's
-  (``parallel.group``).  The flagship rounds run on it; the paths in
+  (``parallel.group``).  The flagship rounds, the chaos executor,
+  record/replay and checkpoint run on it; the paths in
   :data:`LATER_SLICES` raise on it (:func:`refuse_processes`).
 
 The placement rule (:func:`partition_specs`) is the reference's, kept as
@@ -53,12 +54,6 @@ NODE_AXIS = "nodes"
 #: of their slices; each raises ``NotImplementedError`` naming its slice
 #: (:func:`refuse_processes`)
 LATER_SLICES = {
-    "processes-chaos": "the chaos executor (faults.device.run_device_plan) "
-                       "on a mesh that spans processes",
-    "processes-replay": "record/replay (replay.replay_device) on a mesh "
-                        "that spans processes",
-    "processes-checkpoint": "checkpoint save/restore on a mesh that spans "
-                            "processes",
     "processes-churn-query": "the churn-query step (churn.composed_step, "
                              "the placed churn round, query launch and "
                              "gather) on a mesh that spans processes",

@@ -16,7 +16,9 @@ so one card's ``nccl`` run goes through every collective.
 :func:`shard_cluster_hybrid` places each rank's shards from the state
 every rank made from one seed; ``cluster_round``, ``sustained_round``,
 ``run_cluster_sustained``, ``round_telemetry`` and ``control_tick`` with
-that ``mesh=`` run every rank's shards in lockstep.  The paths of
+that ``mesh=`` run every rank's shards in lockstep, and so do
+``faults.device.run_device_plan``, ``replay.replay_device`` and
+``models.checkpoint`` ``save``/``restore``.  The paths of
 ``parallel.mesh.LATER_SLICES`` raise on it.  Outside a group the mesh is
 ``(1, P)``: virtual shards of this process's device, or, given the local
 ``devices``, an in-process placed mesh (``parallel.mesh``).

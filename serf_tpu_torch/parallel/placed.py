@@ -64,8 +64,10 @@ churn round, the query launch, gather and views of the churn-query step
 checkpoint, the profiler and the mesh tools run on it through their own
 modules.  The phased flavour runs plain, as on any mesh (the
 reference's dispatch rule).  Over processes the flagship rounds, the
-controller and the rows run; the churn round and the query step raise
-(``parallel.mesh.LATER_SLICES``).
+controller, the rows and the chaos masks run, and so do the chaos
+executor, record/replay and checkpoint through their modules (every
+rank lowers the same masks, :func:`with_masks` keeps its rows); the
+churn round and the query step raise (``parallel.mesh.LATER_SLICES``).
 """
 
 from __future__ import annotations

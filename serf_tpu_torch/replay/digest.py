@@ -110,14 +110,16 @@ def placed_digest(state, cfg: GossipConfig, with_nodes: bool = True):
     """:func:`state_digest` of a placed cluster (``parallel.mesh
     .PlacedState``): each shard digests and folds its own rows, the
     folds add up on shard 0's device; the per-node digests (when asked)
-    are gathered there in row order."""
-    from serf_tpu_torch.parallel.placed import Layout, gather_all
+    are gathered there in row order.  Over processes the folds are a SUM
+    all-reduce and the per-node digests an all-gather, so every rank
+    holds the whole digest."""
+    from serf_tpu_torch.parallel.placed import Layout
     lay = Layout(state.mesh, cfg.n)
     nodes = [node_digests(st.gossip, cfg) for st in state.shards]
     overall = lay.sum([fold_nodes(nd, lay.row0(s))
                        for s, nd in enumerate(nodes)]) & MASK32
     overall = _mix(overall, state.shards[0].gossip.round)
-    return overall, gather_all(nodes, lay.dev0) if with_nodes else None
+    return overall, lay.gather_all(nodes, lay.dev0) if with_nodes else None
 
 
 def host_view_digest(serfs) -> Tuple[str, Dict[str, str]]:

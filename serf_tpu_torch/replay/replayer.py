@@ -49,18 +49,21 @@ from serf_tpu_torch.replay.recording import (
 )
 
 
-def replay_device(rec: Recording, mesh=None, device=None) -> RunRecorder:
+def replay_device(rec: Recording, mesh=None, device=None,
+                  unsharded: bool = False) -> RunRecorder:
     """Re-execute a device recording on ``device`` (default: the mesh's
     device with a ``mesh``, else ``"cuda"``); returns the replay's
     recorder (diff its ``to_recording()`` against the source with
     ``differ.diff_recordings``).  A recording made on a mesh
     (``mesh_devices > 1``) replays on a mesh of as many shards on the
-    replay's device unless ``mesh`` is given.  Recordings are
-    mesh-agnostic: any recording replays on a placed ``mesh`` (each
-    shard's rows on its own device), and a placed recording replays
-    unsharded or on a virtual mesh."""
-    from serf_tpu_torch.parallel.mesh import refuse_processes
-    refuse_processes(mesh, "processes-replay", "replay_device")
+    replay's device unless ``mesh`` is given or ``unsharded`` asks for
+    no mesh.  Recordings are mesh-agnostic: any recording replays on a
+    placed ``mesh`` (each shard's rows on its own device), and a placed
+    recording replays unsharded or on a virtual mesh.  On a mesh that
+    spans processes every rank calls it with the same recording and
+    returns the same recorder (a caller writes it from one rank); a
+    recording made over processes replays there, on a placed mesh or
+    unsharded."""
     if rec.plane != "device":
         raise RecordingError(
             f"replay_device on a {rec.plane!r}-plane recording")
@@ -86,7 +89,8 @@ def replay_device(rec: Recording, mesh=None, device=None) -> RunRecorder:
     for s in rec.steps():
         op, a = s["op"], s["args"]
         if op == "init":
-            if mesh is None and int(a.get("mesh_devices", 1)) > 1:
+            if mesh is None and not unsharded and \
+                    int(a.get("mesh_devices", 1)) > 1:
                 from serf_tpu_torch.parallel.mesh import make_mesh
                 mesh = make_mesh(int(a["mesh_devices"]), device=dev)
             state = make_cluster(cfg, key_from_hex(a["key"]), device=dev)

@@ -10,9 +10,13 @@ process, and the paths a later slice ports, on the CPU over ``gloo``.
 - A group of one process (the one-card form on cards): a
   ``make_hybrid_mesh`` inside it takes the group body, and its rounds
   equal the unsharded run.
-- Over a group, each path of ``parallel.mesh.LATER_SLICES`` raises
+- Over a group, each path of ``parallel.mesh.LATER_SLICES`` (the
+  churn-query step, the profiler, the mesh tools) raises
   ``NotImplementedError`` naming its slice before anything runs, and
-  ``LATER_SLICES`` holds exactly those paths."""
+  ``LATER_SLICES`` holds exactly those paths; the chaos executor,
+  record/replay and checkpoint run over a group
+  (``test_torch_multiproc_{chaos_plan,chaos_shed,chaos_selfcheck,
+  replay,checkpoint}.py``)."""
 
 import numpy as np
 import pytest
@@ -119,26 +123,20 @@ def test_group_mesh_rules(group_of_one):
         tmulti.shard_cluster_hybrid(st, two)
 
 
-def _later_slice_calls(tmp_path):
+def _later_slice_calls():
     """``{slice: call}``: each path a later slice ports, called on a
     state placed over the group (the refusal comes before any argument
     is read, so the arguments past the mesh are left out)."""
     from serf_tpu_torch.entry import dryrun_multichip
-    from serf_tpu_torch.faults.device import run_device_plan
-    from serf_tpu_torch.models import checkpoint, churn
+    from serf_tpu_torch.models import churn
     from serf_tpu_torch.obs.profile import profile_round
-    from serf_tpu_torch.replay.replayer import replay_device
     from serf_tpu_torch.tools import multichip_ab, roundprof
 
     mesh = tmulti.make_hybrid_mesh(2, device="cpu")
     cfg = tswim.flagship_config(64, k_facts=32)
     st = tmulti.shard_cluster_hybrid(
         tswim.make_cluster(cfg, prng.key(0), device="cpu"), mesh)
-    path = str(tmp_path / "ckpt.npz")
     return {
-        "processes-chaos": lambda: run_device_plan(None, cfg, mesh=mesh),
-        "processes-replay": lambda: replay_device(None, mesh=mesh),
-        "processes-checkpoint": lambda: checkpoint.save(path, st),
         "processes-churn-query": lambda: churn.composed_step(
             st, None, None, cfg, None, None, prng.key(1), mesh=mesh),
         "processes-profiler": lambda: profile_round(cfg, mesh=mesh),
@@ -150,16 +148,12 @@ def _later_slice_calls(tmp_path):
             2, device="cpu"),
         "processes-churn-query-launch": lambda: tplaced.launch_query(
             tplaced.gossip_of(st), st, cfg.gossip, None, 0, None, False, 4),
-        "processes-checkpoint-restore": lambda: checkpoint.restore(
-            path, st),
     }
 
 
-LATER = ("processes-chaos", "processes-replay", "processes-checkpoint",
-         "processes-churn-query", "processes-profiler", "processes-tools")
+LATER = ("processes-churn-query", "processes-profiler", "processes-tools")
 CALLS = LATER + ("processes-tools-multichip_ab", "processes-tools-dryrun",
-                 "processes-churn-query-launch",
-                 "processes-checkpoint-restore")
+                 "processes-churn-query-launch")
 
 
 def test_later_slices_are_exactly_these():
@@ -167,11 +161,11 @@ def test_later_slices_are_exactly_these():
 
 
 @pytest.mark.parametrize("name", CALLS)
-def test_later_slice_paths_raise_over_a_group(name, group_of_one, tmp_path):
+def test_later_slice_paths_raise_over_a_group(name, group_of_one):
     """Each path outside this slice raises ``NotImplementedError`` naming
     its later slice over a group (here a group of one: the mesh spans
     it all the same), never a quiet single-process run."""
-    call = _later_slice_calls(tmp_path)[name]
+    call = _later_slice_calls()[name]
     slice_name = next(s for s in LATER if name.startswith(s))
     with pytest.raises(NotImplementedError,
                        match=tmesh.LATER_SLICES[slice_name].split(" (")[0]):
@@ -185,5 +179,6 @@ def test_new_modules_are_in_the_import_scan():
     scanned = {p.relative_to(REPO).as_posix() for p in _port_files()}
     for mod in ("parallel/group", "parallel/multihost", "parallel/placed",
                 "parallel/mesh", "tools/meshrun", "fuzz/fuzz_messages",
-                "fuzz/fuzz_dstream"):
+                "fuzz/fuzz_dstream", "faults/device", "replay/digest",
+                "replay/replayer", "models/checkpoint"):
         assert f"serf_tpu_torch/{mod}.py" in scanned, mod

@@ -102,7 +102,6 @@ def test_device_lists_and_later_slices(monkeypatch):
     cards), as does a card list on a machine without one; only the
     multi-process paths are still to come."""
     assert set(tmesh.LATER_SLICES) == {
-        "processes-chaos", "processes-replay", "processes-checkpoint",
         "processes-churn-query", "processes-profiler", "processes-tools"}
     assert tmesh.tool_mesh(0, "cpu,meta").devices == (
         torch.device("cpu"), torch.device("meta"))
