@@ -1416,181 +1416,18 @@ def profile_full(rk) -> dict:
 
 
 # -- phases 3 and 4: the churn-query path ------------------------------------
+#
+# The path's loop (configs, start, windows, read-outs) is the port's one
+# copy, ``serf_tpu_torch.tools.meshrun``'s, which phase 14's ranks run
+# too.
 
 #: BASELINE config #3 at its own scale (tests/test_churn.py): nothing cut
 CQ_N, CQ_K = 100_000, 256
 #: phase 3's size against the CPU, with churn rates raised so that every
 #: event kind fires there
 CQ_SMALL_N, CQ_SMALL_SETTLE = 4096, 20
-CQ_CHURN_ROUNDS, CQ_QUERY_EVERY = 30, 5
 CQ_KERNELS = ("select_packets", "fused_select_cached", "fused_merge")
-#: distinct tag values of the seeded tag plane (the majority vote's
-#: candidates) and subjects of the composed views
-CQ_TAG_VALUES, CQ_VIEW_SUBJECTS = 4, 64
 PUSH_N, PUSH_K, PUSH_ROUNDS = 4096, 64, 8
-
-
-def cq_configs(n: int, raised: bool, settle: bool = False):
-    """``(ClusterConfig, ChurnConfig, QueryConfig)`` of the path: the
-    reference test's cluster with the kernels on, its churn rates (or
-    the raised ones; zero in the settle window), 8 query slots with 2
-    relays."""
-    from serf_tpu_torch.models.churn import ChurnConfig
-    from serf_tpu_torch.models.dissemination import GossipConfig
-    from serf_tpu_torch.models.failure import FailureConfig
-    from serf_tpu_torch.models.query import QueryConfig
-    from serf_tpu_torch.models.swim import ClusterConfig
-    cfg = ClusterConfig(
-        gossip=GossipConfig(n=n, k_facts=CQ_K, fanout=3, use_pallas=True),
-        failure=FailureConfig(suspicion_rounds=12, max_new_facts=8,
-                              probe_drop_rate=0.02),
-        push_pull_every=16, with_vivaldi=False)
-    rates = (dict(fail_rate=1e-3, leave_rate=1e-3, rejoin_rate=0.05)
-             if raised else dict(fail_rate=1e-5, leave_rate=1e-5,
-                                 rejoin_rate=0.02))
-    if settle:
-        rates = {}
-    return cfg, ChurnConfig(max_events=8, **rates), QueryConfig(
-        q_slots=8, relay_factor=2)
-
-
-def cq_start(cfg, qcfg, device):
-    """The path's starting carry ``(cluster, queries, countdown,
-    trace)``, its tag plane (``TagInterner`` over seeded zone tags, four
-    values) and the seeded query-origin candidates."""
-    import numpy as np
-
-    from serf_tpu_torch import prng
-    from serf_tpu_torch.models.churn import linger_init, trace_init
-    from serf_tpu_torch.models.query import make_queries
-    from serf_tpu_torch.models.swim import make_cluster
-    from serf_tpu_torch.models.views import TagInterner
-    n = cfg.n
-    st = make_cluster(cfg, prng.key(42), device=device)
-    carry = (st, make_queries(cfg.gossip, qcfg, device=device),
-             linger_init(n, device=device), trace_init(st))
-    rng = np.random.default_rng(5)
-    zones = rng.integers(0, CQ_TAG_VALUES, n)
-    plane = TagInterner(["zone"]).plane(
-        [{"zone": f"z{z}"} for z in zones], device=device)
-    return carry, plane, rng.integers(0, n, CQ_CHURN_ROUNDS)
-
-
-def alive_at_or_after(alive, start: int):
-    """The first alive node at or after ``start`` (cyclically), as a
-    device scalar: a query origin picked without a host read."""
-    import torch
-
-    from serf_tpu_torch.models.dissemination import first_argmax
-    n = alive.shape[0]
-    off = first_argmax(torch.roll(alive, -start).to(torch.uint8), 0)
-    return torch.remainder(off.to(torch.int64) + start, n)
-
-
-def cq_window(carry, cfg, ccfg, qcfg, key, rounds, plane=None,
-              origins=None, stream=None, mesh=None):
-    """``rounds`` composed steps from ``carry``; with ``origins``, a query
-    is launched before every CQ_QUERY_EVERY-th step (unfiltered and
-    tag-filtered in turn).  With ``stream`` (a DeviceEventStream) each
-    round's summary is pushed and the events are returned too.  On a
-    placed ``mesh`` the carry is placed (``shard_state`` of each part)
-    and each origin is picked from the shards' liveness gathered on
-    shard 0's card."""
-    from serf_tpu_torch import prng
-    from serf_tpu_torch.models.churn import composed_step, trace_step
-    from serf_tpu_torch.models.events import summarize
-    from serf_tpu_torch.models.query import (launch_query, no_filter_mask,
-                                             tag_filter_mask)
-    from serf_tpu_torch.parallel import placed
-    st, qs, cd, tr = carry
-    on_mesh = mesh is not None and mesh.placed
-    dev = placed.rep(st).gossip.alive.device
-    events = []
-    for r, k in enumerate(prng.split(key, rounds)):
-        if origins is not None and r % CQ_QUERY_EVERY == 0:
-            qn = r // CQ_QUERY_EVERY
-            eligible = (no_filter_mask(cfg.n, device=dev) if qn % 2 == 0
-                        else tag_filter_mask(plane, 0,
-                                             1 + (qn // 2) % CQ_TAG_VALUES))
-            g = placed.gossip_of(st) if on_mesh else st.gossip
-            alive = (placed.gather_all([x.alive for x in g.shards], dev)
-                     if on_mesh else g.alive)
-            g, qs, _ = launch_query(
-                g, qs, cfg.gossip, qcfg,
-                origin=alive_at_or_after(alive, int(origins[r])),
-                eligible=eligible)
-            st = placed.with_gossip(st, g) if on_mesh \
-                else st._replace(gossip=g)
-        st, qs, cd = composed_step(st, qs, cd, cfg, ccfg, qcfg, k,
-                                   mesh=mesh)
-        tr = trace_step(tr, st)
-        if stream is not None:
-            events += stream.push(summarize(st.gossip, cfg.gossip))
-    return (st, qs, cd, tr), events
-
-
-def cq_readouts(carry, cfg, plane) -> dict:
-    """The path's read-outs on the final carry: cluster stats, composed
-    views over CQ_VIEW_SUBJECTS seeded subjects (half drawn from the
-    nodes that went down, so that leave intents show; the SWIM plane's
-    belief is "believed dead by every alive node"), per-query responses
-    and acks, and the majority vote over the last query's responders
-    (votes: each node's interned tag value less one, CQ_TAG_VALUES
-    candidates)."""
-    import numpy as np
-    import torch
-
-    from serf_tpu_torch.models.failure import believed_dead
-    from serf_tpu_torch.models.membership import composed_views
-    from serf_tpu_torch.models.query import (majority_holds, majority_vote,
-                                             num_acks, num_responses,
-                                             responders)
-    from serf_tpu_torch.models.views import cluster_stats
-    st, qs, _, tr = carry
-    g = st.gossip
-    dev = g.alive.device
-    rng = np.random.default_rng(9)
-    down = np.flatnonzero(tr.ever_down.cpu().numpy())
-    picked = rng.choice(down, min(CQ_VIEW_SUBJECTS // 2, down.size),
-                        replace=False)
-    subjects = torch.from_numpy(np.concatenate([
-        picked, rng.integers(0, cfg.n, CQ_VIEW_SUBJECTS - picked.size)
-    ]).astype(np.int32)).to(dev)
-    dead = believed_dead(g, cfg.gossip, cfg.failure)[subjects.to(
-        torch.int64)]
-    views = composed_views(g, cfg.gossip, subjects,
-                           dead[None, :].expand(cfg.n, -1))
-    last_q = (CQ_CHURN_ROUNDS - 1) // CQ_QUERY_EVERY % 8
-    vote = majority_vote(plane[:, 0] - 1, responders(qs, last_q),
-                         CQ_TAG_VALUES)
-    stats = cluster_stats(g, cfg.gossip)
-    out = {f"stats.{f}": getattr(stats, f) for f in stats._fields}
-    out.update({"views": views, "responses": num_responses(qs),
-                "acks": num_acks(qs), "vote.winner": vote[0],
-                "vote.count": vote[1], "vote.total": vote[2],
-                "vote.holds": majority_holds(vote[1], vote[2])})
-    return {k: v.cpu().numpy() for k, v in out.items()}
-
-
-def carry_leaves(carry) -> dict:
-    """Every leaf of a carry as numpy (u32 leaves as uint32)."""
-    from serf_tpu_torch import convert
-    st, qs, cd, tr = carry
-    out = {f"cluster.{k}": v for k, v in convert.to_numpy(st).items()}
-    out.update({f"queries.{k}": v for k, v in convert.to_numpy(qs).items()})
-    out.update({f"trace.{k}": v for k, v in convert.to_numpy(tr).items()})
-    out["countdown"] = cd.cpu().numpy()
-    return out
-
-
-def cq_template(cfg, qcfg, device):
-    from serf_tpu_torch import prng
-    from serf_tpu_torch.models.churn import linger_init, trace_init
-    from serf_tpu_torch.models.query import make_queries
-    from serf_tpu_torch.models.swim import make_cluster
-    st = make_cluster(cfg, prng.key(0), device=device)
-    return (st, make_queries(cfg.gossip, qcfg, device=device),
-            linger_init(cfg.n, device=device), trace_init(st))
 
 
 def checkpoint_path(name: str):
@@ -1608,9 +1445,13 @@ def churn_query_vs_cpu(rk) -> None:
     from serf_tpu_torch import host_syncs, prng
     from serf_tpu_torch.models import checkpoint
     from serf_tpu_torch.models.events import DeviceEventStream
+    from serf_tpu_torch.tools.meshrun import (CQ_CHURN_ROUNDS, carry_leaves,
+                                              cq_configs, cq_readouts,
+                                              cq_start, cq_template,
+                                              cq_window)
     n = CQ_SMALL_N
-    cfg, ccfg, qcfg = cq_configs(n, raised=True)
-    _, settle_ccfg, _ = cq_configs(n, raised=True, settle=True)
+    cfg, ccfg, qcfg = cq_configs(n, raised=True, k=CQ_K)
+    _, settle_ccfg, _ = cq_configs(n, raised=True, settle=True, k=CQ_K)
     finals, reads, events, carries, syncs, gauges = {}, {}, {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
         carry, plane, origins = cq_start(cfg, qcfg, dev)
@@ -1704,12 +1545,15 @@ def churn_query_full(profile: bool = False) -> dict:
 
     from serf_tpu_torch import host_syncs, prng
     from serf_tpu_torch.models import checkpoint
-    from serf_tpu_torch.models.failure import believed_dead, \
-        detection_complete
     from serf_tpu_torch.ops import round_kernels as rk
-    cfg, ccfg, qcfg = cq_configs(CQ_N, raised=False)
-    _, settle_ccfg, _ = cq_configs(CQ_N, raised=False, settle=True)
-    settle = cfg.failure.suspicion_rounds * 2 + 80
+    from serf_tpu_torch.tools.meshrun import (CQ_CHURN_ROUNDS, carry_leaves,
+                                              cq_configs, cq_outcome,
+                                              cq_readouts, cq_settle_rounds,
+                                              cq_start, cq_template,
+                                              cq_window)
+    cfg, ccfg, qcfg = cq_configs(CQ_N, k=CQ_K)
+    _, settle_ccfg, _ = cq_configs(CQ_N, settle=True, k=CQ_K)
+    settle = cq_settle_rounds(cfg)
     t0 = time.perf_counter()
     carry, plane, origins = cq_start(cfg, qcfg, "cuda")
     torch.cuda.synchronize()
@@ -1733,19 +1577,16 @@ def churn_query_full(profile: bool = False) -> dict:
     launches = check_launches(rk, "churn-query", "phase 4", CQ_KERNELS)
 
     # the reference test's outcome checks
-    st, qs, _, tr = final
-    g = st.gossip
-    downs = int(tr.ever_down.sum())
+    outcome = cq_outcome(final, cfg)
+    downs = outcome["downs"]
     if downs <= 10:
         raise AssertionError(f"churn too quiet: {downs} down events")
-    if not bool(detection_complete(g, cfg.gossip, cfg.failure)):
+    if not outcome["detection_complete"]:
         raise AssertionError("down nodes not fully detected within the "
                              "settle window")
-    false_dead = int((believed_dead(g, cfg.gossip, cfg.failure)
-                      & tr.always_up).sum())
-    if false_dead:
-        raise AssertionError(f"{false_dead} false deaths among always-up "
-                             "nodes")
+    if outcome["false_dead"]:
+        raise AssertionError(f"{outcome['false_dead']} false deaths among "
+                             "always-up nodes")
     reads = cq_readouts(final, cfg, plane)
 
     # resume from the checkpoint into a fresh template
@@ -1771,8 +1612,8 @@ def churn_query_full(profile: bool = False) -> dict:
         churn_syncs=churn_syncs / CQ_CHURN_ROUNDS,
         settle_syncs=settle_syncs / settle, launches=launches,
         setup_s=setup_s, churn_s=churn_s, settle_s=settle_s,
-        settle=settle, downs=downs, reads=reads, profile=prof,
-        leaves=want)
+        rounds=CQ_CHURN_ROUNDS, settle=settle, downs=downs, reads=reads,
+        profile=prof, leaves=want)
 
 
 # -- phases 3 and 4: the chaos and record/replay paths ------------------------
@@ -5648,12 +5489,13 @@ def placed_churn_query(rk, cq: dict, devices, what: str, card: str) -> dict:
     ``PHASE13_P`` times as often as there, the host syncs a round equal,
     and the reference test's outcome checks on the placed run."""
     from serf_tpu_torch import host_syncs, prng
-    from serf_tpu_torch.models.failure import believed_dead, \
-        detection_complete
     from serf_tpu_torch.parallel.mesh import (gather_state, make_mesh,
                                               replicas_differ, shard_state)
-    cfg, ccfg, qcfg = cq_configs(CQ_N, raised=False)
-    _, settle_ccfg, _ = cq_configs(CQ_N, raised=False, settle=True)
+    from serf_tpu_torch.tools.meshrun import (CQ_CHURN_ROUNDS, carry_leaves,
+                                              cq_configs, cq_outcome,
+                                              cq_start, cq_window)
+    cfg, ccfg, qcfg = cq_configs(CQ_N, k=CQ_K)
+    _, settle_ccfg, _ = cq_configs(CQ_N, settle=True, k=CQ_K)
     settle = cq["settle"]
     mesh = make_mesh(devices=devices, placed=True)
     carry, plane, origins = cq_start(cfg, qcfg, devices[0])
@@ -5689,14 +5531,11 @@ def placed_churn_query(rk, cq: dict, devices, what: str, card: str) -> dict:
     if syncs != (cq["churn_syncs"], cq["settle_syncs"]):
         bad.append(f"host syncs a round {syncs}, the unsharded run's "
                    f"{(cq['churn_syncs'], cq['settle_syncs'])}")
-    st, _, _, tr = got
-    downs = int(tr.ever_down.sum())
-    false_dead = int((believed_dead(st.gossip, cfg.gossip, cfg.failure)
-                      & tr.always_up).sum())
-    if downs <= 10 or false_dead or not bool(detection_complete(
-            st.gossip, cfg.gossip, cfg.failure)):
-        bad.append(f"outcome: {downs} down, {false_dead} false deaths, "
-                   f"detection incomplete")
+    outcome = cq_outcome(got, cfg)
+    downs = outcome["downs"]
+    if downs <= 10 or outcome["false_dead"] or \
+            not outcome["detection_complete"]:
+        bad.append(f"outcome: {outcome}")
     if bad:
         raise AssertionError(f"phase 13 (a) {what}: " + "; ".join(bad))
     out = dict(launches=launches, syncs=syncs, churn_s=churn_s,
@@ -5749,7 +5588,11 @@ def placed_roundprof(rk, card: str) -> dict:
             f"{prof['devices']}, placement {prof['placement']}, "
             f"attributed_device_frac {frac} outside [{lo}, {hi}]")
     return dict(s=run["s"], frac=frac, wall_ms=w["wall_ms"],
-                busy_ms=w["device_busy_ms"])
+                busy_ms=w["device_busy_ms"], phases={
+                    r["phase"]: dict(launches=r["launches"],
+                                     host_reads=r["host_reads"])
+                    for r in prof["phases"]},
+                whole_host_reads=w["host_reads"])
 
 
 def placed_multichip_ab(rk, device: str, what: str, card: str) -> dict:
@@ -5974,11 +5817,20 @@ PHASE14_REPLAY = "replay:partition-heal-loss"
 #: 14 (e): a checkpoint at round 15 of the per-round flagship, saved on
 #: the group, restored there and resumed to round 30
 PHASE14_CKPT = f"checkpoint:{PLACED_CKPT_ROUND}"
+#: 14 (f): phase 4's churn-query path (BASELINE config #3 at its own
+#: scale, N = CQ_N, K = CQ_K) in the same rank group; (g): the round
+#: profiler over the group at N_MAIN, K_MAIN, the ring schedule, with
+#: ``roundprof``'s depths (phase 13 (b)'s)
+PHASE14_CQ = f"churn-query:n={CQ_N}:k={CQ_K}"
+PHASE14_PROFILE = "profile:ring"
 #: 14 (a): one rank's placed shards on cuda:0; (b): ranks at most
 PHASE14_LOCAL, PHASE14_MAX_RANKS = 4, 4
 #: wall seconds of one rank group, start to exit (over it its ranks are
-#: killed and the phase fails), and of the phase on one card
-PHASE14_RANKS_LIMIT_S, PHASE14_LIMIT_S = 300.0, 240.0
+#: killed and the phase fails), and of the phase on one card: about
+#: twice the predicted 165-220 s and 190-245 s with (f) and (g) (the
+#: ranks read 85.56 s and the phase 110.00 s without them, H100 80GB
+#: HBM3, 700 W)
+PHASE14_RANKS_LIMIT_S, PHASE14_LIMIT_S = 450.0, 500.0
 
 
 def rank_group(world: int, local: int, work) -> None:
@@ -5986,7 +5838,8 @@ def rank_group(world: int, local: int, work) -> None:
     world -m serf_tpu_torch.tools.meshrun`` at N_MAIN: every checked run
     of :data:`PHASE14_RUNS` (30 rounds from key 11, gathered to rank 0),
     the plans of :data:`PHASE14_PLANS`, :data:`PHASE14_REPLAY`,
-    :data:`PHASE14_CKPT` and the timed runs of :data:`PHASE14_TIMED`,
+    :data:`PHASE14_CKPT`, :data:`PHASE14_CQ`, :data:`PHASE14_PROFILE`
+    and the timed runs of :data:`PHASE14_TIMED`,
     each rank on its card over ``nccl`` with ``local`` placed shards,
     its files under ``work``.
     Raises if a rank exits non-zero, or if the group outlives
@@ -5999,7 +5852,8 @@ def rank_group(world: int, local: int, work) -> None:
            str(K_MAIN), "--local-shards", str(local), "--rounds",
            str(PLACED_ROUNDS), "--key", "11", "--runs",
            ",".join([*PHASE14_RUNS, *PHASE14_PLANS.values(),
-                     PHASE14_REPLAY, PHASE14_CKPT]),
+                     PHASE14_REPLAY, PHASE14_CKPT, PHASE14_CQ,
+                     PHASE14_PROFILE]),
            "--timed-runs", ",".join(PHASE14_TIMED),
            "--timeout-s", str(PHASE14_RANKS_LIMIT_S), "--out", str(work)]
     logf = work / "ranks.log"
@@ -6023,7 +5877,7 @@ def rank_group(world: int, local: int, work) -> None:
 
 
 def multiproc_checks(rk, world: int, local: int, placed12: dict,
-                     what: str) -> dict:
+                     cq: dict, tools13: dict, what: str) -> dict:
     """14 (a)/(b): :func:`rank_group`, then each checked run's state
     gathered to rank 0 against the unsharded run of the same config on
     cuda:0 in this process: every integer leaf equal and the floats
@@ -6032,9 +5886,11 @@ def multiproc_checks(rk, world: int, local: int, placed12: dict,
     those of phase 12's placed run (a shard of the chaos run: the
     unsharded run's), each rank's host syncs the unsharded run's, the
     replicated leaves equal on every rank's shards; then the same rank
-    group's (d) chaos plans and replay (:func:`multiproc_chaos`) and (e)
-    checkpoint (:func:`multiproc_checkpoint`).  The rank group's files
-    are removed at the end."""
+    group's (d) chaos plans and replay (:func:`multiproc_chaos`), (e)
+    checkpoint (:func:`multiproc_checkpoint`), (f) churn-query against
+    phase 4's run ``cq`` (:func:`multiproc_churn_query`) and (g) profile
+    against phase 13 (b)'s in ``tools13`` (:func:`multiproc_profile`).
+    The rank group's files are removed at the end."""
     import shutil
 
     import numpy as np
@@ -6078,8 +5934,7 @@ def multiproc_checks(rk, world: int, local: int, placed12: dict,
         fname = meshrun._name(spec)
         with np.load(work / f"{fname}.npz") as z:
             got = {k: z[k] for k in z.files}
-        ranks = [json.loads((work / f"{fname}.rank{r}.json").read_text())
-                 for r in range(world)]
+        ranks = rank_files(work, spec, world)
         tag = f"{what} {spec} n={N_MAIN} {world} rank(s) x {local} shard(s)"
         diff = [k for k in want if want[k].dtype != got[k].dtype
                 or not np.array_equal(want[k], got[k])]
@@ -6116,6 +5971,9 @@ def multiproc_checks(rk, world: int, local: int, placed12: dict,
                          .read_text())["rps"] for spec in PHASE14_TIMED}
     out["chaos"] = multiproc_chaos(rk, world, local, work, placed12, what)
     out["checkpoint"] = multiproc_checkpoint(rk, world, local, work, what)
+    out["churn_query"] = multiproc_churn_query(world, local, work, cq,
+                                               tools13, what)
+    out["profile"] = multiproc_profile(world, local, work, tools13, what)
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -6129,9 +5987,8 @@ def group_files(work, spec: str, world: int) -> dict:
     from serf_tpu_torch.replay.recording import load_recording
     from serf_tpu_torch.tools import meshrun
     name = meshrun._name(spec)
-    out = dict(rec=load_recording(work / f"{name}.jsonl"), ranks=[
-        json.loads((work / f"{name}.rank{r}.json").read_text())
-        for r in range(world)])
+    out = dict(rec=load_recording(work / f"{name}.jsonl"),
+               ranks=rank_files(work, spec, world))
     if spec.startswith("plan:"):
         with np.load(work / f"{name}.npz") as z:
             out["leaves"] = {k: z[k] for k in z.files}
@@ -6337,8 +6194,7 @@ def multiproc_checkpoint(rk, world: int, local: int, work,
     st0, _ = seeded_state(cfg, "cuda")
     k1, k2 = meshrun.checkpoint_keys(11)
     name = meshrun._name(PHASE14_CKPT)
-    ranks = [json.loads((work / f"{name}.rank{r}.json").read_text())
-             for r in range(world)]
+    ranks = rank_files(work, PHASE14_CKPT, world)
     group_file = ranks[0]["file"]
     flat = checkpoint_path("phase14-flat.npz")
 
@@ -6397,6 +6253,165 @@ def multiproc_checkpoint(rk, world: int, local: int, work,
                 syncs=r0["syncs"], unsharded=run0)
 
 
+def rank_files(work, spec: str, world: int) -> list:
+    """Every rank's stats of a ``meshrun`` run under ``work``."""
+    from serf_tpu_torch.tools import meshrun
+    name = meshrun._name(spec)
+    return [json.loads((work / f"{name}.rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def multiproc_churn_query(world: int, local: int, work, cq: dict,
+                          tools13: dict, what: str) -> dict:
+    """14 (f): the rank group's :data:`PHASE14_CQ` run (phase 4's path:
+    30 churned rounds with six queries, then the settle window) against
+    phase 4's unsharded run ``cq``: the carry gathered to rank 0 equal on
+    every leaf, its read-outs equal, the reference test's outcome checks
+    on it; on every rank the replicas equal, launches ``local`` x phase
+    4's, host syncs a round phase 4's, the same query origins and folded
+    views; rounds/s per window logged beside phase 4's and phase 13
+    (a)'s."""
+    import numpy as np
+
+    from serf_tpu_torch.tools import meshrun
+    card = card_line()
+    name = meshrun._name(PHASE14_CQ)
+    with np.load(work / f"{name}.npz") as z:
+        leaves = {k: z[k] for k in z.files}
+    with np.load(work / f"{name}.readouts.npz") as z:
+        reads = {k: z[k] for k in z.files}
+    ranks = rank_files(work, PHASE14_CQ, world)
+    tag = (f"(f) {what} churn-query n={CQ_N} k={CQ_K} {world} rank(s) x "
+           f"{local} shard(s)")
+    bad = [p for p, x in cq["leaves"].items()
+           if p not in leaves or x.dtype != leaves[p].dtype
+           or x.tobytes() != leaves[p].tobytes()]
+    bad += [f"read-out {k}" for k, x in cq["reads"].items()
+            if k not in reads or not np.array_equal(x, reads[k])]
+    want = {k: local * v for k, v in cq["launches"].items()}
+    rounds, settle = cq["rounds"], cq["settle"]
+    for r in ranks:
+        syncs = (r["syncs"][0] / rounds, r["syncs"][1] / settle)
+        if r["rounds"] != [rounds, settle]:
+            bad.append(f"rank {r['rank']} ran {r['rounds']} rounds")
+        if r["launches"] != want:
+            bad.append(f"rank {r['rank']} launched {r['launches']}, want "
+                       f"{local} x phase 4's {cq['launches']}")
+        if syncs != (cq["churn_syncs"], cq["settle_syncs"]):
+            bad.append(f"rank {r['rank']} host syncs a round {syncs}, "
+                       f"phase 4's {(cq['churn_syncs'], cq['settle_syncs'])}")
+        if r["replicas"]:
+            bad.append(f"rank {r['rank']} replicas differ {r['replicas']}")
+        if r["backend"] != "nccl" or r["world"] != world:
+            bad.append(f"rank {r['rank']} ran over {r['backend']} in a "
+                       f"world of {r['world']}")
+    for key in ("origins", "acks", "responses", "responders_sha256"):
+        if len({json.dumps(r[key]) for r in ranks}) != 1:
+            bad.append(f"the ranks' {key} differ")
+    if ranks[0]["acks"] != cq["reads"]["acks"].tolist() or \
+            ranks[0]["responses"] != cq["reads"]["responses"].tolist():
+        bad.append("the group's folded views differ from phase 4's")
+    out = ranks[0]["outcome"]
+    if out["downs"] <= 10 or out["false_dead"] or \
+            not out["detection_complete"]:
+        bad.append(f"outcome {out}")
+    if bad:
+        raise AssertionError(f"phase 14 {tag}: " + "; ".join(bad))
+    r0, p13 = ranks[0], tools13["churn_query"]
+    rps = r0["rps"]
+    log(f"phase 14 {tag} over nccl, ranks on "
+        f"{[r['device'] for r in ranks]}: {rounds} churned + {settle} "
+        f"settle rounds, all {len(leaves)} carry leaves and the read-outs "
+        f"equal to phase 4's, replicas, origins and folded views equal on "
+        f"every rank, {out['downs']} down, detection complete, 0 false "
+        f"deaths; launches a rank {json.dumps(r0['launches'])} ({local} x "
+        f"phase 4's); host syncs a round churn {r0['syncs'][0] / rounds:.2f}"
+        f" / settle {r0['syncs'][1] / settle:.2f} on every rank (phase 4's);"
+        f" rounds/s churn {rps[0]:.2f} / settle {rps[1]:.2f} against phase "
+        f"4's unsharded {cq['churn_rps']:.2f} / {cq['settle_rps']:.2f} "
+        f"({rps[0] / cq['churn_rps']:.2f} / "
+        f"{rps[1] / cq['settle_rps']:.2f}) and phase 13 (a)'s placed "
+        f"{p13['churn_rps']:.2f} / {p13['settle_rps']:.2f}; "
+        f"{r0['s'][0]:.3f} + {r0['s'][1]:.3f} s ({card})")
+    return dict(launches=r0["launches"], rps=rps, s=r0["s"],
+                syncs=r0["syncs"])
+
+
+def multiproc_profile(world: int, local: int, work, tools13: dict,
+                      what: str) -> dict:
+    """14 (g): the rank group's :data:`PHASE14_PROFILE` run
+    (``profile_round`` at N_MAIN over the group, ring schedule) against
+    phase 13 (b)'s in-process placed ``roundprof --mesh 4 --placed``:
+    its phases, each phase's launches a rank ``local / PHASE13_P`` x
+    phase 13 (b)'s and its host reads equal, ``placement`` "processes"
+    over ``world x local`` shards, every rank's attribution fraction in
+    ATTRIBUTION_BAND and every rank's card in the busy times by device;
+    each phase's slowest-rank wall and every card's busy ms logged (the
+    collectives' kernels included)."""
+    card = card_line()
+    ranks = rank_files(work, PHASE14_PROFILE, world)
+    prof = ranks[0]["profile"]
+    p13 = tools13["roundprof"]
+    lo, hi = ATTRIBUTION_BAND
+    tag = (f"(g) {what} profile_round n={N_MAIN} k={K_MAIN} ring {world} "
+           f"rank(s) x {local} shard(s)")
+    bad = []
+    if [r["phase"] for r in prof["phases"]] != list(p13["phases"]):
+        bad.append(f"phases {[r['phase'] for r in prof['phases']]}")
+    if prof["placement"] != "processes" or \
+            prof["devices"] != world * local:
+        bad.append(f"placement {prof['placement']} over "
+                   f"{prof['devices']} shards")
+    fracs = prof.get("attributed_device_frac_by_rank") or []
+    if len(fracs) != world or any(f is None or not lo <= f <= hi
+                                  for f in fracs):
+        bad.append(f"attributed_device_frac by rank {fracs} outside "
+                   f"[{lo}, {hi}]")
+    for r in ranks:
+        mine = r["profile"]
+        if mine["attributed_device_frac"] != fracs[r["rank"]]:
+            bad.append(f"rank {r['rank']}'s own fraction "
+                       f"{mine['attributed_device_frac']} is not its "
+                       f"entry in the group's")
+        for row in mine["phases"]:
+            p = p13["phases"].get(row["phase"])
+            if p is None:
+                continue
+            want = {k: v * local / PHASE13_P
+                    for k, v in p["launches"].items()}
+            if row["launches"] != want or \
+                    row["host_reads"] != p["host_reads"]:
+                bad.append(f"rank {r['rank']} {row['phase']}: launches "
+                           f"{row['launches']} (want {want}), host reads "
+                           f"{row['host_reads']} (phase 13 (b) "
+                           f"{p['host_reads']})")
+        named = f"rank{r['rank']}:{r['device']}"
+        for row in [*prof["phases"], prof["whole_round"]]:
+            if named not in row["device_busy_ms_by_device"]:
+                bad.append(f"{row.get('phase', 'whole round')}: no busy "
+                           f"time of {named}")
+                break
+    if bad:
+        raise AssertionError(f"phase 14 {tag}: " + "; ".join(bad))
+    w = prof["whole_round"]
+    log(f"phase 14 {tag} over nccl: placement {prof['placement']}, "
+        f"{prof['devices']} shards, attributed_device_frac by rank "
+        f"{fracs} in [{lo}, {hi}]; whole round {w['wall_ms']:.3f} ms wall "
+        f"(the slowest rank's), device busy by card "
+        f"{json.dumps(w['device_busy_ms_by_device'])} (the collectives' "
+        f"kernels included), {w['host_reads']:.2f} host reads a round; "
+        f"phase 13 (b)'s placed run {p13['wall_ms']:.3f} ms wall / "
+        f"{p13['busy_ms']:.3f} ms busy; the ranks' seconds "
+        f"{[round(r['s'], 2) for r in ranks]} ({card})")
+    for row in prof["phases"]:
+        log(f"phase 14 (g)   {row['phase']}: wall {row['wall_ms']:.3f} ms "
+            f"(the slowest rank's), device busy by card "
+            f"{json.dumps(row['device_busy_ms_by_device'])}, host reads "
+            f"{row['host_reads']:.2f}, launches {json.dumps(row['launches'])}")
+    return dict(fracs=fracs, wall_ms=w["wall_ms"],
+                busy=w["device_busy_ms_by_device"], s=ranks[0]["s"])
+
+
 def log_multiproc_timing(res: dict, placed12: dict, world: int,
                          what: str, card: str) -> None:
     """14 (c): rounds/s of the multi-process runs beside phase 12's
@@ -6416,7 +6431,7 @@ def log_multiproc_timing(res: dict, placed12: dict, world: int,
             f"{meshrun.WARM_ROUNDS}; {card})")
 
 
-def multiproc_full(rk, placed12: dict) -> dict:
+def multiproc_full(rk, placed12: dict, cq: dict, tools13: dict) -> dict:
     """Phase 14: the flagship rounds, the chaos plans, a replay and a
     checkpoint on a mesh that spans processes, rank processes started by
     ``torch.distributed.run`` after phase 1 built the kernels.  (a) one
@@ -6424,18 +6439,22 @@ def multiproc_full(rk, placed12: dict) -> dict:
     cuda:0; (b) with two or more cards, ``min(count, 4)`` ranks, one a
     card, one shard each; both checked by :func:`multiproc_checks` (the
     flagships; (d) :func:`multiproc_chaos`, (e)
-    :func:`multiproc_checkpoint`) and (c) timed
+    :func:`multiproc_checkpoint`, (f) :func:`multiproc_churn_query`
+    against phase 4's ``cq``, (g) :func:`multiproc_profile` against
+    phase 13's ``tools13``) and (c) timed
     (:func:`log_multiproc_timing`)."""
     import torch
     card = card_line()
     t0 = time.perf_counter()
-    out = {"one": multiproc_checks(rk, 1, PHASE14_LOCAL, placed12,
-                                   "(a) one card")}
+    out = {"one": multiproc_checks(rk, 1, PHASE14_LOCAL, placed12, cq,
+                                   tools13, "(a) one card")}
     log_multiproc_timing(out["one"], placed12, 1, "one card", card)
     out["s"] = time.perf_counter() - t0
     one = out["one"]
-    log(f"phase 14 (a), (d) and (e) on one card: {out['s']:.2f} s, the "
-        f"ranks {one['ranks_s']:.2f} s of it; the checks of (d) "
+    log(f"phase 14 (a), (d)-(g) on one card: {out['s']:.2f} s, the "
+        f"ranks {one['ranks_s']:.2f} s of it ((f) "
+        f"{sum(one['churn_query']['s']):.2f} s of windows, (g) "
+        f"{one['profile']['s']:.2f} s); the checks of (d) "
         f"{one['chaos']['s']:.2f} s and (e) {one['checkpoint']['s']:.2f} s "
         f"in this process ({card})")
     if out["s"] > PHASE14_LIMIT_S:
@@ -6448,10 +6467,10 @@ def multiproc_full(rk, placed12: dict) -> dict:
         return out
     w = min(count, PHASE14_MAX_RANKS)
     t1 = time.perf_counter()
-    out["spread"] = multiproc_checks(rk, w, 1, placed12,
+    out["spread"] = multiproc_checks(rk, w, 1, placed12, cq, tools13,
                                      f"(b) {w} cards")
     log_multiproc_timing(out["spread"], placed12, w, f"{w} cards", card)
-    log(f"phase 14 (b), (d) and (e) on {w} cards: "
+    log(f"phase 14 (b), (d)-(g) on {w} cards: "
         f"{time.perf_counter() - t1:.2f} s, the ranks "
         f"{out['spread']['ranks_s']:.2f} s of it ({card})")
     return out
@@ -6543,7 +6562,7 @@ def main() -> int:
     mark("phase 12 placed mesh")
     tools13 = placed_tools_full(rk, cq)
     mark("phase 13 placed churn-query and mesh tools")
-    procs14 = multiproc_full(rk, placed)
+    procs14 = multiproc_full(rk, placed, cq, tools13)
     mark("phase 14 the mesh over processes")
     for path, run in runs.items():
         log(f"{path} rounds_per_s: {run['rps']:.2f}")
@@ -6569,7 +6588,7 @@ def main() -> int:
         f"settle_rounds_per_s: {cq['settle_rps']:.2f}")
     log(f"churn-query host_syncs_per_round: churn {cq['churn_syncs']:.2f} "
         f"settle {cq['settle_syncs']:.2f}")
-    log(f"churn-query launches ({CQ_CHURN_ROUNDS} + {cq['settle']} "
+    log(f"churn-query launches ({cq['rounds']} + {cq['settle']} "
         f"rounds): "
         f"{json.dumps(cq['launches'])}")
     log(f"churn-query setup_s: {cq['setup_s']:.2f} churn_s: "
@@ -6669,6 +6688,7 @@ def main() -> int:
             runs14[PHASE14_REPLAY] = \
                 res["chaos"]["chaos-heal"]["replay"][0]["launches"]
             runs14[PHASE14_CKPT] = res["checkpoint"]["launches"]
+            runs14[PHASE14_CQ] = res["churn_query"]["launches"]
             for spec, launches in runs14.items():
                 shard_launches[f"phase 14 {part} rank 0 {spec}"] = launches
     shard_times = placed["times"]

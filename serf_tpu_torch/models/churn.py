@@ -176,9 +176,9 @@ def composed_step(state: ClusterState, qstate, countdown: torch.Tensor,
     the leave countdown, then the expired leavers go dark.  Returns
     ``(state, qstate, countdown)``.  On a placed mesh the three are
     ``PlacedState``s (``parallel.mesh.shard_state`` of each) and every
-    phase runs across the shards (:func:`_composed_step_placed`)."""
-    from serf_tpu_torch.parallel.mesh import refuse_processes
-    refuse_processes(mesh, "processes-churn-query", "composed_step")
+    phase runs across the shards (:func:`_composed_step_placed`); on a
+    mesh that spans processes each rank steps its own shards, every read
+    of another rank's rows a collective."""
     k_churn, k_round, k_query = prng.split(key, 3)
     if mesh is not None and mesh.placed:
         return _composed_step_placed(state, qstate, countdown, cfg, ccfg,

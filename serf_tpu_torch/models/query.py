@@ -295,7 +295,7 @@ def gathered(qstate: QueryState, senders: torch.Tensor,
 
 def num_acks(qstate: QueryState) -> torch.Tensor:
     """i32[Q] acks received per query (a placed state: summed over the
-    shards on shard 0's device)."""
+    shards on shard 0's device, over a group on every rank)."""
     if isinstance(qstate, PlacedState):
         from serf_tpu_torch.parallel import placed
         return placed.fold_queries(qstate, num_acks)
@@ -304,7 +304,7 @@ def num_acks(qstate: QueryState) -> torch.Tensor:
 
 def num_responses(qstate: QueryState) -> torch.Tensor:
     """i32[Q] responses received per query (a placed state: summed over
-    the shards on shard 0's device)."""
+    the shards on shard 0's device, over a group on every rank)."""
     if isinstance(qstate, PlacedState):
         from serf_tpu_torch.parallel import placed
         return placed.fold_queries(qstate, num_responses)
@@ -313,11 +313,12 @@ def num_responses(qstate: QueryState) -> torch.Tensor:
 
 def responders(qstate: QueryState, qi) -> torch.Tensor:
     """bool[N]: nodes whose response reached the origin for query ``qi``
-    (a placed state: the shards' columns joined on shard 0's device)."""
+    (a placed state: the shards' columns joined on shard 0's device, over
+    a group all-gathered)."""
     if isinstance(qstate, PlacedState):
         from serf_tpu_torch.parallel import placed
-        return placed.gather_all([q.responded[qi] for q in qstate.shards],
-                                 qstate.mesh.device)
+        return placed.query_layout(qstate).gather_all(
+            [q.responded[qi] for q in qstate.shards], qstate.mesh.device)
     return qstate.responded[qi]
 
 

@@ -42,7 +42,12 @@ across ``WHOLE_ROUNDS`` consecutive rounds (the cadences' common period
 at the flagship's 5 and 16).  Near 1 means the named phases account for
 the round's device time; far from 1, a phase is missing or is measured
 out of its round context.  On the CPU the same arithmetic runs on CPU
-self time.
+self time.  Collective kernels (``nccl*``, on a mesh that spans
+processes) count in every busy time but in neither of the check's sums:
+a collective's kernel runs until the slowest rank reaches it, so its
+time is mostly that wait, set by how the ranks drift in a window and
+not by the phase (with it, four ranks on four H100s read 1.01-1.26 in
+one profile, the phases' own kernels in the same band as one card's).
 
 On a deferred config the warm-up ends on a cohort's last round, so that
 the isolated merge is a flush (the byte model's per-occurrence merge
@@ -281,7 +286,9 @@ def reading(prof, on_cuda: bool) -> Dict[str, Any]:
     - ``busy_ms_by_device``: the kernels' device time on each card (on
       the CPU: ``{"cpu": device_busy_ms}``).  Over distinct cards the
       round's device time is the largest of them, not their sum, so
-      ``device_busy_ms`` is that maximum there.
+      ``device_busy_ms`` is that maximum there;
+    - ``collective_ms``: the device time of the collectives' kernels
+      (``nccl*``) among them.
     """
     kernels, ops = [], []
     stream_syncs = h2d_pageable = d2h_pageable = 0
@@ -306,6 +313,7 @@ def reading(prof, on_cuda: bool) -> Dict[str, Any]:
     kernels.sort(reverse=True)
     ops.sort(reverse=True)
     busy_ms = (sum(r[0] for r in kernels) if on_cuda else cpu_self_us) / 1e3
+    collective_ms = sum(r[0] for r in kernels if "nccl" in r[1].lower()) / 1e3
     waits: Dict[str, int] = {}
     by_device: Dict[str, float] = {}
     for ev in prof.events():
@@ -333,7 +341,7 @@ def reading(prof, on_cuda: bool) -> Dict[str, Any]:
                 for us, k, c in rows[:15]]
 
     return dict(device_busy_ms=busy_ms, busy_ms_by_device=by_device,
-                stream_syncs=stream_syncs,
+                collective_ms=collective_ms, stream_syncs=stream_syncs,
                 waits=waits, blocking_copies=waits.get("aten::to", 0),
                 h2d_pageable=h2d_pageable, d2h_pageable=d2h_pageable,
                 kernels=table(kernels), ops=table(ops))
@@ -400,12 +408,20 @@ def warm_tracer(device: torch.device) -> None:
             torch.cuda.synchronize(device)
 
 
-def _timed_ms(calls: List[Callable[[], Any]], device) -> float:
+def _timed_ms(calls: List[Callable[[], Any]], device,
+              group: bool = False) -> float:
     """Mean ms per call of ``calls``: CUDA events around them on the
     card, the host clock on the CPU.  ``device`` may list a placed
     mesh's cards: a pair of events on each, and the longest pair is the
-    calls' time (the cards work side by side)."""
+    calls' time (the cards work side by side).  ``group``: every rank
+    of the process group starts its window after a barrier, so that
+    one rank's late start is not another's wall (this rank's ms; the
+    caller takes the slowest rank's)."""
     devices = _distinct(device)
+    if group:
+        from serf_tpu_torch.parallel import group as grp
+        _sync(devices)
+        grp.barrier()
     if devices[0].type == "cuda":
         _sync(devices)
         pairs = []
@@ -430,33 +446,73 @@ def _timed_ms(calls: List[Callable[[], Any]], device) -> float:
     return (time.perf_counter() - t0) * 1e3 / len(calls)
 
 
-def _measure(calls, device, cpu_ops: bool = True) -> Dict[str, Any]:
+def _any_rank(flag: bool, device, group: bool) -> bool:
+    """``flag`` of this rank, or over a group whether any rank's is set
+    (an integer MAX all-reduce, so that every rank takes the same
+    branch)."""
+    if not group:
+        return flag
+    from serf_tpu_torch import host_bool
+    from serf_tpu_torch.parallel import group as grp
+    dev = _distinct(device)[0]
+    return host_bool(grp.all_reduce(torch.full(
+        (), int(flag), dtype=torch.int32, device=dev), "max") > 0)
+
+
+def _slowest_ms(ms: float, device) -> float:
+    """The largest of every rank's ``ms`` (an all-gather of each rank's
+    float: a gather, not a reduction)."""
+    from serf_tpu_torch import host_copy
+    from serf_tpu_torch.parallel import group as grp
+    dev = _distinct(device)[0]
+    every = grp.all_gather(torch.full((1,), ms, dtype=torch.float64,
+                                      device=dev))
+    return float(host_copy(every).max())
+
+
+def _by_rank(by_device: Dict[str, float]) -> Dict[str, float]:
+    """Every rank's busy time by device, keyed ``rank<r>:<device>``."""
+    from serf_tpu_torch.parallel import group as grp
+    return {f"rank{r}:{d}": v
+            for r, ranks in enumerate(grp.all_gather_object(by_device))
+            for d, v in ranks.items()}
+
+
+def _measure(calls, device, cpu_ops: bool = True,
+             group: bool = False) -> Dict[str, Any]:
     """One phase (or the whole round): wall per call, then counted host
     reads and launches per call over the same calls, then device busy
     time, stream syncs and pageable host-to-device copies per call under
     the profiler, and with ``cpu_ops`` (see :func:`profiled`) the
-    blocking copies."""
+    blocking copies.  ``group``: every rank of the process group runs
+    the same calls; the wall is the slowest rank's and the busy time by
+    device every rank's (the rest stays this rank's)."""
     from serf_tpu_torch import host_syncs
     from serf_tpu_torch.ops import round_kernels as rk
 
     n = len(calls)
     before = dict(rk.LAUNCHES)
     s0 = host_syncs()
-    wall = _timed_ms(calls, device)
+    wall = _timed_ms(calls, device, group)
     reads = (host_syncs() - s0) / n
     launches = {k: (v - before[k]) / n for k, v in rk.LAUNCHES.items()
                 if v != before[k]}
     for _ in range(LOST_WINDOW_TRIES):
         _, rd = profiled(lambda: [c() for c in calls], device,
                          cpu_ops=cpu_ops)
-        # every phase of the round runs device work, so a card window
-        # with no kernel record lost its records (seen on an H100 even
-        # behind the start-up fence): profile the same calls again
-        if _distinct(device)[0].type != "cuda" or rd["device_busy_ms"] > 0:
+        # every phase of the round runs device work, so a window with no
+        # busy time lost its records (seen on an H100 even behind the
+        # start-up fence): profile the same calls again, on every rank
+        # of a group when any rank lost its window (the calls hold
+        # collectives)
+        if not _any_rank(rd["device_busy_ms"] <= 0, device, group):
             break
+    by_device = {d: v / n for d, v in rd["busy_ms_by_device"].items()}
+    if group:
+        wall, by_device = _slowest_ms(wall, device), _by_rank(by_device)
     out = dict(wall_ms=wall, device_busy_ms=rd["device_busy_ms"] / n,
-               busy_ms_by_device={d: v / n for d, v in
-                                  rd["busy_ms_by_device"].items()},
+               collective_ms=rd["collective_ms"] / n,
+               busy_ms_by_device=by_device,
                host_reads=reads, h2d_pageable=rd["h2d_pageable"] / n,
                stream_syncs=rd["stream_syncs"] / n, launches=launches)
     if cpu_ops:
@@ -481,7 +537,16 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
     placed mesh (``placement`` in the output) each phase is
     ``parallel.placed``'s, the timings synchronize every shard's card,
     and the device time of a window over distinct cards is the busiest
-    card's (``device_busy_ms_by_device`` has each card's).
+    card's (``device_busy_ms_by_device`` has each card's).  On a mesh
+    that spans processes (``placement`` ``"processes"``) every rank
+    calls this alike and runs each phase's window after a barrier; each
+    ``wall_ms`` is the slowest rank's, ``device_busy_ms_by_device`` has
+    every rank's cards (``rank<r>:<card>``), and
+    ``attributed_device_frac_by_rank`` every rank's fraction beside this
+    rank's ``attributed_device_frac`` (rank 0's is the profile's; the
+    check leaves the collectives' kernels out, as the module docstring
+    says); the busy times, the collectives' kernels included, the reads
+    and the launches are this rank's.
     ``whole_rounds`` is the depth of the whole-round measurement
     the attribution check divides by (keep the cadences' common period
     for the check to mean anything).  Returns the JSON-ready dict of the
@@ -495,8 +560,8 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
     from serf_tpu_torch.models.swim import sustained_round
     from serf_tpu_torch.obs.device import dispatch_timer
 
-    from serf_tpu_torch.parallel.mesh import placement, refuse_processes
-    refuse_processes(mesh, "processes-profiler", "profile_round")
+    from serf_tpu_torch.parallel.mesh import placement, spans_processes
+    group = spans_processes(mesh)
     n_devices = 1
     if mesh is not None:
         from serf_tpu_torch.parallel.mesh import shards
@@ -534,14 +599,18 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
 
     key = prng.key(5)
     rows: List[Dict[str, Any]] = []
+    # each phase's collective kernel ms a call, left out of the check
+    collective: Dict[str, float] = {}
     phases = (_placed_phase_callables if mesh is not None and mesh.placed
               else _phase_callables)
     for name, fn, args in phases(state, cfg, events_per_round, mesh=mesh,
                                  schedule=schedule):
         with dispatch_timer(f"profile.{name}", signature=cfg.n):
             fn(*args, key=key)                          # warm dispatch
-        m = _measure([lambda: fn(*args, key=key)] * timed_calls, devs)
+        m = _measure([lambda: fn(*args, key=key)] * timed_calls, devs,
+                     group=group)
         busy = m["device_busy_ms"]
+        collective[name] = m["collective_ms"]
         occ = model_occur.get(name, 0.0)
         rows.append({
             "phase": name,
@@ -575,7 +644,8 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
     t2 = time.perf_counter()
     # the long window records the CUDA activity alone (its reading is
     # the kernels, the syncs and the pageable copies)
-    whole = _measure([step(k) for k in keys], devs, cpu_ops=False)
+    whole = _measure([step(k) for k in keys], devs, cpu_ops=False,
+                     group=group)
     box[0] = state
     t3 = time.perf_counter()
 
@@ -591,8 +661,10 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
         r["excess"] = round(r["wall_share"] / max(byte_share, 1e-4), 2)
         if anomaly is None or r["excess"] > anomaly["excess"]:
             anomaly = r
-    attributed = sum(r["device_busy_ms"] * r["cadence"] for r in rows)
+    attributed = sum((r["device_busy_ms"] - collective[r["phase"]])
+                     * r["cadence"] for r in rows)
     whole_busy = whole["device_busy_ms"]
+    whole_own = whole_busy - whole["collective_ms"]
     # per-phase model bytes on a mesh are per shard (the planes are
     # node-sharded), as the reference's are per chip
     if n_devices > 1:
@@ -600,6 +672,11 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
             r["model_bytes"] = round(r["model_bytes"] / n_devices, 1)
             r["model_amortized_bytes"] = round(
                 r["model_amortized_bytes"] / n_devices, 1)
+    frac = round(attributed / whole_own, 4) if whole_own > 0 else None
+    by_rank = {}
+    if group:
+        every = _all_fracs(frac, dev)
+        by_rank["attributed_device_frac_by_rank"] = every
     return {
         "n": cfg.n,
         "k": cfg.gossip.k_facts,
@@ -637,8 +714,8 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
                 report.ceiling_rounds_per_sec(hbm_bytes_per_s), 1),
         },
         # the attribution self-check (module docstring)
-        "attributed_device_frac": round(attributed / whole_busy, 4)
-        if whole_busy > 0 else None,
+        "attributed_device_frac": frac,
+        **by_rank,
         "anomalous_phase": {
             "phase": anomaly["phase"], "excess": anomaly["excess"],
             "reason": "wall share exceeds byte share by this factor — "
@@ -649,6 +726,16 @@ def profile_round(cfg, events_per_round: int = 2, timed_calls: int = 3,
         "seconds": {"warm": round(t1 - t0, 3), "phases": round(t2 - t1, 3),
                     "whole": round(t3 - t2, 3)},
     }
+
+
+def _all_fracs(frac: Optional[float], dev) -> List[Optional[float]]:
+    """Every rank's attribution fraction, in rank order."""
+    from serf_tpu_torch import host_copy
+    from serf_tpu_torch.parallel import group as grp
+    every = grp.all_gather(torch.full(
+        (1,), float("nan") if frac is None else frac, dtype=torch.float64,
+        device=dev))
+    return [None if v != v else v for v in host_copy(every).tolist()]
 
 
 def _rounded(by_device: Dict[str, float]) -> Dict[str, float]:

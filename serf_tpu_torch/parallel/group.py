@@ -6,10 +6,11 @@ each rank calls it at the same point with a tensor of the same shape
 and dtype, on its own device.  ``parallel.placed``'s group layout,
 ``parallel.mesh``'s gather and replica check, and the checkpoint's
 save (rank 0 writes, every rank waits at :func:`barrier`) are its
-callers.  Booleans travel as ``uint8`` views, and reductions take
-integer tensors only: integer sums, maxima and minima are exact in any
-order, so every rank holds the same answer (a float partial would not
-be; none is reduced).
+callers, and so are the profiler's read-outs (the slowest rank's wall
+from an all-gather, every rank's busy time by card).  Booleans travel
+as ``uint8`` views, and reductions take integer tensors only: integer
+sums, maxima and minima are exact in any order, so every rank holds the
+same answer (a float partial would not be; none is reduced).
 """
 
 from __future__ import annotations
@@ -54,6 +55,15 @@ def all_gather(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
     dist.all_gather(parts, w)
     out = torch.cat(parts, dim=dim)
     return out.view(torch.bool) if t.dtype == torch.bool else out
+
+
+def all_gather_object(obj) -> list:
+    """Every rank's picklable ``obj``, in rank order (a host-side
+    read-out, never a round's state)."""
+    dist = _dist()
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def all_reduce(t: torch.Tensor, op: str) -> torch.Tensor:

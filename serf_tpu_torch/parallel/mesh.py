@@ -36,8 +36,9 @@ A :class:`Mesh` takes one of two forms:
   :func:`gather_state` all-gathers every rank's rows and
   :func:`replicas_differ` holds every rank's replicas to rank 0's
   (``parallel.group``).  The flagship rounds, the chaos executor,
-  record/replay and checkpoint run on it; the paths in
-  :data:`LATER_SLICES` raise on it (:func:`refuse_processes`).
+  record/replay, checkpoint, the churn-query step and the profiler run
+  on it; the paths in :data:`LATER_SLICES` (the mesh tools) raise on it
+  (:func:`refuse_processes`).
 
 The placement rule (:func:`partition_specs`) is the reference's, kept as
 data: a leaf shards on axis 0, on axis 1 (the ``[Q, N]`` query planes,
@@ -54,11 +55,6 @@ NODE_AXIS = "nodes"
 #: of their slices; each raises ``NotImplementedError`` naming its slice
 #: (:func:`refuse_processes`)
 LATER_SLICES = {
-    "processes-churn-query": "the churn-query step (churn.composed_step, "
-                             "the placed churn round, query launch and "
-                             "gather) on a mesh that spans processes",
-    "processes-profiler": "the round profiler (obs.profile.profile_round) "
-                          "on a mesh that spans processes",
     "processes-tools": "the four mesh tools (roundprof --mesh, "
                        "multichip_ab, chaos --devices, dryrun_multichip) "
                        "inside a process group",

@@ -17,11 +17,13 @@ so one card's ``nccl`` run goes through every collective.
 every rank made from one seed; ``cluster_round``, ``sustained_round``,
 ``run_cluster_sustained``, ``round_telemetry`` and ``control_tick`` with
 that ``mesh=`` run every rank's shards in lockstep, and so do
-``faults.device.run_device_plan``, ``replay.replay_device`` and
-``models.checkpoint`` ``save``/``restore``.  The paths of
-``parallel.mesh.LATER_SLICES`` raise on it.  Outside a group the mesh is
-``(1, P)``: virtual shards of this process's device, or, given the local
-``devices``, an in-process placed mesh (``parallel.mesh``).
+``faults.device.run_device_plan``, ``replay.replay_device``,
+``models.checkpoint`` ``save``/``restore``,
+``models.churn.composed_step`` with the query launch, gather and views,
+and ``obs.profile.profile_round``.  The mesh tools
+(``parallel.mesh.LATER_SLICES``) raise on it.  Outside a group the mesh
+is ``(1, P)``: virtual shards of this process's device, or, given the
+local ``devices``, an in-process placed mesh (``parallel.mesh``).
 
 Run on the CPU with ``W`` processes (each calls
 ``initialize_multihost(addr, W, rank, backend="gloo")``), or on cards

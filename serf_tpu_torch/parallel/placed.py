@@ -63,11 +63,16 @@ churn round, the query launch, gather and views of the churn-query step
 (``models.churn.composed_step``); the chaos executor, record/replay,
 checkpoint, the profiler and the mesh tools run on it through their own
 modules.  The phased flavour runs plain, as on any mesh (the
-reference's dispatch rule).  Over processes the flagship rounds, the
-controller, the rows and the chaos masks run, and so do the chaos
-executor, record/replay and checkpoint through their modules (every
-rank lowers the same masks, :func:`with_masks` keeps its rows); the
-churn round and the query step raise (``parallel.mesh.LATER_SLICES``).
+reference's dispatch rule).  Over processes all of it runs but the mesh
+tools (``parallel.mesh.LATER_SLICES``): the flagship rounds, the
+controller, the rows and the chaos masks; the chaos executor,
+record/replay and checkpoint through their modules (every rank lowers
+the same masks, :func:`with_masks` keeps its rows); the churn round,
+whose picks run alike on every rank from the all-gathered want masks;
+the query launch from the replicated cursors, the gather (a rotation
+relay all-gathers the liveness plane once per query and relay path a
+shard) and the views (:func:`fold_queries` an integer SUM all-reduce);
+and the profiler's phases (``obs.profile``).
 """
 
 from __future__ import annotations
@@ -130,8 +135,7 @@ from serf_tpu_torch.models.failure import (
     suspicion_q_of,
 )
 from serf_tpu_torch.parallel import group as grp
-from serf_tpu_torch.parallel.mesh import (PlacedState, check_shards,
-                                          refuse_processes)
+from serf_tpu_torch.parallel.mesh import PlacedState, check_shards
 
 
 class Layout:
@@ -1139,8 +1143,6 @@ def churn_round_placed(gs, cfg: GossipConfig, ccfg, key, lay: Layout):
     host read); the fails, rejoins, incarnation bumps and liveness are
     row-local; the ``K_LEAVE``/``K_ALIVE`` batches go through
     :func:`inject_placed`.  Returns ``(gs, new leavers per shard)``."""
-    refuse_processes(isinstance(lay, GroupLayout), "processes-churn-query",
-                     "the churn round")
     n, m = lay.n, ccfg.max_events
     k_f, k_l, k_r, k_pf, k_pl, k_pr = prng.split(key, 6)
     want_fail, want_leave, want_rejoin = [], [], []
@@ -1186,7 +1188,6 @@ def launch_query(gossip: PlacedState, qstate: PlacedState, cfg: GossipConfig,
     Returns ``(gossip', qstate', q_idx)``, ``q_idx`` on shard 0's
     device."""
     from serf_tpu_torch.models.query import _claim, open_slot
-    refuse_processes(gossip.mesh, "processes-churn-query", "launch_query")
     lay = Layout(gossip.mesh, cfg.n)
     el = (eligible.shards if isinstance(eligible, PlacedState)
           else lay.rows_of(eligible))
@@ -1227,7 +1228,6 @@ def query_round(gossip: PlacedState, qstate: PlacedState, cfg: GossipConfig,
     ``response_value``, ``drop_direct`` and ``drop_relay`` are the
     global planes."""
     from serf_tpu_torch.models.query import gathered, query_senders
-    refuse_processes(gossip.mesh, "processes-churn-query", "query_round")
     lay = Layout(gossip.mesh, cfg.n)
     q, n, nl = qcfg.q_slots, cfg.n, lay.nl
     gs, qs = gossip.shards, qstate.shards
@@ -1274,14 +1274,16 @@ def query_round(gossip: PlacedState, qstate: PlacedState, cfg: GossipConfig,
     return PlacedState(out, qstate.mesh)
 
 
+def query_layout(qstate: PlacedState) -> Layout:
+    """The layout of a placed query state (its ``[Q, N]`` planes hold
+    ``N / P`` columns a shard)."""
+    mesh = qstate.mesh
+    return Layout(mesh, qstate.shards[0].responded.shape[1] * mesh.size)
+
+
 def fold_queries(qstate: PlacedState, view) -> torch.Tensor:
     """A per-query count ``view`` (``num_acks``, ``num_responses``) of a
-    placed query state: each shard's counts summed on shard 0's
-    device, in shard order."""
-    refuse_processes(qstate.mesh, "processes-churn-query", "fold_queries")
-    dev0 = qstate.mesh.devices[0]
-    acc = None
-    for q in qstate.shards:
-        part = _to(view(q), dev0)
-        acc = part if acc is None else acc + part
-    return acc
+    placed query state: the shards' i32 counts summed on shard 0's
+    device (:meth:`Layout.sum`: over a group a SUM all-reduce, exact in
+    any order)."""
+    return query_layout(qstate).sum([view(q) for q in qstate.shards])

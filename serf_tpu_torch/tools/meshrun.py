@@ -1,5 +1,6 @@
-"""Run the flagship rounds, chaos plans, replays and checkpoints on a
-mesh that spans processes (command line).
+"""Run the flagship rounds, chaos plans, replays, checkpoints, the
+churn-query path and the round profiler on a mesh that spans processes
+(command line).
 
 Each process is one rank of a ``torch.distributed`` group
 (``parallel.multihost.initialize_multihost`` from the environment:
@@ -35,7 +36,21 @@ each of ``--runs`` in lockstep with the others:
   and run on to ``--rounds`` from the second half;
 - ``restore:R:PATH``: the file ``PATH`` of a ``checkpoint:R`` run (of
   any layout, or none, with the same ``--key``) restored onto the group
-  and run on to ``--rounds`` as there.
+  and run on to ``--rounds`` as there;
+- ``churn-query[:FLAG...]``: BASELINE config #3's churn-query path
+  (:func:`cq_configs`: ``models.churn.composed_step`` with queries
+  launched, gathered and read), its carry placed on the group: a
+  churned window of :data:`CQ_CHURN_ROUNDS` rounds with a query
+  launched every :data:`CQ_QUERY_EVERY` (unfiltered and tag-filtered in
+  turn), then a settle window with no churn (:func:`cq_window`); flags
+  ``iid`` (config #3's peers and probes, the default) or ``rotation``,
+  ``raised`` (the raised churn rates), ``n=N`` and ``k=K`` (else
+  ``--nodes`` and ``--k``), ``rounds=R`` and ``settle=S``;
+- ``profile:SCHEDULE[:FLAG...]``: ``obs.profile.profile_round`` of
+  ``flagship_config(--nodes, k_facts=--k)`` on the group with the
+  exchange phase under ``SCHEDULE`` (``ring`` or ``allgather``); flags
+  ``calls=``, ``warm=`` and ``whole=`` (else ``roundprof``'s 3, 24 and
+  ``WHOLE_ROUNDS``).
 
 After each run the state is gathered (a collective) and rank 0 writes
 it and the rows to ``OUT/<run>.npz`` (``convert.to_numpy``'s keys, the
@@ -46,17 +61,25 @@ rank writes ``OUT/<run>.rank<r>.json`` (its kernel launches, host
 syncs, the replicated leaves that differ from rank 0's, the wall
 seconds; a plan's or a replay's SHA-256 of its read-outs and
 recording, which every rank computes from its own; a replay's diff; a
-checkpoint's file SHA-256 as the rank reads it) and prints it as a
-line.  Rank 0 writes, and every rank waits at a barrier
-before the next run.  Each of ``--timed-runs`` then runs
-:data:`WARM_ROUNDS` rounds and times :data:`TIMED_ROUNDS` rounds without
-rows (the clock starts after a synchronize and a barrier and stops after
-another), written to ``OUT/<run>.timed.rank<r>.json``, with no state.
+checkpoint's file SHA-256 as the rank reads it; a churn-query run's
+host syncs and seconds per window, the query origins, the folded views
+and a SHA-256 of each query's responders; a profile run's profile, this
+rank's readings beside the group's) and prints it as a line.  A
+churn-query run's rank 0 writes the gathered carry (:func:`carry_leaves`)
+to ``OUT/<run>.npz``, its read-outs (:func:`cq_readouts`) to
+``OUT/<run>.readouts.npz`` and its outcome (:func:`cq_outcome`) into its
+stats; a profile run's rank 0 the profile to ``OUT/<run>.json``.  Rank
+0 writes, and every rank waits at a barrier before the next run.  Each
+of ``--timed-runs`` then runs :data:`WARM_ROUNDS` rounds and times
+:data:`TIMED_ROUNDS` rounds without rows (the clock starts after a
+synchronize and a barrier and stops after another), written to
+``OUT/<run>.timed.rank<r>.json``, with no state.
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
         -m serf_tpu_torch.tools.meshrun --nodes 1000000 --k 64 \\
         --runs per-round:ring:rotation,plan:partition-heal-loss:record,\\
-replay:partition-heal-loss,checkpoint:15 --rounds 30 --out build/meshrun
+replay:partition-heal-loss,checkpoint:15,churn-query:n=100000:k=256,\
+profile:ring --rounds 30 --out build/meshrun
 
 On the CPU start ``W`` processes with ``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE`` and ``RANK`` set (or the same launcher) and pass
@@ -92,6 +115,12 @@ CHAOS_DROP = 0.05
 #: a plan run's flags (:func:`parse_run`), its rows among them
 ROW_FLAGS = ("telemetry", "propagation", "invariants")
 PLAN_FLAGS = ("ctl", "record") + ROW_FLAGS
+#: a churn-query run's numeric flags: N, K (else ``--nodes``, ``--k``),
+#: the churned and the settle window's rounds
+CQ_NUMBERS = ("n", "k", "rounds", "settle")
+#: a profile run's numeric flags (``profile_round``'s ``timed_calls``,
+#: ``warm_rounds`` and ``whole_rounds``; else the tool's defaults)
+PROFILE_NUMBERS = ("calls", "warm", "whole")
 
 
 def run_config(n: int, k: int, flavour: str, schedule: str, peers: str):
@@ -196,6 +225,213 @@ def chaos_rounds(state, cfg, key, rounds: int, mesh=None):
     return state, torch.stack(rows)
 
 
+# -- the churn-query path (BASELINE config #3) --------------------------------
+
+#: BASELINE config #3's K (``tests/test_churn.py``), the default of
+#: :func:`cq_configs`
+CQ_K = 256
+#: the churned window's rounds (a query launched before every
+#: CQ_QUERY_EVERY-th step)
+CQ_CHURN_ROUNDS, CQ_QUERY_EVERY = 30, 5
+#: distinct tag values of the seeded tag plane (the majority vote's
+#: candidates) and subjects of the composed views
+CQ_TAG_VALUES, CQ_VIEW_SUBJECTS = 4, 64
+#: a churn-query run's peer flags -> (peer sampling, probe schedule):
+#: config #3's own iid peers with random probes, or rotation peers with
+#: round-robin probes
+CQ_PEERS = {"iid": ("iid", "random"),
+            "rotation": ("rotation", "round_robin")}
+
+
+def cq_configs(n: int, raised: bool = False, settle: bool = False,
+               k: int = CQ_K, peers: str = "iid"):
+    """``(ClusterConfig, ChurnConfig, QueryConfig)`` of the path: the
+    reference test's cluster with the kernels on, its churn rates (or
+    the raised ones; zero in the settle window), 8 query slots with 2
+    relays; ``peers`` a key of :data:`CQ_PEERS`."""
+    from serf_tpu_torch.models.churn import ChurnConfig
+    from serf_tpu_torch.models.dissemination import GossipConfig
+    from serf_tpu_torch.models.failure import FailureConfig
+    from serf_tpu_torch.models.query import QueryConfig
+    from serf_tpu_torch.models.swim import ClusterConfig
+    sampling, probes = CQ_PEERS[peers]
+    cfg = ClusterConfig(
+        gossip=GossipConfig(n=n, k_facts=k, fanout=3, use_pallas=True,
+                            peer_sampling=sampling),
+        failure=FailureConfig(suspicion_rounds=12, max_new_facts=8,
+                              probe_drop_rate=0.02, probe_schedule=probes),
+        push_pull_every=16, with_vivaldi=False)
+    rates = (dict(fail_rate=1e-3, leave_rate=1e-3, rejoin_rate=0.05)
+             if raised else dict(fail_rate=1e-5, leave_rate=1e-5,
+                                 rejoin_rate=0.02))
+    if settle:
+        rates = {}
+    return cfg, ChurnConfig(max_events=8, **rates), QueryConfig(
+        q_slots=8, relay_factor=2)
+
+
+def cq_settle_rounds(cfg) -> int:
+    """The settle window's rounds: twice the suspicion timeout and 80."""
+    return cfg.failure.suspicion_rounds * 2 + 80
+
+
+def cq_start(cfg, qcfg, device, rounds: int = CQ_CHURN_ROUNDS):
+    """The path's starting carry ``(cluster, queries, countdown,
+    trace)``, its tag plane (``TagInterner`` over seeded zone tags, four
+    values) and the seeded query-origin candidates of a ``rounds``-round
+    churned window."""
+    import numpy as np
+
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.models.churn import linger_init, trace_init
+    from serf_tpu_torch.models.query import make_queries
+    from serf_tpu_torch.models.swim import make_cluster
+    from serf_tpu_torch.models.views import TagInterner
+    n = cfg.n
+    st = make_cluster(cfg, prng.key(42), device=device)
+    carry = (st, make_queries(cfg.gossip, qcfg, device=device),
+             linger_init(n, device=device), trace_init(st))
+    rng = np.random.default_rng(5)
+    zones = rng.integers(0, CQ_TAG_VALUES, n)
+    plane = TagInterner(["zone"]).plane(
+        [{"zone": f"z{z}"} for z in zones], device=device)
+    return carry, plane, rng.integers(0, n, rounds)
+
+
+def alive_at_or_after(alive, start: int):
+    """The first alive node at or after ``start`` (cyclically), as a
+    device scalar: a query origin picked without a host read."""
+    import torch
+
+    from serf_tpu_torch.models.dissemination import first_argmax
+    n = alive.shape[0]
+    off = first_argmax(torch.roll(alive, -start).to(torch.uint8), 0)
+    return torch.remainder(off.to(torch.int64) + start, n)
+
+
+def cq_window(carry, cfg, ccfg, qcfg, key, rounds, plane=None,
+              origins=None, stream=None, mesh=None):
+    """``rounds`` composed steps from ``carry``; with ``origins``, a query
+    is launched before every CQ_QUERY_EVERY-th step (unfiltered and
+    tag-filtered in turn).  With ``stream`` (a DeviceEventStream) each
+    round's summary is pushed and the events are returned too.  On a
+    placed ``mesh`` the carry is placed (``shard_state`` of each part)
+    and each origin is picked from the whole liveness plane, which the
+    layout gathers (over a process group an all-gather, so that every
+    rank picks the same origin)."""
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.models.churn import composed_step, trace_step
+    from serf_tpu_torch.models.events import summarize
+    from serf_tpu_torch.models.query import (launch_query, no_filter_mask,
+                                             tag_filter_mask)
+    from serf_tpu_torch.parallel import placed
+    st, qs, cd, tr = carry
+    on_mesh = mesh is not None and mesh.placed
+    dev = placed.rep(st).gossip.alive.device
+    events = []
+    for r, k in enumerate(prng.split(key, rounds)):
+        if origins is not None and r % CQ_QUERY_EVERY == 0:
+            qn = r // CQ_QUERY_EVERY
+            eligible = (no_filter_mask(cfg.n, device=dev) if qn % 2 == 0
+                        else tag_filter_mask(plane, 0,
+                                             1 + (qn // 2) % CQ_TAG_VALUES))
+            g = placed.gossip_of(st) if on_mesh else st.gossip
+            alive = (placed.Layout(mesh, cfg.n).gather_all(
+                [x.alive for x in g.shards], dev) if on_mesh else g.alive)
+            g, qs, _ = launch_query(
+                g, qs, cfg.gossip, qcfg,
+                origin=alive_at_or_after(alive, int(origins[r])),
+                eligible=eligible)
+            st = placed.with_gossip(st, g) if on_mesh \
+                else st._replace(gossip=g)
+        st, qs, cd = composed_step(st, qs, cd, cfg, ccfg, qcfg, k,
+                                   mesh=mesh)
+        tr = trace_step(tr, st)
+        if stream is not None:
+            events += stream.push(summarize(st.gossip, cfg.gossip))
+    return (st, qs, cd, tr), events
+
+
+def cq_outcome(carry, cfg) -> dict:
+    """The reference test's outcome checks on an unsharded final carry:
+    the nodes that went down, whether every down node is detected, and
+    the always-up nodes believed dead."""
+    from serf_tpu_torch.models.failure import (believed_dead,
+                                               detection_complete)
+    st, _, _, tr = carry
+    g = st.gossip
+    return dict(downs=int(tr.ever_down.sum()),
+                detection_complete=bool(detection_complete(
+                    g, cfg.gossip, cfg.failure)),
+                false_dead=int((believed_dead(g, cfg.gossip, cfg.failure)
+                                & tr.always_up).sum()))
+
+
+def cq_readouts(carry, cfg, plane, rounds: int = CQ_CHURN_ROUNDS) -> dict:
+    """The path's read-outs on the final carry: cluster stats, composed
+    views over CQ_VIEW_SUBJECTS seeded subjects (half drawn from the
+    nodes that went down, so that leave intents show; the SWIM plane's
+    belief is "believed dead by every alive node"), per-query responses
+    and acks, and the majority vote over the last query's responders
+    (votes: each node's interned tag value less one, CQ_TAG_VALUES
+    candidates) of a ``rounds``-round churned window."""
+    import numpy as np
+    import torch
+
+    from serf_tpu_torch.models.failure import believed_dead
+    from serf_tpu_torch.models.membership import composed_views
+    from serf_tpu_torch.models.query import (majority_holds, majority_vote,
+                                             num_acks, num_responses,
+                                             responders)
+    from serf_tpu_torch.models.views import cluster_stats
+    st, qs, _, tr = carry
+    g = st.gossip
+    dev = g.alive.device
+    rng = np.random.default_rng(9)
+    down = np.flatnonzero(tr.ever_down.cpu().numpy())
+    picked = rng.choice(down, min(CQ_VIEW_SUBJECTS // 2, down.size),
+                        replace=False)
+    subjects = torch.from_numpy(np.concatenate([
+        picked, rng.integers(0, cfg.n, CQ_VIEW_SUBJECTS - picked.size)
+    ]).astype(np.int32)).to(dev)
+    dead = believed_dead(g, cfg.gossip, cfg.failure)[subjects.to(
+        torch.int64)]
+    views = composed_views(g, cfg.gossip, subjects,
+                           dead[None, :].expand(cfg.n, -1))
+    last_q = (rounds - 1) // CQ_QUERY_EVERY % qs.origin.shape[0]
+    vote = majority_vote(plane[:, 0] - 1, responders(qs, last_q),
+                         CQ_TAG_VALUES)
+    stats = cluster_stats(g, cfg.gossip)
+    out = {f"stats.{f}": getattr(stats, f) for f in stats._fields}
+    out.update({"views": views, "responses": num_responses(qs),
+                "acks": num_acks(qs), "vote.winner": vote[0],
+                "vote.count": vote[1], "vote.total": vote[2],
+                "vote.holds": majority_holds(vote[1], vote[2])})
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def carry_leaves(carry) -> dict:
+    """Every leaf of a carry as numpy (u32 leaves as uint32)."""
+    from serf_tpu_torch import convert
+    st, qs, cd, tr = carry
+    out = {f"cluster.{k}": v for k, v in convert.to_numpy(st).items()}
+    out.update({f"queries.{k}": v for k, v in convert.to_numpy(qs).items()})
+    out.update({f"trace.{k}": v for k, v in convert.to_numpy(tr).items()})
+    out["countdown"] = cd.cpu().numpy()
+    return out
+
+
+def cq_template(cfg, qcfg, device):
+    """A fresh carry of the path's shapes (a checkpoint's template)."""
+    from serf_tpu_torch import prng
+    from serf_tpu_torch.models.churn import linger_init, trace_init
+    from serf_tpu_torch.models.query import make_queries
+    from serf_tpu_torch.models.swim import make_cluster
+    st = make_cluster(cfg, prng.key(0), device=device)
+    return (st, make_queries(cfg.gossip, qcfg, device=device),
+            linger_init(cfg.n, device=device), trace_init(st))
+
+
 def _sync(dev) -> None:
     import torch
     if dev.type == "cuda":
@@ -228,6 +464,33 @@ def parse_run(spec: str) -> dict:
     if kind == "restore" and len(parts) >= 3:
         return dict(kind="restore", at=int(parts[1]),
                     path=":".join(parts[2:]))
+    if kind == "churn-query":
+        out = dict(kind="churn-query", peers="iid", raised=False,
+                   **dict.fromkeys(CQ_NUMBERS))
+        for flag in parts[1:]:
+            name, _, value = flag.partition("=")
+            if flag in CQ_PEERS:
+                out["peers"] = flag
+            elif flag == "raised":
+                out["raised"] = True
+            elif name in CQ_NUMBERS and value:
+                out[name] = int(value)
+            else:
+                raise ValueError(f"churn-query flag {flag!r} (one of "
+                                 f"{sorted(CQ_PEERS)}, raised or "
+                                 f"{'|'.join(CQ_NUMBERS)}=N)")
+        return out
+    if kind == "profile" and len(parts) >= 2 and \
+            parts[1] in ("ring", "allgather"):
+        out = dict(kind="profile", schedule=parts[1],
+                   **dict.fromkeys(PROFILE_NUMBERS))
+        for flag in parts[2:]:
+            name, _, value = flag.partition("=")
+            if name not in PROFILE_NUMBERS or not value:
+                raise ValueError(f"profile flag {flag!r} (one of "
+                                 f"{'|'.join(PROFILE_NUMBERS)}=N)")
+            out[name] = int(value)
+        return out
     if len(parts) in (3, 4) and parts[0] in FLAVOURS and \
             parts[1] in ("ring", "allgather") and parts[2] in PEERS and \
             parts[3:] in ([], ["chaos"]):
@@ -237,7 +500,8 @@ def parse_run(spec: str) -> dict:
         f"bad run {spec!r}: FLAVOUR:SCHEDULE:PEERS[:chaos] with FLAVOUR "
         f"one of {sorted(FLAVOURS)}, SCHEDULE ring or allgather, PEERS one "
         f"of {sorted(PEERS)}; or plan:NAME[:FLAG...], replay:SOURCE, "
-        f"checkpoint:R, restore:R:PATH")
+        f"checkpoint:R, restore:R:PATH, churn-query[:FLAG...], "
+        f"profile:SCHEDULE[:FLAG...]")
 
 
 def _name(spec: str) -> str:
@@ -311,7 +575,8 @@ def run_one(spec: str, args, mesh, rank: int, timed: bool = False) -> dict:
                device=str(mesh.device), backend=dist.get_backend())
     base = os.path.join(args.out, _name(spec))
     body = {"flagship": _flagship, "plan": _plan, "replay": _replay,
-            "checkpoint": _checkpoint, "restore": _restore}[run["kind"]]
+            "checkpoint": _checkpoint, "restore": _restore,
+            "churn-query": _churn_query, "profile": _profile}[run["kind"]]
     out.update(body(run, args, mesh, rank, base, timed))
     dist.barrier()
     name = _name(spec) + (".timed" if timed else "")
@@ -511,6 +776,79 @@ def _restore(run, args, mesh, rank, base, timed) -> dict:
                 replicas=replicas_differ(resumed))
 
 
+def _churn_query(run, args, mesh, rank, base, timed) -> dict:
+    import numpy as np
+    import torch.distributed as dist
+
+    from serf_tpu_torch import host_syncs, prng
+    from serf_tpu_torch.models.query import (num_acks, num_responses,
+                                             responders)
+    from serf_tpu_torch.ops import round_kernels as rk
+    from serf_tpu_torch.parallel.mesh import (gather_state, replicas_differ,
+                                              shard_state)
+    from serf_tpu_torch.parallel.placed import rep
+
+    n, k = run["n"] or args.nodes, run["k"] or args.k
+    cfg, ccfg, qcfg = cq_configs(n, run["raised"], k=k, peers=run["peers"])
+    _, settle_ccfg, _ = cq_configs(n, run["raised"], settle=True, k=k,
+                                   peers=run["peers"])
+    rounds = run["rounds"] or CQ_CHURN_ROUNDS
+    settle = cq_settle_rounds(cfg) if run["settle"] is None \
+        else run["settle"]
+    carry, plane, origins = cq_start(cfg, qcfg, mesh.device, rounds)
+    carry = tuple(shard_state(x, mesh) for x in carry)
+    windows = ((ccfg, prng.key(7), rounds, plane, origins),
+               (settle_ccfg, prng.key(8), settle, None, None))
+    _sync(mesh.device)
+    dist.barrier()
+    rk.reset_launches()
+    syncs, secs = [], []
+    for wcfg, key, r, pl, orig in windows:
+        s0, t0 = host_syncs(), time.perf_counter()
+        carry, _ = cq_window(carry, cfg, wcfg, qcfg, key, r, pl, orig,
+                             mesh=mesh)
+        _sync(mesh.device)
+        dist.barrier()
+        syncs.append(host_syncs() - s0)
+        secs.append(time.perf_counter() - t0)
+    launches = dict(rk.LAUNCHES)
+    qs = carry[1]
+    who = [responders(qs, q).cpu().numpy() for q in range(qcfg.q_slots)]
+    out = dict(n=n, k=k, peers=run["peers"], raised=run["raised"],
+               rounds=[rounds, settle], launches=launches, syncs=syncs,
+               s=secs, rps=[r / t if r else None
+                            for r, t in zip((rounds, settle), secs)],
+               replicas=[p for x in carry for p in replicas_differ(x)],
+               origins=rep(qs).origin.tolist(),
+               acks=num_acks(qs).tolist(),
+               responses=num_responses(qs).tolist(),
+               responders_sha256=[_sha256(w.tobytes()) for w in who])
+    full = tuple(gather_state(x, mesh.device) for x in carry)
+    if rank == 0:
+        np.savez(base + ".npz", **carry_leaves(full))
+        np.savez(base + ".readouts.npz",
+                 **cq_readouts(full, cfg, plane, rounds))
+        out["outcome"] = cq_outcome(full, cfg)
+    return out
+
+
+def _profile(run, args, mesh, rank, base, timed) -> dict:
+    from serf_tpu_torch.models.swim import flagship_config
+    from serf_tpu_torch.obs.profile import WHOLE_ROUNDS, profile_round
+
+    t0 = time.perf_counter()
+    prof = profile_round(
+        flagship_config(args.nodes, k_facts=args.k),
+        events_per_round=EVENTS_PER_ROUND,
+        timed_calls=run["calls"] or 3, warm_rounds=run["warm"] or 24,
+        mesh=mesh, schedule=run["schedule"],
+        whole_rounds=run["whole"] or WHOLE_ROUNDS)
+    if rank == 0:
+        with open(base + ".json", "w") as f:
+            json.dump(prof, f)
+    return dict(s=time.perf_counter() - t0, profile=prof)
+
+
 def _template(cfg, device):
     from serf_tpu_torch import prng
     from serf_tpu_torch.models.swim import make_cluster
@@ -527,7 +865,8 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", default="per-round:ring:rotation",
                     help="comma-separated FLAVOUR:SCHEDULE:PEERS[:chaos], "
                     "plan:NAME[:FLAG...], replay:SOURCE, checkpoint:R, "
-                    "restore:R:PATH")
+                    "restore:R:PATH, churn-query[:FLAG...], "
+                    "profile:SCHEDULE[:FLAG...]")
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--key", type=int, default=11)
     ap.add_argument("--timed-runs", default="",

@@ -68,11 +68,12 @@ def test_flagship_rounds_make_no_host_constants(path, made_on_host):
 
 
 def test_churn_query_rounds_make_no_host_constants(made_on_host):
-    cfg, ccfg, qcfg = cs.cq_configs(N, raised=True)
-    carry, plane, origins = cs.cq_start(cfg, qcfg, "cpu")
+    from serf_tpu_torch.tools import meshrun
+    cfg, ccfg, qcfg = meshrun.cq_configs(N, raised=True)
+    carry, plane, origins = meshrun.cq_start(cfg, qcfg, "cpu")
     made_on_host.clear()
-    carry, _ = cs.cq_window(carry, cfg, ccfg, qcfg, prng.key(7), 30,
-                            plane, origins)
+    carry, _ = meshrun.cq_window(carry, cfg, ccfg, qcfg, prng.key(7), 30,
+                                 plane, origins)
     assert int(carry[0].gossip.round) == 30
     assert dict(made_on_host) == {}
 

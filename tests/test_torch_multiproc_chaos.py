@@ -10,13 +10,13 @@ process, and the paths a later slice ports, on the CPU over ``gloo``.
 - A group of one process (the one-card form on cards): a
   ``make_hybrid_mesh`` inside it takes the group body, and its rounds
   equal the unsharded run.
-- Over a group, each path of ``parallel.mesh.LATER_SLICES`` (the
-  churn-query step, the profiler, the mesh tools) raises
-  ``NotImplementedError`` naming its slice before anything runs, and
-  ``LATER_SLICES`` holds exactly those paths; the chaos executor,
-  record/replay and checkpoint run over a group
+- Over a group, each path of ``parallel.mesh.LATER_SLICES`` (the mesh
+  tools) raises ``NotImplementedError`` naming its slice before anything
+  runs, and ``LATER_SLICES`` holds exactly those paths; the chaos
+  executor, record/replay and checkpoint run over a group
   (``test_torch_multiproc_{chaos_plan,chaos_shed,chaos_selfcheck,
-  replay,checkpoint}.py``)."""
+  replay,checkpoint}.py``), and so do the churn-query step and the
+  profiler (``test_torch_multiproc_{churn_query,profile}.py``)."""
 
 import numpy as np
 import pytest
@@ -124,36 +124,23 @@ def test_group_mesh_rules(group_of_one):
 
 
 def _later_slice_calls():
-    """``{slice: call}``: each path a later slice ports, called on a
-    state placed over the group (the refusal comes before any argument
-    is read, so the arguments past the mesh are left out)."""
+    """``{slice: call}``: each path a later slice ports, asked for inside
+    the group (the refusal comes before anything runs)."""
     from serf_tpu_torch.entry import dryrun_multichip
-    from serf_tpu_torch.models import churn
-    from serf_tpu_torch.obs.profile import profile_round
     from serf_tpu_torch.tools import multichip_ab, roundprof
 
-    mesh = tmulti.make_hybrid_mesh(2, device="cpu")
-    cfg = tswim.flagship_config(64, k_facts=32)
-    st = tmulti.shard_cluster_hybrid(
-        tswim.make_cluster(cfg, prng.key(0), device="cpu"), mesh)
     return {
-        "processes-churn-query": lambda: churn.composed_step(
-            st, None, None, cfg, None, None, prng.key(1), mesh=mesh),
-        "processes-profiler": lambda: profile_round(cfg, mesh=mesh),
         "processes-tools": lambda: roundprof.main(
             ["--n", "64", "--mesh", "2", "--device", "cpu", "--json"]),
         "processes-tools-multichip_ab": lambda: multichip_ab.main(
             ["--devices", "2", "--device", "cpu", "--json"]),
         "processes-tools-dryrun": lambda: dryrun_multichip(
             2, device="cpu"),
-        "processes-churn-query-launch": lambda: tplaced.launch_query(
-            tplaced.gossip_of(st), st, cfg.gossip, None, 0, None, False, 4),
     }
 
 
-LATER = ("processes-churn-query", "processes-profiler", "processes-tools")
-CALLS = LATER + ("processes-tools-multichip_ab", "processes-tools-dryrun",
-                 "processes-churn-query-launch")
+LATER = ("processes-tools",)
+CALLS = LATER + ("processes-tools-multichip_ab", "processes-tools-dryrun")
 
 
 def test_later_slices_are_exactly_these():

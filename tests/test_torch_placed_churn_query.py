@@ -19,7 +19,8 @@ Every integer leaf of the carry (cluster, queries, countdown, trace)
 must be equal, with no tolerance; Vivaldi is off, as in the chip run's
 churn-query config.  Also: ``launch_query``, the query views and
 ``churn_round_placed`` on their own, and no host-made device constant
-on ``chip_smoke.py`` phase 13 (a)'s placed churned window.
+on ``chip_smoke.py`` phase 13 (a)'s placed churned window
+(``tools.meshrun``'s churn-query loop).
 """
 
 import dataclasses
@@ -377,16 +378,16 @@ def test_placed_churn_query_makes_no_host_constants(made_on_host):
     churn-query config with the raised rates, six queries, the origins
     picked from the gathered liveness) on 4 placed CPU shards makes no
     host-made device constant."""
-    import chip_smoke as cs
+    from serf_tpu_torch.tools import meshrun as cq
     n = 1024
-    cfg, ccfg, qcfg = cs.cq_configs(n, raised=True)
-    carry, plane, origins = cs.cq_start(cfg, qcfg, "cpu")
+    cfg, ccfg, qcfg = cq.cq_configs(n, raised=True)
+    carry, plane, origins = cq.cq_start(cfg, qcfg, "cpu")
     mesh = tmesh.make_mesh(devices=["cpu"] * 4, placed=True)
     carry = tuple(tmesh.shard_state(x, mesh) for x in carry)
     made_on_host.clear()
-    carry, _ = cs.cq_window(carry, cfg, ccfg, qcfg, prng.key(7),
-                            cs.CQ_CHURN_ROUNDS, plane, origins, mesh=mesh)
-    assert int(tpl.rep(carry[0]).gossip.round) == cs.CQ_CHURN_ROUNDS
+    carry, _ = cq.cq_window(carry, cfg, ccfg, qcfg, prng.key(7),
+                            cq.CQ_CHURN_ROUNDS, plane, origins, mesh=mesh)
+    assert int(tpl.rep(carry[0]).gossip.round) == cq.CQ_CHURN_ROUNDS
     assert dict(made_on_host) == {}
 
 

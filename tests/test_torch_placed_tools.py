@@ -101,8 +101,7 @@ def test_device_lists_and_later_slices(monkeypatch):
     card the machine lacks raises (here the machine is made to show two
     cards), as does a card list on a machine without one; only the
     multi-process paths are still to come."""
-    assert set(tmesh.LATER_SLICES) == {
-        "processes-churn-query", "processes-profiler", "processes-tools"}
+    assert set(tmesh.LATER_SLICES) == {"processes-tools"}
     assert tmesh.tool_mesh(0, "cpu,meta").devices == (
         torch.device("cpu"), torch.device("meta"))
     assert tmesh.tool_mesh(0, "cpu") is None
