@@ -347,9 +347,15 @@ same, the replay diffing clean on every rank and the group's recording
 replayed here unsharded diffing clean; (e) a checkpoint at round 15 of
 the per-round flagship saved on the group (rank 0 writes): its bytes
 the unsharded save's, restored on the group and here unsharded, each
-resumed to round 30 equal to the unbroken run.  A rank's non-zero exit
-fails the phase; a rank group that outlives 300 s is killed and fails
-it; (a), (d) and (e) must end inside 240 s.
+resumed to round 30 equal to the unbroken run; (f) phase 4's
+churn-query path against phase 4's run; (g) ``roundprof`` in its rank
+form (``meshrun``'s ``tool:roundprof`` run) at 1M against phase 13
+(b); (h) the other three mesh tools in their rank form (``multichip_ab``
+at phase 13 (c)'s sizes, ``chaos --devices`` on ``partition-heal-loss``
+and ``dryrun_multichip``), each against phase 13's run.  A rank's
+non-zero exit fails the phase; a rank group that outlives
+``PHASE14_RANKS_LIMIT_S`` is killed and fails it; phase 14 on one card
+must end inside ``PHASE14_LIMIT_S``.
 
 The line before the last is ``{"kernels": [...]}`` (with each kernel's
 launches on phase 11's, 12's and 14's runs and, for the four kernels that
@@ -5646,11 +5652,14 @@ def placed_chaos_tool(rk, card: str) -> dict:
     """13(d): ``chaos --plane device --devices 4 --placed`` on
     ``partition-heal-loss`` at the tool's own N: exit 0, and the JSON
     (verdicts, report, SLOs) and the recorded digest stream equal the
-    virtual mesh's run in this call."""
+    virtual mesh's run in this call.  Each run starts on fresh sinks, so
+    its JSON's degradation counters are its own, as in a process of its
+    own (14 (h)'s ranks)."""
     from serf_tpu_torch.replay.differ import diff_recordings
     from serf_tpu_torch.tools import chaos
     runs = {}
     for name, extra in (("virtual", []), ("placed", ["--placed"])):
+        fresh_sinks()
         keep = {}
         run = run_tool(rk, f"chaos --devices {PHASE13_P} {name}", chaos.main,
                        ["--plan", "partition-heal-loss", "--plane",
@@ -5676,7 +5685,8 @@ def placed_chaos_tool(rk, card: str) -> dict:
         f"and {len(recp.records)} recorded records equal the virtual mesh's; "
         f"{res.rounds_run} rounds in {rp['s']:.2f} s (virtual "
         f"{rv['s']:.2f} s) ({card})")
-    return dict(s=rp["s"], virtual_s=rv["s"], rounds=res.rounds_run)
+    return dict(s=rp["s"], virtual_s=rv["s"], rounds=res.rounds_run,
+                json=dv, rec=recv)
 
 
 #: the dry run's outcomes (its rates are this host's timings)
@@ -5818,18 +5828,30 @@ PHASE14_REPLAY = "replay:partition-heal-loss"
 #: the group, restored there and resumed to round 30
 PHASE14_CKPT = f"checkpoint:{PLACED_CKPT_ROUND}"
 #: 14 (f): phase 4's churn-query path (BASELINE config #3 at its own
-#: scale, N = CQ_N, K = CQ_K) in the same rank group; (g): the round
-#: profiler over the group at N_MAIN, K_MAIN, the ring schedule, with
-#: ``roundprof``'s depths (phase 13 (b)'s)
+#: scale, N = CQ_N, K = CQ_K) in the same rank group; (g): ``roundprof``
+#: in its rank form over the group (``--n N_MAIN --k K_MAIN --mesh W x L
+#: --schedule ring --json``, its own depths: phase 13 (b)'s, and
+#: ``profile:ring``'s)
 PHASE14_CQ = f"churn-query:n={CQ_N}:k={CQ_K}"
-PHASE14_PROFILE = "profile:ring"
+PHASE14_PROFILE = "tool:roundprof:schedule=ring"
+#: 14 (h): the other three mesh tools in their rank form over the group,
+#: with phase 13 (c)-(e)'s arguments (inside a group ``--placed`` and the
+#: device list are implied): ``multichip_ab`` at PHASE13_AB_SIZES,
+#: ``chaos`` on ``partition-heal-loss`` at the tool's own N and K, and
+#: ``dryrun_multichip(W x L)``
+PHASE14_TOOLS = {
+    "multichip_ab": ("tool:multichip_ab:per-device="
+                     + "+".join(map(str, PHASE13_AB_SIZES))
+                     + f":reps={PHASE13_AB_REPS}"),
+    "chaos": ("tool:chaos:plan=partition-heal-loss:plane=device:"
+              "record-on-fail:n=256:k-facts=32"),
+    "dryrun": "tool:dryrun"}
 #: 14 (a): one rank's placed shards on cuda:0; (b): ranks at most
 PHASE14_LOCAL, PHASE14_MAX_RANKS = 4, 4
 #: wall seconds of one rank group, start to exit (over it its ranks are
-#: killed and the phase fails), and of the phase on one card: about
-#: twice the predicted 165-220 s and 190-245 s with (f) and (g) (the
-#: ranks read 85.56 s and the phase 110.00 s without them, H100 80GB
-#: HBM3, 700 W)
+#: killed and the phase fails), and of the phase on one card: the ranks
+#: read 198.03-227.45 s and the phase 223.69-256.21 s with (f) and (g),
+#: and (h) is predicted to add 12-25 s (H100 80GB HBM3, 700 W)
 PHASE14_RANKS_LIMIT_S, PHASE14_LIMIT_S = 450.0, 500.0
 
 
@@ -5838,8 +5860,8 @@ def rank_group(world: int, local: int, work) -> None:
     world -m serf_tpu_torch.tools.meshrun`` at N_MAIN: every checked run
     of :data:`PHASE14_RUNS` (30 rounds from key 11, gathered to rank 0),
     the plans of :data:`PHASE14_PLANS`, :data:`PHASE14_REPLAY`,
-    :data:`PHASE14_CKPT`, :data:`PHASE14_CQ`, :data:`PHASE14_PROFILE`
-    and the timed runs of :data:`PHASE14_TIMED`,
+    :data:`PHASE14_CKPT`, :data:`PHASE14_CQ`, :data:`PHASE14_PROFILE`,
+    :data:`PHASE14_TOOLS` and the timed runs of :data:`PHASE14_TIMED`,
     each rank on its card over ``nccl`` with ``local`` placed shards,
     its files under ``work``.
     Raises if a rank exits non-zero, or if the group outlives
@@ -5853,7 +5875,7 @@ def rank_group(world: int, local: int, work) -> None:
            str(PLACED_ROUNDS), "--key", "11", "--runs",
            ",".join([*PHASE14_RUNS, *PHASE14_PLANS.values(),
                      PHASE14_REPLAY, PHASE14_CKPT, PHASE14_CQ,
-                     PHASE14_PROFILE]),
+                     PHASE14_PROFILE, *PHASE14_TOOLS.values()]),
            "--timed-runs", ",".join(PHASE14_TIMED),
            "--timeout-s", str(PHASE14_RANKS_LIMIT_S), "--out", str(work)]
     logf = work / "ranks.log"
@@ -5888,9 +5910,11 @@ def multiproc_checks(rk, world: int, local: int, placed12: dict,
     replicated leaves equal on every rank's shards; then the same rank
     group's (d) chaos plans and replay (:func:`multiproc_chaos`), (e)
     checkpoint (:func:`multiproc_checkpoint`), (f) churn-query against
-    phase 4's run ``cq`` (:func:`multiproc_churn_query`) and (g) profile
-    against phase 13 (b)'s in ``tools13`` (:func:`multiproc_profile`).
-    The rank group's files are removed at the end."""
+    phase 4's run ``cq`` (:func:`multiproc_churn_query`), (g)
+    ``roundprof``'s rank form against phase 13 (b)'s in ``tools13``
+    (:func:`multiproc_profile`) and (h) the other mesh tools' rank forms
+    against phase 13 (c)-(e)'s (:func:`multiproc_tools`).  The rank
+    group's files are removed at the end."""
     import shutil
 
     import numpy as np
@@ -5974,6 +5998,7 @@ def multiproc_checks(rk, world: int, local: int, placed12: dict,
     out["churn_query"] = multiproc_churn_query(world, local, work, cq,
                                                tools13, what)
     out["profile"] = multiproc_profile(world, local, work, tools13, what)
+    out["tools"] = multiproc_tools(world, local, work, tools13, what)
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -6340,22 +6365,29 @@ def multiproc_churn_query(world: int, local: int, work, cq: dict,
 def multiproc_profile(world: int, local: int, work, tools13: dict,
                       what: str) -> dict:
     """14 (g): the rank group's :data:`PHASE14_PROFILE` run
-    (``profile_round`` at N_MAIN over the group, ring schedule) against
-    phase 13 (b)'s in-process placed ``roundprof --mesh 4 --placed``:
-    its phases, each phase's launches a rank ``local / PHASE13_P`` x
-    phase 13 (b)'s and its host reads equal, ``placement`` "processes"
-    over ``world x local`` shards, every rank's attribution fraction in
-    ATTRIBUTION_BAND and every rank's card in the busy times by device;
-    each phase's slowest-rank wall and every card's busy ms logged (the
-    collectives' kernels included)."""
+    (``roundprof --mesh W x L`` in its rank form: ``profile_round`` at
+    N_MAIN over the group, ring schedule) against phase 13 (b)'s
+    in-process placed ``roundprof --mesh 4 --placed``: the tool's exit 0
+    on every rank and rank 0 alone printing, its phases, each phase's
+    launches a rank ``local / PHASE13_P`` x phase 13 (b)'s and its host
+    reads equal, ``placement`` "processes" over ``world x local``
+    shards, every rank's attribution fraction in ATTRIBUTION_BAND and
+    every rank's card in the busy times by device; each phase's
+    slowest-rank wall and every card's busy ms logged (the collectives'
+    kernels included)."""
     card = card_line()
     ranks = rank_files(work, PHASE14_PROFILE, world)
-    prof = ranks[0]["profile"]
+    prof = ranks[0]["output"]
     p13 = tools13["roundprof"]
     lo, hi = ATTRIBUTION_BAND
-    tag = (f"(g) {what} profile_round n={N_MAIN} k={K_MAIN} ring {world} "
-           f"rank(s) x {local} shard(s)")
+    tag = (f"(g) {what} roundprof --mesh {world * local} n={N_MAIN} "
+           f"k={K_MAIN} ring {world} rank(s) x {local} shard(s)")
     bad = []
+    if [r["rc"] for r in ranks] != [0] * world or \
+            [r["printed"] > 0 for r in ranks] != [r["rank"] == 0
+                                                   for r in ranks]:
+        bad.append(f"exit codes {[r['rc'] for r in ranks]}, characters "
+                   f"printed {[r['printed'] for r in ranks]}")
     if [r["phase"] for r in prof["phases"]] != list(p13["phases"]):
         bad.append(f"phases {[r['phase'] for r in prof['phases']]}")
     if prof["placement"] != "processes" or \
@@ -6368,7 +6400,7 @@ def multiproc_profile(world: int, local: int, work, tools13: dict,
         bad.append(f"attributed_device_frac by rank {fracs} outside "
                    f"[{lo}, {hi}]")
     for r in ranks:
-        mine = r["profile"]
+        mine = r["output"]
         if mine["attributed_device_frac"] != fracs[r["rank"]]:
             bad.append(f"rank {r['rank']}'s own fraction "
                        f"{mine['attributed_device_frac']} is not its "
@@ -6412,6 +6444,101 @@ def multiproc_profile(world: int, local: int, work, tools13: dict,
                 busy=w["device_busy_ms_by_device"], s=ranks[0]["s"])
 
 
+def multiproc_tools(world: int, local: int, work, tools13: dict,
+                    what: str) -> dict:
+    """14 (h): the rank group's :data:`PHASE14_TOOLS` runs (each tool in
+    its rank form on the group's ``world x local`` shards) against phase
+    13's in-process runs in ``tools13``: on every rank exit 0, no kernel
+    launched, rank 0 alone printing and every rank's JSON rank 0's;
+    ``multichip_ab``: 13 (c)'s keys, ``placement`` "processes", both
+    schedules' rates positive at both sizes, the hop's source naming the
+    ranks; ``chaos``: the JSON and the recorded digest stream 13 (d)'s
+    virtual run's, ``device_mesh_devices`` 4; ``dryrun_multichip``:
+    every assertion passed on every rank, the outcomes 13 (e)'s virtual
+    run's; rates, hop and seconds logged beside phase 13's."""
+    from serf_tpu_torch.replay.differ import diff_recordings
+    from serf_tpu_torch.replay.recording import load_recording
+    from serf_tpu_torch.tools import meshrun
+    card = card_line()
+    p = world * local
+    tag = f"(h) {what} {world} rank(s) x {local} shard(s)"
+    runs, docs, bad = {}, {}, []
+    for name, spec in PHASE14_TOOLS.items():
+        ranks = runs[name] = rank_files(work, spec, world)
+        docs[name] = json.loads(
+            (work / f"{meshrun._name(spec)}.json").read_text())
+        if [r["rc"] for r in ranks] != [0] * world:
+            bad.append(f"{name} exit codes {[r['rc'] for r in ranks]}")
+        if any(sum(r["launches"].values()) for r in ranks):
+            bad.append(f"{name} launched {[r['launches'] for r in ranks]}")
+        if [r["printed"] > 0 for r in ranks] != [r["rank"] == 0
+                                                 for r in ranks]:
+            bad.append(f"{name} printed {[r['printed'] for r in ranks]} "
+                       f"characters a rank")
+        if any(r["output"] != docs[name] for r in ranks):
+            bad.append(f"{name}: the ranks' JSON differ from rank 0's")
+        if any(r["backend"] != "nccl" or r["world"] != world
+               for r in ranks):
+            bad.append(f"{name} ran over {ranks[0]['backend']}")
+    ab, ab13 = docs["multichip_ab"], tools13["multichip_ab"]
+    if set(ab) != set(ab13) - {"s"} or ab["placement"] != "processes" or \
+            ab["devices"] != p:
+        bad.append(f"multichip_ab keys {sorted(set(ab) ^ set(ab13))}, "
+                   f"placement {ab['placement']}, devices {ab['devices']}")
+    if [r["n_per_device"] for r in ab["results"]] != \
+            list(PHASE13_AB_SIZES) or not all(
+                r["ring_rps"] > 0 and r["allgather_rps"] > 0
+                for r in ab["results"]):
+        bad.append("multichip_ab: a schedule did not run")
+    if f"the group's {world} rank(s)" not in ab["hop_latency_source"]:
+        bad.append(f"multichip_ab hop source {ab['hop_latency_source']!r}")
+    chaos, c13 = docs["chaos"], tools13["chaos"]
+    rec = load_recording(work / f"{meshrun._name(PHASE14_TOOLS['chaos'])}"
+                                f".jsonl")
+    bad += [f"chaos {d}" for d in json_differ(c13["json"], chaos)]
+    if not diff_recordings(c13["rec"], rec).ok:
+        bad.append("chaos: the recorded digests differ from 13 (d)'s")
+    if chaos["device_mesh_devices"] != PHASE13_P:
+        bad.append(f"chaos device_mesh_devices "
+                   f"{chaos['device_mesh_devices']}")
+    dry, d13 = docs["dryrun"], tools13["dryrun"]["virtual"]
+    if any(dry[k] != d13[k] for k in DRYRUN_OUTCOMES) or \
+            dry["placement"] != "processes":
+        bad.append("dryrun outcomes " + json.dumps(
+            {k: (d13[k], dry[k]) for k in DRYRUN_OUTCOMES}))
+    if bad:
+        raise AssertionError(f"phase 14 {tag}: " + "; ".join(bad))
+    secs = {name: ranks[0]["s"] for name, ranks in runs.items()}
+    log(f"phase 14 {tag} multichip_ab --devices {p} over nccl: exit 0 on "
+        f"every rank, 13 (c)'s keys, placement processes, device "
+        f"{ab['device']}; rows " + json.dumps(
+            [{k: r[k] for k in ("n", "allgather_rps", "ring_rps",
+                                "model_schedule_recommended")}
+             for r in ab["results"]])
+        + f" (13 (c)'s placed " + json.dumps(
+            [{k: r[k] for k in ("n", "allgather_rps", "ring_rps")}
+             for r in ab13["results"]])
+        + f"); hop latency {ab['hop_latency_s'] * 1e6:.2f} us "
+        f"({ab['hop_latency_source']}; 13 (c)'s "
+        f"{ab13['hop_latency_s'] * 1e6:.2f} us); {secs['multichip_ab']:.2f} s "
+        f"(13 (c) {ab13['s']:.2f} s) ({card})")
+    log(f"phase 14 {tag} chaos --plan partition-heal-loss --devices {p} "
+        f"(n = 256) over nccl: exit 0 on every rank, the JSON, report and "
+        f"{len(rec.records)} recorded records equal 13 (d)'s virtual run; "
+        f"{tools13['chaos']['rounds']} rounds in {secs['chaos']:.2f} s "
+        f"(13 (d) placed {tools13['chaos']['s']:.2f} s, virtual "
+        f"{tools13['chaos']['virtual_s']:.2f} s) ({card})")
+    log(f"phase 14 {tag} dryrun_multichip({p}) over nccl: every assertion "
+        f"passed on every rank, the outcomes 13 (e)'s, no launch; rounds/s "
+        f"allgather {dry['allgather_rps']:.1f} / ring {dry['ring_rps']:.1f} "
+        f"(13 (e) placed {tools13['dryrun']['placed']['allgather_rps']:.1f}"
+        f" / {tools13['dryrun']['placed']['ring_rps']:.1f}); "
+        f"{secs['dryrun']:.2f} s (13 (e) placed "
+        f"{tools13['dryrun']['placed']['s']:.2f} s) ({card})")
+    return dict(s=secs, launches={name: runs[name][0]["launches"]
+                                  for name in runs})
+
+
 def log_multiproc_timing(res: dict, placed12: dict, world: int,
                          what: str, card: str) -> None:
     """14 (c): rounds/s of the multi-process runs beside phase 12's
@@ -6440,8 +6567,8 @@ def multiproc_full(rk, placed12: dict, cq: dict, tools13: dict) -> dict:
     card, one shard each; both checked by :func:`multiproc_checks` (the
     flagships; (d) :func:`multiproc_chaos`, (e)
     :func:`multiproc_checkpoint`, (f) :func:`multiproc_churn_query`
-    against phase 4's ``cq``, (g) :func:`multiproc_profile` against
-    phase 13's ``tools13``) and (c) timed
+    against phase 4's ``cq``, (g) :func:`multiproc_profile` and (h)
+    :func:`multiproc_tools` against phase 13's ``tools13``) and (c) timed
     (:func:`log_multiproc_timing`)."""
     import torch
     card = card_line()
@@ -6451,10 +6578,11 @@ def multiproc_full(rk, placed12: dict, cq: dict, tools13: dict) -> dict:
     log_multiproc_timing(out["one"], placed12, 1, "one card", card)
     out["s"] = time.perf_counter() - t0
     one = out["one"]
-    log(f"phase 14 (a), (d)-(g) on one card: {out['s']:.2f} s, the "
+    log(f"phase 14 (a), (d)-(h) on one card: {out['s']:.2f} s, the "
         f"ranks {one['ranks_s']:.2f} s of it ((f) "
         f"{sum(one['churn_query']['s']):.2f} s of windows, (g) "
-        f"{one['profile']['s']:.2f} s); the checks of (d) "
+        f"{one['profile']['s']:.2f} s, (h) "
+        f"{sum(one['tools']['s'].values()):.2f} s); the checks of (d) "
         f"{one['chaos']['s']:.2f} s and (e) {one['checkpoint']['s']:.2f} s "
         f"in this process ({card})")
     if out["s"] > PHASE14_LIMIT_S:
@@ -6470,7 +6598,7 @@ def multiproc_full(rk, placed12: dict, cq: dict, tools13: dict) -> dict:
     out["spread"] = multiproc_checks(rk, w, 1, placed12, cq, tools13,
                                      f"(b) {w} cards")
     log_multiproc_timing(out["spread"], placed12, w, f"{w} cards", card)
-    log(f"phase 14 (b), (d)-(g) on {w} cards: "
+    log(f"phase 14 (b), (d)-(h) on {w} cards: "
         f"{time.perf_counter() - t1:.2f} s, the ranks "
         f"{out['spread']['ranks_s']:.2f} s of it ({card})")
     return out
@@ -6689,6 +6817,8 @@ def main() -> int:
                 res["chaos"]["chaos-heal"]["replay"][0]["launches"]
             runs14[PHASE14_CKPT] = res["checkpoint"]["launches"]
             runs14[PHASE14_CQ] = res["churn_query"]["launches"]
+            for name, spec in PHASE14_TOOLS.items():
+                runs14[spec] = res["tools"]["launches"][name]
             for spec, launches in runs14.items():
                 shard_launches[f"phase 14 {part} rank 0 {spec}"] = launches
     shard_times = placed["times"]

@@ -26,6 +26,13 @@ places one shard on each card::
 
     dryrun_multichip(4, placed=True)                 # one card
     dryrun_multichip(4, device="cuda:0,cuda:1,cuda:2,cuda:3")
+
+Inside a ``torch.distributed`` group (every rank calls it alike, e.g.
+``tools/meshrun.py``'s ``tool:dryrun`` run) the mesh spans the ranks:
+``n_devices`` counts every rank's shards together, each rank holds
+``n_devices / W`` placed on its own card, every rank checks every
+assertion on the gathered state, the rates are the slowest rank's, and
+rank 0 alone prints.
 """
 
 from __future__ import annotations
@@ -67,10 +74,10 @@ def dryrun_multichip(n_devices: int, device=None, placed: bool = False
     """The sharded dry run on ``n_devices`` virtual shards of ``device``
     (default the card), at ``128 * n_devices`` nodes; ``placed`` places
     the shards' rows as tensors of their own, and a device list places
-    one shard on each device (``parallel.mesh.tool_mesh``).  Raises
-    ``AssertionError`` when a protocol outcome fails; returns the
-    outcomes, the placement and the two schedules' rounds/s at this
-    scale."""
+    one shard on each device (``parallel.mesh.tool_mesh``; inside a
+    process group the mesh spans it).  Raises ``AssertionError`` when a
+    protocol outcome fails; returns the outcomes, the placement and the
+    two schedules' rounds/s at this scale."""
     import time
 
     import torch
@@ -103,12 +110,14 @@ def dryrun_multichip(n_devices: int, device=None, placed: bool = False
         make_cluster,
         run_cluster_sustained,
     )
+    from serf_tpu_torch.parallel import group as grp
     from serf_tpu_torch.parallel.mesh import (
         gather_state,
         placement,
         shard_state,
         tool_mesh,
     )
+    from serf_tpu_torch.parallel.multihost import lead_rank
     from serf_tpu_torch.parallel.placed import rep
     from serf_tpu_torch.parallel.ring import sharded_round_step
 
@@ -157,9 +166,13 @@ def dryrun_multichip(n_devices: int, device=None, placed: bool = False
 
     def round_of(g):
         """The round counter (a placed state's read from every shard, so
-        that the read waits for every card)."""
-        return [host_int(x.round) for x in g][0] if mesh.placed \
+        that the read waits for every card; over a process group then a
+        barrier, so that every rank has read)."""
+        r = [host_int(x.round) for x in g][0] if mesh.placed \
             else host_int(g.round)
+        if mesh.group:
+            grp.barrier()
+        return r
 
     ring_out = sharded_round_step(gossip(out), cfg.gossip, prng.key(2),
                                   mesh, schedule="ring")
@@ -175,7 +188,8 @@ def dryrun_multichip(n_devices: int, device=None, placed: bool = False
             gg = sharded_round_step(gg, cfg.gossip, prng.key(4 + i), mesh,
                                     schedule=schedule)
         round_of(gg)                                        # the barrier
-        return reps / (time.perf_counter() - t0)
+        secs = time.perf_counter() - t0
+        return reps / (grp.slowest(secs, dev) if mesh.group else secs)
 
     allgather_rps = rps("allgather", gossip(out))
     ring_rps = rps("ring", gossip(out))
@@ -205,11 +219,16 @@ def dryrun_multichip(n_devices: int, device=None, placed: bool = False
     assert bool(torch.all(final.gossip.round > rep(q_out).deadline)), \
         "query should have closed (deadline passed) within the run"
     where = placement(mesh)
+    # over a group every rank's card (an all-gather of the names)
+    devices = (",".join(grp.all_gather_object(str(dev))) if mesh.group
+               else str(dev))
     result = dict(devices=n_devices, n=n, rounds=DRYRUN_ROUNDS,
                   coverage=cov, detection_complete=det,
                   query_responses=resp, alive=n_alive,
                   allgather_rps=allgather_rps, ring_rps=ring_rps,
-                  device=str(dev), placement=where)
+                  device=devices, placement=where)
+    if not lead_rank():
+        return result
     print(f"dryrun_multichip({n_devices}): ok — mesh={mesh.shape} "
           f"({where}), n={n}, rounds={DRYRUN_ROUNDS}, coverage[0]={cov:.4f}, "
           f"detection_complete={det}, query_responses={resp}/{n_alive}, "

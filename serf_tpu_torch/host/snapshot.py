@@ -14,7 +14,13 @@ known-alive nodes for shuffled auto-rejoin (reference base.rs:129-165).
 The port's copy of ``serf_tpu/host/snapshot.py``: the same record types
 and bytes, names, intervals, lock and log, metric and flight names, with
 its imports on ``serf_tpu_torch``.  A snapshot written by either package
-replays in the other.
+replays in the other.  One difference, the reference snapshot.rs's own
+rule: the event and query clocks the log records never go back (an event
+delivered after a later one, gossip's order, appends nothing), so the
+clock a restart reads is the highest delivered and no delivered event is
+delivered again; the reference package appends every event's time, and
+its replay (which reads the last record) can resume below an event it
+delivered.
 """
 
 from __future__ import annotations
@@ -186,6 +192,9 @@ class Snapshotter:
         self._alive: Dict[str, Node] = {n.id: n for n in replay.alive_nodes}
         self._last_clocks = (replay.last_clock, replay.last_event_clock,
                              replay.last_query_clock)
+        # the highest event and query clocks the log holds
+        self._event_clock = replay.last_event_clock
+        self._query_clock = replay.last_query_clock
         # EXCLUSIVITY GUARD (before any repair or append): one writer per
         # snapshot file, enforced with a non-blocking flock on a sidecar
         # lock file.  The lock dies with the process (SIGKILL included),
@@ -248,9 +257,21 @@ class Snapshotter:
                     self._alive.pop(m.node.id, None)
                     self._append(R_NOT_ALIVE, m.node.encode())
         elif isinstance(ev, UserEvent):
-            self._append(R_EVENT_CLOCK, codec.encode_varint(ev.ltime))
+            self._append_event_clock(ev.ltime)
         elif isinstance(ev, QueryEvent):
-            self._append(R_QUERY_CLOCK, codec.encode_varint(ev.ltime))
+            self._append_query_clock(ev.ltime)
+
+    def _append_event_clock(self, t: int) -> None:
+        """Record event clock ``t`` unless the log holds a later one
+        (reference snapshot.rs: old clocks are ignored)."""
+        if t > self._event_clock:
+            self._event_clock = t
+            self._append(R_EVENT_CLOCK, codec.encode_varint(t))
+
+    def _append_query_clock(self, t: int) -> None:
+        if t > self._query_clock:
+            self._query_clock = t
+            self._append(R_QUERY_CLOCK, codec.encode_varint(t))
 
     def _append(self, ty: int, payload: bytes = b"") -> None:
         if self._stopped:
@@ -275,9 +296,9 @@ class Snapshotter:
                     if c != lc:
                         self._append(R_CLOCK, codec.encode_varint(c))
                     if e != le:
-                        self._append(R_EVENT_CLOCK, codec.encode_varint(e))
+                        self._append_event_clock(e)
                     if q != lq:
-                        self._append(R_QUERY_CLOCK, codec.encode_varint(q))
+                        self._append_query_clock(q)
                     self._last_clocks = (c, e, q)
                     last_clock_stamp = now
                 if self._dirty:
@@ -307,6 +328,8 @@ class Snapshotter:
                 c, e, q = self._last_clocks
                 if self.clock_fn is not None:
                     c, e, q = self.clock_fn()
+                e = self._event_clock = max(e, self._event_clock)
+                q = self._query_clock = max(q, self._query_clock)
                 out.write(_record(R_CLOCK, codec.encode_varint(c)))
                 out.write(_record(R_EVENT_CLOCK, codec.encode_varint(e)))
                 out.write(_record(R_QUERY_CLOCK, codec.encode_varint(q)))

@@ -460,14 +460,9 @@ def _any_rank(flag: bool, device, group: bool) -> bool:
 
 
 def _slowest_ms(ms: float, device) -> float:
-    """The largest of every rank's ``ms`` (an all-gather of each rank's
-    float: a gather, not a reduction)."""
-    from serf_tpu_torch import host_copy
+    """The largest of every rank's ``ms`` (``parallel.group.slowest``)."""
     from serf_tpu_torch.parallel import group as grp
-    dev = _distinct(device)[0]
-    every = grp.all_gather(torch.full((1,), ms, dtype=torch.float64,
-                                      device=dev))
-    return float(host_copy(every).max())
+    return grp.slowest(ms, _distinct(device)[0])
 
 
 def _by_rank(by_device: Dict[str, float]) -> Dict[str, float]:

@@ -6,11 +6,12 @@ each rank calls it at the same point with a tensor of the same shape
 and dtype, on its own device.  ``parallel.placed``'s group layout,
 ``parallel.mesh``'s gather and replica check, and the checkpoint's
 save (rank 0 writes, every rank waits at :func:`barrier`) are its
-callers, and so are the profiler's read-outs (the slowest rank's wall
-from an all-gather, every rank's busy time by card).  Booleans travel
-as ``uint8`` views, and reductions take integer tensors only: integer
-sums, maxima and minima are exact in any order, so every rank holds the
-same answer (a float partial would not be; none is reduced).
+callers, and so are the profiler's read-outs and the mesh tools' clocks
+(the slowest rank's seconds from an all-gather, :func:`slowest`; every
+rank's busy time by card).  Booleans travel as ``uint8`` views, and
+reductions take integer tensors only: integer sums, maxima and minima
+are exact in any order, so every rank holds the same answer (a float
+partial would not be; none is reduced).
 """
 
 from __future__ import annotations
@@ -103,3 +104,14 @@ def ring_shift(t: torch.Tensor) -> torch.Tensor:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
     return got.view(torch.bool) if t.dtype == torch.bool else got
+
+
+def slowest(value: float, device) -> float:
+    """The largest of every rank's ``value``: each rank's float
+    all-gathered (a gather, not a reduction) and the maximum taken on
+    the host, so every rank holds the same answer.  ``device`` is this
+    rank's (a card under ``nccl``)."""
+    from serf_tpu_torch import host_copy
+    every = all_gather(torch.full((1,), value, dtype=torch.float64,
+                                  device=device))
+    return float(host_copy(every).max())

@@ -36,9 +36,9 @@ A :class:`Mesh` takes one of two forms:
   :func:`gather_state` all-gathers every rank's rows and
   :func:`replicas_differ` holds every rank's replicas to rank 0's
   (``parallel.group``).  The flagship rounds, the chaos executor,
-  record/replay, checkpoint, the churn-query step and the profiler run
-  on it; the paths in :data:`LATER_SLICES` (the mesh tools) raise on it
-  (:func:`refuse_processes`).
+  record/replay, checkpoint, the churn-query step, the profiler and the
+  four mesh tools run on it (a tool's mesh inside a group is
+  :func:`tool_mesh`'s group form).
 
 The placement rule (:func:`partition_specs`) is the reference's, kept as
 data: a leaf shards on axis 0, on axis 1 (the ``[Q, N]`` query planes,
@@ -51,16 +51,6 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 NODE_AXIS = "nodes"
 
-#: the paths still to come on a mesh that spans processes, in the order
-#: of their slices; each raises ``NotImplementedError`` naming its slice
-#: (:func:`refuse_processes`)
-LATER_SLICES = {
-    "processes-tools": "the four mesh tools (roundprof --mesh, "
-                       "multichip_ab, chaos --devices, dryrun_multichip) "
-                       "inside a process group",
-}
-
-
 def spans_processes(mesh) -> bool:
     """Whether ``mesh`` is a mesh over a ``torch.distributed`` group."""
     return mesh is not None and mesh.group
@@ -70,16 +60,6 @@ def in_process_group() -> bool:
     """Whether this process has joined a ``torch.distributed`` group."""
     import torch.distributed as dist
     return dist.is_available() and dist.is_initialized()
-
-
-def refuse_processes(where, slice_name: str, what: str) -> None:
-    """Raise ``NotImplementedError`` naming the later slice ``slice_name``
-    when ``where`` (a mesh, or a bool a caller worked out) spans
-    processes."""
-    if where if isinstance(where, bool) else spans_processes(where):
-        raise NotImplementedError(
-            f"{what} on a mesh that spans processes is not ported yet: it "
-            f"waits for the slice of {LATER_SLICES[slice_name]}")
 
 
 class PartitionSpec(tuple):
@@ -212,21 +192,45 @@ def tool_mesh(count: int, device, placed: bool = False) -> Optional[Mesh]:
     comma-separated ``device`` (``cuda:0,cuda:1``) is the shards' device
     list (``count`` 0 or its length); otherwise ``count`` shards of
     ``device``, placed with ``placed``.  ``None`` for an unsharded run
-    (``count`` 0, neither a list nor ``placed``).  A mesh asked for
-    inside a process group raises: a tool's mesh does not span
-    processes yet, and a mesh of this process alone would be a quiet
-    single-process run."""
+    (``count`` 0, neither a list nor ``placed``).
+
+    Inside a process group the mesh spans it: ``count`` is every rank's
+    shards together, and each rank holds ``count / W`` of them on its own
+    ``device`` (``parallel.multihost.make_hybrid_mesh``; placed whatever
+    ``placed`` says).  A count that is not a positive multiple of the
+    world size ``W``, a device list (a rank holds its shards on its own
+    card) and count 0 (``W`` copies of one unsharded run) raise
+    ``ValueError``, alike on every rank and before any collective."""
     names = ([d.strip() for d in device.split(",")]
              if isinstance(device, str) and "," in device else None)
+    if in_process_group():
+        return _group_tool_mesh(count, device, names)
     if names is None and count <= 0 and not placed:
         return None
-    refuse_processes(in_process_group(), "processes-tools", "a mesh tool")
     if names is not None:
         if count not in (0, len(names)):
             raise ValueError(f"{count} shards asked over the "
                              f"{len(names)} devices {device!r}")
         return make_mesh(devices=names, placed=placed)
     return make_mesh(max(count, 1), device=device, placed=placed)
+
+
+def _group_tool_mesh(count: int, device, names) -> Mesh:
+    """:func:`tool_mesh` inside a process group."""
+    from serf_tpu_torch.parallel import group as grp
+    from serf_tpu_torch.parallel.multihost import make_hybrid_mesh
+    w = grp.world()
+    if names is not None:
+        raise ValueError(
+            f"a device list ({device!r}) inside a process group: each of "
+            f"the {w} ranks holds its shards on its own card; name the "
+            f"shard count alone")
+    if count <= 0 or count % w:
+        raise ValueError(
+            f"{count} shards over a process group of {w} ranks: inside a "
+            f"group the count is every rank's shards together, a positive "
+            f"multiple of {w} (0 would be {w} copies of one unsharded run)")
+    return make_hybrid_mesh(count // w, device=device)
 
 
 def placement(mesh) -> Optional[str]:

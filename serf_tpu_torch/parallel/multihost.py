@@ -20,19 +20,24 @@ that ``mesh=`` run every rank's shards in lockstep, and so do
 ``faults.device.run_device_plan``, ``replay.replay_device``,
 ``models.checkpoint`` ``save``/``restore``,
 ``models.churn.composed_step`` with the query launch, gather and views,
-and ``obs.profile.profile_round``.  The mesh tools
-(``parallel.mesh.LATER_SLICES``) raise on it.  Outside a group the mesh
-is ``(1, P)``: virtual shards of this process's device, or, given the
-local ``devices``, an in-process placed mesh (``parallel.mesh``).
+and ``obs.profile.profile_round``; and so do the four mesh tools
+(``roundprof --mesh``, ``multichip_ab``, ``chaos --devices``,
+``entry.dryrun_multichip``), whose mesh inside a group is this one
+(``parallel.mesh.tool_mesh``).  Outside a group the mesh is ``(1, P)``:
+virtual shards of this process's device, or, given the local
+``devices``, an in-process placed mesh (``parallel.mesh``).
 
 Run on the CPU with ``W`` processes (each calls
 ``initialize_multihost(addr, W, rank, backend="gloo")``), or on cards
 under ``python -m torch.distributed.run --standalone --nproc-per-node W``
-(each calls ``initialize_multihost()``).
+(each calls ``initialize_multihost()``).  A tool's ``main`` joins the
+group from that environment itself (:func:`tool_group`) and writes its
+output on rank 0 alone (:func:`lead_rank`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 from typing import Optional
@@ -94,6 +99,39 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     dist.init_process_group(backend,
                             init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=rank, **kw)
+
+
+@contextlib.contextmanager
+def tool_group(device=None):
+    """A command line's process group, the counterpart of the reference's
+    ``initialize_multihost()`` auto-detection: started under
+    ``torch.distributed.run`` (``WORLD_SIZE`` set) with no group joined
+    yet, join one from the environment (``gloo`` when ``device`` is the
+    CPU) and leave it on the way out; inside a group already joined (a
+    rank program such as ``tools/meshrun.py``), use that one and leave
+    it joined; otherwise do nothing (a one-process run)."""
+    import torch
+
+    joined = False
+    if not in_process_group() and "WORLD_SIZE" in os.environ:
+        cpu = isinstance(device, (str, torch.device)) and \
+            torch.device(str(device).split(",")[0]).type == "cpu"
+        initialize_multihost(backend="gloo" if cpu else None)
+        joined = True
+    try:
+        yield
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def lead_rank() -> bool:
+    """Whether this process writes a tool's output: always outside a
+    process group, rank 0 alone inside one (every rank still runs every
+    collective and returns the same exit code)."""
+    import torch.distributed as dist
+    return not in_process_group() or dist.get_rank() == 0
 
 
 def process_count() -> int:

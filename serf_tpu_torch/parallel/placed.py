@@ -63,16 +63,17 @@ churn round, the query launch, gather and views of the churn-query step
 (``models.churn.composed_step``); the chaos executor, record/replay,
 checkpoint, the profiler and the mesh tools run on it through their own
 modules.  The phased flavour runs plain, as on any mesh (the
-reference's dispatch rule).  Over processes all of it runs but the mesh
-tools (``parallel.mesh.LATER_SLICES``): the flagship rounds, the
-controller, the rows and the chaos masks; the chaos executor,
-record/replay and checkpoint through their modules (every rank lowers
-the same masks, :func:`with_masks` keeps its rows); the churn round,
-whose picks run alike on every rank from the all-gathered want masks;
+reference's dispatch rule).  Over processes all of it runs: the
+flagship rounds, the controller, the rows and the chaos masks; the
+chaos executor, record/replay and checkpoint through their modules
+(every rank lowers the same masks, :func:`with_masks` keeps its rows);
+the churn round, whose picks run alike on every rank from the
+all-gathered want masks;
 the query launch from the replicated cursors, the gather (a rotation
 relay all-gathers the liveness plane once per query and relay path a
 shard) and the views (:func:`fold_queries` an integer SUM all-reduce);
-and the profiler's phases (``obs.profile``).
+the profiler's phases (``obs.profile``); and the mesh tools, whose
+hops (``multichip_ab``) go through :meth:`GroupLayout.hop`.
 """
 
 from __future__ import annotations

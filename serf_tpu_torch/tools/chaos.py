@@ -36,12 +36,29 @@ cuda:0,cuda:1,cuda:2,cuda:3``) places one shard on each card.  The port has no c
 device count, so auto is ``best_device_count(n, torch.cuda.device_count())``
 (one on the CPU): on a one-card host it runs unsharded, as the
 reference's auto does on a one-chip host.
+
+Over processes, one rank a card (``nccl``; ``gloo`` with ``--device
+cpu``), the device plane runs on a mesh that spans the ranks::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m serf_tpu_torch.tools.chaos --plan partition-heal-loss \\
+        --plane device --devices 4 --json
+
+``--devices`` then counts every rank's shards together (a multiple of
+the ranks, each rank holding ``--devices / W`` placed on its own card;
+auto is one a rank), the verdicts, report and SLOs come from the
+gathered read-outs (alike on every rank, and so is the exit code), and
+rank 0 alone prints and writes the recordings, black boxes and
+timeline.  The host and proc planes are one process each, so inside a
+group ``--plane host|proc|both`` and ``--self-check`` raise.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
+import io
 import json
 import os
 import sys
@@ -69,21 +86,28 @@ def run_device(plan, n: int, k_facts: int, devices: int = 0,
     truncate: the report never claims a mesh size that did not run).
     ``placed`` places the d shards' rows as tensors of their own on the
     one ``device``; a device list (``"cuda:0,cuda:1"``) places one shard
-    on each (``parallel.mesh.tool_mesh``)."""
+    on each (``parallel.mesh.tool_mesh``).  Inside a process group the
+    mesh spans it: ``devices`` counts every rank's shards together, and
+    auto is one shard a rank."""
     import torch
 
     from serf_tpu_torch import resolve_device
     from serf_tpu_torch.control.profiles import device_ab_config
     from serf_tpu_torch.faults.device import run_device_plan
-    from serf_tpu_torch.parallel.mesh import best_device_count, tool_mesh
+    from serf_tpu_torch.parallel.mesh import (best_device_count,
+                                              in_process_group, tool_mesh)
+    from serf_tpu_torch.parallel.multihost import process_count
 
     cfg = device_ab_config(plan.name, n, k_facts, controlled)
     listed = isinstance(device, str) and "," in device
+    grouped = in_process_group()
     dev = None if listed else resolve_device(device)
     mesh = None
     d = devices
     if listed:
         d = len(device.split(","))
+    elif d == 0 and grouped:
+        d = process_count()
     elif d == 0:
         visible = torch.cuda.device_count() if dev.type == "cuda" else 1
         d = best_device_count(n, visible)
@@ -91,7 +115,7 @@ def run_device(plan, n: int, k_facts: int, devices: int = 0,
         raise SystemExit(
             f"--devices {d} does not divide --n {n}; pick a dividing "
             f"count")
-    if d > 1 or listed or placed:
+    if d > 1 or listed or placed or grouped:
         mesh = tool_mesh(0 if listed else d,
                          device if listed else dev, placed=placed)
         dev = mesh.device
@@ -182,7 +206,8 @@ def _dump_red_bundle(record_dir: str, plan, plane: str, result) -> str:
 def main(argv=None, keep=None) -> int:
     """The command line.  ``keep``, a dict, receives the last plane's
     final leg: its ``result`` and ``recorder`` (None without
-    ``--record-on-fail``), for a caller that checks the run further."""
+    ``--record-on-fail``), and with ``--json`` this rank's JSON
+    (``output``), for a caller that checks the run further."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plan", default="partition-heal-loss")
     ap.add_argument("--plane", choices=("host", "device", "proc", "both"),
@@ -232,8 +257,28 @@ def main(argv=None, keep=None) -> int:
                          "profiles: serf_tpu_torch/control/profiles.py)")
     args = ap.parse_args(argv)
 
+    from serf_tpu_torch.parallel.multihost import lead_rank, tool_group
+    with tool_group(args.device):
+        if lead_rank():
+            return _main(args, keep)
+        # every rank runs every collective; rank 0 alone prints
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _main(args, keep)
+
+
+def _main(args, keep) -> int:
     from serf_tpu_torch.faults.host import degradation_counters
     from serf_tpu_torch.faults.plan import named_plan, plan_names
+    from serf_tpu_torch.parallel.mesh import in_process_group
+    from serf_tpu_torch.parallel.multihost import lead_rank
+
+    if in_process_group() and (args.self_check or args.plane != "device"):
+        raise ValueError(
+            "inside a process group chaos runs the device plane alone "
+            "(--plane device, the one plane that spans processes): the "
+            "host and proc planes are one process each, and --self-check "
+            "runs the host plane")
+    lead = lead_rank()
 
     if args.self_check:
         plan_name, planes = "self-check", ("host", "device")
@@ -420,7 +465,7 @@ def main(argv=None, keep=None) -> int:
             # a red run writes its repro artifacts (recording + digest
             # stream, and the black-box bundle beside it); green runs
             # keep neither — the recorder stayed in-memory
-            if recorder is not None and not result.report.ok:
+            if recorder is not None and not result.report.ok and lead:
                 path = os.path.join(
                     args.record_dir,
                     f"chaos-{plan.name}-{plane}.replay.jsonl")
@@ -440,7 +485,7 @@ def main(argv=None, keep=None) -> int:
                           f"{e}", file=sys.stderr)
 
     timeline_path = None
-    if args.export_timeline:
+    if args.export_timeline and lead:
         # one bundle for the whole invocation: spans/flight ride the
         # process-global rings (added once), the host leg contributes
         # its lifecycle + SLO lanes, the device leg its round series +
@@ -507,6 +552,8 @@ def main(argv=None, keep=None) -> int:
             out["control"] = control_info
         if ab:
             out["control_ab"] = ab
+        if keep is not None:
+            keep["output"] = json.loads(json.dumps(out))
         print(json.dumps(out, indent=1, sort_keys=True))
     else:
         if args.controller != "ab":

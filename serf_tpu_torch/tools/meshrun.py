@@ -1,6 +1,6 @@
 """Run the flagship rounds, chaos plans, replays, checkpoints, the
-churn-query path and the round profiler on a mesh that spans processes
-(command line).
+churn-query path, the round profiler and the four mesh tools on a mesh
+that spans processes (command line).
 
 Each process is one rank of a ``torch.distributed`` group
 (``parallel.multihost.initialize_multihost`` from the environment:
@@ -50,7 +50,15 @@ each of ``--runs`` in lockstep with the others:
   ``flagship_config(--nodes, k_facts=--k)`` on the group with the
   exchange phase under ``SCHEDULE`` (``ring`` or ``allgather``); flags
   ``calls=``, ``warm=`` and ``whole=`` (else ``roundprof``'s 3, 24 and
-  ``WHOLE_ROUNDS``).
+  ``WHOLE_ROUNDS``);
+- ``tool:NAME[:FLAG...]``: a mesh tool (:data:`TOOLS`) run inside the
+  live group, as it runs when each rank starts it: ``roundprof``'s,
+  ``multichip_ab``'s or ``chaos``'s ``main(argv)``, or
+  ``entry.dryrun_multichip(W x L)`` (``dryrun``).  The argv
+  (:func:`tool_argv`) is built from ``--nodes``, ``--k``, the group's
+  ``W x L`` shards and this rank's device, then each flag: ``NAME=V``
+  is ``--NAME V`` (``V1+V2`` two values), a bare ``NAME`` is ``--NAME``;
+  ``roundprof``'s ``whole=R`` sets the whole-round window's depth.
 
 After each run the state is gathered (a collective) and rank 0 writes
 it and the rows to ``OUT/<run>.npz`` (``convert.to_numpy``'s keys, the
@@ -68,7 +76,12 @@ rank's readings beside the group's) and prints it as a line.  A
 churn-query run's rank 0 writes the gathered carry (:func:`carry_leaves`)
 to ``OUT/<run>.npz``, its read-outs (:func:`cq_readouts`) to
 ``OUT/<run>.readouts.npz`` and its outcome (:func:`cq_outcome`) into its
-stats; a profile run's rank 0 the profile to ``OUT/<run>.json``.  Rank
+stats; a profile run's rank 0 the profile to ``OUT/<run>.json``.  A
+tool run's rank 0 writes what the tool writes: its JSON to
+``OUT/<run>.json`` (``chaos``'s recording to ``OUT/<run>.jsonl``, its
+recordings of a red run under ``OUT/<run>.record/``); every rank its
+exit code, launches, host syncs, seconds, the characters the tool
+printed there (none but on rank 0) and its own JSON.  Rank
 0 writes, and every rank waits at a barrier before the next run.  Each
 of ``--timed-runs`` then runs :data:`WARM_ROUNDS` rounds and times
 :data:`TIMED_ROUNDS` rounds without rows (the clock starts after a
@@ -80,6 +93,12 @@ synchronize and a barrier and stops after another), written to
         --runs per-round:ring:rotation,plan:partition-heal-loss:record,\\
 replay:partition-heal-loss,checkpoint:15,churn-query:n=100000:k=256,\
 profile:ring --rounds 30 --out build/meshrun
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m serf_tpu_torch.tools.meshrun --nodes 1000000 --k 64 \\
+        --runs tool:roundprof:schedule=ring,tool:multichip_ab:reps=20,\\
+tool:chaos:plan=partition-heal-loss:plane=device:record-on-fail:n=256:\\
+k-facts=32,tool:dryrun --out build/meshrun
 
 On the CPU start ``W`` processes with ``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE`` and ``RANK`` set (or the same launcher) and pass
@@ -121,6 +140,8 @@ CQ_NUMBERS = ("n", "k", "rounds", "settle")
 #: a profile run's numeric flags (``profile_round``'s ``timed_calls``,
 #: ``warm_rounds`` and ``whole_rounds``; else the tool's defaults)
 PROFILE_NUMBERS = ("calls", "warm", "whole")
+#: the mesh tools of a ``tool:`` run
+TOOLS = ("roundprof", "multichip_ab", "chaos", "dryrun")
 
 
 def run_config(n: int, k: int, flavour: str, schedule: str, peers: str):
@@ -491,6 +512,15 @@ def parse_run(spec: str) -> dict:
                                  f"{'|'.join(PROFILE_NUMBERS)}=N)")
             out[name] = int(value)
         return out
+    if kind == "tool" and len(parts) >= 2 and parts[1] in TOOLS:
+        for flag in parts[2:]:
+            name, eq, value = flag.partition("=")
+            if not name or (eq and not value) or (
+                    name == "whole" and not (parts[1] == "roundprof"
+                                             and value.isdigit())):
+                raise ValueError(f"tool flag {flag!r} (NAME=V, NAME=V1+V2 "
+                                 f"or NAME; whole=R for roundprof)")
+        return dict(kind="tool", tool=parts[1], flags=parts[2:])
     if len(parts) in (3, 4) and parts[0] in FLAVOURS and \
             parts[1] in ("ring", "allgather") and parts[2] in PEERS and \
             parts[3:] in ([], ["chaos"]):
@@ -501,7 +531,8 @@ def parse_run(spec: str) -> dict:
         f"one of {sorted(FLAVOURS)}, SCHEDULE ring or allgather, PEERS one "
         f"of {sorted(PEERS)}; or plan:NAME[:FLAG...], replay:SOURCE, "
         f"checkpoint:R, restore:R:PATH, churn-query[:FLAG...], "
-        f"profile:SCHEDULE[:FLAG...]")
+        f"profile:SCHEDULE[:FLAG...], tool:NAME[:FLAG...] with NAME one "
+        f"of {TOOLS}")
 
 
 def _name(spec: str) -> str:
@@ -576,7 +607,8 @@ def run_one(spec: str, args, mesh, rank: int, timed: bool = False) -> dict:
     base = os.path.join(args.out, _name(spec))
     body = {"flagship": _flagship, "plan": _plan, "replay": _replay,
             "checkpoint": _checkpoint, "restore": _restore,
-            "churn-query": _churn_query, "profile": _profile}[run["kind"]]
+            "churn-query": _churn_query, "profile": _profile,
+            "tool": _tool}[run["kind"]]
     out.update(body(run, args, mesh, rank, base, timed))
     dist.barrier()
     name = _name(spec) + (".timed" if timed else "")
@@ -849,6 +881,65 @@ def _profile(run, args, mesh, rank, base, timed) -> dict:
     return dict(s=time.perf_counter() - t0, profile=prof)
 
 
+def tool_argv(run, args, mesh, base):
+    """``(argv, keywords)`` of a ``tool:`` run's ``main``: the group's
+    ``W x L`` shards, ``--nodes``, ``--k`` and this rank's device, the
+    outputs under ``base``, then the run's flags."""
+    p, dev = str(mesh.size), str(mesh.device)
+    nodes, k = str(args.nodes), str(args.k)
+    argv = {"roundprof": ["--n", nodes, "--k", k, "--mesh", p, "--json"],
+            "multichip_ab": ["--devices", p, "--out", base + ".json"],
+            "chaos": ["--n", nodes, "--k-facts", k, "--devices", p,
+                      "--json", "--record-dir", base + ".record"],
+            }[run["tool"]] + ["--device", dev]
+    kw = {}
+    for flag in run["flags"]:
+        name, eq, value = flag.partition("=")
+        if name == "whole":
+            kw["whole_rounds"] = int(value)
+            continue
+        argv.append("--" + name)
+        if eq:
+            argv += value.split("+")
+    return argv, kw
+
+
+def _tool(run, args, mesh, rank, base, timed) -> dict:
+    import contextlib
+    import io
+
+    from serf_tpu_torch.entry import dryrun_multichip
+    from serf_tpu_torch.tools import chaos, multichip_ab, roundprof
+
+    keep, printed = {}, io.StringIO()
+
+    def call():
+        with contextlib.redirect_stdout(printed):
+            if run["tool"] == "dryrun":
+                keep["output"] = dryrun_multichip(mesh.size,
+                                                  device=mesh.device)
+                return 0
+            argv, kw = tool_argv(run, args, mesh, base)
+            main = {"roundprof": roundprof.main,
+                    "multichip_ab": multichip_ab.main,
+                    "chaos": chaos.main}[run["tool"]]
+            return main(argv, keep=keep, **kw)
+    rc, stats = _measured(call, mesh)
+    out = dict(tool=run["tool"], rc=rc, **stats,
+               printed=len(printed.getvalue()), output=keep.get("output"))
+    recorder = keep.get("recorder")
+    if recorder is not None:
+        text = recorder.to_recording().to_jsonl()
+        out["recording_sha256"] = _sha256(text.encode())
+        if rank == 0:
+            with open(base + ".jsonl", "w") as f:
+                f.write(text)
+    if rank == 0 and run["tool"] != "multichip_ab":
+        with open(base + ".json", "w") as f:
+            json.dump(out["output"], f)
+    return out
+
+
 def _template(cfg, device):
     from serf_tpu_torch import prng
     from serf_tpu_torch.models.swim import make_cluster
@@ -866,7 +957,9 @@ def main(argv=None) -> int:
                     help="comma-separated FLAVOUR:SCHEDULE:PEERS[:chaos], "
                     "plan:NAME[:FLAG...], replay:SOURCE, checkpoint:R, "
                     "restore:R:PATH, churn-query[:FLAG...], "
-                    "profile:SCHEDULE[:FLAG...]")
+                    "profile:SCHEDULE[:FLAG...], tool:NAME[:FLAG...] "
+                    "(NAME roundprof, multichip_ab, chaos or dryrun; a "
+                    "FLAG NAME=V is the tool's --NAME V)")
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--key", type=int, default=11)
     ap.add_argument("--timed-runs", default="",

@@ -43,6 +43,24 @@ the one ``--device``, each with tensors of its own; a device list
 (``parallel.mesh.tool_mesh``), and the JSON then has each card's
 device time (``device_busy_ms_by_device``).  ``--fused`` and
 ``--stamp-unit`` are single-device A/Bs and refuse a mesh.
+
+Over processes, one rank a card (``nccl``; ``gloo`` with ``--device
+cpu``), ``--mesh`` counts every rank's shards together (a multiple of
+the ranks; each rank holds ``--mesh / W`` on its own card, placed)::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m serf_tpu_torch.tools.roundprof --mesh 4 --json
+
+(a launcher on Python 3.12.3 refuses a ``--n`` after the module as an
+abbreviation of its own options: set each rank's ``MASTER_ADDR``,
+``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` by hand for another N, or
+run ``tools/meshrun.py``'s ``tool:roundprof`` with ``--nodes``).
+
+The JSON then reads ``placement`` ``"processes"``, each wall the slowest
+rank's and every rank's cards in the busy times (``rank<r>:<device>``);
+rank 0 alone prints the table and the JSON.  Inside a group the
+profile needs ``--mesh`` (0 would be one unsharded run a rank), so
+``--fused`` and ``--stamp-unit`` refuse there too.
 """
 
 from __future__ import annotations
@@ -53,7 +71,11 @@ import json
 import sys
 
 
-def main(argv=None) -> int:
+def main(argv=None, keep=None, whole_rounds=None) -> int:
+    """The command line.  ``keep``, a dict, receives this rank's profile
+    (``output``) for a caller that checks it further; ``whole_rounds``
+    sets the whole-round window's depth (``profile_round``'s, else its
+    ``WHOLE_ROUNDS``)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=65536)
     ap.add_argument("--k", type=int, default=64)
@@ -86,7 +108,14 @@ def main(argv=None) -> int:
                     help="print the JSON contract on stdout")
     args = ap.parse_args(argv)
 
+    from serf_tpu_torch.parallel.multihost import tool_group
+    with tool_group(args.device):
+        return _main(args, keep, whole_rounds)
+
+
+def _main(args, keep, whole_rounds) -> int:
     from serf_tpu_torch.parallel.mesh import tool_mesh
+    from serf_tpu_torch.parallel.multihost import lead_rank
     mesh = tool_mesh(args.mesh, args.device, placed=args.placed)
     args.mesh = 0 if mesh is None else mesh.size
     if args.mesh and (args.fused or args.stamp_unit):
@@ -108,22 +137,27 @@ def main(argv=None) -> int:
     from serf_tpu_torch.models.swim import flagship_config
     from serf_tpu_torch.obs.profile import profile_table
 
-    prof = _profile(flagship_config(args.n, k_facts=args.k), args, mesh)
-    sys.stderr.write(profile_table(prof) + "\n")
-    if args.json:
-        print(json.dumps(prof))
+    prof = _profile(flagship_config(args.n, k_facts=args.k), args, mesh,
+                    whole_rounds)
+    if keep is not None:
+        keep["output"] = prof
+    if lead_rank():
+        sys.stderr.write(profile_table(prof) + "\n")
+        if args.json:
+            print(json.dumps(prof))
     return 0
 
 
-def _profile(cfg, args, mesh=None):
+def _profile(cfg, args, mesh=None, whole_rounds=None):
     from serf_tpu_torch import resolve_device
-    from serf_tpu_torch.obs.profile import profile_round
+    from serf_tpu_torch.obs.profile import WHOLE_ROUNDS, profile_round
 
     device = mesh.device if mesh is not None else resolve_device(
         args.device)
     return profile_round(cfg, events_per_round=args.events,
                          timed_calls=args.calls, warm_rounds=args.warm,
-                         mesh=mesh, schedule=args.schedule, device=device)
+                         mesh=mesh, schedule=args.schedule, device=device,
+                         whole_rounds=whole_rounds or WHOLE_ROUNDS)
 
 
 def _with_gossip(cfg, **gossip):

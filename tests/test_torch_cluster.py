@@ -347,15 +347,18 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 @pytest.mark.parametrize("what", ["mesh"])
 def test_later_slices_raise(what):
-    """A mesh whose shards span distinct devices is a placed mesh; the
-    later slices are the multi-process paths alone; a hybrid mesh whose
-    ``dcn`` axis is not the process group's world size (here no group)
-    raises ``ValueError`` and never falls back to one process."""
+    """A mesh whose shards span distinct devices is a placed mesh; outside
+    a process group a tool's mesh is this process's (virtual or placed,
+    never over a group); a hybrid mesh whose ``dcn`` axis is not the
+    process group's world size (here no group) raises ``ValueError`` and
+    never falls back to one process."""
     from serf_tpu_torch.parallel import multihost
-    from serf_tpu_torch.parallel.mesh import LATER_SLICES
+    from serf_tpu_torch.parallel.mesh import placement, tool_mesh
     mesh = make_mesh(devices=["cpu", "meta"])
     assert mesh.placed
-    assert all(name.startswith("processes-") for name in LATER_SLICES)
+    assert [placement(tool_mesh(*a)) for a in
+            ((2, "cpu"), (2, "cpu", True), (0, "cpu,meta"))] == \
+        ["virtual", "one-card", "distinct"]
     cfg = tswim.flagship_config(64, k_facts=32)
     st = tswim.make_cluster(cfg, prng.key(0), device="cpu")
     hybrid = multihost.Mesh({multihost.DCN_AXIS: 2,
@@ -369,7 +372,7 @@ def test_later_slices_raise(what):
 
 def _port_files():
     return sorted((REPO / "serf_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py", REPO / "chip_phase14.py"]
 
 
 def test_port_imports_no_jax_and_no_reference():

@@ -1,5 +1,5 @@
 """The chaos masks on a mesh that spans processes, the group of one
-process, and the paths a later slice ports, on the CPU over ``gloo``.
+process, and the mesh tools inside it, on the CPU over ``gloo``.
 
 - The masks ``cluster_round`` takes (a loss rate of 0.05, the nodes
   bisected into two partition groups and healed at half time, the
@@ -10,13 +10,15 @@ process, and the paths a later slice ports, on the CPU over ``gloo``.
 - A group of one process (the one-card form on cards): a
   ``make_hybrid_mesh`` inside it takes the group body, and its rounds
   equal the unsharded run.
-- Over a group, each path of ``parallel.mesh.LATER_SLICES`` (the mesh
-  tools) raises ``NotImplementedError`` naming its slice before anything
-  runs, and ``LATER_SLICES`` holds exactly those paths; the chaos
-  executor, record/replay and checkpoint run over a group
+- Inside the group of one, each of the four mesh tools runs on the
+  group's mesh (``placement`` ``"processes"``), and ``tool_mesh``'s
+  refusals (a device list, an unsharded count, the host plane, the
+  self-check) raise ``ValueError``; the chaos executor, record/replay
+  and checkpoint run over a group
   (``test_torch_multiproc_{chaos_plan,chaos_shed,chaos_selfcheck,
-  replay,checkpoint}.py``), and so do the churn-query step and the
-  profiler (``test_torch_multiproc_{churn_query,profile}.py``)."""
+  replay,checkpoint}.py``), and so do the churn-query step, the
+  profiler and the tools over two ranks
+  (``test_torch_multiproc_{churn_query,profile,tools,tools_cli}.py``)."""
 
 import numpy as np
 import pytest
@@ -34,6 +36,8 @@ from test_torch_multiproc_round import (_free_port, check_against_in_process,
                                         check_against_reference,
                                         check_replicas_and_syncs,
                                         group_runs)
+
+torch.set_num_threads(1)
 
 _bounded = bounded(170)
 
@@ -123,40 +127,86 @@ def test_group_mesh_rules(group_of_one):
         tmulti.shard_cluster_hybrid(st, two)
 
 
-def _later_slice_calls():
-    """``{slice: call}``: each path a later slice ports, asked for inside
-    the group (the refusal comes before anything runs)."""
-    from serf_tpu_torch.entry import dryrun_multichip
-    from serf_tpu_torch.tools import multichip_ab, roundprof
+def _quiet_call(call):
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        return call()
 
+
+def _tool_call(name: str):
+    """``(exit code, JSON)`` of one mesh tool on 2 shards inside the
+    group (roundprof: N = 64, an 8-round whole-round window)."""
+    from serf_tpu_torch.entry import dryrun_multichip
+    from serf_tpu_torch.tools import chaos, multichip_ab, roundprof
+    keep = {}
+    cpu = ["--device", "cpu", "--json"]
+    if name == "dryrun":
+        return 0, _quiet_call(lambda: dryrun_multichip(2, device="cpu"))
+    rc = _quiet_call({
+        "roundprof": lambda: roundprof.main(
+            ["--n", "64", "--mesh", "2", "--calls", "1", "--warm", "1",
+             *cpu], keep=keep, whole_rounds=8),
+        "multichip_ab": lambda: multichip_ab.main(
+            ["--devices", "2", "--per-device", "64", "--reps", "2", *cpu],
+            keep=keep),
+        "chaos": lambda: chaos.main(
+            ["--plan", "partition-heal-loss", "--plane", "device", "--n",
+             "64", "--devices", "2", *cpu], keep=keep),
+    }[name])
+    return rc, keep["output"]
+
+
+#: each tool's outcome over the group of one: (key, value)
+TOOL_OUTCOMES = {"roundprof": ("devices", 2), "multichip_ab": ("devices", 2),
+                 "dryrun": ("coverage", 1.0),
+                 "chaos": ("device_mesh_devices", 2)}
+
+
+@pytest.mark.parametrize("name", list(TOOL_OUTCOMES))
+def test_tool_paths_run_over_a_group_of_one(name, group_of_one):
+    """Each mesh tool, called inside the group (here a group of one),
+    runs on the group's mesh: exit 0, ``placement`` ``"processes"`` (the
+    chaos tool: its report green on a mesh of 2 shards), never a quiet
+    single-process run."""
+    rc, out = _tool_call(name)
+    assert rc == 0
+    key, want = TOOL_OUTCOMES[name]
+    assert out[key] == want
+    if name == "chaos":
+        assert out["ok"] and out["reports"][0]["ok"]
+    else:
+        assert out["placement"] == "processes"
+
+
+def _refusals():
+    from serf_tpu_torch.tools import chaos, roundprof
     return {
-        "processes-tools": lambda: roundprof.main(
-            ["--n", "64", "--mesh", "2", "--device", "cpu", "--json"]),
-        "processes-tools-multichip_ab": lambda: multichip_ab.main(
-            ["--devices", "2", "--device", "cpu", "--json"]),
-        "processes-tools-dryrun": lambda: dryrun_multichip(
-            2, device="cpu"),
+        "device-list": lambda: tmesh.tool_mesh(0, "cpu,cpu"),
+        "count-0": lambda: tmesh.tool_mesh(0, "cpu", placed=True),
+        "roundprof-mesh-0": lambda: roundprof.main(
+            ["--n", "64", "--device", "cpu"]),
+        "chaos-plane-host": lambda: chaos.main(
+            ["--plane", "host", "--device", "cpu"]),
+        "chaos-self-check": lambda: chaos.main(["--self-check"]),
     }
 
 
-LATER = ("processes-tools",)
-CALLS = LATER + ("processes-tools-multichip_ab", "processes-tools-dryrun")
-
-
-def test_later_slices_are_exactly_these():
-    assert tuple(tmesh.LATER_SLICES) == LATER
-
-
-@pytest.mark.parametrize("name", CALLS)
-def test_later_slice_paths_raise_over_a_group(name, group_of_one):
-    """Each path outside this slice raises ``NotImplementedError`` naming
-    its later slice over a group (here a group of one: the mesh spans
-    it all the same), never a quiet single-process run."""
-    call = _later_slice_calls()[name]
-    slice_name = next(s for s in LATER if name.startswith(s))
-    with pytest.raises(NotImplementedError,
-                       match=tmesh.LATER_SLICES[slice_name].split(" (")[0]):
-        call()
+@pytest.mark.parametrize("case", ["device-list", "count-0",
+                                  "roundprof-mesh-0", "chaos-plane-host",
+                                  "chaos-self-check"])
+def test_tool_mesh_over_a_group(case, group_of_one):
+    """Inside a group (here of one) a tool's mesh spans it: a device list
+    (a rank holds its shards on its own card), an unsharded count (a
+    copy of one run a rank) and the one-process planes raise
+    ``ValueError`` before anything runs; a count of the group's shards
+    is ``make_hybrid_mesh``'s mesh."""
+    with pytest.raises(ValueError):
+        _refusals()[case]()
+    mesh = tmesh.tool_mesh(2, "cpu")
+    assert mesh.group and mesh.local == 2 and \
+        tmesh.placement(mesh) == "processes"
 
 
 def test_new_modules_are_in_the_import_scan():

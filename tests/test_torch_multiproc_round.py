@@ -67,20 +67,23 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_group(world: int, cmd, limit: float = SPAWN_LIMIT):
+def spawn_group(world: int, cmd, limit: float = SPAWN_LIMIT, env=None,
+                cwds=None):
     """``python *cmd`` in ``world`` processes given the
-    ``torch.distributed`` environment of one group, retried on a lost
-    port-0 bind; returns each rank's ``(returncode, stdout, stderr)``."""
+    ``torch.distributed`` environment of one group (and ``env``), each in
+    its own ``cwds[r]`` (else the repo), retried on a lost port-0 bind;
+    returns each rank's ``(returncode, stdout, stderr)``."""
     for _ in range(3):
         port = _free_port()
         procs = []
         for r in range(world):
-            env = {**os.environ, "PYTHONPATH": str(REPO),
-                   "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
-                   "WORLD_SIZE": str(world), "RANK": str(r),
-                   "LOCAL_RANK": str(r)}
+            renv = {**os.environ, **(env or {}), "PYTHONPATH": str(REPO),
+                    "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                    "WORLD_SIZE": str(world), "RANK": str(r),
+                    "LOCAL_RANK": str(r)}
             procs.append(subprocess.Popen(
-                [sys.executable, *cmd], cwd=REPO, env=env,
+                [sys.executable, *cmd], env=renv,
+                cwd=REPO if cwds is None else cwds[r],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         try:
             outs = [p.communicate(timeout=limit) for p in procs]

@@ -13,7 +13,8 @@ own, ``parallel.placed``), against their runs on the virtual mesh:
 - ``chaos --plane device --devices 2 --placed``: the JSON (verdicts,
   report, SLOs) and the recorded digest stream equal the virtual run's;
 - a device list that names a card the machine lacks raises, and
-  ``LATER_SLICES`` holds the multi-process paths alone.
+  outside a process group ``tool_mesh`` builds the in-process meshes
+  (the meshes over a group: ``test_torch_multiproc_tools*.py``).
 """
 
 import json
@@ -99,9 +100,10 @@ def test_chaos_devices_placed(capsys, fresh_obs):  # noqa: F811
 def test_device_lists_and_later_slices(monkeypatch):
     """A device list names the placed mesh's shards; one that names a
     card the machine lacks raises (here the machine is made to show two
-    cards), as does a card list on a machine without one; only the
-    multi-process paths are still to come."""
-    assert set(tmesh.LATER_SLICES) == {"processes-tools"}
+    cards), as does a card list on a machine without one; outside a
+    process group every mesh is this process's."""
+    assert not tmesh.in_process_group()
+    assert not tmesh.tool_mesh(2, "cpu", placed=True).group
     assert tmesh.tool_mesh(0, "cpu,meta").devices == (
         torch.device("cpu"), torch.device("meta"))
     assert tmesh.tool_mesh(0, "cpu") is None

@@ -163,3 +163,31 @@ def test_flock_excludes_the_other_package(tmp_path, first):
     asyncio.run(asyncio.wait_for(held.shutdown(), LIMIT))
     after = b.Snapshotter(path, b.open_and_replay_snapshot(path))
     asyncio.run(asyncio.wait_for(after.shutdown(), LIMIT))
+
+
+def test_recorded_event_clocks_never_go_back(tmp_path):
+    """Events delivered out of their clocks' order (gossip's order)
+    leave the highest event and query clock in the port's log, so a
+    restart (``serf`` sets its min-times one past them) drops every event
+    it already delivered (reference snapshot.rs ignores old clocks; the
+    reference package's log ends on the last delivered event's clock and
+    a restart could deliver a delivered event again)."""
+    snap, ev, member = _mods("serf_tpu_torch")
+    node = member.Node("n", ("10.0.0.1", 7946))
+    stream = [ev.UserEvent(5, "a", b""), ev.UserEvent(9, "b", b""),
+              ev.UserEvent(7, "c", b""),
+              ev.QueryEvent(3, "q", b"", 1, node, 0, 0.0),
+              ev.QueryEvent(8, "r", b"", 2, node, 0, 0.0),
+              ev.QueryEvent(6, "s", b"", 3, node, 0, 0.0)]
+    path = tmp_path / "o.snap"
+    w = snap.Snapshotter(str(path), snap.open_and_replay_snapshot(str(path)))
+    for e in stream:
+        w.observe(e)
+    asyncio.run(asyncio.wait_for(w.shutdown(), LIMIT))
+    r = snap.open_and_replay_snapshot(str(path))
+    assert (r.last_event_clock, r.last_query_clock) == (9, 8)
+    # a writer resumed from the log keeps the floor it read
+    w = snap.Snapshotter(str(path), r)
+    w.observe(ev.UserEvent(4, "d", b""))
+    asyncio.run(asyncio.wait_for(w.shutdown(), LIMIT))
+    assert snap.open_and_replay_snapshot(str(path)).last_event_clock == 9
